@@ -6,14 +6,24 @@
 Phases, each printed on its own lines; any failure raises and exits
 non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> error;
-  2. build the traversal kernel (csrc/trace_vm3.cu) with nvcc;
-  3. kernel vs its plain torch version on a camera wave and a sorted
-     random-direction wave of proc://sponza?tris=262144 (2^18 rays each):
-     ids identical, t bit-identical (the kernel is built with -fmad=false);
+  2. build the traversal kernels (csrc/trace_vm3.cu, csrc/trace_mt.cu; one
+     nvcc each, started together) and print what ptxas reports;
+  3. each kernel against its plain torch version, ids identical and t
+     bit-identical (the kernels are built with -fmad=false), on 2^18-ray
+     waves: a camera wave in pixel-block order and a signature-sorted
+     random-direction wave leaving its hits, of
+       3a. K1 (trace_vm3): proc://sponza?tris=262144, flat;
+       3b. K2 (trace_mt): proc://sponza?tris=524288, flat (C > 2,197);
+       3c. K3 (trace_mt_inst): proc://sponza?tris=262144, per-model,
+           plus the bounce wave unsorted, as the instanced path traces it;
+     K2 and K3 run each wave as closest hit and as any hit (finite t_max);
   4. `python -m tauray_torch` main path: 1920x1080, 1 spp, depth 4,
-     2 frames, headless EXR; checks the image and the kernel launch count;
-  5. the same scene at 256x256, 16 spp in one pass, depth 4.
-The last lines are the kernel table, the card, and
+     2 frames, headless EXR; checks the image and K1's launch count;
+  5. the same scene at 256x256, 16 spp in one pass, depth 4;
+  6. the main path with --as-strategy=per-model at 1920x1080: K3 launched,
+     K1 never; the image is held to phase 4's;
+  7. the main path on proc://sponza?tris=524288 at 1920x1080: K2 launched.
+The last lines are the card, the kernel table, and
 {"ok": true, "device": {...}}.
 """
 
@@ -26,6 +36,20 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = "proc://sponza?tris=262144"
+# 502,528 triangles, >= 3,926 clusters: past the 2,197 clusters of the
+# id-only key path, so the flat tracer takes entry-t keys and K2
+SCENE_LARGE = "proc://sponza?tris=524288"
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): FP32 outside
+# the tensor cores, and HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations per (ray, triangle) test, counted in the sources:
+# Baldwin-Weber (trace_vm3.cu) 32, Möller-Trumbore (trace_mt.cu) 46; and
+# K3's transform of a ray into a key's instance space, 21 per (ray, key)
+FLOPS_BW = 32
+FLOPS_MT = 46
+FLOPS_XFORM = 21
+LANES_1080P = 2097152 * 1 * (2 * 4 - 1)   # padded pixels x spp x waves
 
 
 def card_line() -> str:
@@ -36,23 +60,38 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    import torch
+    """Mean ms of fn over reps calls after one warm-up call (CUDA
+    events)."""
     fn()
+    return timed(fn, reps)[1]
+
+
+def timed(fn, reps: int = 1):
+    """(fn's last result, mean ms over reps calls), CUDA events."""
+    import torch
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return out, a.elapsed_time(b) / reps
 
 
-def kernel_waves(device, scene=SCENE, size=512, seed=0):
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, what sets it)."""
+    f_ms = flops / PEAK_FP32 * 1e3
+    b_ms = nbytes / PEAK_BYTES * 1e3
+    return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+
+
+def kernel_waves(device, scene=SCENE, size=512, seed=0,
+                 strategy="all-merged-static"):
     """(tracer, {name: rays8 (R, 8)}): a camera wave in pixel-block order
     and a signature-sorted wave of random directions leaving the camera
-    wave's hit points."""
+    wave's hits (for the instanced tracer also that wave unsorted)."""
     import numpy as np
     import torch
     from tauray_torch.options import Options
@@ -64,6 +103,7 @@ def kernel_waves(device, scene=SCENE, size=512, seed=0):
     from tauray_torch.stages.path_tracer import _begin_sample
     opt = Options()
     opt.width = opt.height = size
+    opt.as_strategy = strategy
     s = Scene()
     load_scene(scene, s)
     rr = PathTracerRenderer(opt, device)
@@ -84,47 +124,131 @@ def kernel_waves(device, scene=SCENE, size=512, seed=0):
     bounce = torch.cat([p, torch.from_numpy(nd).to(device),
                         1e-3 * ones[:, None], float("inf") * ones[:, None]],
                        1)
-    bounce = bounce[_sig_sort_perm(rr.bvh, bounce)].contiguous()
-    return rr.bvh, {"camera": camera, "bounce": bounce}
+    waves = {"camera": camera,
+             "bounce": bounce[_sig_sort_perm(rr.bvh, bounce)].contiguous()}
+    if strategy != "all-merged-static":
+        waves["bounce_unsorted"] = bounce
+    print(f"waves on {scene} ({strategy}): {type(rr.bvh).__name__}, "
+          f"{rr.bvh.n_clusters} clusters", flush=True)
+    return rr.bvh, waves
+
+
+def hits(t) -> int:
+    import torch
+    return int(torch.isfinite(t).sum())
+
+
+def _compare(name, t_k, id_k, t_r, id_r):
+    """(ids identical, t bit-identical, max |t_k - t_r| over hits)."""
+    import torch
+    same_id = bool(torch.equal(id_k, id_r))
+    same_t = bool(torch.equal(t_k.view(torch.int32), t_r.view(torch.int32)))
+    fin = torch.isfinite(t_r)
+    err = float((t_k[fin] - t_r[fin]).abs().max()) if fin.any() else 0.0
+    if not torch.equal(torch.isfinite(t_k), fin):
+        err = float("inf")
+    if not (same_id and same_t):
+        raise RuntimeError(f"kernel disagrees with plain version on the "
+                           f"{name} wave (ids {same_id}, t {same_t})")
+    return same_id, same_t, err
 
 
 def kernel_check(tracer, waves, reps: int = 5):
-    """Kernel vs plain version on each wave; returns per-wave results."""
-    import torch
+    """K1 vs its plain version on each wave; returns per-wave results."""
     from tauray_torch.ops.cluster import _phase1
     from tauray_torch.ops.trace_kernel import (trace_tiles_vm3,
                                                trace_tiles_vm3_reference)
     out = {}
+    C = tracer.n_clusters
     for name, rays8 in waves.items():
         counts, keys = _phase1(tracer, rays8)
         r3 = rays8.reshape(-1, 32, 8)
-        t_k, id_k = trace_tiles_vm3(counts, keys, r3, tracer.tris12)
-        torch.cuda.synchronize()
-        t_r, id_r = trace_tiles_vm3_reference(counts, keys, r3,
-                                              tracer.tris12)
-        same_id = bool(torch.equal(id_k, id_r))
-        same_t = bool(torch.equal(t_k.view(torch.int32),
-                                  t_r.view(torch.int32)))
-        fin = torch.isfinite(t_r)
-        err = float((t_k[fin] - t_r[fin]).abs().max()) if fin.any() else 0.0
-        if not torch.equal(torch.isfinite(t_k), fin):
-            err = float("inf")
-        ms = cuda_ms(lambda: trace_tiles_vm3(counts, keys, r3,
-                                             tracer.tris12), reps)
-        plain_ms = cuda_ms(lambda: trace_tiles_vm3_reference(
-            counts, keys, r3, tracer.tris12), 1)
-        out[name] = dict(rays=rays8.shape[0], hits=int(fin.sum()),
-                         clusters_per_tile=float(counts.float().mean()),
+        args = (counts, keys, r3, tracer.tris12)
+        t_k, id_k = trace_tiles_vm3(*args)
+        (t_r, id_r), plain_ms = timed(
+            lambda: trace_tiles_vm3_reference(*args))
+        same_id, same_t, err = _compare(name, t_k, id_k, t_r, id_r)
+        ms = cuda_ms(lambda: trace_tiles_vm3(*args), reps)
+        n_tiles, R = counts.shape[0], rays8.shape[0]
+        visits = int(counts.sum())
+        bound_ms, bound_by = bound(
+            visits * 128 * 32 * FLOPS_BW,
+            4 * (n_tiles + visits) + 32 * R + C * 12 * 128 * 4 + 8 * R)
+        out[name] = dict(rays=R, hits=hits(t_r),
+                         clusters_per_tile=visits / n_tiles,
                          ids_identical=same_id, t_bit_identical=same_t,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        print(f"phase 3 [{name}] " + json.dumps(out[name]), flush=True)
-        if not (same_id and same_t):
-            raise RuntimeError(f"kernel disagrees with plain version on "
-                               f"the {name} wave")
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        print(f"phase 3a K1 [{name}] " + json.dumps(out[name]), flush=True)
     return out
 
 
-def run_main(args, tmp, tag):
+def kernel_check_mt(tracer, waves, inst: bool, reps: int = 5):
+    """K2 (flat) or K3 (instanced) vs its plain version on each wave, as
+    closest hit and as any hit with finite t_max (half to 1.5x each ray's
+    closest hit, 20 on a miss); returns per-(wave, mode) results."""
+    import numpy as np
+    import torch
+    from tauray_torch.ops import trace_kernel as tk
+    from tauray_torch.ops.cluster import _phase1_entry
+    if inst:
+        tables = (tracer.tris9, tracer.opaque, tracer.k_cluster,
+                  tracer.k_inst, tracer.inv.reshape(-1, 12).contiguous())
+        kern, ref = tk.trace_tiles_inst, tk.trace_tiles_inst_reference
+        tag, table_bytes = "3c K3", (tracer.tris9.numel() * 4 +
+                                     tracer.n_clusters * 12 +
+                                     tracer.inv.numel() * 4)
+    else:
+        tables = (tracer.tris9, tracer.opaque)
+        kern, ref = tk.trace_tiles, tk.trace_tiles_reference
+        tag, table_bytes = "3b K2", (tracer.tris9.numel() * 4 +
+                                     tracer.n_clusters * 4)
+    out = {}
+    rng = np.random.default_rng(7)
+    for name, rays8 in waves.items():
+        closest_t = None
+        for any_hit in (False, True):
+            r8 = rays8
+            if any_hit:
+                scale = torch.from_numpy(rng.uniform(
+                    0.5, 1.5, r8.shape[0]).astype(np.float32)).to(r8.device)
+                r8 = r8.clone()
+                r8[:, 7] = torch.where(torch.isfinite(closest_t),
+                                       closest_t * scale, 20.0)
+            counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax,
+                                                 r8)
+            r3 = r8.reshape(-1, 32, 8)
+            args = (counts, keys, r3, *tables, idmask, any_hit)
+            t_k, id_k = kern(*args)
+            stats = {}
+            (t_r, id_r), plain_ms = timed(lambda: ref(*args, stats=stats))
+            key = f"{name}/{'any' if any_hit else 'closest'}"
+            same_id, same_t, err = _compare(key, t_k, id_k, t_r, id_r)
+            if not any_hit:
+                closest_t = t_r
+            ms = cuda_ms(lambda: kern(*args), reps)
+            n_tiles, R = counts.shape[0], r8.shape[0]
+            visits = stats["clusters"]
+            flops = visits * 32 * (128 * FLOPS_MT + (FLOPS_XFORM if inst
+                                                     else 0))
+            nbytes = (4 * (n_tiles + visits + stats["steps"]) + 32 * R +
+                      table_bytes + 8 * R)
+            bound_ms, bound_by = bound(flops, nbytes)
+            out[key] = dict(
+                rays=R, hits=hits(t_r),
+                clusters_per_tile=float(counts.float().mean()),
+                clusters_tested_per_tile=visits / n_tiles,
+                steps_skipped_share=1 - stats["steps"] / max(
+                    stats["steps_total"], 1),
+                ids_identical=same_id, t_bit_identical=same_t,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            print(f"phase {tag} [{key}] " + json.dumps(out[key]),
+                  flush=True)
+    return out
+
+
+def run_main(args, tmp, tag, scene=SCENE):
     """python -m tauray_torch's main() with frame timing to a file.
     Returns (host ms per frame, image (H, W, C) of the last frame)."""
     from tauray_torch.app.main import main
@@ -134,7 +258,7 @@ def run_main(args, tmp, tag):
     prefix = os.path.join(tmp, tag)
     rc = main(args + [f"--headless={prefix}", "--timing",
                       f"--timing-output={timing}", "--compression=zip",
-                      SCENE])
+                      scene])
     logger.timing.stream.close()
     logger.timing.stream = None
     if rc != 0:
@@ -157,8 +281,27 @@ def check_image(img, w, h, tag):
     return float(rgb.mean())
 
 
+def main_path(tmp, tag, args, scene=SCENE):
+    """Drive the CLI once with every launch count at 0 just before and
+    read just after. Returns (ms per frame, image, launches, peak GiB)."""
+    import torch
+    from tauray_torch.ops import trace_kernel
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trace_kernel.reset_launch_counts()
+    ms, img = run_main(args, tmp, tag, scene)
+    launches = dict(trace_kernel.LAUNCHES)
+    return ms, img, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+HD = ["--renderer=path-tracer", "--width=1920", "--height=1080",
+      "--samples-per-pixel=1", "--max-ray-depth=4", "--tonemap=linear",
+      "--frames=2"]
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -168,61 +311,104 @@ def main() -> int:
     print(f"phase 1 card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    trace_kernel.load_library()
-    info = trace_kernel.BUILD_INFO
-    ptxas = [ln for ln in str(info["log"]).splitlines() if "ptxas" in ln]
-    print(f"phase 2 build: {info['seconds']:.2f} s; " + " | ".join(ptxas),
-          flush=True)
+    trace_kernel.build_all()
+    for name, info in sorted(trace_kernel.BUILD_INFO.items()):
+        ptxas = [ln.strip() for ln in str(info["log"]).splitlines()
+                 if re.search(r"registers|spill|Compiling entry", ln)]
+        print(f"phase 2 build {name}: {info['seconds']:.2f} s; " +
+              " | ".join(ptxas), flush=True)
 
     tracer, waves = kernel_waves(dev)
-    k = kernel_check(tracer, waves)
+    k1 = kernel_check(tracer, waves)
+    del tracer, waves
+    tracer, waves = kernel_waves(dev, SCENE_LARGE)
+    if tracer.n_clusters <= 2197:
+        raise RuntimeError(f"{SCENE_LARGE} has {tracer.n_clusters} clusters"
+                           ", not past the id-only key path")
+    k2 = kernel_check_mt(tracer, waves, inst=False)
+    del tracer, waves
+    tracer, waves = kernel_waves(dev, strategy="per-model")
+    k3 = kernel_check_mt(tracer, waves, inst=True)
     del tracer, waves
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.reset_peak_memory_stats()
-        trace_kernel.reset_launch_counts()
-        ms, img = run_main(["--renderer=path-tracer", "--width=1920",
-                            "--height=1080", "--samples-per-pixel=1",
-                            "--max-ray-depth=4", "--tonemap=linear",
-                            "--frames=2"], tmp, "hd")
-        launches = trace_kernel.LAUNCHES["trace_vm3"]
-        peak = torch.cuda.max_memory_allocated()
+        ms, img, launches, peak = main_path(tmp, "hd", HD)
         mean = check_image(img, 1920, 1080, "1080p")
-        if launches <= 0:
-            raise RuntimeError("1080p run never launched the kernel")
-        lanes = 2097152 * 1 * (2 * 4 - 1)   # padded pixels x spp x waves
+        if launches["trace_vm3"] <= 0:
+            raise RuntimeError("1080p run never launched trace_vm3")
+        l_k1 = launches["trace_vm3"]
         print("phase 4 " + json.dumps(dict(
             size="1920x1080", spp=1, depth=4, frame_ms=ms,
-            frame2_ms=ms[-1], mrays_s=lanes / (ms[-1] * 1e3),
-            launches=launches, peak_mem_gb=peak / 2**30,
-            image_mean=mean)), flush=True)
+            frame2_ms=ms[-1], mrays_s=LANES_1080P / (ms[-1] * 1e3),
+            launches=launches, peak_mem_gb=peak, image_mean=mean)),
+            flush=True)
+        flat_img = np.asarray(img)[..., :3]
 
-        torch.cuda.reset_peak_memory_stats()
-        trace_kernel.reset_launch_counts()
-        ms2, img2 = run_main(["--renderer=path-tracer", "--width=256",
-                              "--height=256", "--samples-per-pixel=16",
-                              "--samples-per-pass=16", "--max-ray-depth=4",
-                              "--tonemap=linear", "--frames=2"], tmp, "sq")
-        launches2 = trace_kernel.LAUNCHES["trace_vm3"]
+        ms2, img2, launches2, peak2 = main_path(tmp, "sq", [
+            "--renderer=path-tracer", "--width=256", "--height=256",
+            "--samples-per-pixel=16", "--samples-per-pass=16",
+            "--max-ray-depth=4", "--tonemap=linear", "--frames=2"])
         mean2 = check_image(img2, 256, 256, "256^2")
-        if launches2 <= 0:
-            raise RuntimeError("256^2 run never launched the kernel")
+        if launches2["trace_vm3"] <= 0:
+            raise RuntimeError("256^2 run never launched trace_vm3")
         lanes2 = 65536 * 16 * (2 * 4 - 1)
         print("phase 5 " + json.dumps(dict(
             size="256x256", spp=16, depth=4, frame_ms=ms2,
             frame2_ms=ms2[-1], mrays_s=lanes2 / (ms2[-1] * 1e3),
-            launches=launches2,
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-            image_mean=mean2)), flush=True)
+            launches=launches2, peak_mem_gb=peak2, image_mean=mean2)),
+            flush=True)
 
-    b = k["bounce"]
-    kernels = {"kernels": [{
-        "name": "trace_vm3", "route": "cuda",
-        "source": "tauray_torch/csrc/trace_vm3.cu",
-        "replaces": "tauray_tpu/ops/pallas_trace.py:979",
-        "launches": launches, "max_abs_err": b["max_abs_err"],
-        "ms": b["ms"], "plain_ms": b["plain_ms"]}]}
+        ms6, img6, launches6, peak6 = main_path(
+            tmp, "pm", HD + ["--as-strategy=per-model"])
+        mean6 = check_image(img6, 1920, 1080, "per-model 1080p")
+        if launches6["trace_mt_inst"] <= 0 or launches6["trace_vm3"] != 0:
+            raise RuntimeError(f"per-model run launched {launches6}")
+        l_k3 = launches6["trace_mt_inst"]
+        # the same scene, camera and seeds as phase 4 through the other
+        # tracer: the image agrees with phase 4's
+        got = np.asarray(img6)[..., :3]
+        rel = np.abs(got - flat_img) / np.maximum(np.abs(flat_img), 1e-6)
+        within = float((rel.max(-1) <= 1e-3).mean())
+        mean_rel = abs(mean6 / mean - 1)
+        print("phase 6 " + json.dumps(dict(
+            size="1920x1080", spp=1, depth=4, strategy="per-model",
+            frame_ms=ms6, frame2_ms=ms6[-1],
+            mrays_s=LANES_1080P / (ms6[-1] * 1e3), launches=launches6,
+            peak_mem_gb=peak6, image_mean=mean6,
+            pixels_within_1e3_of_flat=within, mean_rel_to_flat=mean_rel)),
+            flush=True)
+        if mean_rel > 1e-2 or within < 0.9:
+            raise RuntimeError("per-model image departs from the flat one")
+
+        ms7, img7, launches7, peak7 = main_path(tmp, "lg", HD, SCENE_LARGE)
+        mean7 = check_image(img7, 1920, 1080, "large 1080p")
+        if launches7["trace_mt"] <= 0:
+            raise RuntimeError(f"{SCENE_LARGE} run launched {launches7}")
+        l_k2 = launches7["trace_mt"]
+        print("phase 7 " + json.dumps(dict(
+            size="1920x1080", spp=1, depth=4, scene=SCENE_LARGE,
+            frame_ms=ms7, frame2_ms=ms7[-1],
+            mrays_s=LANES_1080P / (ms7[-1] * 1e3), launches=launches7,
+            peak_mem_gb=peak7, image_mean=mean7)), flush=True)
+
+    def row(name, src, replaces, launches, r):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                # no single PyTorch call computes a closest-hit traversal
+                "library_ms": None}
+    kernels = {"kernels": [
+        row("trace_vm3", "tauray_torch/csrc/trace_vm3.cu",
+            "tauray_tpu/ops/pallas_trace.py:979", l_k1, k1["bounce"]),
+        row("trace_mt", "tauray_torch/csrc/trace_mt.cu",
+            "tauray_tpu/ops/pallas_trace.py:64", l_k2,
+            k2["bounce/closest"]),
+        row("trace_mt_inst", "tauray_torch/csrc/trace_mt.cu",
+            "tauray_tpu/ops/pallas_trace.py:297", l_k3,
+            k3["bounce/closest"])]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

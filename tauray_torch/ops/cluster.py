@@ -1,16 +1,22 @@
-"""Flat cluster tracer: the torch counterpart of tauray_tpu.ops.cluster's
-ClusterTracer on its default (v3 kernel) path.
+"""Cluster tracers: the torch counterparts of tauray_tpu.ops.cluster's
+ClusterTracer (flat) and InstancedClusterTracer (the TLAS path of
+--as-strategy=per-model / per-material).
 
-  * the host build (numpy SAH splits into CLUSTER-triangle clusters,
-    cluster alignment, alpha segregation) is the JAX package's, unchanged;
+  * the host builds (numpy SAH splits into CLUSTER-triangle clusters,
+    cluster alignment, alpha segregation, per-mesh object clusters and
+    the cluster-instance list) are the JAX package's, unchanged;
   * every trace runs phase 1 in torch: a slab cull of every ray against
-    every cluster AABB, OR-reduced per 32-ray tile, then a row sort of
-    the active cluster ids;
-  * phase 2 is the traversal kernel (ops/trace_kernel.py), the
-    counterpart of pallas_trace_tiles_vm3;
-  * bounce and shadow waves are first sorted by their active-set
+    every cluster (or cluster-instance) AABB, reduced per 32-ray tile,
+    then a row sort of the tile's keys;
+  * phase 2 is a traversal kernel (ops/trace_kernel.py), chosen as the
+    JAX package chooses its Pallas kernel: flat scenes of at most
+    VM_FITS_CLUSTERS clusters take id-only keys and trace_tiles_vm3
+    (_kernel_vm3), larger ones entry-t keys and the front-to-back
+    trace_tiles (_kernel); the instanced tracer takes entry-t keys and
+    trace_tiles_inst (_kernel_inst);
+  * flat bounce and shadow waves are first sorted by their active-set
     signature (_sig_sort_perm) and un-permuted by an int32 inverse
-    permutation gather.
+    permutation gather; the instanced tracer traces waves as given.
 
 Phase 1 and the signature pass are dense (rays x clusters) slab tests.
 Eager torch materialises them, so both run over chunks of ray blocks
@@ -29,12 +35,19 @@ from torch.profiler import record_function
 from .bvh import morton_3d
 from .intersect import Hit
 from .sampling import cross
-from .trace_kernel import TILE as PT, trace_tiles_vm3
+from .trace_kernel import (KB, TILE as PT, trace_tiles, trace_tiles_inst,
+                           trace_tiles_vm3)
 
 CLUSTER = 128       # triangles per cluster (tauray_tpu.ops.cluster.CLUSTER)
 TILE = 128          # rays per slab-test block; PT-ray kernel tiles divide it
 KEY_SENTINEL = 0x7FFFFFFF
 BIG = 3e38
+# Largest flat scene traced with id-only keys and trace_tiles_vm3. The JAX
+# package keeps that path for tables that fit its TPU kernel's 13.5 MB
+# VMEM budget (pallas_trace.vm_fits: C * 12 * 128 * 4 B <= 13.5e6, so
+# C <= 2,197) and traces larger scenes front to back with _kernel; the
+# port draws the same line so that both packages compute the same thing.
+VM_FITS_CLUSTERS = 2197
 
 # Budget for the (blocks, clusters, TILE) float temporaries of phase 1 and
 # the signature pass. About eight such tensors are alive at once, so each
@@ -62,26 +75,34 @@ class ClusterTracer:
     # segregates them), so "might be transparent" is slot >= alpha_base
     alpha_base: Optional[int] = None
     # (C, 12, 1, CLUSTER) Baldwin-Weber rows [n | n.v0 | r1 | r1.v0 |
-    # r2 | r2.v0], the traversal kernel's triangle table
+    # r2 | r2.v0], trace_tiles_vm3's triangle table
     tris12: Optional[torch.Tensor] = None
     # slot_ids=True: trace() returns raw slot ids (no to_orig remap), for
     # callers whose scene tables are permuted into slot order
     slot_ids: bool = False
+    # (C, 9, 1, CLUSTER) v0/e1/e2 components by lane, trace_tiles' table
+    tris9: Optional[torch.Tensor] = None
+    # (C,) i32: 1 when every valid triangle of the cluster is opaque, so
+    # an any-hit trace can stop at the first hit there
+    opaque: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.alpha_base is None:
             self.alpha_base = self.n_clusters * CLUSTER
+        if self.opaque is None:
+            self.opaque = torch.ones(self.n_clusters, dtype=torch.int32,
+                                     device=self.device)
 
     @property
     def device(self) -> torch.device:
         return self.v0.device
 
     def with_kernel_layout(self) -> "ClusterTracer":
-        """tris12 and tris_flat tables (tauray_tpu's with_pallas_layout).
-        Baldwin-Weber rows: n = e1 x e2; r1 = (e2 x n)/|n|^2 and
-        r2 = (n x e1)/|n|^2, so a hit point p gives u = r1.p - r1.v0,
-        v = r2.p - r2.v0 and t = (n.v0 - n.o)/(n.d). Degenerate triangles
-        get n = r = 0 and fail the den != 0 test."""
+        """tris12, tris9 and tris_flat tables (tauray_tpu's
+        with_pallas_layout). Baldwin-Weber rows: n = e1 x e2;
+        r1 = (e2 x n)/|n|^2 and r2 = (n x e1)/|n|^2, so a hit point p gives
+        u = r1.p - r1.v0, v = r2.p - r2.v0 and t = (n.v0 - n.o)/(n.d).
+        Degenerate triangles get n = r = 0 and fail the den != 0 test."""
         tris_flat = torch.cat([self.v0, self.e1, self.e2],
                               dim=-1).reshape(-1, 9)
         n = cross(self.e1, self.e2)
@@ -95,7 +116,8 @@ class ClusterTracer:
             return (x * self.v0).sum(-1, keepdim=True)
         bw = torch.cat([n, dotv0(n), r1, dotv0(r1), r2, dotv0(r2)], dim=-1)
         tris12 = bw.transpose(1, 2)[:, :, None, :].contiguous()
-        return replace(self, tris_flat=tris_flat, tris12=tris12)
+        return replace(self, tris_flat=tris_flat, tris12=tris12,
+                       tris9=_tris9(self.v0, self.e1, self.e2))
 
     # ------------------------------------------------------------------
     def trace(self, origins, dirs, t_min, t_max, any_hit: bool = False,
@@ -109,43 +131,60 @@ class ClusterTracer:
                       need_uv: bool = True
                       ) -> Tuple[Hit, torch.Tensor]:
         """Closest hit per ray, plus (R,) bool marking hits on
-        alpha-capable triangles (slot id >= alpha_base). The kernel has no
-        early exit, so any_hit traces are closest-hit traces.
+        alpha-capable triangles (slot id >= alpha_base). On the id-only
+        key path (C <= VM_FITS_CLUSTERS) the kernel has no early exit, so
+        any_hit traces are closest-hit traces; larger scenes stop an
+        any_hit ray at its first hit in an all-opaque cluster.
 
         sort_rays: reorder the wave by its active-set signature before
         tiling (bounce and shadow waves); camera waves keep pixel-block
         order."""
-        o = origins.to(torch.float32)
-        d = dirs.to(torch.float32)
-        R = o.shape[0]
-        t_min = torch.as_tensor(t_min, dtype=torch.float32,
-                                device=o.device).expand(R)
-        t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                                device=o.device).expand(R)
-        pad = (-R) % TILE
-        rays8 = torch.cat([o, d, t_min[:, None], t_max[:, None]], dim=1)
-        if pad:
-            filler = torch.zeros((pad, 8), dtype=torch.float32,
-                                 device=o.device)
-            filler[:, 3:7] = 1.0          # d = 1, t_min = 1, t_max = 0
-            rays8 = torch.cat([rays8, filler])
+        R = origins.shape[0]
+        rays8 = _pack_rays(origins, dirs, t_min, t_max)
         if sort_rays:
             with record_function("sig_sort"):
                 perm = _sig_sort_perm(self, rays8)
                 rays8 = rays8[perm]
-            hit = _trace_padded(self, rays8, need_uv)
+            hit = _trace_padded(self, rays8, any_hit, need_uv)
             # un-permute by an inverse-permutation GATHER; ids stay int32
             inv = torch.empty_like(perm)
             inv[perm] = torch.arange(perm.shape[0], device=perm.device)
             hit = Hit(*(x[inv] for x in hit))
         else:
-            hit = _trace_padded(self, rays8, need_uv)
+            hit = _trace_padded(self, rays8, any_hit, need_uv)
         t, tid, u, v = (x[:R] for x in hit)
         alpha_flag = tid >= self.alpha_base
         if not self.slot_ids:
             tid = torch.where(tid >= 0, self.to_orig[tid.clamp(min=0).long()],
                               -1)
         return Hit(t, tid, u, v), alpha_flag
+
+
+def _pack_rays(origins, dirs, t_min, t_max) -> torch.Tensor:
+    """(R', 8) [o|d|t_min|t_max] rows, R' the ray count rounded up to a
+    TILE multiple with dead filler rays (t_max = 0)."""
+    o = origins.to(torch.float32)
+    d = dirs.to(torch.float32)
+    R = o.shape[0]
+    t_min = torch.as_tensor(t_min, dtype=torch.float32,
+                            device=o.device).expand(R)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                            device=o.device).expand(R)
+    rays8 = torch.cat([o, d, t_min[:, None], t_max[:, None]], dim=1)
+    pad = (-R) % TILE
+    if pad:
+        filler = torch.zeros((pad, 8), dtype=torch.float32, device=o.device)
+        filler[:, 3:7] = 1.0              # d = 1, t_min = 1, t_max = 0
+        rays8 = torch.cat([rays8, filler])
+    return rays8
+
+
+def _tris9(v0, e1, e2) -> torch.Tensor:
+    """(C, 9, 1, CLUSTER) v0/e1/e2 components by lane (tauray_tpu
+    with_pallas_layout's tris9)."""
+    comps = torch.cat([v0.transpose(1, 2), e1.transpose(1, 2),
+                       e2.transpose(1, 2)], dim=1)
+    return comps[:, :, None, :].contiguous()
 
 
 def _sah_order(tri_pos, ids) -> np.ndarray:
@@ -291,6 +330,11 @@ def build_cluster_tracer(tri_pos, tri_instance, tri_opaque=None,
         valid_perm = np.zeros(total, dtype=bool)
         valid_perm[:n_valid] = True
 
+    if tri_opaque is not None:
+        op = np.asarray(tri_opaque, bool)[perm] | ~valid_perm
+    else:
+        op = np.ones(total, bool)
+    cluster_opaque = op.reshape(C, CLUSTER).all(axis=1).astype(np.int32)
     slot_alpha = tri_alpha[perm] & valid_perm
     if slot_alpha.any():
         alpha_base = int(np.flatnonzero(slot_alpha)[0]) // CLUSTER * CLUSTER
@@ -305,7 +349,8 @@ def build_cluster_tracer(tri_pos, tri_instance, tri_opaque=None,
     tracer = ClusterTracer(
         v0=empty, e1=empty, e2=empty,
         tri_valid=dev(valid_perm.reshape(C, CLUSTER)), to_orig=dev(perm),
-        cmin=None, cmax=None, n_clusters=C, alpha_base=alpha_base)
+        cmin=None, cmax=None, n_clusters=C, alpha_base=alpha_base,
+        opaque=dev(cluster_opaque))
     return refit_cluster_tracer(tracer, tri_pos, perm), perm
 
 
@@ -328,15 +373,24 @@ def refit_cluster_tracer(tracer: ClusterTracer, tri_pos, perm
                    cmax=cmax).with_kernel_layout()
 
 
-def tracer_from_numpy(fields: Dict[str, Any], device) -> ClusterTracer:
-    """ClusterTracer from a {field: numpy array or int} dict carrying
-    tauray_tpu ClusterTracer fields (v0, e1, e2, tri_valid, to_orig, cmin,
-    cmax, n_clusters, and optionally alpha_base, slot_ids). The
-    kernel tables are rebuilt here, so tris12/tris_flat may be absent."""
+def _from_numpy(fields: Dict[str, Any], device):
+    """name -> tensor on `device` (None for an absent field)."""
     def dev(name):
         x = fields.get(name)
         return None if x is None else \
             torch.from_numpy(np.require(x, requirements=["C", "W"])).to(device)
+    return dev
+
+
+def tracer_from_numpy(fields: Dict[str, Any], device) -> ClusterTracer:
+    """ClusterTracer from a {field: numpy array or int} dict carrying
+    tauray_tpu ClusterTracer fields (v0, e1, e2, tri_valid, to_orig, cmin,
+    cmax, n_clusters, and optionally opaque, alpha_base, slot_ids). The
+    kernel tables are rebuilt here, so tris12/tris9/tris_flat may be
+    absent; without opaque every cluster counts as opaque, as in
+    tauray_tpu's any-hit trace of a tracer without the table."""
+    dev = _from_numpy(fields, device)
+    opaque = dev("opaque")
     tracer = ClusterTracer(
         v0=dev("v0"), e1=dev("e1"), e2=dev("e2"),
         tri_valid=dev("tri_valid"), to_orig=dev("to_orig"),
@@ -344,7 +398,8 @@ def tracer_from_numpy(fields: Dict[str, Any], device) -> ClusterTracer:
         n_clusters=int(fields["n_clusters"]),
         alpha_base=(None if fields.get("alpha_base") is None
                     else int(fields["alpha_base"])),
-        slot_ids=bool(fields.get("slot_ids", False)))
+        slot_ids=bool(fields.get("slot_ids", False)),
+        opaque=None if opaque is None else opaque.to(torch.int32))
     return tracer.with_kernel_layout()
 
 
@@ -380,8 +435,10 @@ def _block_chunks(n_blocks: int, n_boxes: int):
         yield b0, min(b0 + step, n_blocks)
 
 
-def _active_blocks(rays8, b0, b1, bmin, bmax):
-    """(b1-b0, boxes, TILE) bool: ray hits box AABB within [t_min, t_max]."""
+def _slab_blocks(rays8, b0, b1, bmin, bmax):
+    """Entry t (clamped up to t_min) and activity of ray blocks b0..b1
+    against every box, each (b1-b0, boxes, TILE): the ray hits the box
+    AABB within [t_min, t_max]."""
     blk = rays8[b0 * TILE:b1 * TILE].reshape(b1 - b0, TILE, 8)
     ro = blk[..., 0:3]
     rd = blk[..., 3:6]
@@ -391,7 +448,7 @@ def _active_blocks(rays8, b0, b1, bmin, bmax):
         inv_d[:, None, :, 0], inv_d[:, None, :, 1], inv_d[:, None, :, 2],
         bmin, bmax)
     torch.maximum(tn, blk[:, None, :, 6], out=tn)
-    return (tf >= tn) & (tn <= blk[:, None, :, 7])
+    return tn, (tf >= tn) & (tn <= blk[:, None, :, 7])
 
 
 def _phase1(tracer: ClusterTracer, rays8):
@@ -405,7 +462,7 @@ def _phase1(tracer: ClusterTracer, rays8):
     cid = torch.arange(C, dtype=torch.int32, device=rays8.device)
     counts, keys = [], []
     for b0, b1 in _block_chunks(n_blocks, C):
-        act = _active_blocks(rays8, b0, b1, tracer.cmin, tracer.cmax)
+        act = _slab_blocks(rays8, b0, b1, tracer.cmin, tracer.cmax)[1]
         tile_act = act.reshape(b1 - b0, C, sub, PT).any(dim=3)
         del act
         tile_act = tile_act.permute(0, 2, 1).reshape(-1, C)
@@ -413,6 +470,46 @@ def _phase1(tracer: ClusterTracer, rays8):
         key = torch.where(tile_act, cid, KEY_SENTINEL)
         keys.append(torch.sort(key, dim=1).values)
     return torch.cat(counts), torch.cat(keys)
+
+
+def key_idmask(n_ids: int) -> int:
+    """Low-bit mask holding any of n_ids key ids: 2^ceil(log2 n) - 1."""
+    return (1 << max((max(n_ids, 2) - 1).bit_length(), 1)) - 1
+
+
+def _phase1_entry(bmin, bmax, rays8):
+    """Entry-t keyed phase 1 over the boxes bmin/bmax (C, 3) (tauray_tpu
+    _trace_padded_pallas, cluster.py:993-1016, and
+    _trace_padded_pallas_inst). Per 32-ray kernel tile and box, the
+    minimum slab entry t of its active rays; the key is
+    (bits(t) & ~idmask) | box id, inactive boxes KEY_SENTINEL, rows sorted
+    ascending, so the active boxes come front to back and each key is a
+    lower bound of its entry t (t >= 0 orders like its bits). Rows are
+    C + KB wide: the kernels read the key one step past the last active
+    one, which must be a sentinel. Returns counts (n_tiles,) i32, keys
+    (n_tiles, C + KB) i32 and idmask."""
+    R = rays8.shape[0]
+    C = bmin.shape[0]
+    n_blocks = R // TILE
+    sub = TILE // PT
+    idmask = key_idmask(C)
+    cid = torch.arange(C, dtype=torch.int32, device=rays8.device)
+    counts, keys = [], []
+    for b0, b1 in _block_chunks(n_blocks, C):
+        tn, act = _slab_blocks(rays8, b0, b1, bmin, bmax)
+        tn = torch.where(act, tn, float("inf"))
+        del act
+        tnear = tn.reshape(b1 - b0, C, sub, PT).amin(dim=3)
+        del tn
+        tnear = tnear.permute(0, 2, 1).reshape(-1, C)
+        counts.append((tnear < float("inf")).sum(dim=1, dtype=torch.int32))
+        key = (tnear.view(torch.int32) & ~idmask) | cid
+        key = torch.where(torch.isfinite(tnear), key, KEY_SENTINEL)
+        keys.append(torch.sort(key, dim=1).values)
+    keys = torch.cat(keys)
+    tail = torch.full((keys.shape[0], KB), KEY_SENTINEL, dtype=torch.int32,
+                      device=keys.device)
+    return torch.cat(counts), torch.cat([keys, tail], dim=1), idmask
 
 
 def _sig_sort_key(tracer: ClusterTracer, rays8):
@@ -430,7 +527,7 @@ def _sig_sort_key(tracer: ClusterTracer, rays8):
     cid = torch.clamp(cid, max=big)[None, :, None]
     parts = []
     for b0, b1 in _block_chunks(n_blocks, C):
-        act = _active_blocks(rays8, b0, b1, tracer.cmin, tracer.cmax)
+        act = _slab_blocks(rays8, b0, b1, tracer.cmin, tracer.cmax)[1]
         vals = torch.where(act, cid, big)
         del act
         n_cls = 3 if small else 2
@@ -449,24 +546,40 @@ def _sig_sort_perm(tracer: ClusterTracer, rays8):
     return torch.argsort(_sig_sort_key(tracer, rays8), stable=True)
 
 
-def _trace_padded(tracer: ClusterTracer, rays8, need_uv: bool) -> Hit:
+def _trace_padded(tracer: ClusterTracer, rays8, any_hit: bool,
+                  need_uv: bool) -> Hit:
     """Phase 1, the traversal kernel, and the optional barycentric
-    post-pass. rays8: (R, 8) [o|d|t_min|t_max], R a multiple of TILE."""
+    post-pass. rays8: (R, 8) [o|d|t_min|t_max], R a multiple of TILE.
+    Scenes of at most VM_FITS_CLUSTERS clusters take id-only keys and
+    trace_tiles_vm3, larger ones entry-t keys and trace_tiles, as
+    tauray_tpu's _trace_padded_pallas dispatches (cluster.py:1026-1052)."""
     R = rays8.shape[0]
     rays8 = rays8.contiguous()
-    with record_function("phase1"):
-        counts, keys = _phase1(tracer, rays8)
-    with record_function("traverse"):
-        t, tid = trace_tiles_vm3(counts, keys,
-                                 rays8.reshape(R // PT, PT, 8), tracer.tris12)
-    miss = tid < 0
+    tiles = rays8.reshape(R // PT, PT, 8)
+    if tracer.n_clusters <= VM_FITS_CLUSTERS:
+        with record_function("phase1"):
+            counts, keys = _phase1(tracer, rays8)
+        with record_function("traverse"):
+            t, tid = trace_tiles_vm3(counts, keys, tiles, tracer.tris12)
+    else:
+        with record_function("phase1"):
+            counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax,
+                                                 rays8)
+        with record_function("traverse"):
+            t, tid = trace_tiles(counts, keys, tiles, tracer.tris9,
+                                 tracer.opaque, idmask, any_hit)
     if not need_uv:
         z = torch.zeros_like(t)
         return Hit(t, tid, z, z)
     # barycentrics for the single best triangle from its [v0|e1|e2] row
     row = tracer.tris_flat[tid.clamp(min=0).long()]
-    o = rays8[:, 0:3]
-    d = rays8[:, 3:6]
+    return _bary_hit(t, tid, rays8[:, 0:3], rays8[:, 3:6], row)
+
+
+def _bary_hit(t, tid, o, d, row) -> Hit:
+    """Hit with the barycentrics of ray (o, d) on its hit triangle's
+    [v0|e1|e2] row (zero on a miss)."""
+    miss = tid < 0
     v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     h = cross(d, e2)
     a = (e1 * h).sum(-1)
@@ -475,3 +588,245 @@ def _trace_padded(tracer: ClusterTracer, rays8, need_uv: bool) -> Hit:
     u = f * (s * h).sum(-1)
     v = f * (d * cross(s, e1)).sum(-1)
     return Hit(t, tid, torch.where(miss, 0.0, u), torch.where(miss, 0.0, v))
+
+
+# ---------------------------------------------------------------------------
+# Object-space instancing: the TLAS path
+# ---------------------------------------------------------------------------
+
+@dataclass
+class InstancedClusterTracer:
+    """Two-level tracer over shared object-space geometry (tauray_tpu
+    InstancedClusterTracer): one set of SAH clusters per unique mesh, and
+    K cluster-instances, each an (object cluster, instance) pair with a
+    world AABB. Phase 1 runs over the K world AABBs; the kernel moves each
+    key's rays into its instance's space. Slot ids are k * CLUSTER + lane;
+    alpha-capable instances come last, so "might be transparent" is
+    slot >= alpha_base."""
+    v0: torch.Tensor            # (Cu, CLUSTER, 3) object-space blocks
+    e1: torch.Tensor
+    e2: torch.Tensor
+    tri_valid: torch.Tensor     # (Cu, CLUSTER) bool
+    to_orig: torch.Tensor       # (K*CLUSTER,) i32 slot -> world triangle
+    cmin: Optional[torch.Tensor]    # (K, 3) world AABB per cluster-instance
+    cmax: Optional[torch.Tensor]
+    n_clusters: int             # K
+    k_cluster: torch.Tensor     # (K,) i32 -> object cluster
+    k_inst: torch.Tensor        # (K,) i32 -> instance
+    inv: Optional[torch.Tensor]     # (I, 3, 4) world -> object
+    obj_min: torch.Tensor       # (Cu, 3) object AABBs
+    obj_max: torch.Tensor
+    tris9: torch.Tensor         # (Cu, 9, 1, CLUSTER)
+    opaque: torch.Tensor        # (K,) i32
+    tris_flat: torch.Tensor     # (Cu*CLUSTER, 9) object [v0|e1|e2] rows
+    alpha_base: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.v0.device
+
+    def trace(self, origins, dirs, t_min, t_max, any_hit: bool = False,
+              sort_rays: bool = False, need_uv: bool = True) -> Hit:
+        return self.trace_flagged(origins, dirs, t_min, t_max,
+                                  any_hit=any_hit, sort_rays=sort_rays,
+                                  need_uv=need_uv)[0]
+
+    def trace_flagged(self, origins, dirs, t_min, t_max,
+                      any_hit: bool = False, sort_rays: bool = False,
+                      need_uv: bool = True) -> Tuple[Hit, torch.Tensor]:
+        """Closest hit per ray (any_hit: stops at the first hit in an
+        all-opaque cluster-instance) with world-triangle ids, plus the
+        alpha flag. sort_rays is ignored: waves trace as given, as in
+        tauray_tpu."""
+        R = origins.shape[0]
+        rays8 = _pack_rays(origins, dirs, t_min, t_max)
+        t, tid, u, v = (x[:R] for x in
+                        _trace_padded_inst(self, rays8, any_hit, need_uv))
+        alpha_flag = tid >= self.alpha_base
+        tid = torch.where(tid >= 0, self.to_orig[tid.clamp(min=0).long()],
+                          -1)
+        return Hit(t, tid, u, v), alpha_flag
+
+
+def _trace_padded_inst(tracer: InstancedClusterTracer, rays8,
+                       any_hit: bool, need_uv: bool) -> Hit:
+    """tauray_tpu _trace_padded_pallas_inst: entry-t phase 1 over the K
+    world AABBs, trace_tiles_inst, and the barycentric post-pass in object
+    space (barycentrics are affine-invariant)."""
+    R = rays8.shape[0]
+    rays8 = rays8.contiguous()
+    with record_function("phase1"):
+        counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax, rays8)
+    with record_function("traverse"):
+        t, tid = trace_tiles_inst(
+            counts, keys, rays8.reshape(R // PT, PT, 8), tracer.tris9,
+            tracer.opaque, tracer.k_cluster, tracer.k_inst,
+            tracer.inv.reshape(-1, 12), idmask, any_hit)
+    if not need_uv:
+        z = torch.zeros_like(t)
+        return Hit(t, tid, z, z)
+    safe = tid.clamp(min=0).long()
+    kidx = safe // CLUSTER
+    row = tracer.tris_flat[tracer.k_cluster[kidx].long() * CLUSTER +
+                           safe % CLUSTER]
+    inv = tracer.inv[tracer.k_inst[kidx].long()]                # (R, 3, 4)
+    o = rays8[:, None, 0:3]
+    d = rays8[:, None, 3:6]
+    oo = (inv[..., :3] * o).sum(-1) + inv[..., 3]
+    dd = (inv[..., :3] * d).sum(-1)
+    return _bary_hit(t, tid, oo, dd, row)
+
+
+def build_instanced_tracer(mesh_tris, mesh_of_inst, inst_model, inst_opaque,
+                           tri_starts, device=None) -> InstancedClusterTracer:
+    """Host build, as tauray_tpu.ops.cluster.build_instanced_tracer.
+
+    mesh_tris: list of (Tm, 3, 3) OBJECT-space triangle arrays, one per
+    unique mesh; mesh_of_inst: (I,) mesh index per instance; inst_model:
+    (I, 4, 4) object -> world transforms; inst_opaque: (I,) bool (False =
+    alpha-capable material); tri_starts: (I,) world-soup triangle offset
+    per instance (the to_orig mapping)."""
+    mesh_builds = []
+    for tris in mesh_tris:
+        tris = np.asarray(tris, np.float32)
+        T = tris.shape[0]
+        order = _sah_order(tris, np.arange(T))
+        C = max((T + CLUSTER - 1) // CLUSTER, 1)
+        total = C * CLUSTER
+        perm = np.full(total, order[0] if T else 0, np.int64)
+        perm[:min(T, total)] = order[:total]
+        vmask = np.zeros(total, bool)
+        vmask[:T] = True
+        pos = tris[perm]
+        mesh_builds.append(dict(
+            v0=pos[:, 0].reshape(C, CLUSTER, 3),
+            e1=(pos[:, 1] - pos[:, 0]).reshape(C, CLUSTER, 3),
+            e2=(pos[:, 2] - pos[:, 0]).reshape(C, CLUSTER, 3),
+            valid=vmask.reshape(C, CLUSTER), perm=perm, C=C))
+
+    cluster_base = np.cumsum([0] + [b["C"] for b in mesh_builds])
+    # cluster-instance list: alpha-capable instances LAST
+    mesh_of_inst = np.asarray(mesh_of_inst)
+    inst_opaque = np.asarray(inst_opaque, bool)
+    order_i = np.argsort(~inst_opaque, kind="stable")
+    k_cluster, k_inst, to_orig, opaque = [], [], [], []
+    alpha_base = None
+    for i in order_i:
+        mi = mesh_of_inst[i]
+        b = mesh_builds[mi]
+        if not inst_opaque[i] and alpha_base is None:
+            alpha_base = len(k_cluster) * CLUSTER
+        for c in range(b["C"]):
+            k_cluster.append(cluster_base[mi] + c)
+            k_inst.append(i)
+            opaque.append(1 if inst_opaque[i] else 0)
+            sl = b["perm"][c * CLUSTER:(c + 1) * CLUSTER]
+            to_orig.append(tri_starts[i] + sl)
+    if alpha_base is None:
+        alpha_base = len(k_cluster) * CLUSTER
+
+    device = torch.device("cpu") if device is None else torch.device(device)
+
+    def dev(x, dtype=None):
+        t = torch.from_numpy(np.require(x, requirements=["C", "W"]))
+        return t.to(device=device, dtype=dtype)
+    v0, e1, e2 = (dev(np.concatenate([b[k] for b in mesh_builds]))
+                  for k in ("v0", "e1", "e2"))
+    tri_valid = dev(np.concatenate([b["valid"] for b in mesh_builds]))
+    # object AABBs (static): corners v0, v0 + e1, v0 + e2 of valid slots
+    valid = tri_valid[..., None]
+    obj_min = torch.where(valid, torch.minimum(torch.minimum(
+        v0, v0 + e1), v0 + e2), BIG).amin(dim=1)
+    obj_max = torch.where(valid, torch.maximum(torch.maximum(
+        v0, v0 + e1), v0 + e2), -BIG).amax(dim=1)
+    tracer = InstancedClusterTracer(
+        v0=v0, e1=e1, e2=e2, tri_valid=tri_valid,
+        to_orig=dev(np.concatenate(to_orig).astype(np.int32)),
+        cmin=None, cmax=None, n_clusters=len(k_cluster),
+        k_cluster=dev(np.asarray(k_cluster, np.int32)),
+        k_inst=dev(np.asarray(k_inst, np.int32)), inv=None,
+        obj_min=obj_min, obj_max=obj_max, tris9=_tris9(v0, e1, e2),
+        opaque=dev(np.asarray(opaque, np.int32)),
+        tris_flat=torch.cat([v0, e1, e2], dim=-1).reshape(-1, 9),
+        alpha_base=int(alpha_base))
+    return refit_instanced_tracer(tracer, inst_model)
+
+
+def refit_instanced_tracer(tracer: InstancedClusterTracer, inst_model
+                           ) -> InstancedClusterTracer:
+    """Per-frame refit: only transforms move (tauray_tpu
+    refit_instanced_tracer). The inverses are float32 LU inverses taken on
+    the host (I 4x4 matrices), then every cluster-instance's world AABB
+    is that of its 8 transformed object-AABB corners. Triangle tables are
+    untouched."""
+    dev = tracer.device
+    model = torch.as_tensor(np.asarray(inst_model, np.float32))  # (I, 4, 4)
+    inv = torch.linalg.inv(model)[:, :3, :].contiguous().to(dev)
+    model = model.to(dev)
+    kc = tracer.k_cluster.long()
+    omin = tracer.obj_min[kc]                                    # (K, 3)
+    omax = tracer.obj_max[kc]
+    M = model[tracer.k_inst.long()]                              # (K, 4, 4)
+    corners = torch.stack([
+        torch.stack([omax[:, 0] if m & 1 else omin[:, 0],
+                     omax[:, 1] if m & 2 else omin[:, 1],
+                     omax[:, 2] if m & 4 else omin[:, 2]], dim=-1)
+        for m in range(8)], dim=1)                               # (K, 8, 3)
+    wc = (M[:, None, :3, :3] * corners[:, :, None, :]).sum(-1) + \
+        M[:, None, :3, 3]                                        # (K, 8, 3)
+    return replace(tracer, cmin=wc.amin(dim=1), cmax=wc.amax(dim=1),
+                   inv=inv)
+
+
+def instanced_tracer_from_numpy(fields: Dict[str, Any], device
+                                ) -> InstancedClusterTracer:
+    """InstancedClusterTracer from a {field: numpy array or int} dict
+    carrying tauray_tpu InstancedClusterTracer fields (v0, e1, e2,
+    tri_valid, to_orig, cmin, cmax, n_clusters, k_cluster, k_inst, inv,
+    obj_min, obj_max, opaque, alpha_base). tris9 and tris_flat are rebuilt
+    here."""
+    dev = _from_numpy(fields, device)
+    v0, e1, e2 = dev("v0"), dev("e1"), dev("e2")
+    return InstancedClusterTracer(
+        v0=v0, e1=e1, e2=e2, tri_valid=dev("tri_valid"),
+        to_orig=dev("to_orig"), cmin=dev("cmin"), cmax=dev("cmax"),
+        n_clusters=int(fields["n_clusters"]), k_cluster=dev("k_cluster"),
+        k_inst=dev("k_inst"), inv=dev("inv"), obj_min=dev("obj_min"),
+        obj_max=dev("obj_max"), tris9=_tris9(v0, e1, e2),
+        opaque=dev("opaque").to(torch.int32),
+        tris_flat=torch.cat([v0, e1, e2], dim=-1).reshape(-1, 9),
+        alpha_base=int(fields["alpha_base"]))
+
+
+def build_instanced_from_arrays(arrays, device=None
+                                ) -> Optional[InstancedClusterTracer]:
+    """Instanced build from SceneArrays (tauray_tpu
+    build_instanced_from_arrays): instances sharing a mesh (the same
+    position and index arrays) share its object clusters. None when no
+    mesh is shared or an instance is skinned (its object geometry deforms
+    per frame); the caller then builds the flat tracer."""
+    insts = arrays.instances
+    if not insts or any(arrays._skinned):
+        return None
+    mesh_ids = {}
+    mesh_of_inst = []
+    for ig in insts:
+        key = (id(ig.positions), id(ig.indices))
+        if key not in mesh_ids:
+            mesh_ids[key] = len(mesh_ids)
+        mesh_of_inst.append(mesh_ids[key])
+    if len(mesh_ids) == len(insts):
+        return None
+    tri_inst = np.asarray(arrays.tri_instance)
+    obj = np.asarray(arrays.obj_pos)
+    mesh_tris = [None] * len(mesh_ids)
+    tri_starts = np.zeros(len(insts), np.int64)
+    for i in range(len(insts)):
+        idx = np.flatnonzero(tri_inst == i)
+        tri_starts[i] = idx[0] if len(idx) else 0
+        mi = mesh_of_inst[i]
+        if mesh_tris[mi] is None:
+            mesh_tris[mi] = obj[idx]
+    return build_instanced_tracer(
+        mesh_tris, mesh_of_inst, arrays.inst_model,
+        ~np.asarray(arrays.inst_has_alpha), tri_starts, device=device)

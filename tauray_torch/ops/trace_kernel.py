@@ -1,14 +1,25 @@
-"""Phase 2 of the cluster tracer: the closest-hit traversal kernel.
+"""Phase 2 of the cluster tracers: the traversal kernels.
 
-trace_tiles_vm3 is the counterpart of tauray_tpu's pallas_trace_tiles_vm3
-(_kernel_vm3). For CUDA tensors it launches the hand-written kernel in
-csrc/trace_vm3.cu; for CPU tensors it runs trace_tiles_vm3_reference, the
-plain torch version of the same contract. A build or launch failure raises:
-there is no fallback from the card to the plain version.
+  * trace_tiles_vm3 is the counterpart of tauray_tpu's
+    pallas_trace_tiles_vm3 (_kernel_vm3): closest hit over Baldwin-Weber
+    rows, id-only keys, no early exit (csrc/trace_vm3.cu);
+  * trace_tiles is the counterpart of pallas_trace_tiles (_kernel):
+    Möller-Trumbore over tris9, entry-t keys walked front to back in
+    steps of KB clusters with a tile-level early exit, and in any-hit
+    mode an exit on opaque hits (csrc/trace_mt.cu);
+  * trace_tiles_inst is the counterpart of pallas_trace_tiles_inst
+    (_kernel_inst): trace_tiles over cluster-instances, each key's rays
+    moved into its instance's object space (csrc/trace_mt.cu).
 
-The kernel is compiled with nvcc for sm_90a into a shared library with a
+For CUDA tensors each wrapper launches its hand-written kernel; for CPU
+tensors it runs the plain torch version beside it (the *_reference
+functions), which computes the same contract. A build or launch failure
+raises: there is no fallback from the card to the plain version.
+
+Each source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface on first use (from this package's sources, into
-tauray_torch/_build/) and loaded with ctypes.
+tauray_torch/_build/, one nvcc process per source, all started together)
+and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -19,26 +30,38 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
 TILE = 32            # rays per tile (one warp)
 CLUSTER = 128        # triangles per cluster
+KB = 8               # clusters per step of the front-to-back kernels
 BIG = 3.0e38
+KEY_SENTINEL = 0x7FFFFFFF
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "trace_vm3.cu")
+# library name -> its CUDA source
+SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+           for name in ("trace_vm3", "trace_mt")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 # wrapper launches of each kernel, counted where the kernel is launched
-LAUNCHES: Dict[str, int] = {"trace_vm3": 0}
-# what the last build did: seconds, library path, compiler output
-BUILD_INFO: Dict[str, object] = {}
+LAUNCHES: Dict[str, int] = {"trace_vm3": 0, "trace_mt": 0,
+                            "trace_mt_inst": 0}
+# what the build did, per library: seconds, library path, compiler output
+BUILD_INFO: Dict[str, Dict[str, object]] = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "trace_vm3_launch": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "trace_mt_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _P, _P, _P],
+}
 
 
 def reset_launch_counts() -> None:
@@ -50,40 +73,58 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the traversal kernel is built from "
-                       "csrc/trace_vm3.cu with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the traversal kernels are built "
+                       "from tauray_torch/csrc/*.cu with the CUDA toolkit")
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libtrace_vm3_{digest}.so")
+def _digest() -> str:
+    """One hash over every source and the flags: a change to any source
+    rebuilds every library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(SOURCES):
+        with open(SOURCES[name], "rb") as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Build (once per source version) and load every kernel library; the
+    missing ones compile in parallel, one nvcc process per source."""
+    if len(_libs) == len(SOURCES):
+        return _libs
+    digest = _digest()
+    paths = {n: os.path.join(BUILD_DIR, f"lib{n}_{digest}.so")
+             for n in SOURCES}
     t0 = time.perf_counter()
-    log = ""
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                             capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    fn = lib.trace_vm3_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=path, log=log)
-    _lib = lib
-    return lib
+    procs = {}
+    for name, path in paths.items():
+        if name not in _libs and not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            procs[name] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp)
+    logs = {}
+    for name, (proc, tmp) in procs.items():
+        logs[name] = proc.communicate()[0]
+        BUILD_INFO[name] = dict(seconds=time.perf_counter() - t0,
+                                path=paths[name], log=logs[name])
+    for name, (proc, tmp) in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCES[name]}:\n"
+                               f"{logs[name]}")
+        os.replace(tmp, paths[name])
+    for name, path in paths.items():
+        if name in _libs:
+            continue
+        lib = ctypes.CDLL(path)
+        fn = getattr(lib, f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[f"{name}_launch"]
+        BUILD_INFO.setdefault(name, dict(seconds=0.0, path=path, log=""))
+        _libs[name] = lib
+    return _libs
 
 
 def _check(x: torch.Tensor, name: str, dtype, ndim: int, device):
@@ -92,7 +133,35 @@ def _check(x: torch.Tensor, name: str, dtype, ndim: int, device):
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
+
+def _check_tiles(counts, keys, rays8, dev, kernel: str):
+    _check(counts, "counts", torch.int32, 1, dev)
+    _check(keys, "keys", torch.int32, 2, dev)
+    _check(rays8, "rays8", torch.float32, 3, dev)
+    n_tiles = counts.shape[0]
+    if (keys.shape[0] != n_tiles or keys.shape[1] < 1 or
+            tuple(rays8.shape) != (n_tiles, TILE, 8)):
+        raise ValueError(f"{kernel}: inconsistent shapes "
+                         f"{tuple(counts.shape)} {tuple(keys.shape)} "
+                         f"{tuple(rays8.shape)}")
+
+
+def _on_card(rays8: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors (the plain version);
+    any other device raises."""
+    if rays8.device.type == "cpu":
+        return False
+    if rays8.device.type != "cuda":
+        raise ValueError(f"no traversal kernel for {rays8.device}")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# K1: id-only keys, Baldwin-Weber, no exit
+# ---------------------------------------------------------------------------
 
 def trace_tiles_vm3(counts: torch.Tensor, keys: torch.Tensor,
                     rays8: torch.Tensor, tris12: torch.Tensor):
@@ -103,24 +172,17 @@ def trace_tiles_vm3(counts: torch.Tensor, keys: torch.Tensor,
     ids; rays8 (n_tiles, 32, 8) f32 [o|d|tmin|tmax]; tris12 (C, 12, 1, 128)
     f32 Baldwin-Weber rows. Returns t (R,) f32 (+inf on miss) and the slot
     id (R,) i32 (-1 on miss)."""
-    if rays8.device.type == "cpu":
+    if not _on_card(rays8):
         return trace_tiles_vm3_reference(counts, keys, rays8, tris12)
-    if rays8.device.type != "cuda":
-        raise ValueError(f"no traversal kernel for {rays8.device}")
     dev = rays8.device
-    n_tiles = counts.shape[0]
-    _check(counts, "counts", torch.int32, 1, dev)
-    _check(keys, "keys", torch.int32, 2, dev)
-    _check(rays8, "rays8", torch.float32, 3, dev)
+    _check_tiles(counts, keys, rays8, dev, "trace_vm3")
     _check(tris12, "tris12", torch.float32, 4, dev)
+    n_tiles = counts.shape[0]
     C = tris12.shape[0]
-    if (keys.shape[0] != n_tiles or keys.shape[1] < 1 or
-            tuple(rays8.shape) != (n_tiles, TILE, 8) or
-            tuple(tris12.shape) != (C, 12, 1, CLUSTER) or C < 1):
-        raise ValueError("trace_tiles_vm3: inconsistent shapes "
-                         f"{tuple(counts.shape)} {tuple(keys.shape)} "
-                         f"{tuple(rays8.shape)} {tuple(tris12.shape)}")
-    lib = load_library()
+    if tuple(tris12.shape) != (C, 12, 1, CLUSTER) or C < 1:
+        raise ValueError("trace_tiles_vm3: bad tris12 shape "
+                         f"{tuple(tris12.shape)}")
+    lib = build_all()["trace_vm3"]
     t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
     tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -179,6 +241,226 @@ def trace_tiles_vm3_reference(counts, keys, rays8, tris12):
         bt[sel] = torch.where(closer, cand, bt_s)
         bi[sel] = torch.where(closer, (c[:, None] * CLUSTER + arg).int(),
                               bi[sel])
+    tid = bi.reshape(-1)
+    t = torch.where(tid < 0, float("inf"), bt.reshape(-1))
+    return t, tid
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: entry-t keys, Möller-Trumbore, front-to-back exit
+# ---------------------------------------------------------------------------
+
+def trace_tiles(counts: torch.Tensor, keys: torch.Tensor,
+                rays8: torch.Tensor, tris9: torch.Tensor,
+                opaque: torch.Tensor, idmask: int, any_hit: bool = False):
+    """Closest hit (or, with any_hit, a hit that ends the search once it
+    lies in an all-opaque cluster) per ray, walking each tile's clusters
+    front to back.
+
+    counts (n_tiles,) i32; keys (n_tiles, W) i32, each row the ascending
+    keys (entry-t bits & ~idmask) | cluster id of the tile's active
+    clusters, then KEY_SENTINEL, with W >= C + KB; rays8 (n_tiles, 32, 8)
+    f32 [o|d|tmin|tmax]; tris9 (C, 9, 1, 128) f32 v0/e1/e2 components by
+    lane; opaque (C,) i32, read only with any_hit. Returns t (R,) f32
+    (+inf on miss) and the slot id (R,) i32 (-1 on miss)."""
+    if not _on_card(rays8):
+        return trace_tiles_reference(counts, keys, rays8, tris9, opaque,
+                                     idmask, any_hit)
+    return _launch_mt(counts, keys, rays8, tris9, opaque, None, idmask,
+                      any_hit)
+
+
+def trace_tiles_inst(counts: torch.Tensor, keys: torch.Tensor,
+                     rays8: torch.Tensor, tris9: torch.Tensor,
+                     opaque: torch.Tensor, k_cluster: torch.Tensor,
+                     k_inst: torch.Tensor, inv12: torch.Tensor, idmask: int,
+                     any_hit: bool = False):
+    """trace_tiles over K cluster-instances: key ids index k_cluster /
+    k_inst (K,) i32, opaque is (K,) i32, and inv12 (I, 12) f32 holds each
+    instance's world -> object 3x4 rows. Each key's rays are moved into
+    its instance's space with the direction left unnormalized, so t is in
+    world units; the id is key * 128 + lane."""
+    if not _on_card(rays8):
+        return trace_tiles_inst_reference(counts, keys, rays8, tris9,
+                                          opaque, k_cluster, k_inst, inv12,
+                                          idmask, any_hit)
+    return _launch_mt(counts, keys, rays8, tris9, opaque,
+                      (k_cluster, k_inst, inv12), idmask, any_hit)
+
+
+def _launch_mt(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit):
+    dev = rays8.device
+    kernel = "trace_mt" if inst is None else "trace_mt_inst"
+    _check_tiles(counts, keys, rays8, dev, kernel)
+    _check(tris9, "tris9", torch.float32, 4, dev)
+    _check(opaque, "opaque", torch.int32, 1, dev)
+    C = tris9.shape[0]
+    n_keys = C
+    if tuple(tris9.shape) != (C, 9, 1, CLUSTER) or C < 1:
+        raise ValueError(f"{kernel}: bad tris9 shape {tuple(tris9.shape)}")
+    ptrs = (0, 0, 0)
+    if inst is not None:
+        k_cluster, k_inst, inv12 = inst
+        _check(k_cluster, "k_cluster", torch.int32, 1, dev)
+        _check(k_inst, "k_inst", torch.int32, 1, dev)
+        _check(inv12, "inv12", torch.float32, 2, dev)
+        n_keys = k_cluster.shape[0]
+        if (k_inst.shape[0] != n_keys or n_keys < 1 or
+                inv12.shape[1] != 12 or inv12.shape[0] < 1):
+            raise ValueError(f"{kernel}: inconsistent instance tables "
+                             f"{tuple(k_cluster.shape)} "
+                             f"{tuple(k_inst.shape)} {tuple(inv12.shape)}")
+        ptrs = (k_cluster.data_ptr(), k_inst.data_ptr(), inv12.data_ptr())
+    if opaque.shape[0] != n_keys:
+        raise ValueError(f"{kernel}: opaque has {opaque.shape[0]} entries "
+                         f"for {n_keys} key ids")
+    if keys.shape[1] < n_keys + KB:
+        raise ValueError(f"{kernel}: key rows of {keys.shape[1]} hold no "
+                         f"sentinel past {n_keys} ids (need {n_keys + KB})")
+    if not 0 < idmask < (1 << 30) or idmask & (idmask + 1) or \
+            idmask < n_keys - 1:
+        raise ValueError(f"{kernel}: bad idmask {idmask} for {n_keys} ids")
+    lib = build_all()["trace_mt"]
+    n_tiles = counts.shape[0]
+    t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
+    tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.trace_mt_launch(
+        counts.data_ptr(), keys.data_ptr(), keys.shape[1], rays8.data_ptr(),
+        tris9.data_ptr(), opaque.data_ptr(), *ptrs, n_tiles, n_keys, idmask,
+        int(any_hit), t.data_ptr(), tid.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+    return t, tid
+
+
+def trace_tiles_reference(counts, keys, rays8, tris9, opaque, idmask,
+                          any_hit=False, stats=None):
+    """Plain torch version of trace_tiles; `stats` (a dict), when given,
+    receives the steps walked and skipped (see _mt_reference)."""
+    return _mt_reference(counts, keys, rays8, tris9, opaque, None, idmask,
+                         any_hit, stats)
+
+
+def trace_tiles_inst_reference(counts, keys, rays8, tris9, opaque,
+                               k_cluster, k_inst, inv12, idmask,
+                               any_hit=False, stats=None):
+    """Plain torch version of trace_tiles_inst."""
+    return _mt_reference(counts, keys, rays8, tris9, opaque,
+                         (k_cluster, k_inst, inv12), idmask, any_hit, stats)
+
+
+# tiles per batched block of the plain version: (tiles, 32, KB*128) f32
+# temporaries of 32 MB each
+_REF_TILES = 256
+
+
+def _mt_reference(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit,
+                  stats):
+    """The contract of _kernel / _kernel_inst (tauray_tpu pallas_trace.py
+    :64-240, :297-484) as batched torch ops. Every tile that is still
+    walking takes step s: the KB clusters of key slots s*KB.. are tested
+    as one (tiles, 32, KB*128) Möller-Trumbore block in the order of
+    pallas_trace.py:170-189, slots past the tile's count masked; a hit
+    needs t < the best from before the step, and the step's minimum goes
+    to its first lane in key order. Then the whole tile stops when every
+    ray's best t bits are <= the next step's key & ~idmask (or, under
+    any_hit, its best hit lies in an opaque cluster).
+
+    stats: steps (walked), steps_total (ceil(count / KB) summed), clusters
+    (real slots tested) and tiles."""
+    dev = rays8.device
+    n_tiles = counts.shape[0]
+    W = keys.shape[1]
+    comps = tris9.reshape(tris9.shape[0], 9, CLUSTER)
+    n_keys = comps.shape[0] if inst is None else inst[0].shape[0]
+    if inst is not None:
+        k_cluster = inst[0].long()
+        k_inst = inst[1].long()
+        inv = inst[2].reshape(-1, 12)
+    bt = torch.where(rays8[..., 7] > BIG, BIG, rays8[..., 7])
+    bi = torch.full((n_tiles, TILE), -1, dtype=torch.int32, device=dev)
+    bopq = torch.zeros((n_tiles, TILE), dtype=torch.int32, device=dev)
+    counts_l = counts.long()
+    steps = (counts_l + KB - 1) // KB
+    walking = steps > 0
+    lane_slot = torch.arange(KB * CLUSTER, device=dev) // CLUSTER
+    walked = clusters = 0
+    step = 0
+    while True:
+        active = torch.nonzero(walking & (steps > step)).squeeze(1)
+        if active.numel() == 0:
+            break
+        walked += active.numel()
+        clusters += int((counts_l[active] - step * KB).clamp(max=KB).sum())
+        slots = step * KB + torch.arange(KB, device=dev)
+        nxt = min((step + 1) * KB, W - 1)
+        for sel in active.split(_REF_TILES):
+            kk = keys[sel][:, slots.clamp(max=W - 1)]           # (n, KB)
+            order = torch.clamp(kk & idmask, max=n_keys - 1).long()
+            cl = order if inst is None else k_cluster[order]
+            tri = comps[cl].permute(0, 2, 1, 3).reshape(-1, 9, KB * CLUSTER)
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+                tri[:, None, i] for i in range(9))               # (n, 1, L)
+            r = rays8[sel]                                       # (n, 32, 8)
+            if inst is None:
+                ox, oy, oz, dx, dy, dz = (r[..., i, None] for i in range(6))
+            else:
+                # world rays (n, 32, 1) into each key's instance space:
+                # iv0*x + iv1*y + iv2*z (+ iv3), left to right, per
+                # (tile, ray, key) and then spread over the key's 128 lanes
+                wo = [r[..., i, None] for i in range(3)]
+                wd = [r[..., i, None] for i in range(3, 6)]
+                iv = inv[k_inst[order]][:, None]             # (n, 1, KB, 12)
+                rows = [iv[..., 4 * m:4 * m + 4] for m in range(3)]
+                ox, oy, oz = (
+                    (a[..., 0] * wo[0] + a[..., 1] * wo[1] + a[..., 2] * wo[2]
+                     + a[..., 3]).repeat_interleave(CLUSTER, dim=2)
+                    for a in rows)
+                dx, dy, dz = (
+                    (a[..., 0] * wd[0] + a[..., 1] * wd[1] + a[..., 2] * wd[2]
+                     ).repeat_interleave(CLUSTER, dim=2) for a in rows)
+            tmin = r[..., 6, None]
+            bt_s = bt[sel]
+            # Möller-Trumbore, h = cross(d, e2)
+            hx = dy * e2z - dz * e2y
+            hy = dz * e2x - dx * e2z
+            hz = dx * e2y - dy * e2x
+            a = e1x * hx + e1y * hy + e1z * hz
+            f = torch.where(a != 0, 1.0 / torch.where(a == 0, 1.0, a), 0.0)
+            sx = ox - v0x
+            sy = oy - v0y
+            sz = oz - v0z
+            uu = f * (sx * hx + sy * hy + sz * hz)
+            qx = sy * e1z - sz * e1y
+            qy = sz * e1x - sx * e1z
+            qz = sx * e1y - sy * e1x
+            vv = f * (dx * qx + dy * qy + dz * qz)
+            tt = f * (e2x * qx + e2y * qy + e2z * qz)
+            slot_ok = (step * KB + lane_slot) < counts_l[sel][:, None, None]
+            hit = (a != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
+                (tt >= tmin) & (tt < bt_s[..., None]) & slot_ok
+            cand, arg = torch.where(hit, tt, BIG).min(dim=2)     # (n, 32)
+            closer = cand < bt_s
+            win = torch.gather(order, 1, arg // CLUSTER)
+            bt_n = torch.where(closer, cand, bt_s)
+            bi_n = torch.where(closer, (win * CLUSTER + arg % CLUSTER).int(),
+                               bi[sel])
+            bt[sel] = bt_n
+            bi[sel] = bi_n
+            nk = keys[sel, nxt] & ~idmask
+            done = bt_n.view(torch.int32) <= nk[:, None]
+            if any_hit:
+                bo_n = torch.where(closer, opaque.long()[win].int(),
+                                   bopq[sel])
+                bopq[sel] = bo_n
+                done = done | ((bi_n >= 0) & (bo_n > 0))
+            walking[sel] = ~done.all(dim=1)
+        step += 1
+    if stats is not None:
+        stats.update(steps=walked, steps_total=int(steps.sum()),
+                     clusters=clusters, tiles=n_tiles)
     tid = bi.reshape(-1)
     t = torch.where(tid < 0, float("inf"), bt.reshape(-1))
     return t, tid

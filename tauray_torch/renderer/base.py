@@ -32,12 +32,17 @@ class Renderer:
 
     def host_update_frame(self, bvh, perm):
         """Per-frame scene refresh on the host: transform hierarchy and
-        lights in numpy, a fresh device scene, and a cluster refit."""
-        from ..ops.cluster import refit_cluster_tracer
+        lights in numpy, a fresh device scene, and a cluster refit (for
+        the instanced tracer, new instance transforms only)."""
+        from ..ops.cluster import (InstancedClusterTracer,
+                                   refit_cluster_tracer,
+                                   refit_instanced_tracer)
         from ..scene.device import to_device_scene
         self.arrays.update(keep_prev=True)
         self.device_scene = to_device_scene(
             self.arrays, self.opt.transparent_background, self.device)
+        if isinstance(bvh, InstancedClusterTracer):
+            return refit_instanced_tracer(bvh, self.arrays.inst_model)
         return refit_cluster_tracer(bvh, self.arrays.tri_pos, perm)
 
     def viewports(self) -> List[Tuple[Camera, Transformable]]:

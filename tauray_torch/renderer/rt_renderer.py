@@ -14,7 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.cluster import build_cluster_tracer, tri_opacity
+from ..ops.cluster import (build_cluster_tracer, build_instanced_from_arrays,
+                           tri_opacity)
 from ..ops.lights import NEEWeights
 from ..scene.device import to_camera_uniforms, to_device_scene
 from ..stages.path_tracer import PTConfig, accumulate, pt_trace_pass
@@ -27,10 +28,6 @@ WAVE_CAP = 1 << 20
 
 
 def _check_supported(opt):
-    if opt.as_strategy in ("per-model", "per-material"):
-        raise NotImplementedError(
-            f"--as-strategy={opt.as_strategy}: the instanced cluster "
-            "tracer is not ported yet (ROADMAP Queue 1, instanced tracer)")
     if (opt.denoiser != "none" or opt.temporal_reprojection > 0 or
             opt.taa.sequence_length > 0):
         raise NotImplementedError(
@@ -55,17 +52,26 @@ class PathTracerRenderer(Renderer):
         opt = self.opt
         self.device_scene = to_device_scene(
             self.arrays, opt.transparent_background, self.device)
-        self.bvh, self._perm = build_cluster_tracer(
-            self.arrays.tri_pos, self.arrays.tri_instance,
-            tri_opaque=tri_opacity(self.arrays.tri_instance,
-                                   self.arrays.inst_has_alpha),
-            strategy=opt.as_strategy,
-            inst_dynamic=self.arrays.inst_dynamic,
-            inst_entity=self.arrays.inst_entity, device=self.device)
-        # slot-id mode: traces return raw slot ids and the path tracer
-        # reads SLOT-ordered triangle tables (_slot_scene)
-        self.bvh.slot_ids = True
-        self._perm_dev = torch.from_numpy(self._perm).long().to(self.device)
+        # --as-strategy per-model / per-material: the instanced (TLAS)
+        # tracer, where meshes are shared and nothing is skinned; every
+        # other case bakes world-space clusters
+        self.bvh = None
+        self._perm = None
+        if opt.as_strategy in ("per-model", "per-material"):
+            self.bvh = build_instanced_from_arrays(self.arrays, self.device)
+        if self.bvh is None:
+            self.bvh, self._perm = build_cluster_tracer(
+                self.arrays.tri_pos, self.arrays.tri_instance,
+                tri_opaque=tri_opacity(self.arrays.tri_instance,
+                                       self.arrays.inst_has_alpha),
+                strategy=opt.as_strategy,
+                inst_dynamic=self.arrays.inst_dynamic,
+                inst_entity=self.arrays.inst_entity, device=self.device)
+            # slot-id mode: traces return raw slot ids and the path tracer
+            # reads SLOT-ordered triangle tables (_slot_scene)
+            self.bvh.slot_ids = True
+            self._perm_dev = torch.from_numpy(self._perm).long().to(
+                self.device)
         self._prev_cam = None
         self.accum_color = None
         self.samples_accumulated = 0
@@ -168,7 +174,10 @@ class PathTracerRenderer(Renderer):
     def _slot_scene(self):
         """Device scene with triangle tables permuted into traversal SLOT
         order (one small gather per frame instead of a slot -> triangle
-        remap per wave)."""
+        remap per wave); the instanced tracer returns world-triangle ids
+        and reads the scene as it is."""
+        if self._perm is None:
+            return self.device_scene
         p = self._perm_dev
         return self.device_scene._replace(
             tri_packed=self.device_scene.tri_packed[p],

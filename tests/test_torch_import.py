@@ -1,5 +1,6 @@
 """Importing tauray_torch and every one of its modules never imports JAX,
-and no module of the package imports jax, pallas or triton."""
+and no module of the package imports jax, pallas or triton; every CUDA
+source of the package is one the kernel wrappers build."""
 
 import ast
 import os
@@ -27,6 +28,10 @@ def test_import_all_modules_without_jax():
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
+            "from tauray_torch.ops.cluster import (InstancedClusterTracer,"
+            " build_instanced_from_arrays, instanced_tracer_from_numpy)\n"
+            "from tauray_torch.ops.trace_kernel import (trace_tiles,"
+            " trace_tiles_inst, trace_tiles_vm3)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton',"
             " 'tauray_tpu'))\n"
@@ -53,3 +58,14 @@ def test_no_forbidden_imports():
                 assert root not in ("jax", "jaxlib", "triton",
                                     "tauray_tpu"), (name, m)
                 assert "pallas" not in m, (name, m)
+
+
+def test_every_cuda_source_is_built():
+    """Each csrc/*.cu is a library of trace_kernel.SOURCES (one nvcc
+    process each), and the build hash covers every source."""
+    from tauray_torch.ops import trace_kernel
+    srcs = sorted(str(p) for p in (PKG / "csrc").glob("*.cu*"))
+    assert srcs == sorted(trace_kernel.SOURCES.values())
+    assert set(trace_kernel.LAUNCHES) == {"trace_vm3", "trace_mt",
+                                          "trace_mt_inst"}
+    assert len(trace_kernel._digest()) == 16

@@ -94,3 +94,116 @@ def test_render_goes_through_kernel(cuda):
     a, b = imgs
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
     assert (rel.max(-1) <= 1e-3).mean() >= 0.99
+
+
+def _mt_waves(tracer, device, seed, R=1 << 14):
+    """(rays8, counts, keys, idmask) for an unsorted and a signature-sorted
+    wave of random rays, t_max finite for a fifth of them."""
+    from tauray_torch.ops.cluster import _phase1_entry, _sig_sort_perm
+    rng = np.random.default_rng(seed)
+    lo = tracer.cmin.amin(0).cpu().numpy()
+    hi = tracer.cmax.amax(0).cpu().numpy()
+    o = rng.uniform(lo, hi, (R, 3)).astype(np.float32)
+    d = rng.standard_normal((R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(rng.random(R) < 0.2, 3.0, np.inf).astype(np.float32)
+    rays8 = torch.from_numpy(np.concatenate(
+        [o, d, np.zeros((R, 1), np.float32), tmax[:, None]], 1)).to(device)
+    for sort in (False, True):
+        r8 = (rays8[_sig_sort_perm(tracer, rays8)] if sort
+              else rays8).contiguous()
+        counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax, r8)
+        yield sort, r8.reshape(-1, 32, 8), counts, keys, idmask
+
+
+def _instanced(device):
+    from tauray_torch.ops.cluster import build_instanced_tracer
+    rng = np.random.default_rng(3)
+    mesh = (rng.random((600, 1, 3)) - 0.5 +
+            rng.random((600, 3, 3)) * 0.2).astype(np.float32)
+    n = 40
+    models = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    models[:, :3, :3] *= rng.uniform(0.5, 1.5, (n, 1, 1))
+    models[:, :3, 3] = rng.uniform(-6, 6, (n, 3))
+    return build_instanced_tracer([mesh], np.zeros(n, np.int64), models,
+                                  np.arange(n) % 4 != 1,
+                                  np.arange(n, dtype=np.int64) * 600,
+                                  device=device)
+
+
+@pytest.mark.parametrize("kind", ["trace_mt", "trace_mt_inst"])
+def test_trace_mt_matches_plain_version(cuda, kind):
+    """K2 / K3 against their plain versions on sorted and unsorted waves,
+    closest hit and any hit: ids identical, t bit-identical."""
+    from tauray_torch.ops import trace_kernel as tk
+    if kind == "trace_mt":
+        tracer, _ = _soup_tracer(cuda)
+        tracer.opaque[::3] = 0
+        tables = (tracer.tris9, tracer.opaque)
+        kern, ref = tk.trace_tiles, tk.trace_tiles_reference
+    else:
+        tracer = _instanced(cuda)
+        tables = (tracer.tris9, tracer.opaque, tracer.k_cluster,
+                  tracer.k_inst, tracer.inv.reshape(-1, 12).contiguous())
+        kern, ref = tk.trace_tiles_inst, tk.trace_tiles_inst_reference
+    for sort, r3, counts, keys, idmask in _mt_waves(tracer, cuda, seed=2):
+        for any_hit in (False, True):
+            before = tk.LAUNCHES[kind]
+            t, tid = kern(counts, keys, r3, *tables, idmask, any_hit)
+            torch.cuda.synchronize()
+            assert tk.LAUNCHES[kind] == before + 1
+            tr, idr = ref(counts, keys, r3, *tables, idmask, any_hit)
+            assert torch.equal(tid, idr), (sort, any_hit)
+            assert torch.equal(t.view(torch.int32), tr.view(torch.int32))
+            assert (tid >= 0).any() and (tid < 0).any()
+
+
+def test_trace_mt_rejects_bad_inputs(cuda):
+    from tauray_torch.ops.trace_kernel import KB, trace_tiles
+    tracer, _ = _soup_tracer(cuda, T=300)
+    C = tracer.n_clusters
+    counts = torch.zeros(4, dtype=torch.int32, device=cuda)
+    keys = torch.full((4, C + KB), 0x7FFFFFFF, dtype=torch.int32,
+                      device=cuda)
+    rays = torch.zeros((4, 32, 8), device=cuda)
+    args = (tracer.tris9, tracer.opaque, 3)
+    for bad in ((counts.long(), keys, rays), (counts, keys[:, :C], rays),
+                (counts, keys, rays[:, :16]), (counts, keys.cpu(), rays)):
+        with pytest.raises(ValueError):
+            trace_tiles(*bad, *args)
+    with pytest.raises(ValueError):                      # idmask too small
+        trace_tiles(counts, keys, rays, tracer.tris9, tracer.opaque, 0)
+    with pytest.raises(ValueError):
+        trace_tiles(counts, keys, rays, tracer.tris9, tracer.opaque[:1], 3)
+    t, tid = trace_tiles(counts, keys, rays, *args)
+    assert (tid == -1).all() and torch.isinf(t).all()
+
+
+def test_per_model_render_goes_through_kernel(cuda):
+    """A per-model render on the card launches K3 and never K1, and
+    matches the same render on the CPU (plain version)."""
+    from tauray_torch.io.gltf import load_scene
+    from tauray_torch.ops.trace_kernel import LAUNCHES, reset_launch_counts
+    from tauray_torch.options import Options
+    from tauray_torch.renderer.rt_renderer import PathTracerRenderer
+    from tauray_torch.scene.scene import Scene
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        opt = Options()
+        opt.width = opt.height = 32
+        opt.samples_per_pixel = 2
+        opt.max_ray_depth = 3
+        opt.tonemap = "linear"
+        opt.as_strategy = "per-model"
+        s = Scene()
+        load_scene("proc://sponza?tris=8192", s)
+        rr = PathTracerRenderer(opt, dev)
+        rr.set_scene(s)
+        reset_launch_counts()
+        imgs.append(rr.render()[0])
+        if dev.type == "cuda":
+            assert LAUNCHES["trace_mt_inst"] > 0
+            assert LAUNCHES["trace_vm3"] == 0
+    a, b = imgs
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
+    assert (rel.max(-1) <= 1e-3).mean() >= 0.99

@@ -128,7 +128,7 @@ def test_main_requires_cuda():
 
 @pytest.mark.parametrize("args", [
     ["--renderer=raster"], ["--renderer=restir"], ["--renderer=albedo"],
-    ["--as-strategy=per-model"], ["--denoiser=svgf"],
+    ["--temporal-reprojection=0.5"], ["--denoiser=svgf"],
     ["--sampler=sobol-owen"], ["--fake-devices=2"]])
 def test_unported_features_raise(args):
     """Features outside the slice raise NotImplementedError, never a
