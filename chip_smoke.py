@@ -16,17 +16,30 @@ non-zero:
        3b. K2 (trace_mt): proc://sponza?tris=524288, flat (C > 2,197);
        3c. K3 (trace_mt_inst): proc://sponza?tris=262144, per-model,
            plus the bounce wave unsorted, as the instanced path traces it;
-     K2 and K3 run each wave as closest hit and as any hit (finite t_max);
+       3d. K4 (trace_vm2): proc://sponza?tris=262144&foliage=1, flat (it
+           has clusters that are not opaque), plus a signature-sorted
+           shadow wave toward a point light (finite t_max);
+       3e. K5 (trace_vm): the same waves with debug_steps, whose steps per
+           tile equal the plain version's;
+     K2-K5 run each wave as closest hit and as any hit (finite t_max);
   4. `python -m tauray_torch` main path: 1920x1080, 1 spp, depth 4,
      2 frames, headless EXR; checks the image and K1's launch count;
   5. the same scene at 256x256, 16 spp in one pass, depth 4;
   6. the main path with --as-strategy=per-model at 1920x1080: K3 launched,
      K1 never; the image is held to phase 4's;
-  7. the main path on proc://sponza?tris=524288 at 1920x1080: K2 launched.
+  7. the main path on proc://sponza?tris=524288 at 1920x1080: K2 launched;
+  8. the main path on the foliage scene at 1920x1080: (a) by default K1
+     launched and the alpha rounds skip transparent hits; (b) under
+     TAURAY_VM_KERNEL=v2 K4 launched and K1 never, the image held to (a)'s;
+  9. --sampler=sobol-owen on the foliage scene at 256x256, 4 spp;
+  10. `python -m tauray_torch.app.wave_stats` at its default size: K5
+     launched, one line per wave.
 The last lines are the card, the kernel table, and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -39,6 +52,9 @@ SCENE = "proc://sponza?tris=262144"
 # 502,528 triangles, >= 3,926 clusters: past the 2,197 clusters of the
 # id-only key path, so the flat tracer takes entry-t keys and K2
 SCENE_LARGE = "proc://sponza?tris=524288"
+# the Sponza-class scene with alpha-cutout leaf cards (2,128 clusters, 9 of
+# them not opaque): still on the Baldwin-Weber path (C <= 2,197)
+SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): FP32 outside
 # the tensor cores, and HBM3
 PEAK_FP32 = 67e12
@@ -88,10 +104,12 @@ def bound(flops: float, nbytes: float):
 
 
 def kernel_waves(device, scene=SCENE, size=512, seed=0,
-                 strategy="all-merged-static"):
+                 strategy="all-merged-static", shadow=False):
     """(tracer, {name: rays8 (R, 8)}): a camera wave in pixel-block order
     and a signature-sorted wave of random directions leaving the camera
-    wave's hits (for the instanced tracer also that wave unsorted)."""
+    wave's hits (for the instanced tracer also that wave unsorted; with
+    shadow, a signature-sorted wave from those hits to the first point
+    light, t_max short of it)."""
     import numpy as np
     import torch
     from tauray_torch.options import Options
@@ -128,6 +146,13 @@ def kernel_waves(device, scene=SCENE, size=512, seed=0,
              "bounce": bounce[_sig_sort_perm(rr.bvh, bounce)].contiguous()}
     if strategy != "all-merged-static":
         waves["bounce_unsorted"] = bounce
+    if shadow:
+        light = torch.from_numpy(rr.arrays.pl_pos[0]).to(device)
+        to_l = light[None] - p
+        dist = to_l.norm(dim=1, keepdim=True)
+        sh = torch.cat([p, to_l / dist, 1e-4 * ones[:, None], dist - 1e-4],
+                       1)
+        waves["shadow"] = sh[_sig_sort_perm(rr.bvh, sh)].contiguous()
     print(f"waves on {scene} ({strategy}): {type(rr.bvh).__name__}, "
           f"{rr.bvh.n_clusters} clusters", flush=True)
     return rr.bvh, waves
@@ -183,33 +208,46 @@ def kernel_check(tracer, waves, reps: int = 5):
     return out
 
 
-def kernel_check_mt(tracer, waves, inst: bool, reps: int = 5):
-    """K2 (flat) or K3 (instanced) vs its plain version on each wave, as
-    closest hit and as any hit with finite t_max (half to 1.5x each ray's
-    closest hit, 20 on a miss); returns per-(wave, mode) results."""
+def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
+    """K2 (flat), K3 (instanced), K4 (trace_vm2) or K5 (trace_vm with
+    debug_steps, its steps per tile held to the plain version's) against
+    the plain version on each wave, as closest hit and as any hit. The any
+    hit runs take finite t_max: half to 1.5x each ray's closest hit, 20 on
+    a miss, except the shadow wave, which keeps its own. Returns
+    per-(wave, mode) results."""
     import numpy as np
     import torch
     from tauray_torch.ops import trace_kernel as tk
     from tauray_torch.ops.cluster import _phase1_entry
-    if inst:
+    C = tracer.n_clusters
+    if kind == "K3":
         tables = (tracer.tris9, tracer.opaque, tracer.k_cluster,
                   tracer.k_inst, tracer.inv.reshape(-1, 12).contiguous())
         kern, ref = tk.trace_tiles_inst, tk.trace_tiles_inst_reference
-        tag, table_bytes = "3c K3", (tracer.tris9.numel() * 4 +
-                                     tracer.n_clusters * 12 +
-                                     tracer.inv.numel() * 4)
-    else:
+        tag, flops_test = "3c K3", FLOPS_MT
+        table_bytes = (tracer.tris9.numel() * 4 + C * 12 +
+                       tracer.inv.numel() * 4)
+    elif kind == "K2":
         tables = (tracer.tris9, tracer.opaque)
         kern, ref = tk.trace_tiles, tk.trace_tiles_reference
-        tag, table_bytes = "3b K2", (tracer.tris9.numel() * 4 +
-                                     tracer.n_clusters * 4)
+        tag, flops_test = "3b K2", FLOPS_MT
+        table_bytes = tracer.tris9.numel() * 4 + C * 4
+    else:
+        tables = (tracer.tris12, tracer.opaque)
+        kern = tk.trace_tiles_vm2 if kind == "K4" else tk.trace_tiles_vm
+
+        def ref(*a, stats):
+            return tk.trace_tiles_vm2_reference(*a, stats=stats)[:2]
+        tag = "3d K4" if kind == "K4" else "3e K5"
+        flops_test = FLOPS_BW
+        table_bytes = tracer.tris12.numel() * 4 + C * 4
     out = {}
     rng = np.random.default_rng(7)
     for name, rays8 in waves.items():
         closest_t = None
         for any_hit in (False, True):
             r8 = rays8
-            if any_hit:
+            if any_hit and name != "shadow":
                 scale = torch.from_numpy(rng.uniform(
                     0.5, 1.5, r8.shape[0]).astype(np.float32)).to(r8.device)
                 r8 = r8.clone()
@@ -219,18 +257,29 @@ def kernel_check_mt(tracer, waves, inst: bool, reps: int = 5):
                                                  r8)
             r3 = r8.reshape(-1, 32, 8)
             args = (counts, keys, r3, *tables, idmask, any_hit)
-            t_k, id_k = kern(*args)
+            if kind == "K5":
+                t_k, id_k, steps_k = kern(*args, debug_steps=True)
+            else:
+                t_k, id_k = kern(*args)
             stats = {}
             (t_r, id_r), plain_ms = timed(lambda: ref(*args, stats=stats))
             key = f"{name}/{'any' if any_hit else 'closest'}"
             same_id, same_t, err = _compare(key, t_k, id_k, t_r, id_r)
+            extra = {}
+            if kind == "K5":
+                if not torch.equal(steps_k, stats["tile_steps"]):
+                    raise RuntimeError(f"K5 steps per tile disagree with "
+                                       f"the plain version on {key}")
+                extra = dict(steps_identical=True,
+                             steps_mean=float(steps_k.float().mean()))
             if not any_hit:
                 closest_t = t_r
             ms = cuda_ms(lambda: kern(*args), reps)
             n_tiles, R = counts.shape[0], r8.shape[0]
             visits = stats["clusters"]
-            flops = visits * 32 * (128 * FLOPS_MT + (FLOPS_XFORM if inst
-                                                     else 0))
+            flops = visits * 32 * (128 * flops_test + (FLOPS_XFORM
+                                                       if kind == "K3"
+                                                       else 0))
             nbytes = (4 * (n_tiles + visits + stats["steps"]) + 32 * R +
                       table_bytes + 8 * R)
             bound_ms, bound_by = bound(flops, nbytes)
@@ -242,10 +291,34 @@ def kernel_check_mt(tracer, waves, inst: bool, reps: int = 5):
                     stats["steps_total"], 1),
                 ids_identical=same_id, t_bit_identical=same_t,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **extra)
             print(f"phase {tag} [{key}] " + json.dumps(out[key]),
                   flush=True)
     return out
+
+
+@contextlib.contextmanager
+def alpha_rays():
+    """Counts the rounds of the path tracer's alpha re-trace program and
+    the rays they skip past a transparent hit (summed on the card, read
+    once at the end): yields a dict filled on exit."""
+    import torch
+    from tauray_torch.stages import path_tracer as pt
+    impl = pt._alpha_skip_impl
+    acc = []
+    counts = {}
+
+    def counting(*a, **k):
+        out = impl(*a, **k)
+        acc.append(out[0].sum())
+        return out
+    pt._alpha_skip_impl = counting
+    try:
+        yield counts
+    finally:
+        pt._alpha_skip_impl = impl
+        counts.update(rounds=len(acc),
+                      skipped=int(torch.stack(acc).sum()) if acc else 0)
 
 
 def run_main(args, tmp, tag, scene=SCENE):
@@ -325,10 +398,17 @@ def main() -> int:
     if tracer.n_clusters <= 2197:
         raise RuntimeError(f"{SCENE_LARGE} has {tracer.n_clusters} clusters"
                            ", not past the id-only key path")
-    k2 = kernel_check_mt(tracer, waves, inst=False)
+    k2 = kernel_check_mt(tracer, waves, "K2")
     del tracer, waves
     tracer, waves = kernel_waves(dev, strategy="per-model")
-    k3 = kernel_check_mt(tracer, waves, inst=True)
+    k3 = kernel_check_mt(tracer, waves, "K3")
+    del tracer, waves
+    tracer, waves = kernel_waves(dev, SCENE_FOLIAGE, shadow=True)
+    if tracer.n_clusters > 2197 or bool(tracer.opaque.all()):
+        raise RuntimeError(f"{SCENE_FOLIAGE}: {tracer.n_clusters} clusters, "
+                           f"{int((tracer.opaque == 0).sum())} not opaque")
+    k4 = kernel_check_mt(tracer, waves, "K4")
+    k5 = kernel_check_mt(tracer, waves, "K5")
     del tracer, waves
     torch.cuda.empty_cache()
 
@@ -392,6 +472,70 @@ def main() -> int:
             mrays_s=LANES_1080P / (ms7[-1] * 1e3), launches=launches7,
             peak_mem_gb=peak7, image_mean=mean7)), flush=True)
 
+        # the foliage scene: K1 by default, K4 under TAURAY_VM_KERNEL=v2
+        fol = {}
+        for tag, vm in (("8a", ""), ("8b", "v2")):
+            os.environ["TAURAY_VM_KERNEL"] = vm
+            try:
+                with alpha_rays() as alpha:
+                    ms8, img8, launches8, peak8 = main_path(
+                        tmp, f"fol{vm}", HD, SCENE_FOLIAGE)
+            finally:
+                del os.environ["TAURAY_VM_KERNEL"]
+            mean8 = check_image(img8, 1920, 1080, f"foliage 1080p {tag}")
+            fol[tag] = (np.asarray(img8)[..., :3], mean8, launches8)
+            res = dict(size="1920x1080", spp=1, depth=4, scene=SCENE_FOLIAGE,
+                       vm_kernel=vm or "default", frame_ms=ms8,
+                       frame2_ms=ms8[-1],
+                       mrays_s=LANES_1080P / (ms8[-1] * 1e3),
+                       launches=launches8, peak_mem_gb=peak8,
+                       image_mean=mean8, alpha_rounds=alpha["rounds"],
+                       alpha_rays_skipped=alpha["skipped"])
+            if tag == "8b":
+                ref_img, ref_mean, _ = fol["8a"]
+                rel = np.abs(img8[..., :3] - ref_img) / np.maximum(
+                    np.abs(ref_img), 1e-6)
+                res.update(pixels_within_1e3_of_8a=float(
+                    (rel.max(-1) <= 1e-3).mean()),
+                    mean_rel_to_8a=abs(mean8 / ref_mean - 1))
+            print(f"phase {tag} " + json.dumps(res), flush=True)
+            if alpha["skipped"] <= 0:
+                raise RuntimeError(f"phase {tag}: no alpha ray serviced")
+        if fol["8a"][2]["trace_vm3"] <= 0 or fol["8a"][2]["trace_vm2"] != 0:
+            raise RuntimeError(f"foliage default launched {fol['8a'][2]}")
+        l_k4 = fol["8b"][2]["trace_vm2"]
+        if l_k4 <= 0 or fol["8b"][2]["trace_vm3"] != 0:
+            raise RuntimeError(f"foliage v2 launched {fol['8b'][2]}")
+        if res["mean_rel_to_8a"] > 1e-2 or \
+                res["pixels_within_1e3_of_8a"] < 0.9:
+            raise RuntimeError("the v2 foliage image departs from 8a's")
+
+        ms9, img9, launches9, peak9 = main_path(tmp, "sob", [
+            "--renderer=path-tracer", "--width=256", "--height=256",
+            "--samples-per-pixel=4", "--samples-per-pass=4",
+            "--max-ray-depth=4", "--tonemap=linear", "--frames=2",
+            "--sampler=sobol-owen"], SCENE_FOLIAGE)
+        mean9 = check_image(img9, 256, 256, "sobol-owen 256^2")
+        print("phase 9 " + json.dumps(dict(
+            size="256x256", spp=4, depth=4, sampler="sobol-owen",
+            scene=SCENE_FOLIAGE, frame_ms=ms9, launches=launches9,
+            peak_mem_gb=peak9, image_mean=mean9)), flush=True)
+
+    # the wave-statistics tool, the only entry to K5
+    from tauray_torch.app import wave_stats
+    trace_kernel.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        wave_stats.main()
+    l_k5 = trace_kernel.LAUNCHES["trace_vm"]
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"phase 10 {ln}", flush=True)
+    n_waves = sum(bool(re.match(r"\d+:", ln)) for ln in lines)
+    if l_k5 <= 0 or n_waves != 7:
+        raise RuntimeError(f"wave_stats launched K5 {l_k5} times over "
+                           f"{n_waves} waves")
+
     def row(name, src, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches,
@@ -408,7 +552,13 @@ def main() -> int:
             k2["bounce/closest"]),
         row("trace_mt_inst", "tauray_torch/csrc/trace_mt.cu",
             "tauray_tpu/ops/pallas_trace.py:297", l_k3,
-            k3["bounce/closest"])]}
+            k3["bounce/closest"]),
+        row("trace_vm2", "tauray_torch/csrc/trace_mt.cu",
+            "tauray_tpu/ops/pallas_trace.py:745", l_k4,
+            k4["bounce/closest"]),
+        row("trace_vm", "tauray_torch/csrc/trace_mt.cu",
+            "tauray_tpu/ops/pallas_trace.py:565", l_k5,
+            k5["bounce/closest"])]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

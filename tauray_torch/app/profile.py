@@ -7,7 +7,8 @@
 Renders one warm-up frame, then profiles the next with torch.profiler and
 prints one JSON line: frame wall ms, device busy ms and idle share, the
 span on the device timeline of each range (sig_sort, phase1, traverse,
-shade; a span includes gaps between its kernels), device ms of the top
+alpha (the re-trace rounds' compaction and alpha tests), shade; a span
+includes gaps between its kernels), device ms of the top
 kernels by name, and the peak device memory.
 """
 
@@ -23,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..options import parse_command_line_options
 from .main import create_renderer, load_scenes
 
-RANGES = ("sig_sort", "phase1", "traverse", "shade")
+RANGES = ("sig_sort", "phase1", "traverse", "alpha", "shade")
 
 
 def _self_device_ms(evt) -> float:

@@ -11,7 +11,9 @@ ClusterTracer (flat) and InstancedClusterTracer (the TLAS path of
   * phase 2 is a traversal kernel (ops/trace_kernel.py), chosen as the
     JAX package chooses its Pallas kernel: flat scenes of at most
     VM_FITS_CLUSTERS clusters take id-only keys and trace_tiles_vm3
-    (_kernel_vm3), larger ones entry-t keys and the front-to-back
+    (_kernel_vm3), or, when TAURAY_VM_KERNEL is set to anything but v3,
+    entry-t keys and the front-to-back trace_tiles_vm2 (_kernel_vm2) over
+    the same Baldwin-Weber rows; larger flat scenes take entry-t keys and
     trace_tiles (_kernel); the instanced tracer takes entry-t keys and
     trace_tiles_inst (_kernel_inst);
   * flat bounce and shadow waves are first sorted by their active-set
@@ -25,6 +27,7 @@ sized to PHASE1_BUDGET_BYTES of temporaries.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
@@ -36,17 +39,18 @@ from .bvh import morton_3d
 from .intersect import Hit
 from .sampling import cross
 from .trace_kernel import (KB, TILE as PT, trace_tiles, trace_tiles_inst,
-                           trace_tiles_vm3)
+                           trace_tiles_vm2, trace_tiles_vm3)
 
 CLUSTER = 128       # triangles per cluster (tauray_tpu.ops.cluster.CLUSTER)
 TILE = 128          # rays per slab-test block; PT-ray kernel tiles divide it
 KEY_SENTINEL = 0x7FFFFFFF
 BIG = 3e38
-# Largest flat scene traced with id-only keys and trace_tiles_vm3. The JAX
-# package keeps that path for tables that fit its TPU kernel's 13.5 MB
-# VMEM budget (pallas_trace.vm_fits: C * 12 * 128 * 4 B <= 13.5e6, so
-# C <= 2,197) and traces larger scenes front to back with _kernel; the
-# port draws the same line so that both packages compute the same thing.
+# Largest flat scene traced over the Baldwin-Weber rows (trace_tiles_vm3,
+# or trace_tiles_vm2 under TAURAY_VM_KERNEL). The JAX package keeps that
+# path for tables that fit its TPU kernels' 13.5 MB VMEM budget
+# (pallas_trace.vm_fits: C * 12 * 128 * 4 B <= 13.5e6, so C <= 2,197) and
+# traces larger scenes front to back with _kernel; the port draws the same
+# line so that both packages compute the same thing.
 VM_FITS_CLUSTERS = 2197
 
 # Budget for the (blocks, clusters, TILE) float temporaries of phase 1 and
@@ -75,7 +79,7 @@ class ClusterTracer:
     # segregates them), so "might be transparent" is slot >= alpha_base
     alpha_base: Optional[int] = None
     # (C, 12, 1, CLUSTER) Baldwin-Weber rows [n | n.v0 | r1 | r1.v0 |
-    # r2 | r2.v0], trace_tiles_vm3's triangle table
+    # r2 | r2.v0], the triangle table of trace_tiles_vm3 / _vm2
     tris12: Optional[torch.Tensor] = None
     # slot_ids=True: trace() returns raw slot ids (no to_orig remap), for
     # callers whose scene tables are permuted into slot order
@@ -132,9 +136,10 @@ class ClusterTracer:
                       ) -> Tuple[Hit, torch.Tensor]:
         """Closest hit per ray, plus (R,) bool marking hits on
         alpha-capable triangles (slot id >= alpha_base). On the id-only
-        key path (C <= VM_FITS_CLUSTERS) the kernel has no early exit, so
-        any_hit traces are closest-hit traces; larger scenes stop an
-        any_hit ray at its first hit in an all-opaque cluster.
+        key path (C <= VM_FITS_CLUSTERS, the default) the kernel has no
+        early exit, so any_hit traces are closest-hit traces; the
+        front-to-back kernels (larger scenes, or TAURAY_VM_KERNEL=v2)
+        stop an any_hit ray at its first hit in an all-opaque cluster.
 
         sort_rays: reorder the wave by its active-set signature before
         tiling (bounce and shadow waves); camera waves keep pixel-block
@@ -550,13 +555,18 @@ def _trace_padded(tracer: ClusterTracer, rays8, any_hit: bool,
                   need_uv: bool) -> Hit:
     """Phase 1, the traversal kernel, and the optional barycentric
     post-pass. rays8: (R, 8) [o|d|t_min|t_max], R a multiple of TILE.
-    Scenes of at most VM_FITS_CLUSTERS clusters take id-only keys and
-    trace_tiles_vm3, larger ones entry-t keys and trace_tiles, as
-    tauray_tpu's _trace_padded_pallas dispatches (cluster.py:1026-1052)."""
+    The kernel is chosen as tauray_tpu's _trace_padded_pallas chooses it
+    (cluster.py:963-1052), reading TAURAY_VM_KERNEL at every trace:
+      * C <= VM_FITS_CLUSTERS and the variable empty or v3: id-only keys
+        and trace_tiles_vm3 (K1);
+      * C <= VM_FITS_CLUSTERS and any other value: entry-t keys and
+        trace_tiles_vm2 (K4) over tris12, with the opacity exit;
+      * larger scenes: entry-t keys and trace_tiles (K2) over tris9."""
     R = rays8.shape[0]
     rays8 = rays8.contiguous()
     tiles = rays8.reshape(R // PT, PT, 8)
-    if tracer.n_clusters <= VM_FITS_CLUSTERS:
+    fits = tracer.n_clusters <= VM_FITS_CLUSTERS
+    if fits and (os.environ.get("TAURAY_VM_KERNEL") or "v3") == "v3":
         with record_function("phase1"):
             counts, keys = _phase1(tracer, rays8)
         with record_function("traverse"):
@@ -566,8 +576,12 @@ def _trace_padded(tracer: ClusterTracer, rays8, any_hit: bool,
             counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax,
                                                  rays8)
         with record_function("traverse"):
-            t, tid = trace_tiles(counts, keys, tiles, tracer.tris9,
-                                 tracer.opaque, idmask, any_hit)
+            if fits:
+                t, tid = trace_tiles_vm2(counts, keys, tiles, tracer.tris12,
+                                         tracer.opaque, idmask, any_hit)
+            else:
+                t, tid = trace_tiles(counts, keys, tiles, tracer.tris9,
+                                     tracer.opaque, idmask, any_hit)
     if not need_uv:
         z = torch.zeros_like(t)
         return Hit(t, tid, z, z)

@@ -9,7 +9,14 @@
     mode an exit on opaque hits (csrc/trace_mt.cu);
   * trace_tiles_inst is the counterpart of pallas_trace_tiles_inst
     (_kernel_inst): trace_tiles over cluster-instances, each key's rays
-    moved into its instance's object space (csrc/trace_mt.cu).
+    moved into its instance's object space (csrc/trace_mt.cu);
+  * trace_tiles_vm2 and trace_tiles_vm are the counterparts of
+    pallas_trace_tiles_vm2 (_kernel_vm2) and pallas_trace_tiles_vm
+    (_kernel_vm), which compute one function: trace_tiles' walk and exit
+    over the Baldwin-Weber rows of trace_tiles_vm3. Both launch the same
+    kernel (csrc/trace_mt.cu with the tris12 format); trace_tiles_vm can
+    also return the steps each tile walked (the TPU kernel's
+    debug_steps).
 
 For CUDA tensors each wrapper launches its hand-written kernel; for CPU
 tensors it runs the plain torch version beside it (the *_reference
@@ -52,7 +59,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _libs: Dict[str, ctypes.CDLL] = {}
 # wrapper launches of each kernel, counted where the kernel is launched
 LAUNCHES: Dict[str, int] = {"trace_vm3": 0, "trace_mt": 0,
-                            "trace_mt_inst": 0}
+                            "trace_mt_inst": 0, "trace_vm2": 0,
+                            "trace_vm": 0}
 # what the build did, per library: seconds, library path, compiler output
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
 
@@ -60,7 +68,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "trace_vm3_launch": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "trace_mt_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _P, _P, _P],
+                        _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -216,23 +224,10 @@ def trace_tiles_vm3_reference(counts, keys, rays8, tris12):
         sel = torch.nonzero(counts_l > j).squeeze(1)
         c = keys[sel, j].long().clamp(0, C - 1)
         tri = rows[c][:, None]                           # (n, 1, 12, 128)
-
-        def rc(x, k):                                    # (n, 32, 1)
-            return x[sel, :, k, None]
-        ox, oy, oz = rc(o, 0), rc(o, 1), rc(o, 2)
-        dx, dy, dz = rc(d, 0), rc(d, 1), rc(d, 2)
-        nx, ny, nz, ndot = (tri[:, :, i] for i in range(4))
-        r1x, r1y, r1z, r1d = (tri[:, :, i] for i in range(4, 8))
-        r2x, r2y, r2z, r2d = (tri[:, :, i] for i in range(8, 12))
-        den = nx * dx + ny * dy + nz * dz
-        num = ndot - (nx * ox + ny * oy + nz * oz)
-        f = torch.where(den != 0, 1.0 / torch.where(den == 0, 1.0, den), 0.0)
-        tt = num * f
-        px = ox + tt * dx
-        py = oy + tt * dy
-        pz = oz + tt * dz
-        uu = r1x * px + r1y * py + r1z * pz - r1d
-        vv = r2x * px + r2y * py + r2z * pz - r2d
+        # rays (n, 32, 1) against rows (n, 1, 128)
+        den, tt, uu, vv = _bw_test(
+            [tri[:, :, i] for i in range(12)],
+            *(x[sel, :, k, None] for x in (o, d) for k in range(3)))
         bt_s = bt[sel]
         hit = (den != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
             (tt >= tmin[sel, :, None]) & (tt < bt_s[..., None])
@@ -267,7 +262,7 @@ def trace_tiles(counts: torch.Tensor, keys: torch.Tensor,
         return trace_tiles_reference(counts, keys, rays8, tris9, opaque,
                                      idmask, any_hit)
     return _launch_mt(counts, keys, rays8, tris9, opaque, None, idmask,
-                      any_hit)
+                      any_hit)[:2]
 
 
 def trace_tiles_inst(counts: torch.Tensor, keys: torch.Tensor,
@@ -285,19 +280,62 @@ def trace_tiles_inst(counts: torch.Tensor, keys: torch.Tensor,
                                           opaque, k_cluster, k_inst, inv12,
                                           idmask, any_hit)
     return _launch_mt(counts, keys, rays8, tris9, opaque,
-                      (k_cluster, k_inst, inv12), idmask, any_hit)
+                      (k_cluster, k_inst, inv12), idmask, any_hit,
+                      "trace_mt_inst")[:2]
 
 
-def _launch_mt(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit):
+def trace_tiles_vm2(counts: torch.Tensor, keys: torch.Tensor,
+                    rays8: torch.Tensor, tris12: torch.Tensor,
+                    opaque: torch.Tensor, idmask: int,
+                    any_hit: bool = False):
+    """trace_tiles over the Baldwin-Weber rows tris12 (C, 12, 1, 128) f32
+    (the counterpart of pallas_trace_tiles_vm2, the flat tracer's kernel
+    under TAURAY_VM_KERNEL=v2): the same keys, opacity exit and outputs,
+    the hit test of trace_tiles_vm3. Returns t (R,) f32 and the slot id
+    (R,) i32."""
+    if not _on_card(rays8):
+        return trace_tiles_vm2_reference(counts, keys, rays8, tris12,
+                                         opaque, idmask, any_hit)[:2]
+    return _launch_mt(counts, keys, rays8, tris12, opaque, None, idmask,
+                      any_hit, "trace_vm2")[:2]
+
+
+def trace_tiles_vm(counts: torch.Tensor, keys: torch.Tensor,
+                   rays8: torch.Tensor, tris12: torch.Tensor,
+                   opaque: torch.Tensor, idmask: int, any_hit: bool = False,
+                   debug_steps: bool = False):
+    """trace_tiles_vm2 under its other TPU entry (pallas_trace_tiles_vm,
+    which the wave-statistics tool calls). With debug_steps it also
+    returns the steps each tile walked, (n_tiles,) i32: the trip count of
+    the TPU kernel's loop, the step that ended it included, 0 for a tile
+    with no active cluster. (The TPU kernel writes those steps in place of
+    t and the id; here they go to their own array.)"""
+    if not _on_card(rays8):
+        t, tid, steps = trace_tiles_vm2_reference(counts, keys, rays8,
+                                                  tris12, opaque, idmask,
+                                                  any_hit)
+    else:
+        t, tid, steps = _launch_mt(counts, keys, rays8, tris12, opaque,
+                                   None, idmask, any_hit, "trace_vm",
+                                   debug_steps)
+    return (t, tid, steps) if debug_steps else (t, tid)
+
+
+def _launch_mt(counts, keys, rays8, tris, opaque, inst, idmask, any_hit,
+               kernel="trace_mt", debug_steps=False):
+    """Launch csrc/trace_mt.cu: tris is tris9 (K2, K3) or, for kernel
+    trace_vm2 / trace_vm, tris12 (K4, K5). Returns (t, tid, steps or
+    None)."""
     dev = rays8.device
-    kernel = "trace_mt" if inst is None else "trace_mt_inst"
+    bw = kernel in ("trace_vm2", "trace_vm")
+    rows, table = (12, "tris12") if bw else (9, "tris9")
     _check_tiles(counts, keys, rays8, dev, kernel)
-    _check(tris9, "tris9", torch.float32, 4, dev)
+    _check(tris, table, torch.float32, 4, dev)
     _check(opaque, "opaque", torch.int32, 1, dev)
-    C = tris9.shape[0]
+    C = tris.shape[0]
     n_keys = C
-    if tuple(tris9.shape) != (C, 9, 1, CLUSTER) or C < 1:
-        raise ValueError(f"{kernel}: bad tris9 shape {tuple(tris9.shape)}")
+    if tuple(tris.shape) != (C, rows, 1, CLUSTER) or C < 1:
+        raise ValueError(f"{kernel}: bad {table} shape {tuple(tris.shape)}")
     ptrs = (0, 0, 0)
     if inst is not None:
         k_cluster, k_inst, inv12 = inst
@@ -324,15 +362,18 @@ def _launch_mt(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit):
     n_tiles = counts.shape[0]
     t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
     tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
+    steps = (torch.empty(n_tiles, dtype=torch.int32, device=dev)
+             if debug_steps else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.trace_mt_launch(
         counts.data_ptr(), keys.data_ptr(), keys.shape[1], rays8.data_ptr(),
-        tris9.data_ptr(), opaque.data_ptr(), *ptrs, n_tiles, n_keys, idmask,
-        int(any_hit), t.data_ptr(), tid.data_ptr(), stream)
+        tris.data_ptr(), opaque.data_ptr(), *ptrs, n_tiles, n_keys, idmask,
+        int(any_hit), int(bw), t.data_ptr(), tid.data_ptr(),
+        0 if steps is None else steps.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
-    return t, tid
+    return t, tid, steps
 
 
 def trace_tiles_reference(counts, keys, rays8, tris9, opaque, idmask,
@@ -351,29 +392,45 @@ def trace_tiles_inst_reference(counts, keys, rays8, tris9, opaque,
                          (k_cluster, k_inst, inv12), idmask, any_hit, stats)
 
 
+def trace_tiles_vm2_reference(counts, keys, rays8, tris12, opaque, idmask,
+                              any_hit=False, stats=None):
+    """Plain torch version of trace_tiles_vm2 / trace_tiles_vm: returns t,
+    the slot id and the steps each tile walked (n_tiles,) i32; `stats`
+    receives the totals, as in trace_tiles_reference."""
+    stats = {} if stats is None else stats
+    t, tid = _mt_reference(counts, keys, rays8, tris12, opaque, None,
+                           idmask, any_hit, stats)
+    return t, tid, stats["tile_steps"]
+
+
 # tiles per batched block of the plain version: (tiles, 32, KB*128) f32
 # temporaries of 32 MB each
 _REF_TILES = 256
 
 
-def _mt_reference(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit,
+def _mt_reference(counts, keys, rays8, tris, opaque, inst, idmask, any_hit,
                   stats):
-    """The contract of _kernel / _kernel_inst (tauray_tpu pallas_trace.py
-    :64-240, :297-484) as batched torch ops. Every tile that is still
-    walking takes step s: the KB clusters of key slots s*KB.. are tested
-    as one (tiles, 32, KB*128) Möller-Trumbore block in the order of
-    pallas_trace.py:170-189, slots past the tile's count masked; a hit
-    needs t < the best from before the step, and the step's minimum goes
-    to its first lane in key order. Then the whole tile stops when every
-    ray's best t bits are <= the next step's key & ~idmask (or, under
+    """The contract of _kernel / _kernel_inst / _kernel_vm2 / _kernel_vm
+    (tauray_tpu pallas_trace.py :64-240, :297-484, :745-897, :565-728) as
+    batched torch ops. Every tile that is still walking takes step s: the
+    KB clusters of key slots s*KB.. are tested as one (tiles, 32, KB*128)
+    block, slots past the tile's count masked: Möller-Trumbore in the
+    order of pallas_trace.py:170-189 for tris9 (C, 9, 1, 128), or
+    Baldwin-Weber in the order of :841-855 for tris12 (C, 12, 1, 128). A
+    hit needs t < the best from before the step, and the step's minimum
+    goes to its first lane in key order. Then the whole tile stops when
+    every ray's best t bits are <= the next step's key & ~idmask (or, under
     any_hit, its best hit lies in an opaque cluster).
 
     stats: steps (walked), steps_total (ceil(count / KB) summed), clusters
-    (real slots tested) and tiles."""
+    (real slots tested), tiles, and tile_steps (n_tiles,) i32, the steps
+    each tile walked (the step that stopped it included)."""
     dev = rays8.device
     n_tiles = counts.shape[0]
     W = keys.shape[1]
-    comps = tris9.reshape(tris9.shape[0], 9, CLUSTER)
+    n_rows = tris.shape[1]
+    bw = n_rows == 12
+    comps = tris.reshape(tris.shape[0], n_rows, CLUSTER)
     n_keys = comps.shape[0] if inst is None else inst[0].shape[0]
     if inst is not None:
         k_cluster = inst[0].long()
@@ -385,6 +442,7 @@ def _mt_reference(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit,
     counts_l = counts.long()
     steps = (counts_l + KB - 1) // KB
     walking = steps > 0
+    tile_steps = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     lane_slot = torch.arange(KB * CLUSTER, device=dev) // CLUSTER
     walked = clusters = 0
     step = 0
@@ -393,6 +451,7 @@ def _mt_reference(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit,
         if active.numel() == 0:
             break
         walked += active.numel()
+        tile_steps[active] += 1
         clusters += int((counts_l[active] - step * KB).clamp(max=KB).sum())
         slots = step * KB + torch.arange(KB, device=dev)
         nxt = min((step + 1) * KB, W - 1)
@@ -400,9 +459,9 @@ def _mt_reference(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit,
             kk = keys[sel][:, slots.clamp(max=W - 1)]           # (n, KB)
             order = torch.clamp(kk & idmask, max=n_keys - 1).long()
             cl = order if inst is None else k_cluster[order]
-            tri = comps[cl].permute(0, 2, 1, 3).reshape(-1, 9, KB * CLUSTER)
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-                tri[:, None, i] for i in range(9))               # (n, 1, L)
+            tri = comps[cl].permute(0, 2, 1, 3).reshape(-1, n_rows,
+                                                        KB * CLUSTER)
+            rows_l = [tri[:, None, i] for i in range(n_rows)]    # (n, 1, L)
             r = rays8[sel]                                       # (n, 32, 8)
             if inst is None:
                 ox, oy, oz, dx, dy, dz = (r[..., i, None] for i in range(6))
@@ -423,21 +482,10 @@ def _mt_reference(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit,
                      ).repeat_interleave(CLUSTER, dim=2) for a in rows)
             tmin = r[..., 6, None]
             bt_s = bt[sel]
-            # Möller-Trumbore, h = cross(d, e2)
-            hx = dy * e2z - dz * e2y
-            hy = dz * e2x - dx * e2z
-            hz = dx * e2y - dy * e2x
-            a = e1x * hx + e1y * hy + e1z * hz
-            f = torch.where(a != 0, 1.0 / torch.where(a == 0, 1.0, a), 0.0)
-            sx = ox - v0x
-            sy = oy - v0y
-            sz = oz - v0z
-            uu = f * (sx * hx + sy * hy + sz * hz)
-            qx = sy * e1z - sz * e1y
-            qy = sz * e1x - sx * e1z
-            qz = sx * e1y - sy * e1x
-            vv = f * (dx * qx + dy * qy + dz * qz)
-            tt = f * (e2x * qx + e2y * qy + e2z * qz)
+            if bw:
+                a, tt, uu, vv = _bw_test(rows_l, ox, oy, oz, dx, dy, dz)
+            else:
+                a, tt, uu, vv = _mt_test(rows_l, ox, oy, oz, dx, dy, dz)
             slot_ok = (step * KB + lane_slot) < counts_l[sel][:, None, None]
             hit = (a != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
                 (tt >= tmin) & (tt < bt_s[..., None]) & slot_ok
@@ -460,7 +508,45 @@ def _mt_reference(counts, keys, rays8, tris9, opaque, inst, idmask, any_hit,
         step += 1
     if stats is not None:
         stats.update(steps=walked, steps_total=int(steps.sum()),
-                     clusters=clusters, tiles=n_tiles)
+                     clusters=clusters, tiles=n_tiles, tile_steps=tile_steps)
     tid = bi.reshape(-1)
     t = torch.where(tid < 0, float("inf"), bt.reshape(-1))
     return t, tid
+
+
+def _mt_test(rows, ox, oy, oz, dx, dy, dz):
+    """Möller-Trumbore over [v0 | e1 | e2] component rows, h = cross(d,
+    e2). Returns (the determinant a, t, u, v)."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    f = torch.where(a != 0, 1.0 / torch.where(a == 0, 1.0, a), 0.0)
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    uu = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    vv = f * (dx * qx + dy * qy + dz * qz)
+    tt = f * (e2x * qx + e2y * qy + e2z * qz)
+    return a, tt, uu, vv
+
+
+def _bw_test(rows, ox, oy, oz, dx, dy, dz):
+    """Baldwin-Weber over [n | n.v0 | r1 | r1.v0 | r2 | r2.v0] rows, in the
+    order of trace_tiles_vm3_reference. Returns (the denominator n.d, t,
+    u, v)."""
+    nx, ny, nz, ndot, r1x, r1y, r1z, r1d, r2x, r2y, r2z, r2d = rows
+    den = nx * dx + ny * dy + nz * dz
+    num = ndot - (nx * ox + ny * oy + nz * oz)
+    f = torch.where(den != 0, 1.0 / torch.where(den == 0, 1.0, den), 0.0)
+    tt = num * f
+    px = ox + tt * dx
+    py = oy + tt * dy
+    pz = oz + tt * dz
+    uu = r1x * px + r1y * py + r1z * pz - r1d
+    vv = r2x * px + r2y * py + r2z * pz - r2d
+    return den, tt, uu, vv

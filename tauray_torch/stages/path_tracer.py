@@ -5,25 +5,26 @@ Per bounce: one closest-hit wave over all rays, vectorized NEE and an
 any-hit shadow wave, then vectorized shading and GGX sampling
 (reference: shader/path_tracer.glsl evaluate_ray). Sample streams are the
 deterministic pcg4d streams keyed on (pixel, viewport + seed, sample
-index), bit-identical to the JAX package's.
-
-Not in this package yet: alpha-tested materials (stochastic alpha
-re-trace rounds) and the Sobol samplers; both raise NotImplementedError.
+index), or the Sobol samplers' points (--sampler=sobol-*), bit-identical
+to the JAX package's. Scenes with alpha-tested materials trace each wave
+with stochastic-alpha re-trace rounds (_trace_alpha_program), their
+cutoffs drawn from a second pcg4d stream.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..ops import rng as rng_ops
+from ..ops import sobol
 from ..ops.ggx import (BSDFLobes, add_demodulated_color, material_bsdf_pdf,
                        material_bsdf_sample, modulate_bsdf, modulate_color)
-from ..ops.intersect import RAY_MAX_DIST, intersect_spheres
+from ..ops.intersect import RAY_MAX_DIST, Hit, intersect_spheres
 from ..ops.lights import (NEEWeights, directional_light_radiance,
                           environment_radiance, point_light_radiance,
                           sample_directional_light, sample_environment_map,
@@ -37,9 +38,14 @@ from ..ops.sampling import (create_tangent_space, dot, from_tangent_space,
 from ..ops.shading import (get_camera_projection, get_screen_camera_ray,
                            interpolate_vertex, rgb_to_luminance,
                            sample_material, sample_texture_quad)
-from ..scene.device import (IP_LIGHTBASE, TL_EMISSION, TL_POS, TL_TEX,
-                            TL_TEXBLOCK, TL_TEXSIZE, TL_UV, TP_IP, TP_POS,
-                            CameraUniforms, DeviceScene)
+from ..ops.trace_utils import per_ray, row_alpha
+from ..scene.device import (IP_HASALPHA, IP_LIGHTBASE, TL_EMISSION, TL_POS,
+                            TL_TEX, TL_TEXBLOCK, TL_TEXSIZE, TL_UV, TP_IP,
+                            TP_POS, CameraUniforms, DeviceScene)
+
+# Wave capture for the wave-statistics tool (app/wave_stats.py): set to a
+# list to collect each trace wave's (kind, o, d, t_min, t_max).
+_WAVE_DUMP: Optional[list] = None
 
 
 @dataclass(frozen=True)
@@ -69,21 +75,11 @@ class PTConfig:
     direct_only: bool = False          # `direct` renderer: 2-bounce NEE-only
     rng_seed: int = 0
     has_alpha_materials: bool = False
-    sampler: str = "uniform-random"
+    sampler: str = "uniform-random"    # | sobol-owen | sobol-z2 | sobol-z3
     # texture slots (albedo, metallic-roughness, normal, emission) bound by
     # ANY material; unbound slots skip their texture gathers
     tex_slots: Tuple[bool, bool, bool, bool] = (True, True, True, True)
     tl_textured: bool = True           # any emissive tri with a texture
-
-    def __post_init__(self):
-        if self.sampler != "uniform-random":
-            raise NotImplementedError(
-                f"sampler {self.sampler!r}: the Sobol samplers are not "
-                "ported yet (ROADMAP Queue 1, Sobol)")
-        if self.has_alpha_materials:
-            raise NotImplementedError(
-                "alpha-tested materials: the alpha re-trace rounds are not "
-                "ported yet (ROADMAP Queue 1, alpha rounds)")
 
 
 class PTOutput(NamedTuple):
@@ -99,10 +95,19 @@ class PTOutput(NamedTuple):
     first_emission: torch.Tensor     # (R, 3)
 
 
-def draw_ray_sample(cfg: PTConfig, seed):
-    """Per-bounce 4D sample: advances the pcg4d stream (reference:
-    shader/sampling.glsl generate_ray_sample_uint, uniform-random)."""
-    return rng_ops.generate_uniform_random_uint(seed)
+def draw_ray_sample(cfg: PTConfig, seed, coord=None, slot: int = -1):
+    """Per-bounce 4D sample (reference: shader/sampling.glsl
+    generate_ray_sample_uint): uniform-random advances the pcg4d stream;
+    the Sobol samplers take the sample index and pixel from `coord` and
+    leave the pcg stream untouched, like the reference's split sampler.
+    Returns (seed, (R, 4) uint32 sample)."""
+    if cfg.sampler == "uniform-random" or slot < 0:
+        return rng_ops.generate_uniform_random_uint(seed)
+    if cfg.sampler == "sobol-owen":
+        return seed, sobol.sobol_owen_sample_uint(rng_ops.pcg4d(coord),
+                                                  coord[:, 3], slot)
+    return seed, sobol.sobol_z_sample_uint(coord[:, :2], coord[:, 3], slot,
+                                           bits_3d=cfg.sampler == "sobol-z3")
 
 
 def bsdf_mis_pdf(cfg: PTConfig, scene, nee_point, nee_dir, nee_tri, nee_env,
@@ -269,14 +274,18 @@ def _safe_dir(v):
 
 
 def _shade_bounce(cfg: PTConfig, scene: DeviceScene, state, hit, vis,
-                  b_idx: int, is_first: bool, max_bounces: int):
+                  b_idx: int, is_first: bool, max_bounces: int,
+                  coord=None, sobol_bounce: int = -1):
     """Shading for one bounce: consumes the closest hit and the NEE shadow
     visibility, returns the next path state (and first-hit data at
-    bounce 0)."""
-    (seed, pos, view, attenuation, bsdf_pdf, regularization,
+    bounce 0). sobol_bounce >= 0 draws the NEE and bounce samples from
+    Sobol slots 2b and 2b + 1."""
+    (seed, alpha_seed, pos, view, attenuation, bsdf_pdf, regularization,
      pl_t, pl_d, pl_dr, pl_mr, alive, diffuse, reflection) = state
     primary_lobes = BSDFLobes(pl_t, pl_d, pl_dr, pl_mr)
     R = pos.shape[0]
+    if cfg.has_alpha_materials:
+        alpha_seed = rng_ops.pcg4d(alpha_seed)   # mirrors the pre-trace draw
     safe_view = _safe_dir(view)
     # point-light spheres (reference: rt_common_point_light.rint)
     see_lights = cfg.has_point_lights and \
@@ -399,7 +408,10 @@ def _shade_bounce(cfg: PTConfig, scene: DeviceScene, state, hit, vis,
 
     # ---- NEE ------------------------------------------------------------
     if cfg.nee.any:
-        seed, rand = draw_ray_sample(cfg, seed)
+        slot = -1 if sobol_bounce < 0 else sobol_bounce * 2
+        seed, rand = draw_ray_sample(cfg, seed, coord, slot)
+        if cfg.has_alpha_materials:
+            alpha_seed = rng_ops.pcg4d(alpha_seed)   # mirrors the NEE draw
         radiance, nee_lobes = next_event_estimation(
             cfg, scene, rand, (t, b, n), shading_view, mat,
             v.pos, v.hard_normal, vis)
@@ -430,7 +442,8 @@ def _shade_bounce(cfg: PTConfig, scene: DeviceScene, state, hit, vis,
     alive = alive & ~terminal
 
     # ---- next bounce -----------------------------------------------------
-    seed, rand = draw_ray_sample(cfg, seed)
+    slot2 = -1 if sobol_bounce < 0 else sobol_bounce * 2 + 1
+    seed, rand = draw_ray_sample(cfg, seed, coord, slot2)
     out_dir_ts, lobes, new_bsdf_pdf = material_bsdf_sample(
         rng_ops.uint_to_float(rand), shading_view, mat, cfg.bounce_mode)
     new_view = from_tangent_space(out_dir_ts, t, b, n)
@@ -459,54 +472,187 @@ def _shade_bounce(cfg: PTConfig, scene: DeviceScene, state, hit, vis,
                                   attenuation)
     alive = alive & (attenuation.amax(dim=-1) > 0.0)
 
-    state = (seed, pos, view, attenuation, bsdf_pdf,
+    state = (seed, alpha_seed, pos, view, attenuation, bsdf_pdf,
              regularization, *primary_lobes, alive, diffuse, reflection)
     return state, first
 
 
-def _nee_prep(cfg: PTConfig, scene: DeviceScene, seed, hit, pos, view):
+def _nee_prep(cfg: PTConfig, scene: DeviceScene, seed, alpha_seed, hit,
+              pos, view, coord=None, slot: int = -1):
     """NEE shadow rays: redraws the same RNG values the shading pass will.
-    Returns (origin, direction, length)."""
+    Returns (origin, direction, length, the shadow wave's alpha cutoff).
+    The cutoff is the closest-hit wave's (_advance_alpha), as in
+    tauray_tpu: both read pcg4d of the same alpha state."""
     safe_view = _safe_dir(view)
     v = interpolate_vertex(scene, hit.tri_id, hit.u, hit.v, safe_view,
                            ray_origin=pos)
-    _, rand = draw_ray_sample(cfg, seed)
+    _, rand = draw_ray_sample(cfg, seed, coord, slot)
     _, out_dir, out_len, _ = sample_explicit_light(cfg, scene, rand, v.pos)
-    return v.pos, _safe_dir(out_dir), out_len
+    if cfg.has_alpha_materials:
+        nee_alpha_u = _advance_alpha(alpha_seed)
+    else:
+        nee_alpha_u = torch.zeros_like(out_len)
+    return v.pos, _safe_dir(out_dir), out_len, nee_alpha_u
+
+
+def _advance_alpha(alpha_seed):
+    """Per-ray stochastic-alpha cutoff in [0, 1) from the alpha stream."""
+    return rng_ops.uint_to_float(rng_ops.pcg4d(alpha_seed)[:, 0])
+
+
+# stochastic-alpha re-trace rounds of the path tracer's waves
+ALPHA_ROUNDS = 6
+
+
+def _as_i32(x):
+    """float32 column -> its bits as int32 (exact through gathers)."""
+    return x.contiguous().view(torch.int32)
+
+
+def _as_f32(x):
+    return x.contiguous().view(torch.float32)
+
+
+def _trace_alpha_program(scene: DeviceScene, tracer, o, d, t_min, t_max,
+                         alpha_u, has_alpha: bool, any_hit: bool = False,
+                         rounds: int = ALPHA_ROUNDS, sort: bool = False,
+                         need_uv: bool = False) -> Hit:
+    """Alpha-tested trace (tauray_tpu path_tracer._trace_alpha_program).
+
+    The first trace's hit ids are the transparency test: the flat and the
+    instanced build put alpha-capable triangles in the tail clusters, so
+    trace_flagged marks "might be transparent" hits (slot >= alpha_base)
+    without a material fetch. Flagged rays are then serviced compacted:
+    each round moves the pending rays to the front (a stable argsort),
+    alpha-tests and re-traces a sub-wave of `cap` rays past their hit,
+    and scatters the results back; rays beyond `cap` stay pending for a
+    later round. A serviced ray stays pending only when its re-hit is
+    flagged again. The per-round state moves as one int32 row per ray
+    (floats as their bits), so ids never pass through a float.
+
+    Rounds stop early, with one host read per round, once nothing is
+    pending: a round with nothing pending changes nothing, and skipping it
+    saves its sort over the wave and its re-trace."""
+    R = o.shape[0]
+    t_min, t_max = per_ray(t_min, o), per_ray(t_max, o)
+    if not has_alpha:
+        return tracer.trace(o, d, t_min, t_max, any_hit=any_hit,
+                            sort_rays=sort, need_uv=need_uv)
+    hit, pending = tracer.trace_flagged(o, d, t_min, t_max, any_hit=any_hit,
+                                        sort_rays=sort, need_uv=need_uv)
+    cutoff = per_ray(alpha_u, o)
+    quantum = 8192
+    cap = min(R, max(quantum, (R // 32) // quantum * quantum))
+    ray_pack = _as_i32(torch.cat([o, d, cutoff[:, None], t_max[:, None]],
+                                 dim=1).to(torch.float32))       # (R, 8)
+    # (R, 6) int32: t, u, v, t_min, tri_id, pending
+    cur = torch.stack([_as_i32(hit.t), _as_i32(hit.u), _as_i32(hit.v),
+                       _as_i32(t_min), hit.tri_id,
+                       pending.to(torch.int32)], dim=1)
+    for _ in range(rounds):
+        if not bool(pending.any()):
+            break
+        with record_function("alpha"):
+            idx = torch.argsort((~pending).to(torch.int32),
+                                stable=True)[:cap]
+            s = torch.cat([cur, ray_pack], dim=1)[idx]          # (cap, 14)
+            t_s, u_s, v_s, tmin_s = (_as_f32(s[:, k]) for k in range(4))
+            tri_s = s[:, 4]
+            o_s, d_s = _as_f32(s[:, 6:9]), _as_f32(s[:, 9:12])
+            cut_s, tmax_s = _as_f32(s[:, 12]), _as_f32(s[:, 13])
+            # alpha test (uv interpolation + texture fetch) on the
+            # sub-wave only
+            skip_s, ntmin_s = _alpha_skip_impl(
+                scene, t_s, tri_s, u_s, v_s, cut_s, tmin_s, o=o_s, d=d_s,
+                recompute_uv=not need_uv)
+            skip_s = skip_s & (s[:, 5] > 0)
+        rehit, reflag = tracer.trace_flagged(
+            o_s, d_s, ntmin_s, torch.where(skip_s, tmax_s, 0.0),
+            any_hit=any_hit, need_uv=need_uv)
+        with record_function("alpha"):
+            out = torch.stack([
+                _as_i32(torch.where(skip_s, rehit.t, t_s)),
+                _as_i32(torch.where(skip_s, rehit.u, u_s)),
+                _as_i32(torch.where(skip_s, rehit.v, v_s)),
+                _as_i32(ntmin_s), torch.where(skip_s, rehit.tri_id, tri_s),
+                (skip_s & reflag).to(torch.int32)], dim=1)
+            cur[idx] = out
+            pending = cur[:, 5] > 0
+    return Hit(_as_f32(cur[:, 0]), cur[:, 4].contiguous(),
+               _as_f32(cur[:, 1]), _as_f32(cur[:, 2]))
+
+
+def _alpha_skip_impl(scene: DeviceScene, t, tri_id, u, v, cutoff, t_min,
+                     o=None, d=None, recompute_uv: bool = False):
+    """One tri_packed row gather and one texture block gather per ray.
+    Returns (skip: a transparent hit, the t_min past it). recompute_uv:
+    barycentrics from the gathered row and the ray (pairs with
+    need_uv=False traces)."""
+    g = scene.tri_packed[tri_id.clamp(min=0).long()]
+    may_skip = (tri_id >= 0) & (g[:, TP_IP + IP_HASALPHA] > 0.5)
+    alpha = row_alpha(scene, g, u, v, o, d, recompute_uv)
+    skip = may_skip & (alpha <= cutoff)
+    return skip, torch.where(skip, t * (1 + 1e-5) + 1e-6, t_min)
+
+
+def host_trace_alpha(scene, tracer, o, d, t_min, t_max, alpha_u,
+                     has_alpha: bool, any_hit: bool = False,
+                     rounds: int = ALPHA_ROUNDS, sort: bool = False,
+                     need_uv: bool = False) -> Hit:
+    """The path tracer's alpha-tested trace of one wave (tauray_tpu's
+    host entry to _trace_alpha_program)."""
+    return _trace_alpha_program(scene, tracer, o, d, t_min, t_max, alpha_u,
+                                has_alpha, any_hit, rounds, sort, need_uv)
 
 
 def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
-                b_idx: int, is_first: bool, max_bounces: int):
+                b_idx: int, is_first: bool, max_bounces: int, coord=None):
     """Closest-hit wave, NEE shadow wave, shading. Bounce and shadow waves
     are sorted by their active-set signature; camera waves keep
-    pixel-block order."""
-    seed, pos, view, alive = state[0], state[1], state[2], state[10]
+    pixel-block order. Both waves take the alpha re-trace rounds when the
+    scene has alpha-tested materials."""
+    seed, alpha_seed, pos, view = state[:4]
+    alive = state[11]
+    sobol_bounce = -1 if cfg.sampler == "uniform-random" else b_idx
+    alpha_u = _advance_alpha(alpha_seed) if cfg.has_alpha_materials else 0.0
     t_min = 0.0 if is_first else cfg.min_ray_dist
     t_max = torch.where(alive, RAY_MAX_DIST, 0.0)
-    hit = tracer.trace(pos, view, t_min, t_max, sort_rays=not is_first,
-                       need_uv=False)
+    if _WAVE_DUMP is not None:
+        _WAVE_DUMP.append(("bounce", pos, view, t_min, t_max))
+    hit = host_trace_alpha(scene, tracer, pos, view, t_min, t_max, alpha_u,
+                           cfg.has_alpha_materials, sort=not is_first)
     if cfg.nee.any and b_idx < max_bounces - 1:
+        slot = -1 if sobol_bounce < 0 else sobol_bounce * 2
         with record_function("shade"):
-            sh_o, sh_d, sh_len = _nee_prep(cfg, scene, seed, hit, pos, view)
+            sh_o, sh_d, sh_len, nee_alpha_u = _nee_prep(
+                cfg, scene, seed, alpha_seed, hit, pos, view, coord, slot)
         sh_len = torch.where(alive & (hit.tri_id >= 0), sh_len, 0.0)
-        sh = tracer.trace(sh_o, sh_d, cfg.min_ray_dist, sh_len,
-                          any_hit=True, sort_rays=True, need_uv=False)
+        if _WAVE_DUMP is not None:
+            _WAVE_DUMP.append(("shadow", sh_o, sh_d, cfg.min_ray_dist,
+                               sh_len))
+        sh = host_trace_alpha(scene, tracer, sh_o, sh_d, cfg.min_ray_dist,
+                              sh_len, nee_alpha_u, cfg.has_alpha_materials,
+                              any_hit=True, sort=True)
         vis = torch.where(sh.tri_id < 0, 1.0, 0.0)
     else:
         vis = torch.ones_like(t_max)
     with record_function("shade"):
         return _shade_bounce(cfg, scene, state, hit, vis, b_idx, is_first,
-                             max_bounces)
+                             max_bounces, coord, sobol_bounce)
 
 
 def evaluate_ray(cfg: PTConfig, scene: DeviceScene, tracer, sampler_seed,
-                 pos, view):
+                 pos, view, coord=None):
     """One path per ray (reference: shader/path_tracer.glsl evaluate_ray).
-    Returns (diffuse (R, 4), reflection (R, 4), first-hit dict)."""
+    coord: (R, 4) uint32 sampler coordinates (the Sobol samplers read the
+    pixel and sample index there). Returns (diffuse (R, 4), reflection
+    (R, 4), first-hit dict)."""
     R = pos.shape[0]
     z = torch.zeros(R, dtype=torch.float32, device=pos.device)
     state = (
-        sampler_seed, pos, view,
+        sampler_seed,
+        rng_ops.pcg4d(sampler_seed),          # stochastic-alpha stream
+        pos, view,
         torch.ones((R, 3), dtype=torch.float32, device=pos.device),
         z,                                    # bsdf_pdf
         torch.ones_like(z),                   # regularization
@@ -519,10 +665,10 @@ def evaluate_ray(cfg: PTConfig, scene: DeviceScene, tracer, sampler_seed,
     )
     max_bounces = 2 if cfg.direct_only else cfg.max_bounces
     state, first = _run_bounce(cfg, scene, tracer, state, 0, True,
-                               max_bounces)
+                               max_bounces, coord)
     for b_idx in range(1, max_bounces):
         state, _ = _run_bounce(cfg, scene, tracer, state, b_idx, False,
-                               max_bounces)
+                               max_bounces, coord)
     return state[-2], state[-1], first
 
 
@@ -614,8 +760,9 @@ def pt_trace_pass(cfg: PTConfig, scene: DeviceScene, tracer,
             torch.arange(S, dtype=previous_samples.dtype,
                          device=previous_samples.device).repeat(R)
 
-    seed, origin, d, _ = _begin_sample(cfg, cam, pix_b, vp_b, prev_b)
-    diffuse, refl, fh = evaluate_ray(cfg, scene, tracer, seed, origin, d)
+    seed, origin, d, coord = _begin_sample(cfg, cam, pix_b, vp_b, prev_b)
+    diffuse, refl, fh = evaluate_ray(cfg, scene, tracer, seed, origin, d,
+                                     coord)
     color, screen_motion = _finalize_sample(
         cfg, prev_cam, vp_b, diffuse, refl, fh["albedo"], fh["metallic"],
         fh["emission"], fh["vertex_prev_pos"])

@@ -31,7 +31,11 @@ def test_import_all_modules_without_jax():
             "from tauray_torch.ops.cluster import (InstancedClusterTracer,"
             " build_instanced_from_arrays, instanced_tracer_from_numpy)\n"
             "from tauray_torch.ops.trace_kernel import (trace_tiles,"
-            " trace_tiles_inst, trace_tiles_vm3)\n"
+            " trace_tiles_inst, trace_tiles_vm, trace_tiles_vm2,"
+            " trace_tiles_vm3)\n"
+            "from tauray_torch.ops.trace_utils import trace_alpha\n"
+            "from tauray_torch.ops.sobol import sobol_owen_sample_uint\n"
+            "from tauray_torch.app.wave_stats import wave_stats\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton',"
             " 'tauray_tpu'))\n"
@@ -67,5 +71,6 @@ def test_every_cuda_source_is_built():
     srcs = sorted(str(p) for p in (PKG / "csrc").glob("*.cu*"))
     assert srcs == sorted(trace_kernel.SOURCES.values())
     assert set(trace_kernel.LAUNCHES) == {"trace_vm3", "trace_mt",
-                                          "trace_mt_inst"}
+                                          "trace_mt_inst", "trace_vm2",
+                                          "trace_vm"}
     assert len(trace_kernel._digest()) == 16

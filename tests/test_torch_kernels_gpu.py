@@ -207,3 +207,83 @@ def test_per_model_render_goes_through_kernel(cuda):
     a, b = imgs
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
     assert (rel.max(-1) <= 1e-3).mean() >= 0.99
+
+
+@pytest.mark.parametrize("entry", ["trace_vm2", "trace_vm"])
+def test_trace_vm2_matches_plain_version(cuda, entry):
+    """K4 (trace_tiles_vm2) and K5 (trace_tiles_vm, with debug_steps)
+    against their plain version on sorted and unsorted waves, closest hit
+    and any hit: ids identical, t bit-identical, steps per tile equal."""
+    from tauray_torch.ops import trace_kernel as tk
+    tracer, _ = _soup_tracer(cuda)
+    tracer.opaque[::3] = 0
+    for sort, r3, counts, keys, idmask in _mt_waves(tracer, cuda, seed=5):
+        for any_hit in (False, True):
+            args = (counts, keys, r3, tracer.tris12, tracer.opaque, idmask,
+                    any_hit)
+            before = tk.LAUNCHES[entry]
+            if entry == "trace_vm2":
+                t, tid = tk.trace_tiles_vm2(*args)
+            else:
+                t, tid, steps = tk.trace_tiles_vm(*args, debug_steps=True)
+            torch.cuda.synchronize()
+            assert tk.LAUNCHES[entry] == before + 1
+            tr, idr, sr = tk.trace_tiles_vm2_reference(*args)
+            assert torch.equal(tid, idr), (sort, any_hit)
+            assert torch.equal(t.view(torch.int32), tr.view(torch.int32))
+            assert (tid >= 0).any() and (tid < 0).any()
+            if entry == "trace_vm":
+                assert torch.equal(steps, sr), (sort, any_hit)
+                assert int(sr.max()) > 1
+
+
+def test_trace_vm2_rejects_bad_inputs(cuda):
+    from tauray_torch.ops.trace_kernel import KB, trace_tiles_vm2
+    tracer, _ = _soup_tracer(cuda, T=300)
+    C = tracer.n_clusters
+    counts = torch.zeros(4, dtype=torch.int32, device=cuda)
+    keys = torch.full((4, C + KB), 0x7FFFFFFF, dtype=torch.int32,
+                      device=cuda)
+    rays = torch.zeros((4, 32, 8), device=cuda)
+    with pytest.raises(ValueError):                      # tris9, not tris12
+        trace_tiles_vm2(counts, keys, rays, tracer.tris9, tracer.opaque, 3)
+    with pytest.raises(ValueError):
+        trace_tiles_vm2(counts, keys[:, :C], rays, tracer.tris12,
+                        tracer.opaque, 3)
+    t, tid = trace_tiles_vm2(counts, keys, rays, tracer.tris12,
+                             tracer.opaque, 3)
+    assert (tid == -1).all() and torch.isinf(t).all()
+
+
+@pytest.mark.parametrize("vm_kernel", ["", "v2"])
+def test_foliage_render_goes_through_kernel(cuda, monkeypatch, vm_kernel):
+    """The foliage Sponza on the card, 32x32, 2 spp: the default launches
+    K1, TAURAY_VM_KERNEL=v2 launches K4 and never K1; the alpha rounds
+    run; each matches the same render on the CPU (plain versions)."""
+    from tauray_torch.io.gltf import load_scene
+    from tauray_torch.ops.trace_kernel import LAUNCHES, reset_launch_counts
+    from tauray_torch.options import Options
+    from tauray_torch.renderer.rt_renderer import PathTracerRenderer
+    from tauray_torch.scene.scene import Scene
+    monkeypatch.setenv("TAURAY_VM_KERNEL", vm_kernel)
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        opt = Options()
+        opt.width = opt.height = 32
+        opt.samples_per_pixel = 2
+        opt.max_ray_depth = 3
+        opt.tonemap = "linear"
+        s = Scene()
+        load_scene("proc://sponza?tris=8192&foliage=1", s)
+        rr = PathTracerRenderer(opt, dev)
+        rr.set_scene(s)
+        assert rr.cfg.has_alpha_materials
+        reset_launch_counts()
+        imgs.append(rr.render()[0])
+        if dev.type == "cuda":
+            k = "trace_vm2" if vm_kernel else "trace_vm3"
+            assert LAUNCHES[k] > 0
+            assert LAUNCHES["trace_vm3" if vm_kernel else "trace_vm2"] == 0
+    a, b = imgs
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
+    assert (rel.max(-1) <= 1e-3).mean() >= 0.99

@@ -126,10 +126,18 @@ def test_main_requires_cuda():
         main(["--headless=/nonexistent/x", SPONZA])
 
 
+def test_wave_stats_requires_cuda():
+    from tauray_torch.app.wave_stats import main
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main()
+
+
 @pytest.mark.parametrize("args", [
     ["--renderer=raster"], ["--renderer=restir"], ["--renderer=albedo"],
     ["--temporal-reprojection=0.5"], ["--denoiser=svgf"],
-    ["--sampler=sobol-owen"], ["--fake-devices=2"]])
+    ["--fake-devices=2"]])
 def test_unported_features_raise(args):
     """Features outside the slice raise NotImplementedError, never a
     silent substitute."""
