@@ -6,13 +6,19 @@
 Phases, each printed on its own lines; any failure raises and exits
 non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> error;
-  2. build the traversal kernels (csrc/trace_vm3.cu, csrc/trace_mt.cu; one
-     nvcc each, started together) and print what ptxas reports;
+  2. build the traversal kernels (csrc/trace_bw.cu, csrc/trace_mt.cu; one
+     nvcc each, started together) and print what ptxas reports, and the
+     SASS of each kernel's inner test loop (cuobjdump);
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
      random-direction wave leaving its hits, of
-       3a. K1 (trace_vm3): proc://sponza?tris=262144, flat;
+       3a. K1 (trace_vm3): proc://sponza?tris=262144, flat, plus the
+           2^20-ray sorted bounce wave, a 32,768-ray slice of the foliage
+           scene's sorted bounce wave (an alpha re-trace's size) and the
+           duplicate-triangle wave (app/bw_bench.tie_stack: exact ties
+           across clusters, tiles of 0, 1, 10 and 29 clusters, NaN and
+           t_max < t_min rays; 2^18 rays);
        3b. K2 (trace_mt): proc://sponza?tris=524288, flat (C > 2,197);
        3c. K3 (trace_mt_inst): proc://sponza?tris=262144, per-model,
            plus the bounce wave unsorted, as the instanced path traces it;
@@ -21,6 +27,8 @@ non-zero:
            shadow wave toward a point light (finite t_max);
        3e. K5 (trace_vm): the same waves with debug_steps, whose steps per
            tile equal the plain version's;
+       3d and 3e also take the foliage scene's 2^20-ray sorted bounce
+       wave, its 32,768-ray slice and the duplicate-triangle wave;
      K2-K5 run each wave as closest hit and as any hit (finite t_max);
   4. `python -m tauray_torch` main path: 1920x1080, 1 spp, depth 4,
      2 frames, headless EXR; checks the image and K1's launch count;
@@ -34,8 +42,9 @@ non-zero:
   9. --sampler=sobol-owen on the foliage scene at 256x256, 4 spp;
   10. `python -m tauray_torch.app.wave_stats` at its default size: K5
      launched, one line per wave.
-The last lines are the card, the kernel table, and
-{"ok": true, "device": {...}}.
+The last lines are the card, the kernel table (K1/K4/K5 rows also with
+PR 3's time on the same wave, the SASS instructions per test and the bound
+under the -fmad=false contract), and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -60,12 +69,16 @@ SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations per (ray, triangle) test, counted in the sources:
-# Baldwin-Weber (trace_vm3.cu) 32, Möller-Trumbore (trace_mt.cu) 46; and
+# Baldwin-Weber (trace_bw.cu) 32, Möller-Trumbore (trace_mt.cu) 46; and
 # K3's transform of a ray into a key's instance space, 21 per (ray, key)
 FLOPS_BW = 32
 FLOPS_MT = 46
 FLOPS_XFORM = 21
 LANES_1080P = 2097152 * 1 * (2 * 4 - 1)   # padded pixels x spp x waves
+# PR 3's times of the Baldwin-Weber kernels on the 2^18-ray sorted bounce
+# wave, closest hit (chip_smoke.py phases 3a/3d/3e on an NVIDIA H100 80GB
+# HBM3 at 700 W; PERF.md): K1 on the plain scene, K4/K5 on the foliage one
+PREV_MS = {"trace_vm3": 5.734, "trace_vm2": 4.705, "trace_vm": 4.492}
 
 
 def card_line() -> str:
@@ -96,66 +109,19 @@ def timed(fn, reps: int = 1):
     return out, a.elapsed_time(b) / reps
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), Hz."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
 def bound(flops: float, nbytes: float):
     """(least ms the card could take, what sets it)."""
     f_ms = flops / PEAK_FP32 * 1e3
     b_ms = nbytes / PEAK_BYTES * 1e3
     return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
-
-
-def kernel_waves(device, scene=SCENE, size=512, seed=0,
-                 strategy="all-merged-static", shadow=False):
-    """(tracer, {name: rays8 (R, 8)}): a camera wave in pixel-block order
-    and a signature-sorted wave of random directions leaving the camera
-    wave's hits (for the instanced tracer also that wave unsorted; with
-    shadow, a signature-sorted wave from those hits to the first point
-    light, t_max short of it)."""
-    import numpy as np
-    import torch
-    from tauray_torch.options import Options
-    from tauray_torch.io.gltf import load_scene
-    from tauray_torch.ops.cluster import _sig_sort_perm
-    from tauray_torch.renderer.rt_renderer import PathTracerRenderer
-    from tauray_torch.scene.device import to_camera_uniforms
-    from tauray_torch.scene.scene import Scene
-    from tauray_torch.stages.path_tracer import _begin_sample
-    opt = Options()
-    opt.width = opt.height = size
-    opt.as_strategy = strategy
-    s = Scene()
-    load_scene(scene, s)
-    rr = PathTracerRenderer(opt, device)
-    rr.set_scene(s)
-    cam = to_camera_uniforms(rr.arrays.camera_uniforms(rr.viewports()),
-                             device)
-    prev = torch.zeros(rr._pix.shape[0], dtype=torch.int64, device=device)
-    _, o, d, _ = _begin_sample(rr.cfg, cam, rr._pix, rr._vp, prev)
-    R = o.shape[0]
-    ones = torch.ones(R, dtype=torch.float32, device=device)
-    camera = torch.cat([o, d, 0 * ones[:, None],
-                        float("inf") * ones[:, None]], 1)
-    hit = rr.bvh.trace(o, d, 0.0, float("inf"), need_uv=False)
-    p = torch.where((hit.tri_id >= 0)[:, None], o + hit.t[:, None] * d, o)
-    rng = np.random.default_rng(seed)
-    nd = rng.standard_normal((R, 3)).astype(np.float32)
-    nd /= np.linalg.norm(nd, axis=1, keepdims=True)
-    bounce = torch.cat([p, torch.from_numpy(nd).to(device),
-                        1e-3 * ones[:, None], float("inf") * ones[:, None]],
-                       1)
-    waves = {"camera": camera,
-             "bounce": bounce[_sig_sort_perm(rr.bvh, bounce)].contiguous()}
-    if strategy != "all-merged-static":
-        waves["bounce_unsorted"] = bounce
-    if shadow:
-        light = torch.from_numpy(rr.arrays.pl_pos[0]).to(device)
-        to_l = light[None] - p
-        dist = to_l.norm(dim=1, keepdim=True)
-        sh = torch.cat([p, to_l / dist, 1e-4 * ones[:, None], dist - 1e-4],
-                       1)
-        waves["shadow"] = sh[_sig_sort_perm(rr.bvh, sh)].contiguous()
-    print(f"waves on {scene} ({strategy}): {type(rr.bvh).__name__}, "
-          f"{rr.bvh.n_clusters} clusters", flush=True)
-    return rr.bvh, waves
 
 
 def hits(t) -> int:
@@ -201,6 +167,7 @@ def kernel_check(tracer, waves, reps: int = 5):
             4 * (n_tiles + visits) + 32 * R + C * 12 * 128 * 4 + 8 * R)
         out[name] = dict(rays=R, hits=hits(t_r),
                          clusters_per_tile=visits / n_tiles,
+                         tests=visits * 128 * 32,
                          ids_identical=same_id, t_bit_identical=same_t,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
@@ -213,7 +180,8 @@ def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
     debug_steps, its steps per tile held to the plain version's) against
     the plain version on each wave, as closest hit and as any hit. The any
     hit runs take finite t_max: half to 1.5x each ray's closest hit, 20 on
-    a miss, except the shadow wave, which keeps its own. Returns
+    a miss, except the shadow and duplicate-triangle waves, which keep
+    their own. Returns
     per-(wave, mode) results."""
     import numpy as np
     import torch
@@ -247,7 +215,7 @@ def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
         closest_t = None
         for any_hit in (False, True):
             r8 = rays8
-            if any_hit and name != "shadow":
+            if any_hit and name not in ("shadow", "ties"):
                 scale = torch.from_numpy(rng.uniform(
                     0.5, 1.5, r8.shape[0]).astype(np.float32)).to(r8.device)
                 r8 = r8.clone()
@@ -287,6 +255,7 @@ def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
                 rays=R, hits=hits(t_r),
                 clusters_per_tile=float(counts.float().mean()),
                 clusters_tested_per_tile=visits / n_tiles,
+                tests=visits * 128 * 32,
                 steps_skipped_share=1 - stats["steps"] / max(
                     stats["steps_total"], 1),
                 ids_identical=same_id, t_bit_identical=same_t,
@@ -378,6 +347,9 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
+    from tauray_torch.app.bw_bench import (kernel_waves, ptxas_lines,
+                                           retrace_slice, sass_loops,
+                                           tie_rays, tie_stack)
     from tauray_torch.ops import trace_kernel
     dev = torch.device("cuda")
     card = card_line()
@@ -385,15 +357,33 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     trace_kernel.build_all()
+    sass = {}
     for name, info in sorted(trace_kernel.BUILD_INFO.items()):
-        ptxas = [ln.strip() for ln in str(info["log"]).splitlines()
-                 if re.search(r"registers|spill|Compiling entry", ln)]
         print(f"phase 2 build {name}: {info['seconds']:.2f} s; " +
-              " | ".join(ptxas), flush=True)
+              " | ".join(ptxas_lines(str(info["log"]))), flush=True)
+        sass.update(sass_loops(str(info["path"])))
+    for fn, st in sorted(sass.items()):
+        print(f"phase 2 sass {fn}: " + json.dumps(st), flush=True)
+    if any(st["lds_narrow"] for fn, st in sass.items()
+           if "trace_bw" in fn):
+        raise RuntimeError("trace_bw's test loop has narrow shared loads")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
+
+    def bw_sass(exit_: bool, w: int):
+        """trace_bw<W, kExit>'s test loop statistics."""
+        tag = f"trace_bw_kernelILi{w}ELb{int(exit_)}E"
+        return next(st for fn, st in sass.items() if tag in fn)
 
     tracer, waves = kernel_waves(dev)
     k1 = kernel_check(tracer, waves)
     del tracer, waves
+    tracer, waves = kernel_waves(dev, size=1024)
+    k1.update(kernel_check(tracer, {"bounce_2^20": waves["bounce"]}))
+    del tracer, waves
+    ties = tie_stack(dev)
+    tie_wave = {"ties": torch.from_numpy(tie_rays(8192)).to(dev)}
+    k1.update(kernel_check(ties, tie_wave))
     tracer, waves = kernel_waves(dev, SCENE_LARGE)
     if tracer.n_clusters <= 2197:
         raise RuntimeError(f"{SCENE_LARGE} has {tracer.n_clusters} clusters"
@@ -407,9 +397,20 @@ def main() -> int:
     if tracer.n_clusters > 2197 or bool(tracer.opaque.all()):
         raise RuntimeError(f"{SCENE_FOLIAGE}: {tracer.n_clusters} clusters, "
                            f"{int((tracer.opaque == 0).sum())} not opaque")
+    waves["bounce_32768"] = retrace_slice(waves["bounce"])
+    k1.update(kernel_check(tracer, {"foliage_bounce_32768":
+                                    waves["bounce_32768"]}))
     k4 = kernel_check_mt(tracer, waves, "K4")
     k5 = kernel_check_mt(tracer, waves, "K5")
     del tracer, waves
+    tracer, waves = kernel_waves(dev, SCENE_FOLIAGE, size=1024)
+    waves = {"bounce_2^20": waves["bounce"]}
+    k4.update(kernel_check_mt(tracer, waves, "K4"))
+    k5.update(kernel_check_mt(tracer, waves, "K5"))
+    del tracer, waves
+    k4.update(kernel_check_mt(ties, tie_wave, "K4"))
+    k5.update(kernel_check_mt(ties, tie_wave, "K5"))
+    del ties, tie_wave
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -544,21 +545,34 @@ def main() -> int:
                 "bound_by": r["bound_by"],
                 # no single PyTorch call computes a closest-hit traversal
                 "library_ms": None}
+
+    def bw_row(name, replaces, launches, r, exit_):
+        """A trace_bw row: also PR 3's ms on the same wave, the SASS
+        instructions per test of the instance this wave launches, and the
+        bound under -fmad=false: those instructions for every 32 tests
+        over 4 issue slots x the SMs x the clock."""
+        w = trace_kernel.bw_warps(r["rays"] // 32, n_sm)
+        st = bw_sass(exit_, w)
+        out = row(name, "tauray_torch/csrc/trace_bw.cu", replaces,
+                  launches, r)
+        out.update(prev_ms=PREV_MS[name], warps=w,
+                   sass_instructions_per_test=st["instructions_per_test"],
+                   bound_contract_ms=r["tests"] / 32 *
+                   st["instructions_per_test"] / (4 * n_sm * clock) * 1e3)
+        return out
     kernels = {"kernels": [
-        row("trace_vm3", "tauray_torch/csrc/trace_vm3.cu",
-            "tauray_tpu/ops/pallas_trace.py:979", l_k1, k1["bounce"]),
+        bw_row("trace_vm3", "tauray_tpu/ops/pallas_trace.py:979", l_k1,
+               k1["bounce"], False),
         row("trace_mt", "tauray_torch/csrc/trace_mt.cu",
             "tauray_tpu/ops/pallas_trace.py:64", l_k2,
             k2["bounce/closest"]),
         row("trace_mt_inst", "tauray_torch/csrc/trace_mt.cu",
             "tauray_tpu/ops/pallas_trace.py:297", l_k3,
             k3["bounce/closest"]),
-        row("trace_vm2", "tauray_torch/csrc/trace_mt.cu",
-            "tauray_tpu/ops/pallas_trace.py:745", l_k4,
-            k4["bounce/closest"]),
-        row("trace_vm", "tauray_torch/csrc/trace_mt.cu",
-            "tauray_tpu/ops/pallas_trace.py:565", l_k5,
-            k5["bounce/closest"])]}
+        bw_row("trace_vm2", "tauray_tpu/ops/pallas_trace.py:745", l_k4,
+               k4["bounce/closest"], True),
+        bw_row("trace_vm", "tauray_tpu/ops/pallas_trace.py:565", l_k5,
+               k5["bounce/closest"], True)]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

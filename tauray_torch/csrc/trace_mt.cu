@@ -1,25 +1,20 @@
-// Front-to-back cluster traversal for Hopper (sm_90a): one walk and one
-// exit over two triangle formats, flat (K2, K4/K5) and instanced (K3).
+// Front-to-back Möller-Trumbore cluster traversal for Hopper (sm_90a):
+// one walk and one exit, flat (K2) and instanced (K3).
 //
 // Replaces these TPU kernels of tauray_tpu/ops/pallas_trace.py:
 //   * _kernel / pallas_trace_tiles (K2): Möller-Trumbore over tris9, flat
 //     scenes whose table exceeds the resident-table budget;
 //   * _kernel_inst / pallas_trace_tiles_inst (K3): K2 over
 //     cluster-instances, the instanced TLAS path;
-//   * _kernel_vm2 / pallas_trace_tiles_vm2 (K4) and _kernel_vm /
-//     pallas_trace_tiles_vm (K5): K2's contract over the resident
-//     Baldwin-Weber tris12 table. K4 and K5 compute one function (the TPU
-//     kernels differ only in how they schedule key rows: KC-key heads with
-//     an overflow row, or an SMEM ring), so both are kBW = true here.
+// (The Baldwin-Weber kernels K1 and K4/K5 are csrc/trace_bw.cu.)
 // It computes their contract, not their TPU schedule (no SMEM key ring, no
 // key heads or overflow row, no double-buffered DMA, no G-tile grid):
 //   * one warp per 32-ray tile, one thread per ray;
 //   * the warp walks its tile's key row keys[tile, 0:counts[tile]], sorted
 //     by (entry-t bits & ~idmask) | id, in steps of KB = 8 keys; each key's
-//     128 triangles (9 floats each, 4.5 KB, or 12 Baldwin-Weber floats,
-//     6 KB) are staged in the warp's slice of shared memory and every
-//     thread tests its ray against them, reading each component as a
-//     broadcast;
+//     128 triangles (9 floats each, 4.5 KB) are staged in the warp's slice
+//     of shared memory and every thread tests its ray against them,
+//     reading each component as a broadcast;
 //   * K3 (kInst): key k names object cluster k_cluster[k] and instance
 //     k_inst[k]; the ray is moved into that instance's space with its
 //     world -> object 3x4 rows (direction unnormalized, so t stays in world
@@ -32,19 +27,18 @@
 //   * optionally, the steps each tile walked (the step that set the vote
 //     included; 0 for an empty tile): the TPU kernels' debug_steps output.
 // Semantics kept from the TPU kernels: the arithmetic order of
-// pallas_trace.py:170-189 (Möller-Trumbore) and :841-855 (Baldwin-Weber),
-// the hit tests (a != 0 or den != 0, u >= 0, v >= 0, u + v <= 1,
+// pallas_trace.py:170-189, the hit test (a != 0, u >= 0, v >= 0, u + v <= 1,
 // t >= tmin, strict t < best), best t starting at min(tmax, 3e38), slots
 // past the tile's count never tested, and a step's ties going to its first
 // lane in key order (a running minimum with strict < over the keys in
 // order gives the TPU's per-step argmin).
 //
 // What bounds it on the card: each (ray, triangle) test is 46 FP32
-// operations (Möller-Trumbore) or 32 (Baldwin-Weber), one of them a
-// division, plus 9 or 12 shared-memory broadcasts, so the kernel is bound
-// by the FP32 instruction rate; its bytes are one triangle block per
-// (tile, cluster) visit, read from L2 and staged once per warp instead of
-// once per ray. The front-to-back exit cuts the tests themselves.
+// operations, one of them a division, plus 9 shared-memory broadcasts, so
+// the kernel is bound by the FP32 instruction rate; its bytes are one
+// triangle block per (tile, cluster) visit, read from L2 and staged once
+// per warp instead of once per ray. The front-to-back exit cuts the tests
+// themselves.
 //
 // Built with -fmad=false so its arithmetic rounds exactly like the plain
 // torch version (trace_kernel._mt_reference): ids and t compare bit for
@@ -61,7 +55,7 @@ constexpr int kStep = 8;        // keys per step (KB)
 constexpr int kWarps = 4;       // tiles per block
 constexpr float kBig = 3.0e38f;
 
-template <bool kInst, bool kBW>
+template <bool kInst>
 __global__ void __launch_bounds__(kTile * kWarps)
 trace_mt_kernel(const int* __restrict__ counts,
                 const int* __restrict__ keys, int key_stride,
@@ -74,9 +68,8 @@ trace_mt_kernel(const int* __restrict__ counts,
                 int n_tiles, int n_keys, int idmask, int any_hit,
                 float* __restrict__ t_out, int* __restrict__ tid_out,
                 int* __restrict__ steps_out) {
-  // floats per triangle: Baldwin-Weber [n | n.v0 | r1 | r1.v0 | r2 |
-  // r2.v0], or Möller-Trumbore [v0 | e1 | e2], each by lane
-  constexpr int kComps = kBW ? 12 : 9;
+  // floats per triangle: [v0 | e1 | e2], each by lane
+  constexpr int kComps = 9;
   __shared__ float4 tri[kWarps][kComps * kCluster / 4];
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
@@ -123,48 +116,27 @@ trace_mt_kernel(const int* __restrict__ counts,
         tri[warp][i] = src[i];
       __syncwarp();
       for (int m = 0; m < kCluster; ++m) {
-        bool hit;
-        float tt;
-        if (kBW) {
-          const float nx = s[0 * kCluster + m], ny = s[1 * kCluster + m];
-          const float nz = s[2 * kCluster + m], nd = s[3 * kCluster + m];
-          const float r1x = s[4 * kCluster + m], r1y = s[5 * kCluster + m];
-          const float r1z = s[6 * kCluster + m], r1d = s[7 * kCluster + m];
-          const float r2x = s[8 * kCluster + m], r2y = s[9 * kCluster + m];
-          const float r2z = s[10 * kCluster + m];
-          const float r2d = s[11 * kCluster + m];
-          const float den = nx * dx + ny * dy + nz * dz;
-          const float num = nd - (nx * ox + ny * oy + nz * oz);
-          const float f = den != 0.0f ? 1.0f / den : 0.0f;
-          tt = num * f;
-          const float px = ox + tt * dx;
-          const float py = oy + tt * dy;
-          const float pz = oz + tt * dz;
-          const float uu = r1x * px + r1y * py + r1z * pz - r1d;
-          const float vv = r2x * px + r2y * py + r2z * pz - r2d;
-          hit = den != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f;
-        } else {
-          const float v0x = s[0 * kCluster + m], v0y = s[1 * kCluster + m];
-          const float v0z = s[2 * kCluster + m], e1x = s[3 * kCluster + m];
-          const float e1y = s[4 * kCluster + m], e1z = s[5 * kCluster + m];
-          const float e2x = s[6 * kCluster + m], e2y = s[7 * kCluster + m];
-          const float e2z = s[8 * kCluster + m];
-          const float hx = dy * e2z - dz * e2y;
-          const float hy = dz * e2x - dx * e2z;
-          const float hz = dx * e2y - dy * e2x;
-          const float a = e1x * hx + e1y * hy + e1z * hz;
-          const float f = a != 0.0f ? 1.0f / a : 0.0f;
-          const float sx = ox - v0x;
-          const float sy = oy - v0y;
-          const float sz = oz - v0z;
-          const float uu = f * (sx * hx + sy * hy + sz * hz);
-          const float qx = sy * e1z - sz * e1y;
-          const float qy = sz * e1x - sx * e1z;
-          const float qz = sx * e1y - sy * e1x;
-          const float vv = f * (dx * qx + dy * qy + dz * qz);
-          tt = f * (e2x * qx + e2y * qy + e2z * qz);
-          hit = a != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f;
-        }
+        const float v0x = s[0 * kCluster + m], v0y = s[1 * kCluster + m];
+        const float v0z = s[2 * kCluster + m], e1x = s[3 * kCluster + m];
+        const float e1y = s[4 * kCluster + m], e1z = s[5 * kCluster + m];
+        const float e2x = s[6 * kCluster + m], e2y = s[7 * kCluster + m];
+        const float e2z = s[8 * kCluster + m];
+        const float hx = dy * e2z - dz * e2y;
+        const float hy = dz * e2x - dx * e2z;
+        const float hz = dx * e2y - dy * e2x;
+        const float a = e1x * hx + e1y * hy + e1z * hz;
+        const float f = a != 0.0f ? 1.0f / a : 0.0f;
+        const float sx = ox - v0x;
+        const float sy = oy - v0y;
+        const float sz = oz - v0z;
+        const float uu = f * (sx * hx + sy * hy + sz * hz);
+        const float qx = sy * e1z - sz * e1y;
+        const float qy = sz * e1x - sx * e1z;
+        const float qz = sx * e1y - sy * e1x;
+        const float vv = f * (dx * qx + dy * qy + dz * qz);
+        const float tt = f * (e2x * qx + e2y * qy + e2z * qz);
+        const bool hit =
+            a != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f;
         if (hit && tt >= tmin && tt < bt) {
           bt = tt;
           bi = k * kCluster + m;
@@ -183,48 +155,40 @@ trace_mt_kernel(const int* __restrict__ counts,
   if (steps_out != nullptr && lane == 0) steps_out[tile] = walked;
 }
 
-template <bool kInst, bool kBW>
+template <bool kInst>
 void launch(const int* counts, const int* keys, int key_stride,
             const float* rays8, const float* tris, const int* opaque,
             const int* k_cluster, const int* k_inst, const float* inv12,
             int n_tiles, int n_keys, int idmask, int any_hit, float* t_out,
             int* tid_out, int* steps_out, cudaStream_t st) {
   const int blocks = (n_tiles + kWarps - 1) / kWarps;
-  trace_mt_kernel<kInst, kBW><<<blocks, kTile * kWarps, 0, st>>>(
+  trace_mt_kernel<kInst><<<blocks, kTile * kWarps, 0, st>>>(
       counts, keys, key_stride, rays8, tris, opaque, k_cluster, k_inst,
       inv12, n_tiles, n_keys, idmask, any_hit, t_out, tid_out, steps_out);
 }
 
 }  // namespace
 
-// tris holds tris9 (C, 9, 1, 128) when bw == 0 and tris12 (C, 12, 1, 128)
-// when bw != 0; k_cluster == nullptr selects the flat kernel (K2, or K4/K5
-// with bw), else the instanced one (K3, Möller-Trumbore only). steps_out
-// (n_tiles,) may be nullptr. Returns the CUDA error of the launch (0 on
-// success).
+// tris holds tris9 (C, 9, 1, 128); k_cluster == nullptr selects the flat
+// kernel (K2), else the instanced one (K3). steps_out (n_tiles,) may be
+// nullptr. Returns the CUDA error of the launch (0 on success).
 extern "C" int trace_mt_launch(const int* counts, const int* keys,
                                int key_stride, const float* rays8,
                                const float* tris, const int* opaque,
                                const int* k_cluster, const int* k_inst,
                                const float* inv12, int n_tiles, int n_keys,
-                               int idmask, int any_hit, int bw, float* t_out,
+                               int idmask, int any_hit, float* t_out,
                                int* tid_out, int* steps_out, void* stream) {
-  if (bw != 0 && k_cluster != nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (k_cluster != nullptr) {
-      launch<true, false>(counts, keys, key_stride, rays8, tris, opaque,
-                          k_cluster, k_inst, inv12, n_tiles, n_keys, idmask,
-                          any_hit, t_out, tid_out, steps_out, st);
-    } else if (bw != 0) {
-      launch<false, true>(counts, keys, key_stride, rays8, tris, opaque,
-                          k_cluster, k_inst, inv12, n_tiles, n_keys, idmask,
-                          any_hit, t_out, tid_out, steps_out, st);
+      launch<true>(counts, keys, key_stride, rays8, tris, opaque, k_cluster,
+                   k_inst, inv12, n_tiles, n_keys, idmask, any_hit, t_out,
+                   tid_out, steps_out, st);
     } else {
-      launch<false, false>(counts, keys, key_stride, rays8, tris, opaque,
-                           k_cluster, k_inst, inv12, n_tiles, n_keys, idmask,
-                           any_hit, t_out, tid_out, steps_out, st);
+      launch<false>(counts, keys, key_stride, rays8, tris, opaque, k_cluster,
+                    k_inst, inv12, n_tiles, n_keys, idmask, any_hit, t_out,
+                    tid_out, steps_out, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

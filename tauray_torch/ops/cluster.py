@@ -38,6 +38,7 @@ from torch.profiler import record_function
 from .bvh import morton_3d
 from .intersect import Hit
 from .sampling import cross
+from ..scene.device import resolve_device
 from .trace_kernel import (KB, TILE as PT, trace_tiles, trace_tiles_inst,
                            trace_tiles_vm2, trace_tiles_vm3)
 
@@ -252,7 +253,9 @@ def build_cluster_tracer(tri_pos, tri_instance, tri_opaque=None,
     boundaries (all-merged-static: one group; per-material: one group per
     instance; per-model: one per entity; static-merged-dynamic-per-model:
     static instances share one group, each dynamic entity gets its own).
-    Alpha-capable triangles go to the tail clusters."""
+    Alpha-capable triangles go to the tail clusters. device=None means
+    the CUDA card (raises without one)."""
+    device = resolve_device(device)
     tri_pos = np.asarray(tri_pos)
     tri_instance = np.asarray(tri_instance)
     valid = tri_instance >= 0
@@ -345,7 +348,6 @@ def build_cluster_tracer(tri_pos, tri_instance, tri_opaque=None,
         alpha_base = int(np.flatnonzero(slot_alpha)[0]) // CLUSTER * CLUSTER
     else:
         alpha_base = total
-    device = torch.device("cpu") if device is None else torch.device(device)
 
     def dev(x):
         return torch.from_numpy(np.require(x, requirements=["C", "W"])
@@ -699,7 +701,9 @@ def build_instanced_tracer(mesh_tris, mesh_of_inst, inst_model, inst_opaque,
     unique mesh; mesh_of_inst: (I,) mesh index per instance; inst_model:
     (I, 4, 4) object -> world transforms; inst_opaque: (I,) bool (False =
     alpha-capable material); tri_starts: (I,) world-soup triangle offset
-    per instance (the to_orig mapping)."""
+    per instance (the to_orig mapping). device=None means the CUDA card
+    (raises without one)."""
+    device = resolve_device(device)
     mesh_builds = []
     for tris in mesh_tris:
         tris = np.asarray(tris, np.float32)
@@ -739,7 +743,6 @@ def build_instanced_tracer(mesh_tris, mesh_of_inst, inst_model, inst_opaque,
     if alpha_base is None:
         alpha_base = len(k_cluster) * CLUSTER
 
-    device = torch.device("cpu") if device is None else torch.device(device)
 
     def dev(x, dtype=None):
         t = torch.from_numpy(np.require(x, requirements=["C", "W"]))
@@ -819,6 +822,7 @@ def build_instanced_from_arrays(arrays, device=None
     position and index arrays) share its object clusters. None when no
     mesh is shared or an instance is skinned (its object geometry deforms
     per frame); the caller then builds the flat tracer."""
+    device = resolve_device(device)
     insts = arrays.instances
     if not insts or any(arrays._skinned):
         return None

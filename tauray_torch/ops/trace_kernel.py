@@ -2,7 +2,7 @@
 
   * trace_tiles_vm3 is the counterpart of tauray_tpu's
     pallas_trace_tiles_vm3 (_kernel_vm3): closest hit over Baldwin-Weber
-    rows, id-only keys, no early exit (csrc/trace_vm3.cu);
+    rows, id-only keys, no early exit (csrc/trace_bw.cu);
   * trace_tiles is the counterpart of pallas_trace_tiles (_kernel):
     Möller-Trumbore over tris9, entry-t keys walked front to back in
     steps of KB clusters with a tile-level early exit, and in any-hit
@@ -14,9 +14,11 @@
     pallas_trace_tiles_vm2 (_kernel_vm2) and pallas_trace_tiles_vm
     (_kernel_vm), which compute one function: trace_tiles' walk and exit
     over the Baldwin-Weber rows of trace_tiles_vm3. Both launch the same
-    kernel (csrc/trace_mt.cu with the tris12 format); trace_tiles_vm can
-    also return the steps each tile walked (the TPU kernel's
-    debug_steps).
+    kernel (csrc/trace_bw.cu with the exit); trace_tiles_vm can also
+    return the steps each tile walked (the TPU kernel's debug_steps).
+
+The Baldwin-Weber kernels run one block per tile, its W warps sharing the
+tile's clusters; bw_warps picks W from the wave's size.
 
 For CUDA tensors each wrapper launches its hand-written kernel; for CPU
 tensors it runs the plain torch version beside it (the *_reference
@@ -50,7 +52,7 @@ KEY_SENTINEL = 0x7FFFFFFF
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> its CUDA source
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("trace_vm3", "trace_mt")}
+           for name in ("trace_bw", "trace_mt")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -66,9 +68,10 @@ BUILD_INFO: Dict[str, Dict[str, object]] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "trace_vm3_launch": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "trace_bw_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P],
     "trace_mt_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _P, _P, _P, _P],
+                        _I, _P, _P, _P, _P],
 }
 
 
@@ -93,6 +96,15 @@ def _digest() -> str:
         with open(SOURCES[name], "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
+
+
+def load_library(name: str, path: str) -> ctypes.CDLL:
+    """Load one built library and declare its launch function."""
+    lib = ctypes.CDLL(path)
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[f"{name}_launch"]
+    return lib
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
@@ -126,12 +138,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     for name, path in paths.items():
         if name in _libs:
             continue
-        lib = ctypes.CDLL(path)
-        fn = getattr(lib, f"{name}_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[f"{name}_launch"]
         BUILD_INFO.setdefault(name, dict(seconds=0.0, path=path, log=""))
-        _libs[name] = lib
+        _libs[name] = load_library(name, path)
     return _libs
 
 
@@ -182,25 +190,8 @@ def trace_tiles_vm3(counts: torch.Tensor, keys: torch.Tensor,
     id (R,) i32 (-1 on miss)."""
     if not _on_card(rays8):
         return trace_tiles_vm3_reference(counts, keys, rays8, tris12)
-    dev = rays8.device
-    _check_tiles(counts, keys, rays8, dev, "trace_vm3")
-    _check(tris12, "tris12", torch.float32, 4, dev)
-    n_tiles = counts.shape[0]
-    C = tris12.shape[0]
-    if tuple(tris12.shape) != (C, 12, 1, CLUSTER) or C < 1:
-        raise ValueError("trace_tiles_vm3: bad tris12 shape "
-                         f"{tuple(tris12.shape)}")
-    lib = build_all()["trace_vm3"]
-    t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
-    tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.trace_vm3_launch(
-        counts.data_ptr(), keys.data_ptr(), keys.shape[1], rays8.data_ptr(),
-        tris12.data_ptr(), n_tiles, C, t.data_ptr(), tid.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"trace_vm3 launch failed: CUDA error {err}")
-    LAUNCHES["trace_vm3"] += 1
-    return t, tid
+    return _launch_bw(counts, keys, rays8, tris12, None, 0, False,
+                      "trace_vm3")[:2]
 
 
 def trace_tiles_vm3_reference(counts, keys, rays8, tris12):
@@ -262,7 +253,7 @@ def trace_tiles(counts: torch.Tensor, keys: torch.Tensor,
         return trace_tiles_reference(counts, keys, rays8, tris9, opaque,
                                      idmask, any_hit)
     return _launch_mt(counts, keys, rays8, tris9, opaque, None, idmask,
-                      any_hit)[:2]
+                      any_hit)
 
 
 def trace_tiles_inst(counts: torch.Tensor, keys: torch.Tensor,
@@ -281,7 +272,7 @@ def trace_tiles_inst(counts: torch.Tensor, keys: torch.Tensor,
                                           idmask, any_hit)
     return _launch_mt(counts, keys, rays8, tris9, opaque,
                       (k_cluster, k_inst, inv12), idmask, any_hit,
-                      "trace_mt_inst")[:2]
+                      "trace_mt_inst")
 
 
 def trace_tiles_vm2(counts: torch.Tensor, keys: torch.Tensor,
@@ -296,8 +287,8 @@ def trace_tiles_vm2(counts: torch.Tensor, keys: torch.Tensor,
     if not _on_card(rays8):
         return trace_tiles_vm2_reference(counts, keys, rays8, tris12,
                                          opaque, idmask, any_hit)[:2]
-    return _launch_mt(counts, keys, rays8, tris12, opaque, None, idmask,
-                      any_hit, "trace_vm2")[:2]
+    return _launch_bw(counts, keys, rays8, tris12, opaque, idmask, any_hit,
+                      "trace_vm2")[:2]
 
 
 def trace_tiles_vm(counts: torch.Tensor, keys: torch.Tensor,
@@ -315,27 +306,89 @@ def trace_tiles_vm(counts: torch.Tensor, keys: torch.Tensor,
                                                   tris12, opaque, idmask,
                                                   any_hit)
     else:
-        t, tid, steps = _launch_mt(counts, keys, rays8, tris12, opaque,
-                                   None, idmask, any_hit, "trace_vm",
-                                   debug_steps)
+        t, tid, steps = _launch_bw(counts, keys, rays8, tris12, opaque,
+                                   idmask, any_hit, "trace_vm", debug_steps)
     return (t, tid, steps) if debug_steps else (t, tid)
 
 
-def _launch_mt(counts, keys, rays8, tris, opaque, inst, idmask, any_hit,
-               kernel="trace_mt", debug_steps=False):
-    """Launch csrc/trace_mt.cu: tris is tris9 (K2, K3) or, for kernel
-    trace_vm2 / trace_vm, tris12 (K4, K5). Returns (t, tid, steps or
-    None)."""
+# W, the warps that share one tile in csrc/trace_bw.cu, is 8 for waves of
+# up to BW_TILES_PER_SM tiles per SM (a 2^18-ray wave is 62 on 132 SMs; an
+# alpha re-trace of 32,768 rays 8) and 4 above (a 2^20-ray wave, 248):
+# the fastest of 1, 2, 4 and 8 on each wave size (PERF.md,
+# app/bw_bench.py --variants).
+BW_TILES_PER_SM = 64
+BW_WARPS = (1, 2, 4, 8)
+
+
+def bw_warps(n_tiles: int, n_sm: int) -> int:
+    """W for a launch of n_tiles tiles on n_sm SMs."""
+    return 8 if n_tiles <= BW_TILES_PER_SM * n_sm else 4
+
+
+def _launch_bw(counts, keys, rays8, tris12, opaque, idmask, any_hit,
+               kernel, debug_steps=False, warps=None, lib=None):
+    """Launch csrc/trace_bw.cu: K1 (kernel trace_vm3; opaque None) or
+    K4/K5 (trace_vm2 / trace_vm). warps (W) defaults to bw_warps' choice
+    and lib to the built library; the tuning tool sets both. Returns (t,
+    tid, steps or None)."""
     dev = rays8.device
-    bw = kernel in ("trace_vm2", "trace_vm")
-    rows, table = (12, "tris12") if bw else (9, "tris9")
+    exit_ = kernel != "trace_vm3"
     _check_tiles(counts, keys, rays8, dev, kernel)
-    _check(tris, table, torch.float32, 4, dev)
+    _check(tris12, "tris12", torch.float32, 4, dev)
+    C = tris12.shape[0]
+    if tuple(tris12.shape) != (C, 12, 1, CLUSTER) or C < 1:
+        raise ValueError(f"{kernel}: bad tris12 shape "
+                         f"{tuple(tris12.shape)}")
+    if exit_:
+        _check_exit(keys, opaque, idmask, C, dev, kernel)
+    n_tiles = counts.shape[0]
+    if warps is None:
+        warps = bw_warps(n_tiles, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    if lib is None:
+        lib = build_all()["trace_bw"]
+    t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
+    tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
+    steps = (torch.empty(n_tiles, dtype=torch.int32, device=dev)
+             if debug_steps else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.trace_bw_launch(
+        counts.data_ptr(), keys.data_ptr(), keys.shape[1], rays8.data_ptr(),
+        tris12.data_ptr(), 0 if opaque is None else opaque.data_ptr(),
+        n_tiles, C, idmask, int(any_hit), int(exit_), warps, t.data_ptr(),
+        tid.data_ptr(), 0 if steps is None else steps.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+    return t, tid, steps
+
+
+def _check_exit(keys, opaque, idmask, n_keys, dev, kernel):
+    """The checks of the front-to-back kernels: per-key opacity, key rows
+    with a sentinel past the last id, a valid id mask."""
     _check(opaque, "opaque", torch.int32, 1, dev)
+    if opaque.shape[0] != n_keys:
+        raise ValueError(f"{kernel}: opaque has {opaque.shape[0]} entries "
+                         f"for {n_keys} key ids")
+    if keys.shape[1] < n_keys + KB:
+        raise ValueError(f"{kernel}: key rows of {keys.shape[1]} hold no "
+                         f"sentinel past {n_keys} ids (need {n_keys + KB})")
+    if not 0 < idmask < (1 << 30) or idmask & (idmask + 1) or \
+            idmask < n_keys - 1:
+        raise ValueError(f"{kernel}: bad idmask {idmask} for {n_keys} ids")
+
+
+def _launch_mt(counts, keys, rays8, tris, opaque, inst, idmask, any_hit,
+               kernel="trace_mt"):
+    """Launch csrc/trace_mt.cu over tris9: K2, or K3 with inst. Returns
+    (t, tid)."""
+    dev = rays8.device
+    _check_tiles(counts, keys, rays8, dev, kernel)
+    _check(tris, "tris9", torch.float32, 4, dev)
     C = tris.shape[0]
     n_keys = C
-    if tuple(tris.shape) != (C, rows, 1, CLUSTER) or C < 1:
-        raise ValueError(f"{kernel}: bad {table} shape {tuple(tris.shape)}")
+    if tuple(tris.shape) != (C, 9, 1, CLUSTER) or C < 1:
+        raise ValueError(f"{kernel}: bad tris9 shape {tuple(tris.shape)}")
     ptrs = (0, 0, 0)
     if inst is not None:
         k_cluster, k_inst, inv12 = inst
@@ -349,31 +402,20 @@ def _launch_mt(counts, keys, rays8, tris, opaque, inst, idmask, any_hit,
                              f"{tuple(k_cluster.shape)} "
                              f"{tuple(k_inst.shape)} {tuple(inv12.shape)}")
         ptrs = (k_cluster.data_ptr(), k_inst.data_ptr(), inv12.data_ptr())
-    if opaque.shape[0] != n_keys:
-        raise ValueError(f"{kernel}: opaque has {opaque.shape[0]} entries "
-                         f"for {n_keys} key ids")
-    if keys.shape[1] < n_keys + KB:
-        raise ValueError(f"{kernel}: key rows of {keys.shape[1]} hold no "
-                         f"sentinel past {n_keys} ids (need {n_keys + KB})")
-    if not 0 < idmask < (1 << 30) or idmask & (idmask + 1) or \
-            idmask < n_keys - 1:
-        raise ValueError(f"{kernel}: bad idmask {idmask} for {n_keys} ids")
+    _check_exit(keys, opaque, idmask, n_keys, dev, kernel)
     lib = build_all()["trace_mt"]
     n_tiles = counts.shape[0]
     t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
     tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
-    steps = (torch.empty(n_tiles, dtype=torch.int32, device=dev)
-             if debug_steps else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.trace_mt_launch(
         counts.data_ptr(), keys.data_ptr(), keys.shape[1], rays8.data_ptr(),
         tris.data_ptr(), opaque.data_ptr(), *ptrs, n_tiles, n_keys, idmask,
-        int(any_hit), int(bw), t.data_ptr(), tid.data_ptr(),
-        0 if steps is None else steps.data_ptr(), stream)
+        int(any_hit), t.data_ptr(), tid.data_ptr(), 0, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
-    return t, tid, steps
+    return t, tid
 
 
 def trace_tiles_reference(counts, keys, rays8, tris9, opaque, idmask,

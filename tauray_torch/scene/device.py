@@ -313,6 +313,19 @@ def build_tex_atlas(textures, sizes):
     return atlas, meta, n_mips
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a builder puts its tensors on: `device` as given, else
+    the CUDA card. There is no CPU default, because CPU tensors would send
+    every trace to the kernels' plain versions; pass torch.device("cpu")
+    to ask for those."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device= explicitly "
+                           "(torch.device('cpu') for the plain versions)")
+    return torch.device("cuda")
+
+
 def _tensor(x, device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.uint32:
@@ -345,7 +358,7 @@ def device_scene_from_numpy(fields: Dict[str, Any],
 
 def to_device_scene(sa: SceneArrays, transparent_background: bool = False,
                     device=None) -> DeviceScene:
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     env = sa.environment_map
     if env is not None:
         env_factor = np.append(env.factor,
@@ -428,7 +441,7 @@ class CameraUniforms(NamedTuple):
 
 def to_camera_uniforms(d: Dict[str, np.ndarray], device=None
                        ) -> CameraUniforms:
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     n_vp = d["view"].shape[0]
     proj_type = np.asarray(d.get("proj_type", np.zeros(n_vp, np.float32)))
     fields = {k: _tensor(d[k], device) for k in CameraUniforms._fields

@@ -5,6 +5,8 @@ import numpy as np
 import pytest
 import torch
 
+from tauray_torch.app.bw_bench import tie_rays, tie_stack
+
 pytestmark = pytest.mark.gpu
 
 
@@ -287,3 +289,62 @@ def test_foliage_render_goes_through_kernel(cuda, monkeypatch, vm_kernel):
     a, b = imgs
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
     assert (rel.max(-1) <= 1e-3).mean() >= 0.99
+
+
+def _bw_every_w(tracer, r8, warps, any_hit):
+    """K1, and K4/K5 with debug_steps, at W = warps against their plain
+    versions on one wave: ids identical, t bit-identical, steps equal.
+    K1 has no any-hit mode (the tracer's any-hit traces take it as it
+    is), so its any-hit run is the same wave with t_max cut to 2."""
+    from tauray_torch.ops import trace_kernel as tk
+    from tauray_torch.ops.cluster import _phase1, _phase1_entry
+    if any_hit:
+        r8 = r8.clone()
+        r8[:, 7] = torch.where(torch.isinf(r8[:, 7]), 2.0, r8[:, 7])
+    r3 = r8.reshape(-1, 32, 8)
+    counts, keys = _phase1(tracer, r8)
+    t, tid, _ = tk._launch_bw(counts, keys, r3, tracer.tris12, None, 0,
+                              False, "trace_vm3", warps=warps)
+    tr, idr = tk.trace_tiles_vm3_reference(counts, keys, r3, tracer.tris12)
+    torch.cuda.synchronize()
+    assert torch.equal(tid, idr), ("K1", warps, any_hit)
+    assert torch.equal(t.view(torch.int32), tr.view(torch.int32))
+    counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax, r8)
+    t, tid, steps = tk._launch_bw(counts, keys, r3, tracer.tris12,
+                                  tracer.opaque, idmask, any_hit, "trace_vm",
+                                  debug_steps=True, warps=warps)
+    tr, idr, sr = tk.trace_tiles_vm2_reference(
+        counts, keys, r3, tracer.tris12, tracer.opaque, idmask, any_hit)
+    torch.cuda.synchronize()
+    assert torch.equal(tid, idr), ("K4", warps, any_hit)
+    assert torch.equal(t.view(torch.int32), tr.view(torch.int32))
+    assert torch.equal(steps, sr), ("K5", warps, any_hit)
+    return counts, tid
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_trace_bw_ties_at_every_w(cuda, warps):
+    """The split walk's combine on tie_stack, a 32,768-ray wave: exact
+    duplicates in several clusters (so equal t land in different warps'
+    shares and inside one K4 step), tile counts 0, 1, 10 and 29 (not
+    multiples of W or 8), NaN and t_max < t_min rays; closest and any
+    hit, at every W."""
+    tracer = tie_stack(cuda)
+    r8 = torch.from_numpy(tie_rays(1024)).to(cuda)
+    seen = set()
+    for any_hit in (False, True):
+        counts, tid = _bw_every_w(tracer, r8, warps, any_hit)
+        seen |= set(counts.tolist())
+        assert (tid >= 0).any() and (tid < 0).any()
+    assert {0, 1, 10, 29}.issubset(seen)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_trace_bw_random_soup_at_every_w(cuda, warps):
+    """K1 and K4/K5 at every W on sorted and unsorted random waves of the
+    triangle soup (some clusters not opaque)."""
+    tracer, _ = _soup_tracer(cuda)
+    tracer.opaque[::3] = 0
+    for sort, r3, *_ in _mt_waves(tracer, cuda, seed=11):
+        for any_hit in (False, True):
+            _bw_every_w(tracer, r3.reshape(-1, 8), warps, any_hit)

@@ -358,7 +358,9 @@ def test_environment_map_sampling():
     rng = np.random.default_rng(71)
     img = rng.uniform(0.1, 4.0, (8, 16, 3)).astype(np.float32)
     dev = []
-    for pkg, to_dev in (("tauray_torch", tdev), ("tauray_tpu", jdev)):
+    for pkg, to_dev in (("tauray_torch",
+                         lambda sa: tdev(sa, device=torch.device("cpu"))),
+                        ("tauray_tpu", jdev)):
         import importlib
         s = floor_scene(pkg)
         env = importlib.import_module(f"{pkg}.scene.environment_map")
