@@ -551,7 +551,7 @@ def main() -> int:
         instructions per test of the instance this wave launches, and the
         bound under -fmad=false: those instructions for every 32 tests
         over 4 issue slots x the SMs x the clock."""
-        w = trace_kernel.bw_warps(r["rays"] // 32, n_sm)
+        w = trace_kernel.bw_warps(r["rays"] // 32, n_sm, exit_)
         st = bw_sass(exit_, w)
         out = row(name, "tauray_torch/csrc/trace_bw.cu", replaces,
                   launches, r)

@@ -10,13 +10,11 @@ random directions leaving the hits of a 512x512 (2^18 rays) or 1024x1024
 of an alpha re-trace). On each it times K1 (trace_tiles_vm3) and K4
 (trace_tiles_vm2), closest hit, with CUDA events, and holds each result
 bit for bit to its plain version. With --variants it also times every W
-(warps per tile) in each build of VARIANTS: the three ways of staging
-the clusters in shared memory (trace_bw.cu's TRACE_BW_STAGING 0, 1, 2),
-each with and without the warp's t-range vote (TRACE_BW_TVOTE). Last, it
-prints each built library's SASS loop statistics (cuobjdump): the
-instructions, 16-byte and narrower shared loads of each kernel's inner
-test loop, and instructions per test; --sass DIR also writes the whole
-SASS of each library there.
+(warps per tile; K4 also checked as any hit). Last, it prints each built
+library's SASS loop statistics (cuobjdump): the instructions, 16-byte
+and narrower shared loads of each kernel's inner test loop, and
+instructions per test; --sass DIR also writes the whole SASS of each
+library there.
 
 The tool also runs against an older checkout of tauray_torch (PYTHONPATH
 pointing there, this file run by its path); it then times that
@@ -37,26 +35,12 @@ import time
 import numpy as np
 import torch
 
+from tauray_torch.app.wave_stats import _ms as cuda_ms
 from tauray_torch.ops.cluster import tracer_from_numpy
 
 SCENE = "proc://sponza?tris=262144"
 SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
 RETRACE_RAYS = 32768
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of fn over reps calls after one warm-up call (CUDA
-    events)."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def kernel_waves(device, scene=SCENE, size=512, seed=0,
@@ -225,30 +209,6 @@ def same_bits(a, b) -> bool:
             torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)))
 
 
-# the builds of trace_bw.cu that --variants times: name -> its -D macros
-VARIANTS = {f"s{staging}v{tvote}": dict(TRACE_BW_STAGING=staging,
-                                        TRACE_BW_TVOTE=tvote)
-            for staging in (0, 1, 2) for tvote in (0, 1)}
-
-
-def _variant_library(name: str, defines):
-    """trace_bw.cu built with the -D macros defines into its own directory
-    of the build tree: (the loaded library, its path, the compiler's
-    output)."""
-    from tauray_torch.ops import trace_kernel as tk
-    out = os.path.join(tk.BUILD_DIR, f"variant_{name}")
-    os.makedirs(out, exist_ok=True)
-    path = os.path.join(out, "libtrace_bw.so")
-    res = subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS,
-                          *(f"-D{k}={v}" for k, v in defines.items()),
-                          "-o", path, tk.SOURCES["trace_bw"]],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
-    return (tk.load_library("trace_bw", path), path,
-            res.stdout + res.stderr)
-
-
 def ptxas_lines(log: str):
     """What ptxas reports per kernel: entry, registers, shared, spills."""
     return [ln.strip() for ln in log.splitlines()
@@ -346,7 +306,7 @@ def sass_loops(lib_path: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", action="store_true",
-                    help="also time every W and a one-buffer build")
+                    help="also time every W")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="also write the lines here")
     ap.add_argument("--sass", default=None,
@@ -369,17 +329,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tk.build_all()
     redesigned = hasattr(tk, "_launch_bw")
-    variants = {}
-    libs = {name: str(info["path"]) for name, info in tk.BUILD_INFO.items()}
     emit(build_s=time.perf_counter() - t0,
          ptxas={name: ptxas_lines(str(info["log"]))
                 for name, info in tk.BUILD_INFO.items()})
-    if args.variants and redesigned:
-        for tag, defines in VARIANTS.items():
-            lib, path, log = _variant_library(tag, defines)
-            libs[f"trace_bw_{tag}"] = path
-            variants.update({f"{tag}_w{w}": (lib, w) for w in tk.BW_WARPS})
-            emit(variant_build=tag, ptxas=ptxas_lines(log))
+    warps = tk.BW_WARPS if args.variants and redesigned else ()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for scene, tracer, rays in bench_waves(dev):
         for wave, r8 in rays.items():
@@ -396,26 +349,26 @@ def main(argv=None) -> int:
                            clusters_per_tile=visits / a[0].shape[0],
                            ms=cuda_ms(lambda: kern(*a), args.reps))
                 if redesigned:
-                    res["w"] = tk.bw_warps(a[0].shape[0], n_sm)
+                    res["w"] = tk.bw_warps(a[0].shape[0], n_sm, exit_)
                 kernel = "trace_vm2" if exit_ else "trace_vm3"
                 bw_a = a if exit_ else a[:4] + (None, 0, False)
                 # K4 also as any hit (checked, not timed)
                 any_a = a[:6] + (True,) if exit_ else None
                 want_any = ref(*any_a)[:2] if exit_ else None
-                for vname, (lib, w) in variants.items():
-                    def run(bw_a=bw_a, kernel=kernel, w=w, lib=lib):
-                        return tk._launch_bw(*bw_a, kernel, warps=w,
-                                             lib=lib)
-                    if not same_bits(run(), want) or (exit_ and not same_bits(
-                            tk._launch_bw(*any_a, kernel, warps=w, lib=lib),
-                            want_any)):
-                        raise RuntimeError(f"{kname} {vname} disagrees "
+                for w in warps:
+                    def run(bw_a=bw_a, kernel=kernel, w=w):
+                        return tk._launch_bw(*bw_a, kernel, warps=w)
+                    if not same_bits(run(), want) or exit_ and not \
+                            same_bits(tk._launch_bw(*any_a, kernel, warps=w),
+                                      want_any):
+                        raise RuntimeError(f"{kname} at W = {w} disagrees "
                                            f"on {wave}")
-                    res[f"ms_{vname}"] = cuda_ms(run, args.reps)
+                    res[f"ms_w{w}"] = cuda_ms(run, args.reps)
                 emit(**res)
         del tracer, rays
         torch.cuda.empty_cache()
-    for name, path in sorted(libs.items()):
+    for name, info in sorted(tk.BUILD_INFO.items()):
+        path = str(info["path"])
         emit(library=name, sass=sass_loops(path))
         if args.sass:
             os.makedirs(args.sass, exist_ok=True)

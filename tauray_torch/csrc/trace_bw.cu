@@ -12,11 +12,13 @@
 // It computes their contract, not their TPU schedule:
 //   * one block per 32-ray tile; all W warps of the block hold the same
 //     32 rays, one per lane, and warp w tests the key slots j = w (mod W),
-//     so a small wave still fills the card and a heavy tile is shared;
+//     so a small wave still fills the card and a heavy tile is shared; the
+//     wrapper picks W (1, 2, 4 or 8) per launch (trace_kernel.bw_warps);
 //   * each warp stages its clusters' tris12 rows in its 6 KB of shared
-//     memory with cp.async 16-byte copies; the other warps on the SM hide
-//     the copy, which measured faster than keeping the next cluster (or
-//     half-cluster) in flight in a second buffer (TRACE_BW_STAGING below);
+//     memory with cp.async 16-byte copies and waits for them; the other
+//     warps on the SM hide the copy, which measured faster than keeping
+//     the next cluster, or half-cluster, in flight in a second buffer
+//     (PERF.md);
 //   * the inner loop takes 4 triangles at a time, each of the 12
 //     components of 4 adjacent triangles one 16-byte shared read;
 //   * keys (and, in any-hit mode, their opacities) are read once per warp,
@@ -53,25 +55,6 @@
 
 #include <cuda_runtime.h>
 
-// Two build-time variants, measured against each other by
-// tauray_torch/app/bw_bench.py --variants (PERF.md); the defaults are the
-// fastest on the main path's waves.
-// How a warp stages its clusters' rows in shared memory (cp.async):
-//   0: one 6 KB buffer; each cluster is copied, then tested (default);
-//   1: two 3 KB half-cluster buffers (6 KB): the next half-cluster (64
-//      triangles) is in flight while one is tested;
-//   2: two 6 KB buffers (12 KB): the next cluster is in flight while one
-//      is tested.
-#ifndef TRACE_BW_STAGING
-#define TRACE_BW_STAGING 0
-#endif
-// 1: a warp votes on each group of four tests whether any lane's t lies in
-// [tmin, best t), and skips the barycentric half of the tests when none
-// does (test_unit); 0: every test runs in full (default).
-#ifndef TRACE_BW_TVOTE
-#define TRACE_BW_TVOTE 0
-#endif
-
 namespace {
 
 constexpr int kCluster = 128;   // triangles per cluster
@@ -79,14 +62,7 @@ constexpr int kTile = 32;       // rays per tile = lanes per warp
 constexpr int kRows = 12;       // Baldwin-Weber floats per triangle
 constexpr int kStep = 8;        // keys per step of K4/K5 (KB)
 constexpr int kQuads = kCluster / 4;
-constexpr int kStaging = TRACE_BW_STAGING;
-static_assert(kStaging >= 0 && kStaging <= 2, "staging 0, 1 or 2");
-// a unit is the part of a cluster staged at once: all of it, or half
-constexpr int kUnitQuads = kStaging == 1 ? kQuads / 2 : kQuads;
-constexpr int kUnits = kQuads / kUnitQuads;      // units per cluster
-constexpr int kBufs = kStaging == 0 ? 1 : 2;     // unit buffers per warp
-constexpr int kUnitF4 = kRows * kUnitQuads;      // float4 per unit buffer
-constexpr bool kTVote = TRACE_BW_TVOTE != 0;
+constexpr int kBuf = kRows * kQuads;   // float4 per cluster (6,144 B)
 // A block of W warps is declared to run at least kMinWarps / W times on
 // one SM, which caps its registers at 65,536 / (32 x kMinWarps) = 128 a
 // thread: without a cap, ptxas held some instances to 72-80 registers and
@@ -110,195 +86,119 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start the copy of unit h of cluster c into buf, laid out [12][kUnitQuads]
-// float4: kUnitF4 / 32 16-byte copies a lane, neighbouring lanes on
-// neighbouring addresses.
+// Copies cluster c's 6,144 bytes of rows into buf with 12 16-byte
+// cp.async copies a lane, neighbouring lanes on neighbouring addresses,
+// and waits for this lane's copies.
 __device__ __forceinline__ void stage(float4* buf, const float* tris12,
-                                      int c, int h, int lane) {
+                                      int c, int lane) {
   const float4* src = reinterpret_cast<const float4*>(
-      tris12 + static_cast<size_t>(c) * kRows * kCluster) + h * kUnitQuads;
+      tris12 + static_cast<size_t>(c) * kRows * kCluster);
 #pragma unroll
-  for (int j = 0; j < kUnitF4 / kTile; ++j) {
-    const int k = j * kTile + lane;
-    cp_async16(buf + k, src + (k / kUnitQuads) * kQuads + k % kUnitQuads);
-  }
+  for (int j = 0; j < kBuf / kTile; ++j)
+    cp_async16(buf + j * kTile + lane, src + j * kTile + lane);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tmin;
 };
 
-// The plane half of a Baldwin-Weber test, in the order of
-// pallas_trace.py:1108-1112: the denominator n.d and t.
-struct Plane {
-  float den, tt;
-};
-
-__device__ __forceinline__ Plane bw_plane(const Ray& r, float nx, float ny,
-                                          float nz, float nd) {
+// One Baldwin-Weber test in the order of pallas_trace.py:1108-1117; on a
+// hit closer than bt, takes it. Returns whether it did.
+__device__ __forceinline__ bool bw_test(
+    const Ray& r, float nx, float ny, float nz, float nd, float r1x,
+    float r1y, float r1z, float r1d, float r2x, float r2y, float r2z,
+    float r2d, int id, float& bt, int& bi) {
   const float den = nx * r.dx + ny * r.dy + nz * r.dz;
   const float num = nd - (nx * r.ox + ny * r.oy + nz * r.oz);
   const float f = den != 0.0f ? 1.0f / den : 0.0f;
-  return Plane{den, num * f};
-}
-
-// Whether a plane hit can pass the hit test's t part against best t bt.
-__device__ __forceinline__ bool t_in_range(const Ray& r, Plane p, float bt) {
-  return p.den != 0.0f && p.tt >= r.tmin && p.tt < bt;
-}
-
-// The rest of the test (pallas_trace.py:1113-1117) and the hit test; on a
-// hit closer than bt, takes it. Returns whether it did.
-__device__ __forceinline__ bool bw_finish(
-    const Ray& r, Plane p, float r1x, float r1y, float r1z, float r1d,
-    float r2x, float r2y, float r2z, float r2d, int id, float& bt,
-    int& bi) {
-  const float px = r.ox + p.tt * r.dx;
-  const float py = r.oy + p.tt * r.dy;
-  const float pz = r.oz + p.tt * r.dz;
+  const float tt = num * f;
+  const float px = r.ox + tt * r.dx;
+  const float py = r.oy + tt * r.dy;
+  const float pz = r.oz + tt * r.dz;
   const float uu = r1x * px + r1y * py + r1z * pz - r1d;
   const float vv = r2x * px + r2y * py + r2z * pz - r2d;
-  if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && t_in_range(r, p, bt)) {
-    bt = p.tt;
+  if (den != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+      tt >= r.tmin && tt < bt) {
+    bt = tt;
     bi = id;
     return true;
   }
   return false;
 }
 
-// The ray against the triangles of one staged unit, in lane order, four
-// at a time: component m of triangles 4q..4q+3 is the float4
-// buf[m * kUnitQuads + q]. id0 is the slot id of the unit's first
-// triangle. Returns whether the best changed. With kTVote, the warp
-// skips the second half of the four tests when no lane's t of any of them
-// lies in [tmin, best t): none of them could pass the hit test, so the
-// result is the same.
-__device__ __forceinline__ bool test_unit(const float4* buf, int id0,
-                                          const Ray& r, float& bt,
-                                          int& bi) {
+// The ray against the 128 triangles of cluster c staged in buf, in lane
+// order, four at a time: component m of triangles 4q..4q+3 is the float4
+// buf[m * 32 + q]. Returns whether the best changed.
+__device__ __forceinline__ bool test_cluster(const float4* buf, int c,
+                                             const Ray& r, float& bt,
+                                             int& bi) {
   bool upd = false;
-  for (int q = 0; q < kUnitQuads; ++q) {
+  for (int q = 0; q < kQuads; ++q) {
     const float4* b = buf + q;
-    const float4 nx = b[0 * kUnitQuads], ny = b[1 * kUnitQuads];
-    const float4 nz = b[2 * kUnitQuads], nd = b[3 * kUnitQuads];
-    const Plane p0 = bw_plane(r, nx.x, ny.x, nz.x, nd.x);
-    const Plane p1 = bw_plane(r, nx.y, ny.y, nz.y, nd.y);
-    const Plane p2 = bw_plane(r, nx.z, ny.z, nz.z, nd.z);
-    const Plane p3 = bw_plane(r, nx.w, ny.w, nz.w, nd.w);
-    if (kTVote &&
-        !__any_sync(kFull, t_in_range(r, p0, bt) || t_in_range(r, p1, bt) ||
-                               t_in_range(r, p2, bt) ||
-                               t_in_range(r, p3, bt)))
-      continue;
-    const float4 r1x = b[4 * kUnitQuads], r1y = b[5 * kUnitQuads];
-    const float4 r1z = b[6 * kUnitQuads], r1d = b[7 * kUnitQuads];
-    const float4 r2x = b[8 * kUnitQuads], r2y = b[9 * kUnitQuads];
-    const float4 r2z = b[10 * kUnitQuads], r2d = b[11 * kUnitQuads];
-    const int id = id0 + 4 * q;
-    upd |= bw_finish(r, p0, r1x.x, r1y.x, r1z.x, r1d.x, r2x.x, r2y.x, r2z.x,
-                     r2d.x, id, bt, bi);
-    upd |= bw_finish(r, p1, r1x.y, r1y.y, r1z.y, r1d.y, r2x.y, r2y.y, r2z.y,
-                     r2d.y, id + 1, bt, bi);
-    upd |= bw_finish(r, p2, r1x.z, r1y.z, r1z.z, r1d.z, r2x.z, r2y.z, r2z.z,
-                     r2d.z, id + 2, bt, bi);
-    upd |= bw_finish(r, p3, r1x.w, r1y.w, r1z.w, r1d.w, r2x.w, r2y.w, r2z.w,
-                     r2d.w, id + 3, bt, bi);
+    const float4 nx = b[0 * kQuads], ny = b[1 * kQuads];
+    const float4 nz = b[2 * kQuads], nd = b[3 * kQuads];
+    const float4 r1x = b[4 * kQuads], r1y = b[5 * kQuads];
+    const float4 r1z = b[6 * kQuads], r1d = b[7 * kQuads];
+    const float4 r2x = b[8 * kQuads], r2y = b[9 * kQuads];
+    const float4 r2z = b[10 * kQuads], r2d = b[11 * kQuads];
+    const int id = c * kCluster + 4 * q;
+    upd |= bw_test(r, nx.x, ny.x, nz.x, nd.x, r1x.x, r1y.x, r1z.x, r1d.x,
+                   r2x.x, r2y.x, r2z.x, r2d.x, id, bt, bi);
+    upd |= bw_test(r, nx.y, ny.y, nz.y, nd.y, r1x.y, r1y.y, r1z.y, r1d.y,
+                   r2x.y, r2y.y, r2z.y, r2d.y, id + 1, bt, bi);
+    upd |= bw_test(r, nx.z, ny.z, nz.z, nd.z, r1x.z, r1y.z, r1z.z, r1d.z,
+                   r2x.z, r2y.z, r2z.z, r2d.z, id + 2, bt, bi);
+    upd |= bw_test(r, nx.w, ny.w, nz.w, nd.w, r1x.w, r1y.w, r1z.w, r1d.w,
+                   r2x.w, r2y.w, r2z.w, r2d.w, id + 3, bt, bi);
   }
   return upd;
 }
 
 // One warp's walk over its key slots warp + i * W, i < n_mine: the keys
 // read 32 at a time (lane l holds the cluster, and its opacity, of the
-// warp's slot base + l) and handed out with __shfl_sync, and the units
-// of the clusters streamed through the warp's buffers.
+// warp's slot base + l) and handed out with __shfl_sync, each cluster's
+// rows staged in the warp's buffer and tested.
 template <int W, bool kExit>
 struct Walk {
   const int* krow;
   const float* tris12;
   const int* opaque;
-  float4* bufs;
+  float4* buf;
   int warp, lane, n_mine, n_keys, idmask, any_hit;
-  int kc, oc;           // this lane's key of the current 32
-  int c_next, o_next;   // cluster and opacity of the next slot to visit
+  int kc, oc;   // this lane's key (cluster, opacity) of the current 32
 
-  __device__ __forceinline__ void load_keys(int base) {
-    const int i = base + lane;
-    kc = 0;
-    oc = 0;
-    if (i < n_mine) {
-      const int key = krow[warp + i * W];
-      kc = kExit ? min(key & idmask, n_keys - 1)
-                 : min(max(key, 0), n_keys - 1);
-      if (kExit && any_hit) oc = opaque[kc];
-    }
-  }
-
-  // Reads the first keys and, with two buffers, starts the first copy.
-  __device__ __forceinline__ void start() {
-    load_keys(0);
-    c_next = __shfl_sync(kFull, kc, 0);
-    o_next = __shfl_sync(kFull, oc, 0);
-    if (kBufs == 2) {
-      if (n_mine > 0) stage(bufs, tris12, c_next, 0, lane);
-      cp_async_commit();
-    }
-  }
-
-  // Tests the warp's slot i (the next one; its first unit staged or in
-  // flight) and moves on to slot i + 1. Returns whether the best changed;
-  // opq is the slot's opacity.
+  // Tests this warp's slot i; returns whether the best changed, with the
+  // slot's opacity in opq.
   __device__ __forceinline__ bool visit(int i, const Ray& r, float& bt,
                                         int& bi, int& opq) {
-    const int c = c_next;
-    opq = o_next;
-    if (i + 1 < n_mine) {
-      if (((i + 1) & 31) == 0) load_keys(i + 1);
-      c_next = __shfl_sync(kFull, kc, (i + 1) & 31);
-      o_next = __shfl_sync(kFull, oc, (i + 1) & 31);
-    }
-    bool upd = false;
-#pragma unroll
-    for (int h = 0; h < kUnits; ++h) {
-      const int u = i * kUnits + h;
-      float4* cur = bufs + (kBufs == 2 ? (u & 1) * kUnitF4 : 0);
-      if (kBufs == 1) {
-        stage(cur, tris12, c, h, lane);
-        cp_async_commit();
-        cp_async_wait<0>();
-      } else {
-        // the unit after this one: this cluster's next, or the next slot's
-        // first
-        if (h + 1 < kUnits) {
-          stage(bufs + ((u + 1) & 1) * kUnitF4, tris12, c, h + 1, lane);
-        } else if (i + 1 < n_mine) {
-          stage(bufs + ((u + 1) & 1) * kUnitF4, tris12, c_next, 0, lane);
-        }
-        cp_async_commit();
-        cp_async_wait<1>();
+    if ((i & 31) == 0) {
+      kc = 0;
+      oc = 0;
+      if (i + lane < n_mine) {
+        const int key = krow[warp + (i + lane) * W];
+        kc = kExit ? min(key & idmask, n_keys - 1)
+                   : min(max(key, 0), n_keys - 1);
+        if (kExit && any_hit) oc = opaque[kc];
       }
-      __syncwarp();
-      upd |= test_unit(cur, c * kCluster + h * 4 * kUnitQuads, r, bt, bi);
-      __syncwarp();  // every lane is done with cur before it is refilled
     }
+    const int c = __shfl_sync(kFull, kc, i & 31);
+    opq = __shfl_sync(kFull, oc, i & 31);
+    stage(buf, tris12, c, lane);
+    __syncwarp();
+    const bool upd = test_cluster(buf, c, r, bt, bi);
+    __syncwarp();  // every lane is done with buf before it is refilled
     return upd;
   }
 };
 
-// Shared memory of one block: W warps x kBufs unit buffers, then the
-// combine's candidates (two rows of W x 32 for K4/K5, one for K1; none
-// when W = 1).
+// Shared memory of one block: a cluster buffer for each of the W warps,
+// then the combine's candidates (two rows of W x 32 for K4/K5, one for K1;
+// none when W = 1).
 template <int W, bool kExit>
 constexpr size_t smem_bytes() {
-  return static_cast<size_t>(W) * kBufs * kUnitF4 * sizeof(float4) +
+  return static_cast<size_t>(W) * kBuf * sizeof(float4) +
          (W > 1 ? (kExit ? 2 : 1) * W * kTile * sizeof(Cand) : 0);
 }
 
@@ -315,7 +215,7 @@ trace_bw_kernel(const int* __restrict__ counts,
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
   const int tile = blockIdx.x;
-  Cand* comb = reinterpret_cast<Cand*>(smem + W * kBufs * kUnitF4);
+  Cand* comb = reinterpret_cast<Cand*>(smem + W * kBuf);
 
   const size_t ray = static_cast<size_t>(tile) * kTile + lane;
   const float4 a = reinterpret_cast<const float4*>(rays8)[ray * 2];
@@ -330,14 +230,13 @@ trace_bw_kernel(const int* __restrict__ counts,
   walk.krow = keys + static_cast<size_t>(tile) * key_stride;
   walk.tris12 = tris12;
   walk.opaque = opaque;
-  walk.bufs = smem + warp * kBufs * kUnitF4;
+  walk.buf = smem + warp * kBuf;
   walk.warp = warp;
   walk.lane = lane;
   walk.n_mine = count > warp ? (count - warp + W - 1) / W : 0;
   walk.n_keys = n_keys;
   walk.idmask = idmask;
   walk.any_hit = any_hit;
-  walk.start();
   int i = 0;  // this warp's next slot: warp + i * W
 
   if (!kExit) {
@@ -394,7 +293,6 @@ trace_bw_kernel(const int* __restrict__ counts,
       if (any_hit) done = done || (bi >= 0 && bopq > 0);
       if (__all_sync(kFull, done)) break;
     }
-    if (kBufs == 2) cp_async_wait<0>();  // a copy started past the exit
     if (warp != 0) return;
     if (steps_out != nullptr && lane == 0) steps_out[tile] = walked;
   }

@@ -98,15 +98,6 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(name: str, path: str) -> ctypes.CDLL:
-    """Load one built library and declare its launch function."""
-    lib = ctypes.CDLL(path)
-    fn = getattr(lib, f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[f"{name}_launch"]
-    return lib
-
-
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Build (once per source version) and load every kernel library; the
     missing ones compile in parallel, one nvcc process per source."""
@@ -138,8 +129,12 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     for name, path in paths.items():
         if name in _libs:
             continue
+        lib = ctypes.CDLL(path)
+        fn = getattr(lib, f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[f"{name}_launch"]
         BUILD_INFO.setdefault(name, dict(seconds=0.0, path=path, log=""))
-        _libs[name] = load_library(name, path)
+        _libs[name] = lib
     return _libs
 
 
@@ -312,25 +307,27 @@ def trace_tiles_vm(counts: torch.Tensor, keys: torch.Tensor,
 
 
 # W, the warps that share one tile in csrc/trace_bw.cu, is 8 for waves of
-# up to BW_TILES_PER_SM tiles per SM (a 2^18-ray wave is 62 on 132 SMs; an
-# alpha re-trace of 32,768 rays 8) and 4 above (a 2^20-ray wave, 248):
-# the fastest of 1, 2, 4 and 8 on each wave size (PERF.md,
-# app/bw_bench.py --variants).
-BW_TILES_PER_SM = 64
+# up to BW_TILES_PER_SM tiles per SM, else 4: for K1 up to 64 (a 2^18-ray
+# wave is 62 tiles per SM on 132 SMs, a 2^20-ray wave 248), for K4/K5 up
+# to 16 (an alpha re-trace of 32,768 rays is 8), since they also
+# synchronise the block once per step of 8 keys. These are the fastest of
+# 1, 2, 4 and 8 on each wave size (PERF.md, app/bw_bench.py --variants).
+BW_TILES_PER_SM = {False: 64, True: 16}
 BW_WARPS = (1, 2, 4, 8)
 
 
-def bw_warps(n_tiles: int, n_sm: int) -> int:
-    """W for a launch of n_tiles tiles on n_sm SMs."""
-    return 8 if n_tiles <= BW_TILES_PER_SM * n_sm else 4
+def bw_warps(n_tiles: int, n_sm: int, exit_: bool) -> int:
+    """W for a launch of n_tiles tiles on n_sm SMs, of K1 (exit_ False)
+    or K4/K5."""
+    return 8 if n_tiles <= BW_TILES_PER_SM[exit_] * n_sm else 4
 
 
 def _launch_bw(counts, keys, rays8, tris12, opaque, idmask, any_hit,
-               kernel, debug_steps=False, warps=None, lib=None):
+               kernel, debug_steps=False, warps=None):
     """Launch csrc/trace_bw.cu: K1 (kernel trace_vm3; opaque None) or
-    K4/K5 (trace_vm2 / trace_vm). warps (W) defaults to bw_warps' choice
-    and lib to the built library; the tuning tool sets both. Returns (t,
-    tid, steps or None)."""
+    K4/K5 (trace_vm2 / trace_vm). warps (W) defaults to bw_warps' choice;
+    the tuning tool and the tests set it. Returns (t, tid, steps or
+    None)."""
     dev = rays8.device
     exit_ = kernel != "trace_vm3"
     _check_tiles(counts, keys, rays8, dev, kernel)
@@ -344,9 +341,8 @@ def _launch_bw(counts, keys, rays8, tris12, opaque, idmask, any_hit,
     n_tiles = counts.shape[0]
     if warps is None:
         warps = bw_warps(n_tiles, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-    if lib is None:
-        lib = build_all()["trace_bw"]
+            dev).multi_processor_count, exit_)
+    lib = build_all()["trace_bw"]
     t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
     tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
     steps = (torch.empty(n_tiles, dtype=torch.int32, device=dev)

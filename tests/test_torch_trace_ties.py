@@ -103,12 +103,13 @@ def test_plain_k4_ties_match_kernel_vm2(ties, any_hit):
     assert int(steps.max()) == 2 and int(steps.min()) == 0
 
 
-def test_bw_warps_rule():
-    """W per launch: 8 warps a tile for waves of up to 2^18 rays and the
-    alpha re-traces, 4 for 2^20-ray waves (132 SMs); always one of the
-    kernel's instances."""
-    assert tk.bw_warps(1024, 132) == 8            # 32,768 rays
-    assert tk.bw_warps(8192, 132) == 8            # 2^18 rays
-    assert tk.bw_warps(32768, 132) == 4           # 2^20 rays
-    assert all(tk.bw_warps(n, sm) in tk.BW_WARPS
+@pytest.mark.parametrize("exit_", [False, True], ids=["K1", "K4"])
+def test_bw_warps_rule(exit_):
+    """W per launch on 132 SMs: 8 warps a tile for the 32,768-ray alpha
+    re-traces, 4 for 2^20-ray waves; on 2^18-ray waves 8 for K1 and 4 for
+    K4/K5; always one of the kernel's instances."""
+    assert tk.bw_warps(1024, 132, exit_) == 8            # 32,768 rays
+    assert tk.bw_warps(8192, 132, exit_) == (4 if exit_ else 8)
+    assert tk.bw_warps(32768, 132, exit_) == 4           # 2^20 rays
+    assert all(tk.bw_warps(n, sm, exit_) in tk.BW_WARPS
                for n in (1, 100, 10**4, 10**6) for sm in (1, 114, 132))
