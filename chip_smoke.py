@@ -16,7 +16,7 @@ non-zero:
        3a. K1 (trace_vm3): proc://sponza?tris=262144, flat, plus the
            2^20-ray sorted bounce wave, a 32,768-ray slice of the foliage
            scene's sorted bounce wave (an alpha re-trace's size) and the
-           duplicate-triangle wave (app/bw_bench.tie_stack: exact ties
+           duplicate-triangle wave (app/kernel_waves.tie_stack: exact ties
            across clusters, tiles of 0, 1, 10 and 29 clusters, NaN and
            t_max < t_min rays; 2^18 rays);
        3b. K2 (trace_mt): proc://sponza?tris=524288, flat (C > 2,197);
@@ -43,8 +43,8 @@ non-zero:
   10. `python -m tauray_torch.app.wave_stats` at its default size: K5
      launched, one line per wave.
 The last lines are the card, the kernel table (K1/K4/K5 rows also with
-PR 3's time on the same wave, the SASS instructions per test and the bound
-under the -fmad=false contract), and {"ok": true, "device": {...}}.
+W, the SASS instructions per test and the bound under the -fmad=false
+contract), and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -52,6 +52,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -75,10 +76,6 @@ FLOPS_BW = 32
 FLOPS_MT = 46
 FLOPS_XFORM = 21
 LANES_1080P = 2097152 * 1 * (2 * 4 - 1)   # padded pixels x spp x waves
-# PR 3's times of the Baldwin-Weber kernels on the 2^18-ray sorted bounce
-# wave, closest hit (chip_smoke.py phases 3a/3d/3e on an NVIDIA H100 80GB
-# HBM3 at 700 W; PERF.md): K1 on the plain scene, K4/K5 on the foliage one
-PREV_MS = {"trace_vm3": 5.734, "trace_vm2": 4.705, "trace_vm": 4.492}
 
 
 def card_line() -> str:
@@ -115,6 +112,94 @@ def sm_clock_hz() -> float:
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
+
+
+def ptxas_lines(log: str):
+    """What ptxas reports per kernel: entry, registers, shared, spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if re.search(r"registers|spill|Compiling entry", ln)]
+
+
+def _cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy in Triton's package."""
+    import importlib.util
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    for cand in cands:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found")
+
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def sass_loops(lib_path: str):
+    """{kernel: stats of its inner test loop} from cuobjdump -sass: of the
+    innermost loops (a backward branch with no other inside it), the one
+    holding the most shared-load words, with its instructions, 16-byte
+    (LDS.128) and narrower shared loads, the tests one pass makes (shared
+    words / the 12 Baldwin-Weber or 9 Möller-Trumbore components of a
+    triangle) and instructions per test."""
+    text = subprocess.run([_cuobjdump(), "-sass", lib_path],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        insns, labels, pending = [], {}, []
+        for ln in chunk.splitlines():
+            m = _LABEL.match(ln)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = _INSN.search(ln)
+            if m:
+                addr = int(m.group(1), 16)
+                for lab in pending:
+                    labels[lab] = addr
+                pending = []
+                insns.append((addr, m.group(2)))
+        loops = []
+        for addr, op in insns:
+            if not re.search(r"\bBRA\b", op):
+                continue
+            m = re.search(r"\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", op)
+            if not m:
+                continue
+            target = labels.get(m.group(1)) if m.group(1) else \
+                int(m.group(2), 16)
+            if target is not None and target <= addr:
+                loops.append((target, addr))
+        best = None
+        for target, addr in loops:
+            if any((t2, a2) != (target, addr) and target <= t2 and
+                   a2 <= addr for t2, a2 in loops):
+                continue                          # not innermost
+            body = [o for a, o in insns if target <= a <= addr]
+            lds128 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS\.128\b", o))
+                         for o in body)
+            lds64 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS\.64\b", o))
+                        for o in body)
+            lds32 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS(\.U?32)?\s", o))
+                        for o in body)
+            words = 4 * lds128 + 2 * lds64 + lds32
+            if best is None or words > best["words"] or (
+                    words == best["words"] and len(body) < best["insns"]):
+                best = dict(insns=len(body), words=words, lds128=lds128,
+                            lds_narrow=lds64 + lds32)
+        if best is None or best["words"] == 0:
+            continue
+        tests = best["words"] / (12 if "trace_bw" in name else 9)
+        out[name] = dict(loop_instructions=best["insns"],
+                         lds128=best["lds128"],
+                         lds_narrow=best["lds_narrow"], tests=tests,
+                         instructions_per_test=best["insns"] / tests)
+    return out
 
 
 def bound(flops: float, nbytes: float):
@@ -347,9 +432,8 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
-    from tauray_torch.app.bw_bench import (kernel_waves, ptxas_lines,
-                                           retrace_slice, sass_loops,
-                                           tie_rays, tie_stack)
+    from tauray_torch.app.kernel_waves import (kernel_waves, retrace_slice,
+                                               tie_rays, tie_stack)
     from tauray_torch.ops import trace_kernel
     dev = torch.device("cuda")
     card = card_line()
@@ -547,15 +631,15 @@ def main() -> int:
                 "library_ms": None}
 
     def bw_row(name, replaces, launches, r, exit_):
-        """A trace_bw row: also PR 3's ms on the same wave, the SASS
-        instructions per test of the instance this wave launches, and the
-        bound under -fmad=false: those instructions for every 32 tests
-        over 4 issue slots x the SMs x the clock."""
+        """A trace_bw row: also W and the SASS instructions per test of
+        the instance this wave launches, and the bound under -fmad=false:
+        those instructions for every 32 tests over 4 issue slots x the SMs
+        x the clock."""
         w = trace_kernel.bw_warps(r["rays"] // 32, n_sm, exit_)
         st = bw_sass(exit_, w)
         out = row(name, "tauray_torch/csrc/trace_bw.cu", replaces,
                   launches, r)
-        out.update(prev_ms=PREV_MS[name], warps=w,
+        out.update(warps=w,
                    sass_instructions_per_test=st["instructions_per_test"],
                    bound_contract_ms=r["tests"] / 32 *
                    st["instructions_per_test"] / (4 * n_sm * clock) * 1e3)

@@ -1,183 +1,40 @@
-"""Times and tunes the Baldwin-Weber traversal kernels (K1 and K4/K5,
-csrc/trace_bw.cu) on one CUDA card.
+"""Times the Baldwin-Weber traversal kernels (K1 and K4/K5,
+csrc/trace_bw.cu) at each W, the warps that share one tile, on one CUDA
+card.
 
-    python -m tauray_torch.app.bw_bench [--variants] [--out FILE]
+    python -m tauray_torch.app.bw_bench [--reps N] [--out FILE]
 
-Builds the waves the kernels are measured on: the signature-sorted wave of
-random directions leaving the hits of a 512x512 (2^18 rays) or 1024x1024
-(2^20 rays) camera wave, on the plain and on the foliage Sponza, and a
-32,768-ray slice from the middle of the 2^18-ray foliage wave (the size
-of an alpha re-trace). On each it times K1 (trace_tiles_vm3) and K4
-(trace_tiles_vm2), closest hit, with CUDA events, and holds each result
-bit for bit to its plain version. With --variants it also times every W
-(warps per tile; K4 also checked as any hit). Last, it prints each built
-library's SASS loop statistics (cuobjdump): the instructions, 16-byte
-and narrower shared loads of each kernel's inner test loop, and
-instructions per test; --sass DIR also writes the whole SASS of each
-library there.
-
-The tool also runs against an older checkout of tauray_torch (PYTHONPATH
-pointing there, this file run by its path); it then times that
-checkout's wrappers only. Every line it prints is one JSON object.
+The waves (app/kernel_waves.py): the signature-sorted wave of random
+directions leaving the hits of a 512x512 (2^18 rays) or 1024x1024 (2^20
+rays) camera wave, on the plain and on the foliage Sponza; a 32,768-ray
+slice from the middle of the 2^18-ray foliage wave (the size of an alpha
+re-trace); 2^18 rays on the duplicate-triangle stack. On each it times K1
+and K4, closest hit, at every W the kernel is built for
+(trace_kernel.BW_WARPS) with CUDA events, after holding each result bit
+for bit to its plain version (K4 also as any hit). Every line it prints
+is one JSON object; `w` is the W that trace_kernel.bw_warps picks for the
+wave.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
-import re
-import shutil
 import subprocess
 import sys
-import time
 
-import numpy as np
 import torch
 
+from tauray_torch.app.kernel_waves import (RETRACE_RAYS, SCENE,
+                                           SCENE_FOLIAGE, kernel_waves,
+                                           retrace_slice, tie_rays,
+                                           tie_stack)
 from tauray_torch.app.wave_stats import _ms as cuda_ms
-from tauray_torch.ops.cluster import tracer_from_numpy
-
-SCENE = "proc://sponza?tris=262144"
-SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
-RETRACE_RAYS = 32768
-
-
-def kernel_waves(device, scene=SCENE, size=512, seed=0,
-                 strategy="all-merged-static", shadow=False):
-    """(tracer, {name: rays8 (R, 8)}): a size x size camera wave in
-    pixel-block order and a signature-sorted wave of random directions
-    leaving the camera wave's hits (for the instanced tracer also that wave
-    unsorted; with shadow, a signature-sorted wave from those hits to the
-    first point light, t_max short of it)."""
-    from tauray_torch.options import Options
-    from tauray_torch.io.gltf import load_scene
-    from tauray_torch.ops.cluster import _sig_sort_perm
-    from tauray_torch.renderer.rt_renderer import PathTracerRenderer
-    from tauray_torch.scene.device import to_camera_uniforms
-    from tauray_torch.scene.scene import Scene
-    from tauray_torch.stages.path_tracer import _begin_sample
-    opt = Options()
-    opt.width = opt.height = size
-    opt.as_strategy = strategy
-    s = Scene()
-    load_scene(scene, s)
-    rr = PathTracerRenderer(opt, device)
-    rr.set_scene(s)
-    cam = to_camera_uniforms(rr.arrays.camera_uniforms(rr.viewports()),
-                             device)
-    prev = torch.zeros(rr._pix.shape[0], dtype=torch.int64, device=device)
-    _, o, d, _ = _begin_sample(rr.cfg, cam, rr._pix, rr._vp, prev)
-    R = o.shape[0]
-    ones = torch.ones(R, dtype=torch.float32, device=device)
-    camera = torch.cat([o, d, 0 * ones[:, None],
-                        float("inf") * ones[:, None]], 1)
-    hit = rr.bvh.trace(o, d, 0.0, float("inf"), need_uv=False)
-    p = torch.where((hit.tri_id >= 0)[:, None], o + hit.t[:, None] * d, o)
-    rng = np.random.default_rng(seed)
-    nd = rng.standard_normal((R, 3)).astype(np.float32)
-    nd /= np.linalg.norm(nd, axis=1, keepdims=True)
-    bounce = torch.cat([p, torch.from_numpy(nd).to(device),
-                        1e-3 * ones[:, None], float("inf") * ones[:, None]],
-                       1)
-    waves = {"camera": camera,
-             "bounce": bounce[_sig_sort_perm(rr.bvh, bounce)].contiguous()}
-    if strategy != "all-merged-static":
-        waves["bounce_unsorted"] = bounce
-    if shadow:
-        light = torch.from_numpy(rr.arrays.pl_pos[0]).to(device)
-        to_l = light[None] - p
-        dist = to_l.norm(dim=1, keepdim=True)
-        sh = torch.cat([p, to_l / dist, 1e-4 * ones[:, None], dist - 1e-4],
-                       1)
-        waves["shadow"] = sh[_sig_sort_perm(rr.bvh, sh)].contiguous()
-    print(json.dumps(dict(waves=scene, strategy=strategy, size=size,
-                          tracer=type(rr.bvh).__name__,
-                          clusters=rr.bvh.n_clusters)), flush=True)
-    return rr.bvh, waves
-
-
-QUAD = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
-                np.float32)
-
-
-def tie_stack(device, n_main=29, tie_every=3):
-    """A flat tracer built so that hits tie exactly: n_main clusters of
-    quads over x, y in [-1, 1], every tie_every-th holding the same quad at
-    z = 1 (twice: at lanes 2m, 2m + 1 and at lanes 100, 101), the others
-    one quad each at z = 3 + k / 4, far from it. Every third tie cluster
-    also holds a degenerate triangle at z = 0.5 + k / 100, which moves its
-    entry t forward, so the entry-t walk takes it before lower ids. One
-    more cluster holds the z = 1 quad alone at x, y in [10, 12]. Every
-    fourth cluster is not opaque."""
-    C = n_main + 1
-    v0 = np.zeros((C, 128, 3), np.float32)
-    e1 = np.zeros((C, 128, 3), np.float32)
-    e2 = np.zeros((C, 128, 3), np.float32)
-
-    def put(k, lane, q):
-        v0[k, lane] = q[0]
-        e1[k, lane], e2[k, lane] = q[1] - q[0], q[2] - q[0]
-        v0[k, lane + 1] = q[0]
-        e1[k, lane + 1], e2[k, lane + 1] = q[2] - q[0], q[3] - q[0]
-    for k in range(C):
-        tie = k % tie_every == 0 or k == n_main
-        q = QUAD + np.array([0, 0, 1.0 if tie else 3.0 + 0.25 * k],
-                            np.float32)
-        if k == n_main:
-            q = q + np.array([11, 11, 0], np.float32)
-        v0[k] = q[0]                              # degenerate fillers
-        put(k, 2 * (k % 7), q)
-        if tie and k < n_main:
-            put(k, 100, q)
-            if (k // tie_every) % 3 == 1:
-                v0[k, 127] = (0.0, 0.0, 0.5 + 0.01 * k)
-    corners = np.concatenate([v0, v0 + e1, v0 + e2], 1)
-    return tracer_from_numpy(dict(
-        v0=v0, e1=e1, e2=e2, tri_valid=np.ones((C, 128), bool),
-        to_orig=np.arange(C * 128, dtype=np.int32), cmin=corners.min(1),
-        cmax=corners.max(1), n_clusters=C,
-        opaque=(np.arange(C) % 4 != 2).astype(np.int32)), device)
-
-
-def tie_rays(n_tiles, seed=0):
-    """(n_tiles * 32, 8) f32 rays for tie_stack, by tile in turn: toward
-    the tied quads from z = 0; away from every cluster (count 0); toward
-    the lone cluster (count 1); toward the tied quads with t_max 1.5 (only
-    the tie clusters count), on a quarter of its lanes a NaN t_max or
-    t_max < t_min."""
-    rng = np.random.default_rng(seed)
-    R = n_tiles * 32
-    kind = np.repeat(np.arange(n_tiles) % 4, 32)
-    o = np.zeros((R, 3), np.float32)
-    o[:, :2] = rng.uniform(-0.9, 0.9, (R, 2))
-    o[kind == 2, :2] += 11
-    d = np.concatenate([rng.uniform(-0.05, 0.05, (R, 2)),
-                        np.ones((R, 1))], 1).astype(np.float32)
-    d[kind == 1, 2] = -1
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmin = np.zeros(R, np.float32)
-    tmax = np.full(R, np.inf, np.float32)
-    lane = np.arange(R) % 32
-    tmax[kind == 3] = 1.5
-    tmax[(kind == 3) & (lane % 8 == 1)] = np.nan
-    tmin[(kind == 3) & (lane % 8 == 5)] = 0.5
-    tmax[(kind == 3) & (lane % 8 == 5)] = 0.25
-    return np.concatenate([o, d, tmin[:, None], tmax[:, None]],
-                          1).astype(np.float32)
-
-
-def retrace_slice(rays8: torch.Tensor, n: int = RETRACE_RAYS):
-    """n contiguous rays from the middle of a sorted wave."""
-    mid = (rays8.shape[0] - n) // 2 // 32 * 32
-    return rays8[mid:mid + n].contiguous()
+from tauray_torch.ops import trace_kernel as tk
 
 
 def bench_waves(device):
-    """(scene, tracer, {wave: rays8}) of every wave the tool times: the
-    sorted bounce waves of 2^18 and 2^20 rays of the plain and the foliage
-    scene, the 32,768-ray slice of the foliage one, and 2^18 rays on the
-    duplicate-triangle stack."""
+    """(scene, tracer, {wave: rays8}) of every wave the tool times."""
     for scene in (SCENE, SCENE_FOLIAGE):
         for size in (512, 1024):
             tracer, waves = kernel_waves(device, scene, size)
@@ -191,16 +48,25 @@ def bench_waves(device):
 
 
 def bw_args(tracer, rays8, exit_):
-    """(wrapper arguments, visits) of K1 (exit_ False: id-only keys) or
-    K4 (entry-t keys, closest hit) on one wave."""
+    """(the arguments of trace_kernel._launch_bw before the kernel name,
+    clusters visited) of K1 (exit_ False: id-only keys) or K4 (entry-t
+    keys), closest hit, on one wave."""
     from tauray_torch.ops.cluster import _phase1, _phase1_entry
     r3 = rays8.reshape(-1, 32, 8)
     if not exit_:
         counts, keys = _phase1(tracer, rays8)
-        return (counts, keys, r3, tracer.tris12), int(counts.sum())
+        return (counts, keys, r3, tracer.tris12, None, 0, False), \
+            int(counts.sum())
     counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax, rays8)
     return (counts, keys, r3, tracer.tris12, tracer.opaque, idmask,
             False), int(counts.sum())
+
+
+def plain(a, exit_):
+    """The plain version's (t, id) for _launch_bw's arguments a."""
+    if exit_:
+        return tk.trace_tiles_vm2_reference(*a)[:2]
+    return tk.trace_tiles_vm3_reference(*a[:4])
 
 
 def same_bits(a, b) -> bool:
@@ -209,112 +75,13 @@ def same_bits(a, b) -> bool:
             torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)))
 
 
-def ptxas_lines(log: str):
-    """What ptxas reports per kernel: entry, registers, shared, spills."""
-    return [ln.strip() for ln in log.splitlines()
-            if re.search(r"registers|spill|Compiling entry", ln)]
-
-
-def _cuobjdump() -> str:
-    """The CUDA toolkit's cuobjdump, or the copy in Triton's package."""
-    import importlib.util
-    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
-    spec = importlib.util.find_spec("triton")
-    if spec is not None and spec.origin:
-        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
-                                  "nvidia", "bin", "cuobjdump"))
-    for cand in cands:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("cuobjdump not found")
-
-
-_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
-
-
-def sass_text(lib_path: str) -> str:
-    return subprocess.run([_cuobjdump(), "-sass", lib_path],
-                          capture_output=True, text=True,
-                          check=True).stdout
-
-
-def sass_loops(lib_path: str):
-    """{kernel: stats of its inner test loop} from cuobjdump -sass: of the
-    innermost loops (a backward branch with no other inside it), the one
-    holding the most shared-load words, with its instructions, 16-byte
-    (LDS.128) and narrower shared loads, the tests one pass makes (shared
-    words / the 12 Baldwin-Weber or 9 Möller-Trumbore components of a
-    triangle) and instructions per test."""
-    text = sass_text(lib_path)
-    out = {}
-    for chunk in text.split("Function : ")[1:]:
-        name = chunk.split()[0]
-        insns, labels, pending = [], {}, []
-        for ln in chunk.splitlines():
-            m = _LABEL.match(ln)
-            if m:
-                pending.append(m.group(1))
-                continue
-            m = _INSN.search(ln)
-            if m:
-                addr = int(m.group(1), 16)
-                for lab in pending:
-                    labels[lab] = addr
-                pending = []
-                insns.append((addr, m.group(2)))
-        loops = []
-        for addr, op in insns:
-            if not re.search(r"\bBRA\b", op):
-                continue
-            m = re.search(r"\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", op)
-            if not m:
-                continue
-            target = labels.get(m.group(1)) if m.group(1) else \
-                int(m.group(2), 16)
-            if target is not None and target <= addr:
-                loops.append((target, addr))
-        best = None
-        for target, addr in loops:
-            if any((t2, a2) != (target, addr) and target <= t2 and
-                   a2 <= addr for t2, a2 in loops):
-                continue                          # not innermost
-            body = [o for a, o in insns if target <= a <= addr]
-            lds128 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS\.128\b", o))
-                         for o in body)
-            lds64 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS\.64\b", o))
-                        for o in body)
-            lds32 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS(\.U?32)?\s", o))
-                        for o in body)
-            words = 4 * lds128 + 2 * lds64 + lds32
-            if best is None or words > best["words"] or (
-                    words == best["words"] and len(body) < best["insns"]):
-                best = dict(insns=len(body), words=words, lds128=lds128,
-                            lds_narrow=lds64 + lds32)
-        if best is None or best["words"] == 0:
-            continue
-        bw = ("trace_bw" in name or "trace_vm3" in name or
-              "ILb0ELb1E" in name)
-        tests = best["words"] / (12 if bw else 9)
-        out[name] = dict(loop_instructions=best["insns"],
-                         lds128=best["lds128"],
-                         lds_narrow=best["lds_narrow"], tests=tests,
-                         instructions_per_test=best["insns"] / tests)
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", action="store_true",
-                    help="also time every W")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="also write the lines here")
-    ap.add_argument("--sass", default=None,
-                    help="write each library's whole SASS into this folder")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bw_bench needs a CUDA device")
-    from tauray_torch.ops import trace_kernel as tk
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -325,55 +92,34 @@ def main(argv=None) -> int:
         lines.append(json.dumps(kw))
         print(lines[-1], flush=True)
 
-    emit(card=card, source=tk.__file__, sources=sorted(tk.SOURCES))
-    t0 = time.perf_counter()
+    emit(card=card, warps=tk.BW_WARPS)
     tk.build_all()
-    redesigned = hasattr(tk, "_launch_bw")
-    emit(build_s=time.perf_counter() - t0,
-         ptxas={name: ptxas_lines(str(info["log"]))
-                for name, info in tk.BUILD_INFO.items()})
-    warps = tk.BW_WARPS if args.variants and redesigned else ()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for scene, tracer, rays in bench_waves(dev):
         for wave, r8 in rays.items():
-            for kname, exit_ in (("K1", False), ("K4", True)):
+            for kname, kernel in (("K1", "trace_vm3"), ("K4", "trace_vm2")):
+                exit_ = kernel == "trace_vm2"
                 a, visits = bw_args(tracer, r8, exit_)
-                kern = tk.trace_tiles_vm2 if exit_ else tk.trace_tiles_vm3
-                ref = tk.trace_tiles_vm2_reference if exit_ else \
-                    tk.trace_tiles_vm3_reference
-                want = ref(*a)[:2]
-                if not same_bits(kern(*a), want):
-                    raise RuntimeError(f"{kname} disagrees on {wave}")
+                n_tiles = a[0].shape[0]
                 res = dict(scene=scene, wave=wave, kernel=kname,
-                           rays=r8.shape[0], tiles=a[0].shape[0],
-                           clusters_per_tile=visits / a[0].shape[0],
-                           ms=cuda_ms(lambda: kern(*a), args.reps))
-                if redesigned:
-                    res["w"] = tk.bw_warps(a[0].shape[0], n_sm, exit_)
-                kernel = "trace_vm2" if exit_ else "trace_vm3"
-                bw_a = a if exit_ else a[:4] + (None, 0, False)
+                           rays=r8.shape[0], tiles=n_tiles,
+                           clusters_per_tile=visits / n_tiles,
+                           w=tk.bw_warps(n_tiles, n_sm, exit_))
                 # K4 also as any hit (checked, not timed)
-                any_a = a[:6] + (True,) if exit_ else None
-                want_any = ref(*any_a)[:2] if exit_ else None
-                for w in warps:
-                    def run(bw_a=bw_a, kernel=kernel, w=w):
-                        return tk._launch_bw(*bw_a, kernel, warps=w)
-                    if not same_bits(run(), want) or exit_ and not \
-                            same_bits(tk._launch_bw(*any_a, kernel, warps=w),
-                                      want_any):
-                        raise RuntimeError(f"{kname} at W = {w} disagrees "
-                                           f"on {wave}")
-                    res[f"ms_w{w}"] = cuda_ms(run, args.reps)
+                modes = [a] + ([a[:6] + (True,)] if exit_ else [])
+                wants = [plain(m, exit_) for m in modes]
+                for w in tk.BW_WARPS:
+                    for m, want in zip(modes, wants):
+                        if not same_bits(tk._launch_bw(*m, kernel, warps=w),
+                                         want):
+                            raise RuntimeError(f"{kname} at W = {w} "
+                                               f"disagrees on {wave}")
+                    res[f"ms_w{w}"] = cuda_ms(
+                        lambda w=w: tk._launch_bw(*a, kernel, warps=w),
+                        args.reps)
                 emit(**res)
         del tracer, rays
         torch.cuda.empty_cache()
-    for name, info in sorted(tk.BUILD_INFO.items()):
-        path = str(info["path"])
-        emit(library=name, sass=sass_loops(path))
-        if args.sass:
-            os.makedirs(args.sass, exist_ok=True)
-            with open(os.path.join(args.sass, f"{name}.sass"), "w") as f:
-                f.write(sass_text(path))
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

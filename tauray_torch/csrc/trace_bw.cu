@@ -13,7 +13,7 @@
 //   * one block per 32-ray tile; all W warps of the block hold the same
 //     32 rays, one per lane, and warp w tests the key slots j = w (mod W),
 //     so a small wave still fills the card and a heavy tile is shared; the
-//     wrapper picks W (1, 2, 4 or 8) per launch (trace_kernel.bw_warps);
+//     wrapper picks W (4 or 8) per launch (trace_kernel.bw_warps);
 //   * each warp stages its clusters' tris12 rows in its 6 KB of shared
 //     memory with cp.async 16-byte copies and waits for them; the other
 //     warps on the SM hide the copy, which measured faster than keeping
@@ -194,12 +194,11 @@ struct Walk {
 };
 
 // Shared memory of one block: a cluster buffer for each of the W warps,
-// then the combine's candidates (two rows of W x 32 for K4/K5, one for K1;
-// none when W = 1).
+// then the combine's candidates (two rows of W x 32 for K4/K5, one for K1).
 template <int W, bool kExit>
 constexpr size_t smem_bytes() {
   return static_cast<size_t>(W) * kBuf * sizeof(float4) +
-         (W > 1 ? (kExit ? 2 : 1) * W * kTile * sizeof(Cand) : 0);
+         (kExit ? 2 : 1) * W * kTile * sizeof(Cand);
 }
 
 template <int W, bool kExit>
@@ -244,16 +243,14 @@ trace_bw_kernel(const int* __restrict__ counts,
       int opq;
       walk.visit(i, r, bt, bi, opq);
     }
-    if (W > 1) {
-      comb[warp * kTile + lane] = Cand{bt, bi, 0, 0};
-      __syncthreads();
-      if (warp != 0) return;
-      for (int v = 1; v < W; ++v) {
-        const Cand e = comb[v * kTile + lane];
-        if (e.t < bt || (e.t == bt && e.id < bi)) {
-          bt = e.t;
-          bi = e.id;
-        }
+    comb[warp * kTile + lane] = Cand{bt, bi, 0, 0};
+    __syncthreads();
+    if (warp != 0) return;
+    for (int v = 1; v < W; ++v) {
+      const Cand e = comb[v * kTile + lane];
+      if (e.t < bt || (e.t == bt && e.id < bi)) {
+        bt = e.t;
+        bi = e.id;
       }
     }
   } else {
@@ -274,19 +271,17 @@ trace_bw_kernel(const int* __restrict__ counts,
           bopq = opq;
         }
       }
-      if (W > 1) {
-        Cand* cb = comb + (step & 1) * W * kTile;
-        cb[warp * kTile + lane] = Cand{bt, bi, pos, bopq};
-        __syncthreads();
-        Cand w = cb[lane];
-        for (int v = 1; v < W; ++v) {
-          const Cand e = cb[v * kTile + lane];
-          if (e.t < w.t || (e.t == w.t && e.pos < w.pos)) w = e;
-        }
-        bt = w.t;
-        bi = w.id;
-        bopq = w.opq;
+      Cand* cb = comb + (step & 1) * W * kTile;
+      cb[warp * kTile + lane] = Cand{bt, bi, pos, bopq};
+      __syncthreads();
+      Cand w = cb[lane];
+      for (int v = 1; v < W; ++v) {
+        const Cand e = cb[v * kTile + lane];
+        if (e.t < w.t || (e.t == w.t && e.pos < w.pos)) w = e;
       }
+      bt = w.t;
+      bi = w.id;
+      bopq = w.opq;
       // the tile-level front-to-back exit (bit-space compare of t >= 0);
       // every warp holds the same best, so every warp takes the same vote
       bool done = __float_as_int(bt) <= next;
@@ -325,14 +320,6 @@ int launch_w(int warps, const int* counts, const int* keys, int key_stride,
              int n_tiles, int n_keys, int idmask, int any_hit, float* t_out,
              int* tid_out, int* steps_out, cudaStream_t st) {
   switch (warps) {
-    case 1:
-      return launch<1, kExit>(counts, keys, key_stride, rays8, tris12,
-                              opaque, n_tiles, n_keys, idmask, any_hit,
-                              t_out, tid_out, steps_out, st);
-    case 2:
-      return launch<2, kExit>(counts, keys, key_stride, rays8, tris12,
-                              opaque, n_tiles, n_keys, idmask, any_hit,
-                              t_out, tid_out, steps_out, st);
     case 4:
       return launch<4, kExit>(counts, keys, key_stride, rays8, tris12,
                               opaque, n_tiles, n_keys, idmask, any_hit,
@@ -351,7 +338,7 @@ int launch_w(int warps, const int* counts, const int* keys, int key_stride,
 // tris12 (n_keys, 12, 1, 128) Baldwin-Weber rows. exit == 0 launches K1
 // (keys are ascending cluster ids; opaque, idmask and any_hit are not
 // read), exit != 0 K4/K5 (entry-t keys, rows of >= n_keys + 8). warps is
-// W, the warps sharing one tile (1, 2, 4 or 8). steps_out (n_tiles,) may
+// W, the warps sharing one tile (4 or 8). steps_out (n_tiles,) may
 // be nullptr. Returns the CUDA error of the launch (0 on success).
 extern "C" int trace_bw_launch(const int* counts, const int* keys,
                                int key_stride, const float* rays8,

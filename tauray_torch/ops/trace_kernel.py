@@ -310,10 +310,11 @@ def trace_tiles_vm(counts: torch.Tensor, keys: torch.Tensor,
 # up to BW_TILES_PER_SM tiles per SM, else 4: for K1 up to 64 (a 2^18-ray
 # wave is 62 tiles per SM on 132 SMs, a 2^20-ray wave 248), for K4/K5 up
 # to 16 (an alpha re-trace of 32,768 rays is 8), since they also
-# synchronise the block once per step of 8 keys. These are the fastest of
-# 1, 2, 4 and 8 on each wave size (PERF.md, app/bw_bench.py --variants).
+# synchronise the block once per step of 8 keys. These were the fastest
+# of 1, 2, 4 and 8 on each wave size, and only 4 and 8 are built
+# (PERF.md; app/bw_bench.py times both).
 BW_TILES_PER_SM = {False: 64, True: 16}
-BW_WARPS = (1, 2, 4, 8)
+BW_WARPS = (4, 8)
 
 
 def bw_warps(n_tiles: int, n_sm: int, exit_: bool) -> int:
@@ -325,9 +326,9 @@ def bw_warps(n_tiles: int, n_sm: int, exit_: bool) -> int:
 def _launch_bw(counts, keys, rays8, tris12, opaque, idmask, any_hit,
                kernel, debug_steps=False, warps=None):
     """Launch csrc/trace_bw.cu: K1 (kernel trace_vm3; opaque None) or
-    K4/K5 (trace_vm2 / trace_vm). warps (W) defaults to bw_warps' choice;
-    the tuning tool and the tests set it. Returns (t, tid, steps or
-    None)."""
+    K4/K5 (trace_vm2 / trace_vm). warps (W, one of BW_WARPS) defaults to
+    bw_warps' choice; the timing tool and the tests set it. Returns (t,
+    tid, steps or None)."""
     dev = rays8.device
     exit_ = kernel != "trace_vm3"
     _check_tiles(counts, keys, rays8, dev, kernel)

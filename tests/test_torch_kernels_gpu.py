@@ -5,7 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from tauray_torch.app.bw_bench import tie_rays, tie_stack
+from tauray_torch.app.kernel_waves import tie_rays, tie_stack
+from tauray_torch.ops.trace_kernel import BW_WARPS
 
 pytestmark = pytest.mark.gpu
 
@@ -322,13 +323,14 @@ def _bw_every_w(tracer, r8, warps, any_hit):
     return counts, tid
 
 
-@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("warps", BW_WARPS)
 def test_trace_bw_ties_at_every_w(cuda, warps):
     """The split walk's combine on tie_stack, a 32,768-ray wave: exact
     duplicates in several clusters (so equal t land in different warps'
     shares and inside one K4 step), tile counts 0, 1, 10 and 29 (not
     multiples of W or 8), NaN and t_max < t_min rays; closest and any
-    hit, at every W."""
+    hit, at every W the kernel is built for (4: two of a K4 step's keys a
+    warp; 8: one)."""
     tracer = tie_stack(cuda)
     r8 = torch.from_numpy(tie_rays(1024)).to(cuda)
     seen = set()
@@ -339,7 +341,7 @@ def test_trace_bw_ties_at_every_w(cuda, warps):
     assert {0, 1, 10, 29}.issubset(seen)
 
 
-@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("warps", BW_WARPS)
 def test_trace_bw_random_soup_at_every_w(cuda, warps):
     """K1 and K4/K5 at every W on sorted and unsorted random waves of the
     triangle soup (some clusters not opaque)."""

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from tauray_torch.app.bw_bench import tie_rays, tie_stack
+from tauray_torch.app.kernel_waves import tie_rays, tie_stack
 from tauray_torch.ops import cluster as tcl
 from tauray_torch.ops import trace_kernel as tk
 from tauray_tpu.ops.pallas_trace import (pallas_trace_tiles_vm2,
