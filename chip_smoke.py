@@ -6,9 +6,10 @@
 Phases, each printed on its own lines; any failure raises and exits
 non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> error;
-  2. build the traversal kernels (csrc/trace_bw.cu, csrc/trace_mt.cu; one
-     nvcc each, started together) and print what ptxas reports, and the
-     SASS of each kernel's inner test loop (cuobjdump);
+  2. build the traversal kernels (csrc/trace_tiles.cu, every instance of
+     K1-K5; one nvcc per source, started together) and print what ptxas
+     reports, and the SASS of each instance's inner test loop (cuobjdump);
+     any spill or shared load narrower than 16 bytes in a test loop fails;
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
@@ -19,9 +20,13 @@ non-zero:
            duplicate-triangle wave (app/kernel_waves.tie_stack: exact ties
            across clusters, tiles of 0, 1, 10 and 29 clusters, NaN and
            t_max < t_min rays; 2^18 rays);
-       3b. K2 (trace_mt): proc://sponza?tris=524288, flat (C > 2,197);
+       3b. K2 (trace_mt): proc://sponza?tris=524288, flat (C > 2,197),
+           plus its 2^20-ray sorted bounce wave and the duplicate-triangle
+           wave;
        3c. K3 (trace_mt_inst): proc://sponza?tris=262144, per-model,
-           plus the bounce wave unsorted, as the instanced path traces it;
+           plus the bounce wave unsorted, as the instanced path traces it,
+           at 2^18 and 2^20 rays, and the duplicate triangles under two
+           instances (app/kernel_waves.tie_stack_instanced);
        3d. K4 (trace_vm2): proc://sponza?tris=262144&foliage=1, flat (it
            has clusters that are not opaque), plus a signature-sorted
            shadow wave toward a point light (finite t_max);
@@ -42,8 +47,8 @@ non-zero:
   9. --sampler=sobol-owen on the foliage scene at 256x256, 4 spp;
   10. `python -m tauray_torch.app.wave_stats` at its default size: K5
      launched, one line per wave.
-The last lines are the card, the kernel table (K1/K4/K5 rows also with
-W, the SASS instructions per test and the bound under the -fmad=false
+The last lines are the card, the kernel table (each row also with W, the
+SASS instructions per test and the bound under the -fmad=false
 contract), and {"ok": true, "device": {...}}.
 """
 
@@ -69,12 +74,13 @@ SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
 # the tensor cores, and HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# FP32 operations per (ray, triangle) test, counted in the sources:
-# Baldwin-Weber (trace_bw.cu) 32, Möller-Trumbore (trace_mt.cu) 46; and
-# K3's transform of a ray into a key's instance space, 21 per (ray, key)
+# FP32 operations per (ray, triangle) test, counted in csrc/trace_tiles.cu:
+# Baldwin-Weber 32, Möller-Trumbore 46; and K3's transform of a ray into a
+# key's instance space, 33 per (ray, key) (9 products and 9 sums for the
+# origin, 9 products and 6 sums for the direction)
 FLOPS_BW = 32
 FLOPS_MT = 46
-FLOPS_XFORM = 21
+FLOPS_XFORM = 33
 LANES_1080P = 2097152 * 1 * (2 * 4 - 1)   # padded pixels x spp x waves
 
 
@@ -136,6 +142,12 @@ def _cuobjdump() -> str:
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+# trace_tiles_kernel<W, kExit, kRows, kInst>'s mangled template arguments
+_TARGS = re.compile(r"trace_tiles_kernelILi(\d+)ELb([01])ELi(\d+)ELb([01])E")
+# each wrapper's instance: (kExit, kRows, kInst)
+INSTANCE = {"trace_vm3": (0, 12, 0), "trace_vm2": (1, 12, 0),
+            "trace_vm": (1, 12, 0), "trace_mt": (1, 9, 0),
+            "trace_mt_inst": (1, 9, 1)}
 
 
 def sass_loops(lib_path: str):
@@ -144,7 +156,8 @@ def sass_loops(lib_path: str):
     holding the most shared-load words, with its instructions, 16-byte
     (LDS.128) and narrower shared loads, the tests one pass makes (shared
     words / the 12 Baldwin-Weber or 9 Möller-Trumbore components of a
-    triangle) and instructions per test."""
+    triangle, the instance's kRows template argument) and instructions per
+    test."""
     text = subprocess.run([_cuobjdump(), "-sass", lib_path],
                           capture_output=True, text=True,
                           check=True).stdout
@@ -194,7 +207,10 @@ def sass_loops(lib_path: str):
                             lds_narrow=lds64 + lds32)
         if best is None or best["words"] == 0:
             continue
-        tests = best["words"] / (12 if "trace_bw" in name else 9)
+        targs = _TARGS.search(name)
+        if targs is None:
+            raise RuntimeError(f"no template arguments in {name}")
+        tests = best["words"] / int(targs.group(3))
         out[name] = dict(loop_instructions=best["insns"],
                          lds128=best["lds128"],
                          lds_narrow=best["lds_narrow"], tests=tests,
@@ -262,8 +278,9 @@ def kernel_check(tracer, waves, reps: int = 5):
 
 def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
     """K2 (flat), K3 (instanced), K4 (trace_vm2) or K5 (trace_vm with
-    debug_steps, its steps per tile held to the plain version's) against
-    the plain version on each wave, as closest hit and as any hit. The any
+    debug_steps) against the plain version on each wave, as closest hit
+    and as any hit; K2, K3 and K5 also with their steps per tile held to
+    the plain version's (K2/K3 through _launch_mt's debug_steps). The any
     hit runs take finite t_max: half to 1.5x each ray's closest hit, 20 on
     a miss, except the shadow and duplicate-triangle waves, which keep
     their own. Returns
@@ -310,19 +327,24 @@ def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
                                                  r8)
             r3 = r8.reshape(-1, 32, 8)
             args = (counts, keys, r3, *tables, idmask, any_hit)
+            steps_k = None
             if kind == "K5":
                 t_k, id_k, steps_k = kern(*args, debug_steps=True)
             else:
                 t_k, id_k = kern(*args)
+            if kind in ("K2", "K3"):
+                steps_k = tk._launch_mt(counts, keys, r3, *tables[:2],
+                                        tables[2:] or None, idmask, any_hit,
+                                        debug_steps=True)[2]
             stats = {}
             (t_r, id_r), plain_ms = timed(lambda: ref(*args, stats=stats))
             key = f"{name}/{'any' if any_hit else 'closest'}"
             same_id, same_t, err = _compare(key, t_k, id_k, t_r, id_r)
             extra = {}
-            if kind == "K5":
+            if steps_k is not None:
                 if not torch.equal(steps_k, stats["tile_steps"]):
-                    raise RuntimeError(f"K5 steps per tile disagree with "
-                                       f"the plain version on {key}")
+                    raise RuntimeError(f"{kind} steps per tile disagree "
+                                       f"with the plain version on {key}")
                 extra = dict(steps_identical=True,
                              steps_mean=float(steps_k.float().mean()))
             if not any_hit:
@@ -433,7 +455,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     from tauray_torch.app.kernel_waves import (kernel_waves, retrace_slice,
-                                               tie_rays, tie_stack)
+                                               tie_rays, tie_stack,
+                                               tie_stack_instanced)
     from tauray_torch.ops import trace_kernel
     dev = torch.device("cuda")
     card = card_line()
@@ -448,15 +471,20 @@ def main() -> int:
         sass.update(sass_loops(str(info["path"])))
     for fn, st in sorted(sass.items()):
         print(f"phase 2 sass {fn}: " + json.dumps(st), flush=True)
-    if any(st["lds_narrow"] for fn, st in sass.items()
-           if "trace_bw" in fn):
-        raise RuntimeError("trace_bw's test loop has narrow shared loads")
+    if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
+        raise RuntimeError("not every instance of trace_tiles has a test "
+                           "loop of 16-byte shared loads only")
+    if any(int(n) for n in re.findall(
+            r"(\d+) bytes spill", str(trace_kernel.BUILD_INFO[
+                "trace_tiles"]["log"]))):
+        raise RuntimeError("an instance of trace_tiles spills")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = sm_clock_hz()
 
-    def bw_sass(exit_: bool, w: int):
-        """trace_bw<W, kExit>'s test loop statistics."""
-        tag = f"trace_bw_kernelILi{w}ELb{int(exit_)}E"
+    def sass_of(kernel: str, w: int):
+        """The test loop statistics of kernel's instance at W = w."""
+        e, rows, inst = INSTANCE[kernel]
+        tag = f"trace_tiles_kernelILi{w}ELb{e}ELi{rows}ELb{inst}E"
         return next(st for fn, st in sass.items() if tag in fn)
 
     tracer, waves = kernel_waves(dev)
@@ -474,9 +502,19 @@ def main() -> int:
                            ", not past the id-only key path")
     k2 = kernel_check_mt(tracer, waves, "K2")
     del tracer, waves
+    tracer, waves = kernel_waves(dev, SCENE_LARGE, size=1024)
+    k2.update(kernel_check_mt(tracer, {"bounce_2^20": waves["bounce"]},
+                              "K2"))
+    del tracer, waves
+    k2.update(kernel_check_mt(ties, tie_wave, "K2"))
     tracer, waves = kernel_waves(dev, strategy="per-model")
     k3 = kernel_check_mt(tracer, waves, "K3")
     del tracer, waves
+    tracer, waves = kernel_waves(dev, strategy="per-model", size=1024)
+    k3.update(kernel_check_mt(tracer, {
+        "bounce_unsorted_2^20": waves["bounce_unsorted"]}, "K3"))
+    del tracer, waves
+    k3.update(kernel_check_mt(tie_stack_instanced(dev), tie_wave, "K3"))
     tracer, waves = kernel_waves(dev, SCENE_FOLIAGE, shadow=True)
     if tracer.n_clusters > 2197 or bool(tracer.opaque.all()):
         raise RuntimeError(f"{SCENE_FOLIAGE}: {tracer.n_clusters} clusters, "
@@ -621,42 +659,36 @@ def main() -> int:
         raise RuntimeError(f"wave_stats launched K5 {l_k5} times over "
                            f"{n_waves} waves")
 
-    def row(name, src, replaces, launches, r):
-        return {"name": name, "route": "cuda", "source": src,
+    def row(name, replaces, launches, r):
+        """One kernel's entry: also W and the SASS instructions per test
+        of the instance this wave launches, and the bound under
+        -fmad=false: those instructions for every 32 tests over 4 issue
+        slots x the SMs x the clock."""
+        w = trace_kernel.bw_warps(r["rays"] // 32, n_sm, name)
+        st = sass_of(name, w)
+        return {"name": name, "route": "cuda",
+                "source": "tauray_torch/csrc/trace_tiles.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
                 # no single PyTorch call computes a closest-hit traversal
-                "library_ms": None}
-
-    def bw_row(name, replaces, launches, r, exit_):
-        """A trace_bw row: also W and the SASS instructions per test of
-        the instance this wave launches, and the bound under -fmad=false:
-        those instructions for every 32 tests over 4 issue slots x the SMs
-        x the clock."""
-        w = trace_kernel.bw_warps(r["rays"] // 32, n_sm, exit_)
-        st = bw_sass(exit_, w)
-        out = row(name, "tauray_torch/csrc/trace_bw.cu", replaces,
-                  launches, r)
-        out.update(warps=w,
-                   sass_instructions_per_test=st["instructions_per_test"],
-                   bound_contract_ms=r["tests"] / 32 *
-                   st["instructions_per_test"] / (4 * n_sm * clock) * 1e3)
-        return out
+                "library_ms": None, "warps": w,
+                "sass_instructions_per_test": st["instructions_per_test"],
+                "bound_contract_ms": r["tests"] / 32 *
+                st["instructions_per_test"] / (4 * n_sm * clock) * 1e3}
     kernels = {"kernels": [
-        bw_row("trace_vm3", "tauray_tpu/ops/pallas_trace.py:979", l_k1,
-               k1["bounce"], False),
-        row("trace_mt", "tauray_torch/csrc/trace_mt.cu",
-            "tauray_tpu/ops/pallas_trace.py:64", l_k2,
+        row("trace_vm3", "tauray_tpu/ops/pallas_trace.py:979", l_k1,
+            k1["bounce"]),
+        row("trace_mt", "tauray_tpu/ops/pallas_trace.py:64", l_k2,
             k2["bounce/closest"]),
-        row("trace_mt_inst", "tauray_torch/csrc/trace_mt.cu",
-            "tauray_tpu/ops/pallas_trace.py:297", l_k3,
-            k3["bounce/closest"]),
-        bw_row("trace_vm2", "tauray_tpu/ops/pallas_trace.py:745", l_k4,
-               k4["bounce/closest"], True),
-        bw_row("trace_vm", "tauray_tpu/ops/pallas_trace.py:565", l_k5,
-               k5["bounce/closest"], True)]}
+        # the unsorted wave: the instanced tracer does not sort its rays
+        row("trace_mt_inst", "tauray_tpu/ops/pallas_trace.py:297", l_k3,
+            k3["bounce_unsorted/closest"]),
+        row("trace_vm2", "tauray_tpu/ops/pallas_trace.py:745", l_k4,
+            k4["bounce/closest"]),
+        row("trace_vm", "tauray_tpu/ops/pallas_trace.py:565", l_k5,
+            k5["bounce/closest"])]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,8 @@
 
 It mirrors tauray_tpu's module layout and names and is held to it by the
 tests: the JAX package is the reference. The port renders on one explicit
-torch.device; its traversal runs in CUDA kernels written for Hopper
-(csrc/trace_bw.cu, csrc/trace_mt.cu), and every other device stage is
-plain torch.
+torch.device; its traversal runs in a CUDA kernel written for Hopper
+(csrc/trace_tiles.cu), and every other device stage is plain torch.
 
 Layout:
   io/        — EXR and glTF/procedural scene loading (copied, numpy)

@@ -1,7 +1,8 @@
 """The waves and scenes the traversal kernels are checked and timed on:
 the camera and signature-sorted bounce waves of a scene, a re-trace-sized
-slice of a sorted wave, and a stack of exact duplicate triangles with rays
-aimed at it. chip_smoke.py, app/bw_bench.py and the tests share them."""
+slice of a sorted wave, and a stack of exact duplicate triangles (flat, and
+under two instances) with rays aimed at it. chip_smoke.py, app/bw_bench.py
+and the tests share them."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import json
 import numpy as np
 import torch
 
-from tauray_torch.ops.cluster import tracer_from_numpy
+from tauray_torch.ops.cluster import (instanced_tracer_from_numpy,
+                                      tracer_from_numpy)
 
 SCENE = "proc://sponza?tris=262144"
 SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
@@ -81,15 +83,8 @@ QUAD = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
                 np.float32)
 
 
-def tie_stack(device, n_main=29, tie_every=3):
-    """A flat tracer built so that hits tie exactly: n_main clusters of
-    quads over x, y in [-1, 1], every tie_every-th holding the same quad at
-    z = 1 (twice: at lanes 2m, 2m + 1 and at lanes 100, 101), the others
-    one quad each at z = 3 + k / 4, far from it. Every third tie cluster
-    also holds a degenerate triangle at z = 0.5 + k / 100, which moves its
-    entry t forward, so the entry-t walk takes it before lower ids. One
-    more cluster holds the z = 1 quad alone at x, y in [10, 12]. Every
-    fourth cluster is not opaque."""
+def _tie_fields(n_main, tie_every):
+    """tie_stack's clusters as tracer_from_numpy fields."""
     C = n_main + 1
     v0 = np.zeros((C, 128, 3), np.float32)
     e1 = np.zeros((C, 128, 3), np.float32)
@@ -113,11 +108,54 @@ def tie_stack(device, n_main=29, tie_every=3):
             if (k // tie_every) % 3 == 1:
                 v0[k, 127] = (0.0, 0.0, 0.5 + 0.01 * k)
     corners = np.concatenate([v0, v0 + e1, v0 + e2], 1)
-    return tracer_from_numpy(dict(
+    return dict(
         v0=v0, e1=e1, e2=e2, tri_valid=np.ones((C, 128), bool),
         to_orig=np.arange(C * 128, dtype=np.int32), cmin=corners.min(1),
         cmax=corners.max(1), n_clusters=C,
-        opaque=(np.arange(C) % 4 != 2).astype(np.int32)), device)
+        opaque=(np.arange(C) % 4 != 2).astype(np.int32))
+
+
+def tie_stack(device, n_main=29, tie_every=3):
+    """A flat tracer built so that hits tie exactly: n_main clusters of
+    quads over x, y in [-1, 1], every tie_every-th holding the same quad at
+    z = 1 (twice: at lanes 2m, 2m + 1 and at lanes 100, 101), the others
+    one quad each at z = 3 + k / 4, far from it. Every third tie cluster
+    also holds a degenerate triangle at z = 0.5 + k / 100, which moves its
+    entry t forward, so the entry-t walk takes it before lower ids. One
+    more cluster holds the z = 1 quad alone at x, y in [10, 12]. Every
+    fourth cluster is not opaque."""
+    return tracer_from_numpy(_tie_fields(n_main, tie_every), device)
+
+
+# tie_stack_instanced's second instance: object -> world moves it by
+# -0.5 in z (exact in float32), so its copy of the tied quads, at z = 0.5,
+# lies in front of the first instance's
+TIE_SHIFT = -0.5
+
+
+def tie_stack_instanced(device, n_main=29, tie_every=3):
+    """tie_stack's clusters as shared object geometry under two
+    instances: instance 0 in place, instance 1 moved by TIE_SHIFT in z.
+    Cluster-instance k is object cluster k % C of instance k // C, and
+    keeps that cluster's opacity. Hits tie exactly within an instance (one
+    transform, the same rows); tie_rays' tied tiles hit instance 1's quads
+    first."""
+    f = _tie_fields(n_main, tie_every)
+    C = f["n_clusters"]
+    shift = np.array([0, 0, TIE_SHIFT], np.float32)
+    inv = np.zeros((2, 3, 4), np.float32)
+    inv[:, :, :3] = np.eye(3, dtype=np.float32)
+    inv[1, :, 3] = -shift                         # world -> object
+    return instanced_tracer_from_numpy(dict(
+        v0=f["v0"], e1=f["e1"], e2=f["e2"], tri_valid=f["tri_valid"],
+        to_orig=np.arange(2 * C * 128, dtype=np.int32),
+        cmin=np.concatenate([f["cmin"], f["cmin"] + shift]),
+        cmax=np.concatenate([f["cmax"], f["cmax"] + shift]),
+        n_clusters=2 * C,
+        k_cluster=np.tile(np.arange(C, dtype=np.int32), 2),
+        k_inst=np.repeat(np.arange(2, dtype=np.int32), C), inv=inv,
+        obj_min=f["cmin"], obj_max=f["cmax"], opaque=np.tile(f["opaque"], 2),
+        alpha_base=2 * C * 128), device)
 
 
 def tie_rays(n_tiles, seed=0):

@@ -2,30 +2,31 @@
 
   * trace_tiles_vm3 is the counterpart of tauray_tpu's
     pallas_trace_tiles_vm3 (_kernel_vm3): closest hit over Baldwin-Weber
-    rows, id-only keys, no early exit (csrc/trace_bw.cu);
+    rows, id-only keys, no early exit (K1);
   * trace_tiles is the counterpart of pallas_trace_tiles (_kernel):
     Möller-Trumbore over tris9, entry-t keys walked front to back in
     steps of KB clusters with a tile-level early exit, and in any-hit
-    mode an exit on opaque hits (csrc/trace_mt.cu);
+    mode an exit on opaque hits (K2);
   * trace_tiles_inst is the counterpart of pallas_trace_tiles_inst
     (_kernel_inst): trace_tiles over cluster-instances, each key's rays
-    moved into its instance's object space (csrc/trace_mt.cu);
+    moved into its instance's object space (K3);
   * trace_tiles_vm2 and trace_tiles_vm are the counterparts of
     pallas_trace_tiles_vm2 (_kernel_vm2) and pallas_trace_tiles_vm
     (_kernel_vm), which compute one function: trace_tiles' walk and exit
-    over the Baldwin-Weber rows of trace_tiles_vm3. Both launch the same
-    kernel (csrc/trace_bw.cu with the exit); trace_tiles_vm can also
-    return the steps each tile walked (the TPU kernel's debug_steps).
+    over the Baldwin-Weber rows of trace_tiles_vm3 (K4/K5). Both launch
+    the same kernel; trace_tiles_vm can also return the steps each tile
+    walked (the TPU kernel's debug_steps).
 
-The Baldwin-Weber kernels run one block per tile, its W warps sharing the
-tile's clusters; bw_warps picks W from the wave's size.
+All five are instances of one kernel, csrc/trace_tiles.cu: one block per
+tile, its W warps sharing the tile's clusters; bw_warps picks W from the
+wave's size and the kernel's kind.
 
-For CUDA tensors each wrapper launches its hand-written kernel; for CPU
+For CUDA tensors each wrapper launches the hand-written kernel; for CPU
 tensors it runs the plain torch version beside it (the *_reference
 functions), which computes the same contract. A build or launch failure
 raises: there is no fallback from the card to the plain version.
 
-Each source is compiled with nvcc for sm_90a into a shared library with a
+The source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface on first use (from this package's sources, into
 tauray_torch/_build/, one nvcc process per source, all started together)
 and loaded with ctypes.
@@ -52,7 +53,7 @@ KEY_SENTINEL = 0x7FFFFFFF
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> its CUDA source
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("trace_bw", "trace_mt")}
+           for name in ("trace_tiles",)}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -68,11 +69,12 @@ BUILD_INFO: Dict[str, Dict[str, object]] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "trace_bw_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P],
-    "trace_mt_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _P, _P, _P, _P],
+    "trace_tiles_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _P, _P, _P, _P],
 }
+# the kernel kind trace_tiles_launch takes for each wrapper
+_KIND = {"trace_vm3": 0, "trace_vm2": 1, "trace_vm": 1, "trace_mt": 2,
+         "trace_mt_inst": 3}
 
 
 def reset_launch_counts() -> None:
@@ -89,11 +91,13 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    """One hash over every source and the flags: a change to any source
-    rebuilds every library."""
+    """One hash over the flags and every file of csrc/ (the sources and
+    any header they include): a change to any of them rebuilds every
+    library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(SOURCES):
-        with open(SOURCES[name], "rb") as f:
+    csrc = os.path.join(_PKG, "csrc")
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
 
@@ -248,7 +252,7 @@ def trace_tiles(counts: torch.Tensor, keys: torch.Tensor,
         return trace_tiles_reference(counts, keys, rays8, tris9, opaque,
                                      idmask, any_hit)
     return _launch_mt(counts, keys, rays8, tris9, opaque, None, idmask,
-                      any_hit)
+                      any_hit)[:2]
 
 
 def trace_tiles_inst(counts: torch.Tensor, keys: torch.Tensor,
@@ -266,8 +270,7 @@ def trace_tiles_inst(counts: torch.Tensor, keys: torch.Tensor,
                                           opaque, k_cluster, k_inst, inv12,
                                           idmask, any_hit)
     return _launch_mt(counts, keys, rays8, tris9, opaque,
-                      (k_cluster, k_inst, inv12), idmask, any_hit,
-                      "trace_mt_inst")
+                      (k_cluster, k_inst, inv12), idmask, any_hit)[:2]
 
 
 def trace_tiles_vm2(counts: torch.Tensor, keys: torch.Tensor,
@@ -306,58 +309,42 @@ def trace_tiles_vm(counts: torch.Tensor, keys: torch.Tensor,
     return (t, tid, steps) if debug_steps else (t, tid)
 
 
-# W, the warps that share one tile in csrc/trace_bw.cu, is 8 for waves of
-# up to BW_TILES_PER_SM tiles per SM, else 4: for K1 up to 64 (a 2^18-ray
+# W, the warps that share one tile, is 8 for waves of up to
+# TILES_PER_SM[kernel] tiles per SM, else 4: for K1 up to 64 (a 2^18-ray
 # wave is 62 tiles per SM on 132 SMs, a 2^20-ray wave 248), for K4/K5 up
 # to 16 (an alpha re-trace of 32,768 rays is 8), since they also
 # synchronise the block once per step of 8 keys. These were the fastest
 # of 1, 2, 4 and 8 on each wave size, and only 4 and 8 are built
-# (PERF.md; app/bw_bench.py times both).
-BW_TILES_PER_SM = {False: 64, True: 16}
+# (PERF.md; app/bw_bench.py times both). K2/K3 take 16 too: W = 8 won
+# their 32,768-ray slices and W = 4 their 2^18 and 2^20 waves.
+TILES_PER_SM = {"trace_vm3": 64, "trace_vm2": 16, "trace_vm": 16,
+                "trace_mt": 16, "trace_mt_inst": 16}
 BW_WARPS = (4, 8)
 
 
-def bw_warps(n_tiles: int, n_sm: int, exit_: bool) -> int:
-    """W for a launch of n_tiles tiles on n_sm SMs, of K1 (exit_ False)
-    or K4/K5."""
-    return 8 if n_tiles <= BW_TILES_PER_SM[exit_] * n_sm else 4
+def bw_warps(n_tiles: int, n_sm: int, kernel: str) -> int:
+    """W for a launch of n_tiles tiles on n_sm SMs of kernel (a LAUNCHES
+    key)."""
+    return 8 if n_tiles <= TILES_PER_SM[kernel] * n_sm else 4
 
 
 def _launch_bw(counts, keys, rays8, tris12, opaque, idmask, any_hit,
                kernel, debug_steps=False, warps=None):
-    """Launch csrc/trace_bw.cu: K1 (kernel trace_vm3; opaque None) or
-    K4/K5 (trace_vm2 / trace_vm). warps (W, one of BW_WARPS) defaults to
+    """Launch K1 (kernel trace_vm3; opaque None) or K4/K5 (trace_vm2 /
+    trace_vm) over tris12. warps (W, one of BW_WARPS) defaults to
     bw_warps' choice; the timing tool and the tests set it. Returns (t,
     tid, steps or None)."""
     dev = rays8.device
-    exit_ = kernel != "trace_vm3"
     _check_tiles(counts, keys, rays8, dev, kernel)
     _check(tris12, "tris12", torch.float32, 4, dev)
     C = tris12.shape[0]
     if tuple(tris12.shape) != (C, 12, 1, CLUSTER) or C < 1:
         raise ValueError(f"{kernel}: bad tris12 shape "
                          f"{tuple(tris12.shape)}")
-    if exit_:
+    if kernel != "trace_vm3":
         _check_exit(keys, opaque, idmask, C, dev, kernel)
-    n_tiles = counts.shape[0]
-    if warps is None:
-        warps = bw_warps(n_tiles, torch.cuda.get_device_properties(
-            dev).multi_processor_count, exit_)
-    lib = build_all()["trace_bw"]
-    t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
-    tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
-    steps = (torch.empty(n_tiles, dtype=torch.int32, device=dev)
-             if debug_steps else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.trace_bw_launch(
-        counts.data_ptr(), keys.data_ptr(), keys.shape[1], rays8.data_ptr(),
-        tris12.data_ptr(), 0 if opaque is None else opaque.data_ptr(),
-        n_tiles, C, idmask, int(any_hit), int(exit_), warps, t.data_ptr(),
-        tid.data_ptr(), 0 if steps is None else steps.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    LAUNCHES[kernel] += 1
-    return t, tid, steps
+    return _launch(kernel, counts, keys, rays8, tris12, opaque, None, C,
+                   idmask, any_hit, debug_steps, warps)
 
 
 def _check_exit(keys, opaque, idmask, n_keys, dev, kernel):
@@ -376,9 +363,10 @@ def _check_exit(keys, opaque, idmask, n_keys, dev, kernel):
 
 
 def _launch_mt(counts, keys, rays8, tris, opaque, inst, idmask, any_hit,
-               kernel="trace_mt"):
-    """Launch csrc/trace_mt.cu over tris9: K2, or K3 with inst. Returns
-    (t, tid)."""
+               debug_steps=False, warps=None):
+    """Launch K2 over tris9, or K3 with inst = (k_cluster, k_inst,
+    inv12). warps as in _launch_bw. Returns (t, tid, steps or None)."""
+    kernel = "trace_mt" if inst is None else "trace_mt_inst"
     dev = rays8.device
     _check_tiles(counts, keys, rays8, dev, kernel)
     _check(tris, "tris9", torch.float32, 4, dev)
@@ -386,7 +374,6 @@ def _launch_mt(counts, keys, rays8, tris, opaque, inst, idmask, any_hit,
     n_keys = C
     if tuple(tris.shape) != (C, 9, 1, CLUSTER) or C < 1:
         raise ValueError(f"{kernel}: bad tris9 shape {tuple(tris.shape)}")
-    ptrs = (0, 0, 0)
     if inst is not None:
         k_cluster, k_inst, inv12 = inst
         _check(k_cluster, "k_cluster", torch.int32, 1, dev)
@@ -398,21 +385,37 @@ def _launch_mt(counts, keys, rays8, tris, opaque, inst, idmask, any_hit,
             raise ValueError(f"{kernel}: inconsistent instance tables "
                              f"{tuple(k_cluster.shape)} "
                              f"{tuple(k_inst.shape)} {tuple(inv12.shape)}")
-        ptrs = (k_cluster.data_ptr(), k_inst.data_ptr(), inv12.data_ptr())
     _check_exit(keys, opaque, idmask, n_keys, dev, kernel)
-    lib = build_all()["trace_mt"]
+    return _launch(kernel, counts, keys, rays8, tris, opaque, inst, n_keys,
+                   idmask, any_hit, debug_steps, warps)
+
+
+def _launch(kernel, counts, keys, rays8, tris, opaque, inst, n_keys,
+            idmask, any_hit, debug_steps, warps):
+    """Launch csrc/trace_tiles.cu's instance for kernel on checked
+    arguments and count the launch. Returns (t, tid, steps or None)."""
+    dev = rays8.device
     n_tiles = counts.shape[0]
+    if warps is None:
+        warps = bw_warps(n_tiles, torch.cuda.get_device_properties(
+            dev).multi_processor_count, kernel)
+    lib = build_all()["trace_tiles"]
     t = torch.empty(n_tiles * TILE, dtype=torch.float32, device=dev)
     tid = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
+    steps = (torch.empty(n_tiles, dtype=torch.int32, device=dev)
+             if debug_steps else None)
+    ptrs = (0, 0, 0) if inst is None else tuple(x.data_ptr() for x in inst)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.trace_mt_launch(
+    err = lib.trace_tiles_launch(
         counts.data_ptr(), keys.data_ptr(), keys.shape[1], rays8.data_ptr(),
-        tris.data_ptr(), opaque.data_ptr(), *ptrs, n_tiles, n_keys, idmask,
-        int(any_hit), t.data_ptr(), tid.data_ptr(), 0, stream)
+        tris.data_ptr(), 0 if opaque is None else opaque.data_ptr(), *ptrs,
+        n_tiles, n_keys, idmask, int(any_hit), _KIND[kernel], warps,
+        t.data_ptr(), tid.data_ptr(),
+        0 if steps is None else steps.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
-    return t, tid
+    return t, tid, steps
 
 
 def trace_tiles_reference(counts, keys, rays8, tris9, opaque, idmask,

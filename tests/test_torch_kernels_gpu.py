@@ -5,7 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from tauray_torch.app.kernel_waves import tie_rays, tie_stack
+from tauray_torch.app.kernel_waves import (tie_rays, tie_stack,
+                                           tie_stack_instanced)
 from tauray_torch.ops.trace_kernel import BW_WARPS
 
 pytestmark = pytest.mark.gpu
@@ -350,3 +351,54 @@ def test_trace_bw_random_soup_at_every_w(cuda, warps):
     for sort, r3, *_ in _mt_waves(tracer, cuda, seed=11):
         for any_hit in (False, True):
             _bw_every_w(tracer, r3.reshape(-1, 8), warps, any_hit)
+
+
+def _mt_every_w(tracer, r8, warps, any_hit):
+    """K2 (a flat tracer) or K3 (an instanced one) at W = warps against
+    the plain version on one wave: ids identical, t bit-identical, steps
+    per tile equal."""
+    from tauray_torch.ops import trace_kernel as tk
+    from tauray_torch.ops.cluster import _phase1_entry
+    r3 = r8.reshape(-1, 32, 8)
+    counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax, r8)
+    inst = None
+    if hasattr(tracer, "k_inst"):
+        inst = (tracer.k_cluster, tracer.k_inst,
+                tracer.inv.reshape(-1, 12).contiguous())
+    t, tid, steps = tk._launch_mt(counts, keys, r3, tracer.tris9,
+                                  tracer.opaque, inst, idmask, any_hit,
+                                  debug_steps=True, warps=warps)
+    stats = {}
+    tr, idr = tk._mt_reference(counts, keys, r3, tracer.tris9, tracer.opaque,
+                               inst, idmask, any_hit, stats)
+    torch.cuda.synchronize()
+    kind = "K2" if inst is None else "K3"
+    assert torch.equal(tid, idr), (kind, warps, any_hit)
+    assert torch.equal(t.view(torch.int32), tr.view(torch.int32))
+    assert torch.equal(steps, stats["tile_steps"]), (kind, warps, any_hit)
+    return counts, tid
+
+
+@pytest.mark.parametrize("warps", BW_WARPS)
+def test_trace_mt_ties_at_every_w(cuda, warps):
+    """K2 on tie_stack and K3 on its two-instance form, a 32,768-ray wave
+    of exact duplicates, closest and any hit, at every W."""
+    r8 = torch.from_numpy(tie_rays(1024)).to(cuda)
+    for tracer in (tie_stack(cuda), tie_stack_instanced(cuda)):
+        for any_hit in (False, True):
+            counts, tid = _mt_every_w(tracer, r8, warps, any_hit)
+            assert (tid >= 0).any() and (tid < 0).any()
+            assert int(counts.max()) > 8 and int(counts.min()) == 0
+
+
+@pytest.mark.parametrize("warps", BW_WARPS)
+def test_trace_mt_random_soup_at_every_w(cuda, warps):
+    """K2 on the triangle soup (some clusters not opaque) and K3 on the
+    instanced scene, sorted and unsorted random waves, closest and any hit,
+    at every W."""
+    soup, _ = _soup_tracer(cuda)
+    soup.opaque[::3] = 0
+    for tracer in (soup, _instanced(cuda)):
+        for sort, r3, *_ in _mt_waves(tracer, cuda, seed=13):
+            for any_hit in (False, True):
+                _mt_every_w(tracer, r3.reshape(-1, 8), warps, any_hit)
