@@ -46,7 +46,24 @@ non-zero:
      TAURAY_VM_KERNEL=v2 K4 launched and K1 never, the image held to (a)'s;
   9. --sampler=sobol-owen on the foliage scene at 256x256, 4 spp;
   10. `python -m tauray_torch.app.wave_stats` at its default size: K5
-     launched, one line per wave.
+     launched, one line per wave;
+  11. the device scene update: the phase 4 scene with a keyframed
+     translation on one entity, 3 frames through PathTracerRenderer
+     (update_frame goes through device_update_frame); after each update
+     the host path (host_update_frame) runs too and its triangle tables
+     must agree within 1e-4 of scale; both update_frame times and the
+     frame times are printed, K1 launched;
+  12. the post stack through the CLI at 1920x1080, 1 spp, depth 4, 3
+     frames, once each with --denoiser=svgf, --denoiser=bmfr,
+     --temporal-reprojection=0.5 and --taa=8: K1 launched; the last
+     frame's G-buffer and the pipeline's history go through post.process
+     on the CPU too, held to the card's output by the CPU tests' rule
+     (tests/test_torch_post.py); frame and post-stack ms;
+  13. the 10 feature renderers at 1920x1080 through one FeatureRenderer:
+     K1 launched; the 8x4-pixel blocks at every 32nd row and column traced
+     again on the CPU: instance-id equal, the others within 1e-4 of
+     scale;
+  14. `python -m tauray_torch.app.bench --cells=headline`: its JSON line.
 The last lines are the card, the kernel table (each row also with W, the
 SASS instructions per test and the bound under the -fmad=false
 contract), and {"ok": true, "device": {...}}.
@@ -443,9 +460,281 @@ def main_path(tmp, tag, args, scene=SCENE):
     return ms, img, launches, torch.cuda.max_memory_allocated() / 2**30
 
 
-HD = ["--renderer=path-tracer", "--width=1920", "--height=1080",
+HD_W, HD_H = 1920, 1080
+HD = ["--renderer=path-tracer", f"--width={HD_W}", f"--height={HD_H}",
       "--samples-per-pixel=1", "--max-ray-depth=4", "--tonemap=linear",
       "--frames=2"]
+
+
+def sync_ms(fn):
+    """(fn's result, host ms of fn to a device synchronize)."""
+    import time
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def agree(got, want, atol: float = 1e-4):
+    """tests/test_torch_post.py's rule: the share of elements within
+    atol + 1e-3 x |want| (NaN matching NaN), and the two means over the
+    finite elements. Returns (share, mean got, mean want, ok)."""
+    import numpy as np
+    ok = (np.abs(got - want) <= atol + 1e-3 * np.abs(want)) | \
+        (np.isnan(got) & np.isnan(want))
+    fin = np.isfinite(got) & np.isfinite(want)
+    mg, mw = float(got[fin].mean()), float(want[fin].mean())
+    share = float(ok.mean())
+    good = bool((np.isnan(got) == np.isnan(want)).all()) and \
+        share >= 0.995 and abs(mg - mw) <= 1e-3 * max(abs(mw), 1e-3)
+    return share, mg, mw, good
+
+
+def slide(scene):
+    """A keyframed translation on the scene's first model entity, as
+    tests/test_camera_anim.py animates its floor; plays it."""
+    import numpy as np
+    from tauray_torch.scene import animation as anim
+    e = next(e for e in scene.entities if e.model is not None)
+    a = anim.Animation()
+    a.add_channel("translation", anim.AnimationChannel(
+        times=np.array([0.0, 1.0], np.float32),
+        values=np.array([[0, 0, 0], [0.5, 0.2, -0.3]], np.float32)))
+    e.animations = {"slide": a}
+    anim.play(scene, "slide", False)
+
+
+def device_update_phase():
+    """Phase 11; returns K1's launches."""
+    import numpy as np
+    import torch
+    from tauray_torch.app.main import create_renderer, load_scenes
+    from tauray_torch.ops import trace_kernel
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.scene import animation as anim
+    opt = parse_command_line_options(HD + ["--headless=unused",
+                                           "--filetype=none", SCENE])
+    scene = load_scenes(opt)
+    slide(scene)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trace_kernel.reset_launch_counts()
+    rr = create_renderer(opt, scene, torch.device("cuda"))
+    rr.set_scene(scene)
+    res = dict(size=f"{HD_W}x{HD_H}", spp=1, depth=4, frame_ms=[],
+               update_ms_device=[], update_ms_host=[], worst_rel=0.0)
+    for k in range(3):
+        if k:
+            anim.update(scene, 250000, True)
+            _, ms = sync_ms(rr.update_frame)
+            res["update_ms_device"].append(ms)
+            dev_scene, dev_bvh = rr.device_scene, rr.bvh
+            host_bvh, ms = sync_ms(
+                lambda: rr.host_update_frame(dev_bvh, rr._perm))
+            res["update_ms_host"].append(ms)
+            for name in ("tri_pos", "tri_normal", "tri_tangent",
+                         "tri_hard_normal"):
+                want = getattr(rr.device_scene, name)
+                d = float((getattr(dev_scene, name) - want).abs().max())
+                rel = d / (float(want.abs().max()) + 1.0)
+                res["worst_rel"] = max(res["worst_rel"], rel)
+                if rel >= 1e-4:
+                    raise RuntimeError(f"phase 11: device {name} departs "
+                                       f"from the host path's by {d}")
+            for name in ("cmin", "cmax"):
+                d = float((getattr(dev_bvh, name) -
+                           getattr(host_bvh, name)).abs().max())
+                if d > 1e-3:
+                    raise RuntimeError(f"phase 11: refit {name} off by {d}")
+            rr.device_scene = dev_scene
+        rr.reset_accumulation()
+        img, ms = sync_ms(rr.render_device)
+        res["frame_ms"].append(ms)
+        check_image(img[0].cpu().numpy(), HD_W, HD_H, f"phase 11 frame {k}")
+    res.update(launches=dict(trace_kernel.LAUNCHES),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    print("phase 11 " + json.dumps(res), flush=True)
+    if res["launches"]["trace_vm3"] <= 0:
+        raise RuntimeError("phase 11 never launched trace_vm3")
+    return res["launches"]["trace_vm3"]
+
+
+@contextlib.contextmanager
+def post_capture(last: int):
+    """Times every PostProcessingPipeline.process call (CUDA events around
+    it) and, on call number `last` (from 0), records the history before
+    it, the G-buffer and the output as numpy arrays. Yields the record;
+    post_ms is filled on exit."""
+    import numpy as np
+    import torch
+    from tauray_torch.renderer import post_processing as pp
+    orig = pp.PostProcessingPipeline.process
+    rec = {"events": []}
+
+    def process(self, gbuf, cam_origin=None):
+        keep = len(rec["events"]) == last
+        if keep:
+            rec["state"] = pp.post_state_numpy(self)
+            rec["gbuf"] = {k: v.cpu().numpy() for k, v in gbuf.items()}
+            rec["cam_origin"] = np.array(cam_origin)
+            rec["opt"], rec["shape"] = self.opt, (self.W, self.H, self.V)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(self, gbuf, cam_origin)
+        b.record()
+        rec["events"].append((a, b))
+        if keep:
+            rec["out"] = out.cpu().numpy()
+        return out
+    pp.PostProcessingPipeline.process = process
+    try:
+        yield rec
+    finally:
+        pp.PostProcessingPipeline.process = orig
+        torch.cuda.synchronize()
+        rec["post_ms"] = [a.elapsed_time(b) for a, b in rec["events"]]
+
+
+def post_phase(tmp):
+    """Phase 12; returns K1's launches of its first run."""
+    import numpy as np
+    import torch
+    from tauray_torch.renderer.post_processing import PostProcessingPipeline
+    l_k1 = None
+    for flag in ("--denoiser=svgf", "--denoiser=bmfr",
+                 "--temporal-reprojection=0.5", "--taa=8"):
+        args = HD[:-1] + ["--frames=3", flag]
+        # the third frame's copies to the host count in its frame_ms
+        with post_capture(2) as rec:
+            ms, img, launches, peak = main_path(tmp, "post", args)
+        check_image(img, HD_W, HD_H, f"phase 12 {flag}")
+        if launches["trace_vm3"] <= 0 or len(rec["post_ms"]) != 3:
+            raise RuntimeError(f"phase 12 {flag}: launches {launches}, "
+                               f"{len(rec['post_ms'])} post calls")
+        l_k1 = l_k1 or launches["trace_vm3"]
+        # the last frame's post stack again on the CPU, from the same
+        # history and G-buffer
+        W, H, V = rec["shape"]
+        cpu = PostProcessingPipeline(rec["opt"], W, H, V, "cpu")
+        cpu.load_state_numpy(rec["state"])
+        (want, cpu_ms) = sync_ms(lambda: cpu.process(
+            {k: torch.from_numpy(v) for k, v in rec["gbuf"].items()},
+            cam_origin=rec["cam_origin"]).numpy())
+        atol = 2e-3 * float(np.abs(want).max()) if "bmfr" in flag \
+            else 1e-4
+        share, mg, mw, good = agree(rec["out"], want, atol)
+        print("phase 12 " + json.dumps(dict(
+            size=f"{HD_W}x{HD_H}", spp=1, depth=4, option=flag, frame_ms=ms,
+            post_ms=rec["post_ms"], launches=launches, peak_mem_gb=peak,
+            image_mean=float(np.asarray(img)[..., :3].mean()),
+            cpu_share_within_tol=share, mean_card=mg, mean_cpu=mw,
+            cpu_post_ms=cpu_ms)), flush=True)
+        if not good:
+            raise RuntimeError(f"phase 12 {flag}: the card's post stack "
+                               f"departs from the CPU's ({share})")
+        del rec
+    return l_k1
+
+
+def to_cpu(tracer):
+    """The flat tracer's tables on the CPU (tracer_from_numpy)."""
+    from tauray_torch.ops.cluster import tracer_from_numpy
+    fields = {k: getattr(tracer, k).cpu().numpy() for k in (
+        "v0", "e1", "e2", "tri_valid", "to_orig", "cmin", "cmax", "opaque")}
+    fields.update(n_clusters=tracer.n_clusters,
+                  alpha_base=tracer.alpha_base, slot_ids=tracer.slot_ids)
+    return tracer_from_numpy(fields, "cpu")
+
+
+def feature_phase():
+    """Phase 13; returns K1's launches."""
+    import numpy as np
+    import torch
+    from tauray_torch.app.main import create_renderer, load_scenes
+    from tauray_torch.ops import trace_kernel
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.scene.device import to_camera_uniforms
+    from tauray_torch.stages.feature import (FEATURES, feature_values,
+                                             trace_pixels)
+    opt = parse_command_line_options([
+        "--renderer=albedo", f"--width={HD_W}", f"--height={HD_H}",
+        "--headless=unused", "--filetype=none", SCENE])
+    scene = load_scenes(opt)
+    torch.cuda.empty_cache()
+    trace_kernel.reset_launch_counts()
+    rr = create_renderer(opt, scene, torch.device("cuda"))
+    rr.set_scene(scene)
+    imgs, ms = {}, {}
+    for f in FEATURES:
+        rr.feature = f
+        img, ms[f] = sync_ms(rr.render_device)
+        imgs[f] = img[0].cpu().numpy()
+    launches = dict(trace_kernel.LAUNCHES)
+    # the 8x4-pixel blocks (one 32-ray tile each) at every 32nd row and
+    # column, traced again on the CPU
+    by, bx, iy, ix = np.meshgrid(np.arange(0, HD_H - 3, 32),
+                                 np.arange(0, HD_W - 7, 32), np.arange(4),
+                                 np.arange(8), indexing="ij")
+    ys, xs = (by + iy).reshape(-1), (bx + ix).reshape(-1)
+    pix = torch.from_numpy(np.stack([xs, ys], -1))
+    vp = torch.zeros(pix.shape[0], dtype=torch.int64)
+    size = torch.tensor([float(HD_W), float(HD_H)])
+    scene_c = rr.device_scene._replace(**{
+        k: v.cpu() for k, v in rr.device_scene._asdict().items()
+        if isinstance(v, torch.Tensor)})
+    tracer_c = to_cpu(rr.bvh)
+    cam = to_camera_uniforms(rr.arrays.camera_uniforms(rr.viewports()),
+                             "cpu")
+    hit, d = trace_pixels(scene_c, tracer_c, cam, vp, pix, size,
+                          float(opt.min_ray_dist),
+                          rr.arrays.any_alpha_materials)
+    res = {}
+    for f in FEATURES:
+        want = feature_values(scene_c, cam, cam, f, vp, hit, d,
+                              float(opt.default_value)).numpy()
+        got = imgs[f][ys, xs]
+        if f == "instance-id":
+            ok = bool(np.array_equal(got, want, equal_nan=True))
+            err = 0.0 if ok else float("inf")
+        else:
+            fin = np.isfinite(want)
+            scale = 1.0 + float(np.abs(want[fin]).max())
+            diff = np.abs(got - want)
+            ok = bool((np.isnan(got) == np.isnan(want)).all() and
+                      (diff[fin] <= 1e-4 * scale).all())
+            err = float(diff[fin].max() / scale)
+        res[f] = dict(ms=ms[f], max_err_of_scale=err,
+                      misses=int(np.isnan(want).all(-1).sum()))
+        if not ok:
+            raise RuntimeError(f"phase 13 {f}: the card departs from the "
+                               f"CPU ({err})")
+    print("phase 13 " + json.dumps(dict(
+        size=f"{HD_W}x{HD_H}", checked_pixels=int(pix.shape[0]),
+        features=res, launches=launches)), flush=True)
+    if launches["trace_vm3"] <= 0:
+        raise RuntimeError("phase 13 never launched trace_vm3")
+    return launches["trace_vm3"]
+
+
+def bench_phase():
+    """Phase 14: the bench's headline cell; returns its JSON line."""
+    from tauray_torch.app import bench
+    from tauray_torch.ops import trace_kernel
+    trace_kernel.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(["--cells=headline"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    out = json.loads(line)
+    print(f"phase 14 {line}", flush=True)
+    print("phase 14 launches " + json.dumps(dict(trace_kernel.LAUNCHES)),
+          flush=True)
+    if trace_kernel.LAUNCHES["trace_vm3"] <= 0 or not out["value"] > 0:
+        raise RuntimeError("phase 14: the bench launched no trace_vm3")
+    return out
 
 
 def main() -> int:
@@ -658,6 +947,12 @@ def main() -> int:
     if l_k5 <= 0 or n_waves != 7:
         raise RuntimeError(f"wave_stats launched K5 {l_k5} times over "
                            f"{n_waves} waves")
+
+    device_update_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        post_phase(tmp)
+    feature_phase()
+    bench_phase()
 
     def row(name, replaces, launches, r):
         """One kernel's entry: also W and the SASS instructions per test

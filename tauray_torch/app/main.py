@@ -3,8 +3,8 @@ src/tauray.cc); the counterpart of tauray_tpu.app.main with the same
 command-line grammar.
 
 Flow: parse options -> require a CUDA device -> load scenes -> headless
-replay. The renderer runs on one explicit torch.device; only the
-path-tracer and direct renderers exist here so far."""
+replay. The renderer runs on one explicit torch.device; the path-tracer,
+direct and feature (AOV) renderers are ported."""
 
 from __future__ import annotations
 
@@ -113,8 +113,12 @@ def create_renderer(opt: Options, s: Scene, device):
     """The renderer for `opt` on one torch device. Renderers that are not
     ported yet raise NotImplementedError naming their ROADMAP item."""
     r = opt.renderer
+    if r in _FEATURES:
+        from ..renderer.feature_renderer import FeatureRenderer
+        return FeatureRenderer(opt, device, r)
     if r in ("path-tracer", "direct"):
-        if opt.fake_devices > 1 or opt.mesh_shape:
+        if (opt.fake_devices > 1 or opt.mesh_shape) and \
+                not opt.spatial_reprojection:
             raise NotImplementedError(
                 "multi-device rendering is not ported yet (ROADMAP Queue 1, "
                 "distribution)")
@@ -122,8 +126,7 @@ def create_renderer(opt: Options, s: Scene, device):
         return PathTracerRenderer(opt, device, direct_only=(r == "direct"))
     item = {"raster": "raster", "restir": "ReSTIR", "restir-hybrid": "ReSTIR",
             "dshgi": "SH/DSHGI", "dshgi-client": "SH/DSHGI",
-            "dshgi-server": "SH/DSHGI"}.get(
-                r, "feature/AOV" if r in _FEATURES else "app extras")
+            "dshgi-server": "SH/DSHGI"}.get(r, "app extras")
     raise NotImplementedError(
         f"renderer {r!r} is not ported yet (ROADMAP Queue 1, {item})")
 

@@ -32,17 +32,11 @@ def _self_device_ms(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0))) / 1e3
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if not any(not a.startswith("-") for a in argv):
-        argv = argv + ["proc://sponza?tris=262144"]
-    if not torch.cuda.is_available():
-        raise RuntimeError("profiling needs a CUDA device")
-    opt = parse_command_line_options(argv)
-    scene = load_scenes(opt)
-    rr = create_renderer(opt, scene, torch.device("cuda"))
-    rr.set_scene(scene)
-    rr.render_device().sum().item()           # warm-up frame
+def profile_frame(rr) -> dict:
+    """Profile one frame of a renderer that has rendered at least once:
+    frame wall ms, device busy ms and idle share, the device-timeline span
+    of each range, device ms of the top kernels by name, and the peak
+    device memory (GiB) since the last reset of the peak."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -68,11 +62,25 @@ def main(argv=None) -> int:
         key = e.key[:60]
         by_name[key] = by_name.get(key, 0.0) + _self_device_ms(e)
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
-    print(json.dumps(dict(
+    return dict(
         device=torch.cuda.get_device_name(0), wall_ms=wall_ms,
         device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
         range_span_ms=ranges, top_kernels_ms=top,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)))
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not any(not a.startswith("-") for a in argv):
+        argv = argv + ["proc://sponza?tris=262144"]
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device")
+    opt = parse_command_line_options(argv)
+    scene = load_scenes(opt)
+    rr = create_renderer(opt, scene, torch.device("cuda"))
+    rr.set_scene(scene)
+    rr.render_device().sum().item()           # warm-up frame
+    print(json.dumps(profile_frame(rr)))
     return 0
 
 

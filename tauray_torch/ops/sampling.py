@@ -35,6 +35,15 @@ def vec(values, like):
     return torch.tensor(values, dtype=like.dtype, device=like.device)
 
 
+def xla_int32(x):
+    """float32 -> int32 as XLA converts: toward zero, NaN to 0, saturating
+    at the int32 range. A plain torch cast is undefined outside the range
+    and differs between CPU and CUDA (NaN gives INT_MIN on x86, 0 on
+    CUDA)."""
+    i = torch.nan_to_num(x, nan=0.0).clamp(-2147483648.0, 2147483520.0)
+    return torch.where(x >= 2147483648.0, 2147483647, i.to(torch.int32))
+
+
 def pow5(x):
     """x**5 as integer_pow evaluates it: x * (x*x)*(x*x)."""
     x2 = x * x

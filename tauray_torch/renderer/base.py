@@ -25,15 +25,51 @@ class Renderer:
     def set_scene(self, scene: Scene):
         self.scene = scene
         self.arrays = SceneArrays(scene, self.opt)
+        self._geom_static = None
         self._scene_changed()
 
     def _scene_changed(self):
         pass
 
+    def device_update_frame(self, bvh, perm):
+        """Per-frame scene refresh with skinning and world transforms on
+        the device (reference: scene_stage dispatching skinning.comp +
+        pre_transform.comp each frame, src/scene_stage.cc:1543,1685). The
+        host walks the transform hierarchy and packs the (tiny) light
+        tables only. Replaces self.device_scene and returns the refit
+        tracer (for the instanced tracer, new instance transforms
+        only)."""
+        from ..ops.cluster import (InstancedClusterTracer,
+                                   refit_cluster_tracer,
+                                   refit_instanced_tracer)
+        from ..scene.device_update import (apply_frame_update,
+                                           build_geom_static,
+                                           host_frame_inputs,
+                                           update_geometry)
+        if self._geom_static is None:
+            self._geom_static, self._has_skin = build_geom_static(
+                self.arrays, self.device)
+            self._prev_geom = None
+        self.arrays._update_lights()
+        models, normals, joints = host_frame_inputs(self.arrays)
+        g = update_geometry(
+            self._geom_static, *(torch.from_numpy(x).to(self.device)
+                                 for x in (models, normals, joints)),
+            self._has_skin)
+        self.device_scene = apply_frame_update(
+            self.device_scene, self._geom_static, g, self._prev_geom,
+            self.arrays)
+        self._prev_geom = g
+        if isinstance(bvh, InstancedClusterTracer):
+            return refit_instanced_tracer(bvh, models)
+        return refit_cluster_tracer(bvh, g.tri_pos, perm)
+
     def host_update_frame(self, bvh, perm):
         """Per-frame scene refresh on the host: transform hierarchy and
         lights in numpy, a fresh device scene, and a cluster refit (for
-        the instanced tracer, new instance transforms only)."""
+        the instanced tracer, new instance transforms only). No entry
+        point calls it: it is the reference the tests hold
+        device_update_frame to."""
         from ..ops.cluster import (InstancedClusterTracer,
                                    refit_cluster_tracer,
                                    refit_instanced_tracer)

@@ -4,7 +4,8 @@ tauray_tpu.renderer.rt_renderer.PathTracerRenderer on one device.
 
 Scene update -> path-tracing passes (samples_per_pixel / samples_per_pass)
 split into calls of at most `rays_per_call` pixels -> accumulation ->
-tonemap."""
+the post-processing pipeline (reprojection, denoiser, TAA) when an option
+asks for it -> tonemap."""
 
 from __future__ import annotations
 
@@ -21,28 +22,16 @@ from ..scene.device import to_camera_uniforms, to_device_scene
 from ..stages.path_tracer import PTConfig, accumulate, pt_trace_pass
 from ..stages.tonemap import tonemap
 from .base import Renderer
+from .post_processing import PostProcessingPipeline
 
 # rays per wave: samples_per_pass samples of rays_per_call pixels trace as
 # one wave of at most this many rays
 WAVE_CAP = 1 << 20
 
 
-def _check_supported(opt):
-    if (opt.denoiser != "none" or opt.temporal_reprojection > 0 or
-            opt.taa.sequence_length > 0):
-        raise NotImplementedError(
-            "post-processing (denoisers, temporal reprojection, TAA) is not "
-            "ported yet (ROADMAP Queue 1, post stack)")
-    if opt.spatial_reprojection:
-        raise NotImplementedError(
-            "--spatial-reprojection is not ported yet (ROADMAP Queue 1, "
-            "distribution)")
-
-
 class PathTracerRenderer(Renderer):
     def __init__(self, opt, device, direct_only: bool = False):
         super().__init__(opt, device)
-        _check_supported(opt)
         self.direct_only = direct_only
         self.accum_color: Optional[torch.Tensor] = None
         self.samples_accumulated = 0
@@ -111,6 +100,13 @@ class PathTracerRenderer(Renderer):
                 for k in range(4)),
             tl_textured=bool((self.arrays.tl_tex >= 0).any()))
         V, H, W = self.cfg.n_views, opt.height, opt.width
+        # sparse viewport rendering for light fields: only the viewports in
+        # --spatial-reprojection are traced; the rest are reprojected
+        # (reference: src/spatial_reprojection_stage.hh, options.hh:367-370)
+        self.active_views = sorted(
+            v for v in opt.spatial_reprojection if v < V) or list(range(V))
+        self.use_spatial_reproj = len(self.active_views) < V
+        AV = len(self.active_views)
         ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
         pix = np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1)
         # trace rays in 8x4 PIXEL BLOCKS, so a 32-ray traversal tile covers
@@ -124,12 +120,12 @@ class PathTracerRenderer(Renderer):
             pix = pix[order]
             un = np.argsort(order, kind="stable")
             self._ray_unorder = torch.from_numpy(
-                (un[None, :] + (np.arange(V) * H * W)[:, None])
+                (un[None, :] + (np.arange(AV) * H * W)[:, None])
                 .reshape(-1)).long().to(self.device)
         else:
             self._ray_unorder = None
-        pix = np.tile(pix, (V, 1)).astype(np.int32)
-        vp = np.repeat(np.arange(V, dtype=np.int32), H * W)
+        pix = np.tile(pix, (AV, 1)).astype(np.int32)
+        vp = np.repeat(np.asarray(self.active_views, np.int32), H * W)
         # pixels per call: samples_per_pass samples of them trace as one
         # wave of at most WAVE_CAP rays
         per_call = max(8192, (WAVE_CAP // max(self.samples_per_pass, 1))
@@ -143,9 +139,16 @@ class PathTracerRenderer(Renderer):
         self._n_rays = R
         self._pix = torch.from_numpy(pix).to(self.device)
         self._vp = torch.from_numpy(vp).to(self.device)
+        # post-processing pipeline (reprojection / denoiser / TAA / tonemap)
+        self.post = PostProcessingPipeline(opt, W, H, V, self.device)
+        self.use_post = (self.post.use_svgf or self.post.use_bmfr or
+                         self.post.use_taa or
+                         self.post.use_temporal_reprojection or
+                         self.use_spatial_reproj)
+        self.last_useful_rays = None
 
     def update_frame(self):
-        self.bvh = self.host_update_frame(self.bvh, self._perm)
+        self.bvh = self.device_update_frame(self.bvh, self._perm)
 
     # -- checkpoint/resume: the accumulation state persists as a file ----
     def save_checkpoint(self, path: str):
@@ -183,6 +186,26 @@ class PathTracerRenderer(Renderer):
             tri_packed=self.device_scene.tri_packed[p],
             tri_instance=self.device_scene.tri_instance[p])
 
+    def capture_waves(self):
+        """One pass of the first call's pixels with the wave capture on
+        (stages/path_tracer._WAVE_DUMP). Returns [(kind, o, d, t_min,
+        t_max)] of its trace waves on the renderer's device (t_min a float,
+        t_max per ray); app/bench.py's wave statistics read them."""
+        from ..stages import path_tracer as pt
+        cam = to_camera_uniforms(
+            self.arrays.camera_uniforms(self.viewports()), self.device)
+        n = self.rays_per_call
+        pt._WAVE_DUMP = []
+        try:
+            pt_trace_pass(self.cfg, self._slot_scene(), self.bvh, cam, cam,
+                          self._pix[:n], self._vp[:n],
+                          torch.zeros(n, dtype=torch.int64,
+                                      device=self.device))
+            waves = pt._WAVE_DUMP
+        finally:
+            pt._WAVE_DUMP = None
+        return waves
+
     def render_device(self) -> torch.Tensor:
         cfg = self.cfg
         cam = to_camera_uniforms(
@@ -193,6 +216,8 @@ class PathTracerRenderer(Renderer):
         sample_base = self.samples_accumulated
         n_chunks = self._pix.shape[0] // self.rays_per_call
         color = None
+        gchunks = []
+        useful = None
         for p in range(n_passes):
             prev = sample_base + p * self.samples_per_pass
             chunks = []
@@ -203,6 +228,11 @@ class PathTracerRenderer(Renderer):
                 out = pt_trace_pass(cfg, scene, self.bvh, cam, prev_cam,
                                     self._pix[s], self._vp[s], prev_arr)
                 chunks.append(out.color)
+                if out.useful_rays is not None:
+                    useful = out.useful_rays if useful is None \
+                        else useful + out.useful_rays
+                if self.use_post and p == n_passes - 1:
+                    gchunks.append(out)
             pass_color = torch.cat(chunks)[:self._n_rays]
             if color is None and sample_base == 0 and p == 0:
                 color = pass_color
@@ -214,11 +244,68 @@ class PathTracerRenderer(Renderer):
                                          p * self.samples_per_pass))
         self.accum_color = color
         self.samples_accumulated = sample_base + self.samples_per_pixel
+        self.last_useful_rays = useful        # device scalar or None
         self._prev_cam = cam
         self.frame_counter += 1
         # accumulation stays in ray order; outputs un-permute to scanline
         if self._ray_unorder is not None:
             color = color[self._ray_unorder]
-        img = color.reshape(cfg.n_views, cfg.height, cfg.width, 4)
-        return tonemap(img, self.opt.tonemap, self.opt.exposure,
-                       self.opt.gamma)
+        V, H, W = cfg.n_views, cfg.height, cfg.width
+        if not self.use_post:
+            img = color.reshape(V, H, W, 4)
+            return tonemap(img, self.opt.tonemap, self.opt.exposure,
+                           self.opt.gamma)
+        return self._post_process(color, gchunks, cam)
+
+    def _gbuffer_field(self, gchunks, field: str):
+        """One first-hit field of the last pass, (AV, H, W, C) in
+        scanline order."""
+        cfg = self.cfg
+        x = torch.cat([getattr(o, field) for o in gchunks])[:self._n_rays]
+        if self._ray_unorder is not None:
+            x = x[self._ray_unorder]
+        return x.reshape(len(self.active_views), cfg.height, cfg.width, -1)
+
+    def _post_process(self, color, gchunks, cam) -> torch.Tensor:
+        """The G-buffer of the last pass, the spatial reprojection of the
+        inactive views, then the post-processing pipeline."""
+        V, H, W = self.cfg.n_views, self.cfg.height, self.cfg.width
+        AV = len(self.active_views)
+        act = torch.tensor(self.active_views, device=self.device)
+
+        def cat(field):
+            x = self._gbuffer_field(gchunks, field)
+            if AV == V:
+                return x
+            full = x.new_zeros((V,) + x.shape[1:])
+            full[act] = x
+            return full
+        pos = cat("first_pos")
+        view_z = torch.einsum("vhwj,vj->vhw", pos, cam.view[:, 2, :3]) + \
+            cam.view[:, 2, 3][:, None, None]
+        if self.use_spatial_reproj:
+            # fill inactive viewports from the rendered ones
+            from ..stages.temporal import spatial_reprojection
+            color_av = color.reshape(AV, H, W, 4)
+            pos_av = self._gbuffer_field(gchunks, "first_pos")
+            valid_av = self._gbuffer_field(gchunks, "first_instance")[
+                ..., 0] >= 0
+            color_full = color.new_zeros((V, H, W, 4))
+            color_full[act] = color_av
+            for v in range(V):
+                if v not in self.active_views:
+                    color_full[v] = spatial_reprojection(
+                        cam.view_proj[v], color_av, pos_av, valid_av)[0]
+            color = color_full
+        gbuf = dict(
+            color=color.reshape(V, H, W, 4),
+            diffuse=cat("diffuse"),
+            reflection=cat("reflection"),
+            albedo=cat("first_albedo"),
+            normal=cat("first_normal"),
+            pos=pos,
+            screen_motion=cat("first_screen_motion"),
+            metallic_roughness=cat("first_metallic_roughness"),
+            emission=cat("first_emission"),
+            view_z=-view_z)
+        return self.post.process(gbuf, cam_origin=cam.origin.cpu().numpy())

@@ -76,6 +76,7 @@ class PTConfig:
     rng_seed: int = 0
     has_alpha_materials: bool = False
     sampler: str = "uniform-random"    # | sobol-owen | sobol-z2 | sobol-z3
+    count_rays: bool = False           # emit useful-ray (alive-lane) counts
     # texture slots (albedo, metallic-roughness, normal, emission) bound by
     # ANY material; unbound slots skip their texture gathers
     tex_slots: Tuple[bool, bool, bool, bool] = (True, True, True, True)
@@ -93,6 +94,9 @@ class PTOutput(NamedTuple):
     first_instance: torch.Tensor     # (R,) i32
     first_metallic_roughness: torch.Tensor  # (R, 2)
     first_emission: torch.Tensor     # (R, 3)
+    # cfg.count_rays: lanes that traced (alive bounce lanes with t_max > 0
+    # and shadow lanes with a nonzero length), an int64 scalar
+    useful_rays: Optional[torch.Tensor] = None
 
 
 def draw_ray_sample(cfg: PTConfig, seed, coord=None, slot: int = -1):
@@ -610,7 +614,8 @@ def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
     """Closest-hit wave, NEE shadow wave, shading. Bounce and shadow waves
     are sorted by their active-set signature; camera waves keep
     pixel-block order. Both waves take the alpha re-trace rounds when the
-    scene has alpha-tested materials."""
+    scene has alpha-tested materials. Returns (state, first-hit data,
+    useful rays or None)."""
     seed, alpha_seed, pos, view = state[:4]
     alive = state[11]
     sobol_bounce = -1 if cfg.sampler == "uniform-random" else b_idx
@@ -621,6 +626,7 @@ def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
         _WAVE_DUMP.append(("bounce", pos, view, t_min, t_max))
     hit = host_trace_alpha(scene, tracer, pos, view, t_min, t_max, alpha_u,
                            cfg.has_alpha_materials, sort=not is_first)
+    useful = (t_max > 0.0).sum() if cfg.count_rays else None
     if cfg.nee.any and b_idx < max_bounces - 1:
         slot = -1 if sobol_bounce < 0 else sobol_bounce * 2
         with record_function("shade"):
@@ -634,11 +640,15 @@ def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
                               sh_len, nee_alpha_u, cfg.has_alpha_materials,
                               any_hit=True, sort=True)
         vis = torch.where(sh.tri_id < 0, 1.0, 0.0)
+        if cfg.count_rays:
+            useful = useful + (sh_len > 0.0).sum()
     else:
         vis = torch.ones_like(t_max)
     with record_function("shade"):
-        return _shade_bounce(cfg, scene, state, hit, vis, b_idx, is_first,
-                             max_bounces, coord, sobol_bounce)
+        state, first = _shade_bounce(cfg, scene, state, hit, vis, b_idx,
+                                     is_first, max_bounces, coord,
+                                     sobol_bounce)
+    return state, first, useful
 
 
 def evaluate_ray(cfg: PTConfig, scene: DeviceScene, tracer, sampler_seed,
@@ -646,7 +656,7 @@ def evaluate_ray(cfg: PTConfig, scene: DeviceScene, tracer, sampler_seed,
     """One path per ray (reference: shader/path_tracer.glsl evaluate_ray).
     coord: (R, 4) uint32 sampler coordinates (the Sobol samplers read the
     pixel and sample index there). Returns (diffuse (R, 4), reflection
-    (R, 4), first-hit dict)."""
+    (R, 4), first-hit dict, useful rays or None)."""
     R = pos.shape[0]
     z = torch.zeros(R, dtype=torch.float32, device=pos.device)
     state = (
@@ -664,12 +674,14 @@ def evaluate_ray(cfg: PTConfig, scene: DeviceScene, tracer, sampler_seed,
         torch.zeros((R, 4), dtype=torch.float32, device=pos.device),
     )
     max_bounces = 2 if cfg.direct_only else cfg.max_bounces
-    state, first = _run_bounce(cfg, scene, tracer, state, 0, True,
-                               max_bounces, coord)
+    state, first, useful = _run_bounce(cfg, scene, tracer, state, 0, True,
+                                       max_bounces, coord)
     for b_idx in range(1, max_bounces):
-        state, _ = _run_bounce(cfg, scene, tracer, state, b_idx, False,
-                               max_bounces, coord)
-    return state[-2], state[-1], first
+        state, _, u = _run_bounce(cfg, scene, tracer, state, b_idx, False,
+                                  max_bounces, coord)
+        if cfg.count_rays:
+            useful = useful + u
+    return state[-2], state[-1], first, useful
 
 
 def _film_offset(cfg: PTConfig, seed):
@@ -761,8 +773,8 @@ def pt_trace_pass(cfg: PTConfig, scene: DeviceScene, tracer,
                          device=previous_samples.device).repeat(R)
 
     seed, origin, d, coord = _begin_sample(cfg, cam, pix_b, vp_b, prev_b)
-    diffuse, refl, fh = evaluate_ray(cfg, scene, tracer, seed, origin, d,
-                                     coord)
+    diffuse, refl, fh, useful = evaluate_ray(cfg, scene, tracer, seed,
+                                             origin, d, coord)
     color, screen_motion = _finalize_sample(
         cfg, prev_cam, vp_b, diffuse, refl, fh["albedo"], fh["metallic"],
         fh["emission"], fh["vertex_prev_pos"])
@@ -792,7 +804,7 @@ def pt_trace_pass(cfg: PTConfig, scene: DeviceScene, tracer,
         first_instance=first["instance_id"],
         first_metallic_roughness=torch.stack(
             [first["metallic"], first["roughness"]], dim=-1),
-        first_emission=first["emission"])
+        first_emission=first["emission"], useful_rays=useful)
 
 
 def accumulate(new, prev, samples: float, previous_samples: float):

@@ -255,9 +255,10 @@ def test_per_model_image_matches_jax():
 
 
 def test_frame_update_refits_instances():
-    """host_update_frame moves the instanced tracer with the scene: after
-    an entity moves, the next frame's tracer holds the new transforms
-    (refit from arrays.inst_model alone; triangle tables untouched)."""
+    """update_frame (device_update_frame) moves the instanced tracer with
+    the scene: after an entity moves, the next frame's tracer holds the
+    new transforms (refit from the instance transforms that
+    host_frame_inputs walks, alone; triangle tables untouched)."""
     from tauray_torch.io.gltf import load_scene
     from tauray_torch.options import Options
     from tauray_torch.renderer.rt_renderer import PathTracerRenderer
@@ -277,7 +278,9 @@ def test_frame_update_refits_instances():
     rr.update_frame()
     after = rr.bvh
     assert after.v0 is before.v0 and after.tris9 is before.tris9
-    want = tcl.refit_instanced_tracer(before, rr.arrays.inst_model)
+    from tauray_torch.scene.device_update import host_frame_inputs
+    want = tcl.refit_instanced_tracer(before,
+                                      host_frame_inputs(rr.arrays)[0])
     assert torch.equal(after.inv, want.inv)
     assert torch.equal(after.cmin, want.cmin)
     assert not torch.equal(after.cmin, before.cmin)

@@ -402,3 +402,102 @@ def test_trace_mt_random_soup_at_every_w(cuda, warps):
         for sort, r3, *_ in _mt_waves(tracer, cuda, seed=13):
             for any_hit in (False, True):
                 _mt_every_w(tracer, r3.reshape(-1, 8), warps, any_hit)
+
+
+def _sponza_renderer(device, args, animate=False):
+    from tauray_torch.app.main import create_renderer, load_scenes
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.scene import animation as anim
+    opt = parse_command_line_options(args + [
+        "--width=64", "--height=48", "--samples-per-pixel=1",
+        "--max-ray-depth=3", "--tonemap=linear", "proc://sponza?tris=8192"])
+    s = load_scenes(opt)
+    if animate:
+        e = next(e for e in s.entities if e.model is not None)
+        a = anim.Animation()
+        a.add_channel("translation", anim.AnimationChannel(
+            times=np.array([0.0, 1.0], np.float32),
+            values=np.array([[0, 0, 0], [0.5, 0.2, -0.3]], np.float32)))
+        e.animations = {"slide": a}
+        anim.play(s, "slide", False)
+    rr = create_renderer(opt, s, device)
+    rr.set_scene(s)
+    return rr, s
+
+
+def test_device_update_on_card_matches_host_path(cuda):
+    """update_frame (device_update_frame) on the card against the host
+    path on the card, within 1e-4 of scale, over two animated frames."""
+    from tauray_torch.scene import animation as anim
+    rr, s = _sponza_renderer(cuda, [], animate=True)
+    for _ in range(2):
+        anim.update(s, 250000, True)
+        rr.update_frame()
+        dev_scene, dev_bvh = rr.device_scene, rr.bvh
+        host_bvh = rr.host_update_frame(dev_bvh, rr._perm)
+        for name in ("tri_pos", "tri_normal", "tri_tangent",
+                     "tri_hard_normal"):
+            want = getattr(rr.device_scene, name)
+            d = float((getattr(dev_scene, name) - want).abs().max())
+            assert d / (float(want.abs().max()) + 1.0) < 1e-4, name
+        assert torch.allclose(dev_bvh.cmin, host_bvh.cmin, atol=1e-3)
+        rr.device_scene = dev_scene
+    assert dev_scene.tri_pos.is_cuda
+
+
+@pytest.mark.parametrize("denoiser", ["svgf", "bmfr"])
+def test_post_stack_on_card_matches_cpu(cuda, denoiser):
+    """The post-processing pipeline (denoiser, temporal reprojection,
+    TAA) on the card and on the CPU over three frames of one seeded
+    G-buffer sequence, by tests/test_torch_post.py's rule (>= 99.5% of
+    the elements within atol + 1e-3 relative; BMFR's atol 2e-3 of the
+    largest value)."""
+    from tauray_torch.options import Options
+    from tauray_torch.renderer.post_processing import PostProcessingPipeline
+    H, W = 72, 80
+    rng = np.random.default_rng(11)
+    opt = Options()
+    opt.denoiser = denoiser
+    opt.temporal_reprojection = 0.5
+    opt.taa.sequence_length = 8
+    opt.tonemap = "linear"
+    sides = [PostProcessingPipeline(opt, W, H, 1, d) for d in (cuda, "cpu")]
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    for k in range(3):
+        n = rng.normal(0, 0.1, (H, W, 3)) + [0, 1, 0]
+        motion = np.stack([(xs + 0.5) / W, 1 - (ys + 0.5) / H,
+                           np.ones_like(xs)], -1) + \
+            rng.normal(0, 0.002, (H, W, 3))
+        g = dict(color=rng.uniform(0, 1, (H, W, 4)),
+                 diffuse=rng.uniform(0, 1, (H, W, 4)),
+                 reflection=rng.uniform(0, 0.5, (H, W, 4)),
+                 albedo=rng.uniform(0, 1, (H, W, 4)),
+                 normal=n / np.linalg.norm(n, axis=-1, keepdims=True),
+                 pos=np.stack([xs * 0.01, np.zeros_like(xs), ys * 0.01], -1),
+                 screen_motion=motion,
+                 metallic_roughness=rng.uniform(0, 1, (H, W, 2)),
+                 emission=np.zeros((H, W, 3)),
+                 view_z=-rng.uniform(1, 2, (H, W)))
+        g = {key: v[None].astype(np.float32) for key, v in g.items()}
+        origin = np.zeros((1, 4), np.float32)
+        outs = [p.process({key: torch.from_numpy(v).to(p.device)
+                           for key, v in g.items()}, cam_origin=origin)
+                .cpu().numpy() for p in sides]
+    got, want = outs
+    atol = 2e-3 * float(np.abs(want).max()) if denoiser == "bmfr" else 1e-4
+    ok = np.abs(got - want) <= atol + 1e-3 * np.abs(want)
+    assert float(ok.mean()) >= 0.995
+    assert abs(got.mean() - want.mean()) <= 1e-3 * abs(want.mean())
+
+
+def test_feature_render_goes_through_kernel(cuda):
+    """The instance-id feature at 64x48 launches K1 and equals the CPU's
+    image exactly."""
+    from tauray_torch.ops.trace_kernel import LAUNCHES
+    before = LAUNCHES["trace_vm3"]
+    rr, _ = _sponza_renderer(cuda, ["--renderer=instance-id"])
+    got = rr.render()
+    assert LAUNCHES["trace_vm3"] > before
+    ref, _ = _sponza_renderer(torch.device("cpu"),
+                              ["--renderer=instance-id"])
+    np.testing.assert_array_equal(got, ref.render())

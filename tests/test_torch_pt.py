@@ -126,6 +126,46 @@ def test_main_requires_cuda():
         main(["--headless=/nonexistent/x", SPONZA])
 
 
+def test_bench_requires_cuda():
+    from tauray_torch.app.bench import main
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--cells=headline"])
+
+
+@pytest.mark.parametrize("args", [
+    ["--denoiser=svgf"], ["--denoiser=bmfr"], ["--taa=8"],
+    ["--temporal-reprojection=0.5"], ["--renderer=albedo"],
+    ["--fake-devices=2", "--camera-grid=2,1,0.1,0.1",
+     "--spatial-reprojection=0"]])
+def test_ported_features_render(args):
+    """What this slice ported renders through the CLI's renderer choice
+    (two frames, the second after update_frame): a finite image of the
+    right shape, no NotImplementedError."""
+    from tauray_torch.app.main import (create_renderer, generate_cameras,
+                                       load_scenes)
+    from tauray_torch.options import parse_command_line_options
+    opt = parse_command_line_options(args + [
+        "--width=16", "--height=8", "--samples-per-pixel=1",
+        "--max-ray-depth=2", SPONZA])
+    s = load_scenes(opt)
+    generate_cameras(s, opt)
+    rr = create_renderer(opt, s, CPU)
+    rr.set_scene(s)
+    for k in range(2):
+        if k:
+            rr.update_frame()
+        rr.reset_accumulation()
+        img = rr.render()
+    views = opt.camera_grid.w * opt.camera_grid.h
+    assert img.shape == (views, 8, 16, 4)
+    if opt.renderer == "path-tracer":
+        assert np.isfinite(img).all() and img[..., :3].mean() > 0
+    for v in range(views):
+        assert img[v, ..., :3].max() > 0, v
+
+
 def test_wave_stats_requires_cuda():
     from tauray_torch.app.wave_stats import main
     if torch.cuda.is_available():
@@ -135,8 +175,8 @@ def test_wave_stats_requires_cuda():
 
 
 @pytest.mark.parametrize("args", [
-    ["--renderer=raster"], ["--renderer=restir"], ["--renderer=albedo"],
-    ["--temporal-reprojection=0.5"], ["--denoiser=svgf"],
+    ["--renderer=raster"], ["--renderer=restir"], ["--renderer=dshgi"],
+    ["--renderer=restir-hybrid"], ["--renderer=dshgi-server"],
     ["--fake-devices=2"]])
 def test_unported_features_raise(args):
     """Features outside the slice raise NotImplementedError, never a
