@@ -61,8 +61,8 @@ non-zero:
      (tests/test_torch_post.py); frame and post-stack ms;
   13. the 10 feature renderers at 1920x1080 through one FeatureRenderer:
      K1 launched; the 8x4-pixel blocks at every 32nd row and column traced
-     again on the CPU: instance-id equal, the others within 1e-4 of
-     scale;
+     again on the CPU, ray by ray: instance-id equal, the others within
+     1e-4 of scale;
   14. `python -m tauray_torch.app.bench --cells=headline`: its JSON line.
 The last lines are the card, the kernel table (each row also with W, the
 SASS instructions per test and the bound under the -fmad=false
@@ -673,8 +673,9 @@ def feature_phase():
         img, ms[f] = sync_ms(rr.render_device)
         imgs[f] = img[0].cpu().numpy()
     launches = dict(trace_kernel.LAUNCHES)
-    # the 8x4-pixel blocks (one 32-ray tile each) at every 32nd row and
-    # column, traced again on the CPU
+    # the 8x4-pixel blocks at every 32nd row and column, traced again on
+    # the CPU; the card traced the image in scanline order, so its tiles
+    # differ from these and the check is per ray
     by, bx, iy, ix = np.meshgrid(np.arange(0, HD_H - 3, 32),
                                  np.arange(0, HD_W - 7, 32), np.arange(4),
                                  np.arange(8), indexing="ij")

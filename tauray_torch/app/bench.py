@@ -3,21 +3,20 @@ counterpart of the root bench.py (the JAX package's harness) with its
 keys. Prints ONE JSON line.
 
     python -m tauray_torch.app.bench [--cells=headline,sponza_1080p,
-        sponza_1080p_plain,hires] [--frames=N] [--scene=SCENE]
+        sponza_1080p_plain,hires]
 
 Cells, all at depth 4 with next-event estimation:
-  * headline: SCENE (default proc://sponza?tris=262144) at 256x256, 16
-    samples per pixel in one pass. Its numbers are the top-level keys,
+  * headline: proc://sponza?tris=262144 at 256x256, 16 samples per pixel
+    in one pass. Its numbers are the top-level keys,
     with the triangle tests per ray of each wave kind (`tests_per_ray`)
     and the device-time split (`device_ms`);
   * sponza_1080p: proc://sponza?tris=262144&foliage=1 (alpha-tested
     foliage) at 1920x1080, 1 spp;
   * sponza_1080p_plain: proc://sponza?tris=262144 at 1920x1080, 1 spp;
-  * hires: SCENE at 1024x1024, 4 spp.
+  * hires: proc://sponza?tris=262144 at 1024x1024, 4 spp.
 
-Each cell renders one warm-up frame, then --frames (at least 5) timed
-frames, each from render_device to torch.cuda.synchronize on the host
-clock, and reports their median, min, max and spread (max - min), the
+Each cell renders one warm-up frame, then 5 timed frames, each from
+render_device to torch.cuda.synchronize on the host clock, and reports their median, min, max and spread (max - min), the
 peak device memory of the timed frames, and:
   * lane Mrays/s: padded pixels x spp x (2 x depth - 1) waves (depth
     bounce waves, depth - 1 shadow waves) over the median frame;
@@ -29,7 +28,8 @@ peak device memory of the timed frames, and:
     x 8 x 128 triangle tests per lane; per_lane over every lane of the
     wave kind, per_live_ray over the lanes with t_max > 0;
   * device_ms (headline): app/profile.py's range spans of one profiled
-    frame (phase1, sig_sort, alpha, shade, traverse), with its idle share.
+    frame (phase1, sig_sort, alpha, shade, traverse), with that frame's
+    wall ms, device busy ms and idle share.
 The line also names the card and its power limit (nvidia-smi). The
 alpha re-trace rounds' sub-waves are not counted as lanes."""
 
@@ -51,12 +51,12 @@ from .main import create_renderer, load_scenes
 SCENE = "proc://sponza?tris=262144"
 SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
 DEPTH = 4
-MIN_FRAMES = 5
-# cell -> (scene or None for --scene, width, height, spp)
-CELLS = {"headline": (None, 256, 256, 16),
+FRAMES = 5
+# cell -> (scene, width, height, spp)
+CELLS = {"headline": (SCENE, 256, 256, 16),
          "sponza_1080p": (SCENE_FOLIAGE, 1920, 1080, 1),
          "sponza_1080p_plain": (SCENE, 1920, 1080, 1),
-         "hires": (None, 1024, 1024, 4)}
+         "hires": (SCENE, 1024, 1024, 4)}
 
 
 def card() -> dict:
@@ -81,8 +81,8 @@ def make_renderer(scene: str, W: int, H: int, spp: int):
     return rr
 
 
-def time_frames(rr, frames: int):
-    """One warm-up frame, then `frames` timed ones (host ms from
+def time_frames(rr):
+    """One warm-up frame, then FRAMES timed ones (host ms from
     render_device to synchronize). Returns (ms per frame, useful rays of
     the last frame, peak GiB of the timed frames)."""
     rr.reset_accumulation()
@@ -90,7 +90,7 @@ def time_frames(rr, frames: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = []
-    for _ in range(frames):
+    for _ in range(FRAMES):
         rr.reset_accumulation()
         t0 = time.perf_counter()
         rr.render_device()
@@ -100,15 +100,15 @@ def time_frames(rr, frames: int):
         torch.cuda.max_memory_allocated() / 2**30
 
 
-def run_cell(scene: str, W: int, H: int, spp: int, frames: int):
+def run_cell(scene: str, W: int, H: int, spp: int):
     rr = make_renderer(scene, W, H, spp)
-    ms, useful, peak = time_frames(rr, frames)
+    ms, useful, peak = time_frames(rr)
     waves = 2 * DEPTH - 1 if rr.cfg.nee.any else DEPTH
     lanes = rr._pix.shape[0] * rr.samples_per_pixel * waves
     med = statistics.median(ms)
     cell = dict(
         scene=scene, size=f"{W}x{H}", spp=spp, depth=DEPTH,
-        tris=int(rr.arrays.num_triangles), frames=frames,
+        tris=int(rr.arrays.num_triangles), frames=FRAMES,
         ms_per_frame=med, ms_min=min(ms), ms_max=max(ms),
         spread_ms=max(ms) - min(ms), ms_frames=ms,
         mrays_s=lanes / med / 1e3, lanes=lanes,
@@ -136,13 +136,10 @@ def tests_per_ray(rr) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cells", default=",".join(CELLS))
-    ap.add_argument("--frames", type=int, default=MIN_FRAMES)
-    ap.add_argument("--scene", default=SCENE)
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the bench runs on a CUDA device and none is "
                            "available")
-    frames = max(args.frames, MIN_FRAMES)
     cells = args.cells.split(",")
     unknown = set(cells) - set(CELLS)
     if unknown:
@@ -150,17 +147,17 @@ def main(argv=None) -> int:
     result = {"metric": "pt_throughput", "unit": "Mrays/s",
               "device": card()}
     for name in cells:
-        scene, W, H, spp = CELLS[name]
-        cell, rr = run_cell(scene or args.scene, W, H, spp, frames)
+        cell, rr = run_cell(*CELLS[name])
         if name == "headline":
             from .profile import profile_frame
             prof = profile_frame(rr)
             result.update(
                 value=cell["mrays_s"], ms_per_frame=cell["ms_per_frame"],
-                spp=spp, useful_mrays_s=cell["useful_mrays_s"],
+                spp=cell["spp"], useful_mrays_s=cell["useful_mrays_s"],
                 useful_fraction=cell["useful_fraction"],
                 tests_per_ray=tests_per_ray(rr),
                 device_ms=dict(prof["range_span_ms"],
+                               wall=prof["wall_ms"],
                                busy=prof["device_busy_ms"],
                                idle_share=prof["idle_share"]))
         result[name] = cell

@@ -5,9 +5,9 @@
 
 TAURAY_BENCH_SCENE (default proc://sponza?tris=262144) and
 TAURAY_BENCH_SPP (default 16) choose the scene and the samples per pixel of
-a 256x256, depth-4 frame, all samples in one pass. The tool renders one
-frame, captures the next frame's trace waves (stages/path_tracer
-_WAVE_DUMP) and traces each again on the flat tracer, bounce and shadow
+a 256x256, depth-4 frame, all samples in one pass. The tool captures the
+trace waves of the frame's first call (PathTracerRenderer.capture_waves)
+and traces each again on the flat tracer, bounce and shadow
 waves signature-sorted as the path tracer sorts them. Per wave it prints
 the live fraction; the active clusters per 32-ray tile (mean, p95) and
 per ray (the per-ray need); the steps each tile walked through the
@@ -30,7 +30,6 @@ from ..ops.cluster import (TILE, ClusterTracer, _block_chunks, _pack_rays,
                            _trace_padded)
 from ..ops.trace_kernel import CLUSTER, KB, trace_tiles_vm
 from ..options import parse_command_line_options
-from ..stages import path_tracer as pt
 from .main import create_renderer, load_scenes
 
 DEFAULT_SCENE = "proc://sponza?tris=262144"
@@ -112,14 +111,7 @@ def main() -> int:
     rr.set_scene(scene)
     if not isinstance(rr.bvh, ClusterTracer):
         raise ValueError("the wave statistics need the flat tracer")
-    rr.render_device()
-    pt._WAVE_DUMP = []
-    try:
-        rr.reset_accumulation()
-        rr.render_device()
-        waves = pt._WAVE_DUMP
-    finally:
-        pt._WAVE_DUMP = None
+    waves = rr.capture_waves()
     tracer = rr.bvh
     print(f"scene {scene_path}: C={tracer.n_clusters} clusters, kernel "
           f"TILE=32 KB={KB}, {torch.cuda.get_device_name(0)}", flush=True)
