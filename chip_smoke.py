@@ -63,10 +63,41 @@ non-zero:
      K1 launched; the 8x4-pixel blocks at every 32nd row and column traced
      again on the CPU, ray by ray: instance-id equal, the others within
      1e-4 of scale;
-  14. `python -m tauray_torch.app.bench --cells=headline`: its JSON line.
+  14. `python -m tauray_torch.app.bench --cells=headline`: its JSON line;
+  15. ReSTIR (renderer/restir_renderer.py, stages/restir*.py) and the
+     restir-hybrid SH probe bake (renderer/sh_renderer.py):
+       15a. `python -m tauray_torch --renderer=restir` at 1920x1080, depth
+           4, 3 frames: each frame checked, its ms, the peak memory and
+           K1's launches (raises if K1 never launched);
+       15b. the same scene and camera at 240x135, 2 frames: the second
+           frame's restir_di_pass and restir_gi_pass run again on the CPU
+           from the card's inputs (the same previous reservoirs), their
+           waves traced by the card's kernel, which phase 3 and 15e/15f
+           hold bit for bit to the plain version (the plain tracer takes
+           minutes a wave on the CPU here): where
+           the kept sample agrees, integers exact and floats within 1e-3
+           relative; the share of pixels whose kept sample differs, or
+           whose result departs otherwise, at most HOLD_DI_OFF (0.1%) and
+           HOLD_GI_OFF (0.5%);
+       15c. the random replay and hybrid shifts at 256x256, depth 3, 2
+           frames each, held to the CPU as in 15b;
+       15d. --preset=restir-hybrid (SVGF and TAA on) on the scene with an
+           8x8x8 SH grid added over its bounds, 1920x1080, 3 frames: bake
+           ms per frame; the last frame's bake runs again on the CPU from
+           the card's previous coefficients (waves as in 15b) and is held
+           to the card's;
+       15e. one --renderer=restir frame of proc://sponza?tris=524288 at
+           256x256: K2 launched; each of the frame's 10 waves, as traced
+           (unsorted; the DI and GI visibility waves any hit with finite
+           t_max), held bit for bit to K2's plain version;
+       15f. a second frame of 15a's run, built as 15b builds it: each of
+           its 10 waves of 2,073,600 rays (G-buffer, DI temporal and final
+           visibility, GI bounces, NEE and final visibility), unsorted as
+           traced, held bit for bit to K1's plain version.
 The last lines are the card, the kernel table (each row also with W, the
-SASS instructions per test and the bound under the -fmad=false
-contract), and {"ok": true, "device": {...}}.
+SASS instructions per test, the bound under the -fmad=false contract and
+the number of waves held; K1 and K2 with the ReSTIR waves' times), and
+{"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -99,6 +130,12 @@ FLOPS_BW = 32
 FLOPS_MT = 46
 FLOPS_XFORM = 33
 LANES_1080P = 2097152 * 1 * (2 * 4 - 1)   # padded pixels x spp x waves
+# the share of pixels whose restir pass on the card may depart from the
+# CPU's in phases 15b and 15c; sound runs read at most 3.1e-5 (DI) and
+# 1.24e-3 (GI) (PERF.md), and tests/test_torch_smoke_holds.py reads what a
+# lost hit on 1 ray in 64 gives
+HOLD_DI_OFF = 1e-3
+HOLD_GI_OFF = 5e-3
 
 
 def card_line() -> str:
@@ -262,7 +299,7 @@ def _compare(name, t_k, id_k, t_r, id_r):
     return same_id, same_t, err
 
 
-def kernel_check(tracer, waves, reps: int = 5):
+def kernel_check(tracer, waves, reps: int = 5, tag: str = "3a K1"):
     """K1 vs its plain version on each wave; returns per-wave results."""
     from tauray_torch.ops.cluster import _phase1
     from tauray_torch.ops.trace_kernel import (trace_tiles_vm3,
@@ -289,19 +326,21 @@ def kernel_check(tracer, waves, reps: int = 5):
                          ids_identical=same_id, t_bit_identical=same_t,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
-        print(f"phase 3a K1 [{name}] " + json.dumps(out[name]), flush=True)
+        print(f"phase {tag} [{name}] " + json.dumps(out[name]), flush=True)
     return out
 
 
-def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
+def kernel_check_mt(tracer, waves, kind: str, reps: int = 5, traced=None,
+                    tag=None):
     """K2 (flat), K3 (instanced), K4 (trace_vm2) or K5 (trace_vm with
     debug_steps) against the plain version on each wave, as closest hit
     and as any hit; K2, K3 and K5 also with their steps per tile held to
     the plain version's (K2/K3 through _launch_mt's debug_steps). The any
     hit runs take finite t_max: half to 1.5x each ray's closest hit, 20 on
     a miss, except the shadow and duplicate-triangle waves, which keep
-    their own. Returns
-    per-(wave, mode) results."""
+    their own. traced: {wave: any_hit} of waves captured from a renderer,
+    each run once, in the mode and with the t_max it was traced with.
+    Returns per-(wave, mode) results."""
     import numpy as np
     import torch
     from tauray_torch.ops import trace_kernel as tk
@@ -311,13 +350,13 @@ def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
         tables = (tracer.tris9, tracer.opaque, tracer.k_cluster,
                   tracer.k_inst, tracer.inv.reshape(-1, 12).contiguous())
         kern, ref = tk.trace_tiles_inst, tk.trace_tiles_inst_reference
-        tag, flops_test = "3c K3", FLOPS_MT
+        name_tag, flops_test = "3c K3", FLOPS_MT
         table_bytes = (tracer.tris9.numel() * 4 + C * 12 +
                        tracer.inv.numel() * 4)
     elif kind == "K2":
         tables = (tracer.tris9, tracer.opaque)
         kern, ref = tk.trace_tiles, tk.trace_tiles_reference
-        tag, flops_test = "3b K2", FLOPS_MT
+        name_tag, flops_test = "3b K2", FLOPS_MT
         table_bytes = tracer.tris9.numel() * 4 + C * 4
     else:
         tables = (tracer.tris12, tracer.opaque)
@@ -325,16 +364,17 @@ def kernel_check_mt(tracer, waves, kind: str, reps: int = 5):
 
         def ref(*a, stats):
             return tk.trace_tiles_vm2_reference(*a, stats=stats)[:2]
-        tag = "3d K4" if kind == "K4" else "3e K5"
+        name_tag = "3d K4" if kind == "K4" else "3e K5"
         flops_test = FLOPS_BW
         table_bytes = tracer.tris12.numel() * 4 + C * 4
+    tag = tag or name_tag
     out = {}
     rng = np.random.default_rng(7)
     for name, rays8 in waves.items():
         closest_t = None
-        for any_hit in (False, True):
+        for any_hit in (traced[name],) if traced else (False, True):
             r8 = rays8
-            if any_hit and name not in ("shadow", "ties"):
+            if any_hit and not traced and name not in ("shadow", "ties"):
                 scale = torch.from_numpy(rng.uniform(
                     0.5, 1.5, r8.shape[0]).astype(np.float32)).to(r8.device)
                 r8 = r8.clone()
@@ -414,9 +454,10 @@ def alpha_rays():
                       skipped=int(torch.stack(acc).sum()) if acc else 0)
 
 
-def run_main(args, tmp, tag, scene=SCENE):
+def run_main(args, tmp, tag, scene=SCENE, every=False):
     """python -m tauray_torch's main() with frame timing to a file.
-    Returns (host ms per frame, image (H, W, C) of the last frame)."""
+    Returns (host ms per frame, image (H, W, C) of the last frame, or the
+    list of every frame's with every=True)."""
     from tauray_torch.app.main import main
     from tauray_torch.io.exr import read_rgb
     from tauray_torch.log import logger
@@ -431,10 +472,12 @@ def run_main(args, tmp, tag, scene=SCENE):
         raise RuntimeError(f"main() returned {rc}")
     with open(timing) as f:
         ms = [float(m) for m in re.findall(r"HOST: ([0-9.]+)ms", f.read())]
-    frames = sorted(n for n in os.listdir(tmp)
-                    if n.startswith(tag) and n.endswith(".exr"))
-    img = read_rgb(os.path.join(tmp, frames[-1]))
-    return ms, img
+    frames = sorted((n for n in os.listdir(tmp)
+                     if re.fullmatch(re.escape(tag) + r"\d+\.exr", n)),
+                    key=lambda n: int(n[len(tag):-4]))
+    if every:
+        return ms, [read_rgb(os.path.join(tmp, n)) for n in frames]
+    return ms, read_rgb(os.path.join(tmp, frames[-1]))
 
 
 def check_image(img, w, h, tag):
@@ -447,15 +490,16 @@ def check_image(img, w, h, tag):
     return float(rgb.mean())
 
 
-def main_path(tmp, tag, args, scene=SCENE):
+def main_path(tmp, tag, args, scene=SCENE, every=False):
     """Drive the CLI once with every launch count at 0 just before and
-    read just after. Returns (ms per frame, image, launches, peak GiB)."""
+    read just after. Returns (ms per frame, image (or every frame's),
+    launches, peak GiB)."""
     import torch
     from tauray_torch.ops import trace_kernel
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     trace_kernel.reset_launch_counts()
-    ms, img = run_main(args, tmp, tag, scene)
+    ms, img = run_main(args, tmp, tag, scene, every)
     launches = dict(trace_kernel.LAUNCHES)
     return ms, img, launches, torch.cuda.max_memory_allocated() / 2**30
 
@@ -738,6 +782,360 @@ def bench_phase():
     return out
 
 
+RESTIR_HD = ["--renderer=restir", f"--width={HD_W}", f"--height={HD_H}",
+             "--max-ray-depth=4", "--tonemap=linear", "--frames=3"]
+
+
+def restir_cli_phase(tmp):
+    """Phase 15a; returns K1's launches."""
+    import numpy as np
+    ms, imgs, launches, peak = main_path(tmp, "restir", RESTIR_HD,
+                                         every=True)
+    means = [check_image(img, HD_W, HD_H, f"phase 15a frame {k}")
+             for k, img in enumerate(imgs)]
+    print("phase 15a " + json.dumps(dict(
+        size=f"{HD_W}x{HD_H}", depth=4, shift="reconnection-shift",
+        frames=len(imgs), frame_ms=ms, launches=launches, peak_mem_gb=peak,
+        image_means=means,
+        image_mean_rel_spread=float(np.ptp(means) / np.mean(means)))),
+        flush=True)
+    if len(imgs) != 3 or launches["trace_vm3"] <= 0:
+        raise RuntimeError(f"phase 15a: {len(imgs)} frames, launches "
+                           f"{launches}")
+    return launches["trace_vm3"]
+
+
+def _to(x, dev):
+    """Tensors (in tuples, NamedTuples and dicts too) moved to dev."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to(v, dev) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def restir_capture(last: int):
+    """Records the arguments (on the CPU) and results of call number
+    `last` (from 0) of the renderer's restir_di_pass and restir_gi_pass.
+    Yields {"di": {...}, "gi": {...}}."""
+    from tauray_torch.renderer import restir_renderer as rmod
+    orig = {"di": rmod.restir_di_pass, "gi": rmod.restir_gi_pass}
+    rec, calls = {}, {"di": 0, "gi": 0}
+
+    def wrap(kind):
+        def fn(scene, tracer, *args, **kw):
+            keep = calls[kind] == last
+            calls[kind] += 1
+            if keep:
+                rec[kind] = dict(args=_to(args, "cpu"), kw=_to(kw, "cpu"))
+            out = orig[kind](scene, tracer, *args, **kw)
+            if keep:
+                rec[kind]["out"] = _to(out, "cpu")
+            return out
+        return fn
+    rmod.restir_di_pass, rmod.restir_gi_pass = wrap("di"), wrap("gi")
+    try:
+        yield rec
+    finally:
+        rmod.restir_di_pass, rmod.restir_gi_pass = orig["di"], orig["gi"]
+
+
+class CardTraced:
+    """A CPU-side view of the card's tracer: waves given on the CPU are
+    traced by the card's kernel and their hits come back to the CPU. The
+    kernels equal their plain versions bit for bit (phase 3, and on every
+    wave of a ReSTIR frame in 15e/15f), so this traces as the CPU's plain
+    tracer would, without its hours on the full scene's incoherent
+    waves."""
+
+    def __init__(self, tracer):
+        self.tracer = tracer
+
+    def __getattr__(self, name):
+        return getattr(self.tracer, name)
+
+    def trace(self, *args, **kw):
+        return _to(self.tracer.trace(*_to(args, "cuda"), **kw), "cpu")
+
+    def trace_flagged(self, *args, **kw):
+        return _to(self.tracer.trace_flagged(*_to(args, "cuda"), **kw),
+                   "cpu")
+
+
+def scene_to_cpu(scene):
+    return scene._replace(**{k: v.cpu() for k, v in scene._asdict().items()
+                             if hasattr(v, "cpu")})
+
+
+def _float_off(g, w):
+    """Per pixel (first axis): any element beyond 1e-5 + 1e-3 x |w|."""
+    import numpy as np
+    g, w = g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
+    return ~(np.abs(g - w) <= 1e-5 + 1e-3 * np.abs(w)).all(-1)
+
+
+def hold_di_cpu(card, cpu, tag):
+    """Card against CPU restir_di_pass results: the kept sample's share
+    that differs, and the pixels departing otherwise; at most HOLD_DI_OFF
+    of the pixels off. Returns stats."""
+    import numpy as np
+    (gc, rc), (gw, rw) = card, cpu
+    t = {k: v.numpy().reshape(-1, *v.shape[2:]) for k, v in
+         rc._asdict().items()}
+    w = {k: v.numpy().reshape(-1, *v.shape[2:]) for k, v in
+         rw._asdict().items()}
+    same = (t["strategy"] == w["strategy"]) & \
+        (t["light_idx"] == w["light_idx"]) & (t["u"] == w["u"]).all(-1)
+    off = ~same | _float_off(gc.numpy().reshape(-1, 3),
+                             gw.numpy().reshape(-1, 3))
+    for k in ("w_sum", "M", "target_p"):
+        off |= _float_off(t[k], w[k])
+    res = dict(pixels=int(same.size), kept_differs=float(1 - same.mean()),
+               off=float(off.mean()))
+    if res["off"] > HOLD_DI_OFF:
+        raise RuntimeError(f"phase {tag}: the card's restir_di_pass departs "
+                           f"from the CPU's: {res}")
+    return res
+
+
+def hold_gi_cpu(card, cpu, tag):
+    """Card against CPU restir_gi_pass results, as hold_di_cpu, at most
+    HOLD_GI_OFF of the pixels off."""
+    import numpy as np
+    from tauray_torch.stages.restir_gi import RC_SURF
+    (gc, rc), (gw, rw) = card, cpu
+    t = {k: v.numpy().reshape(v.shape[0] * v.shape[1], -1) for k, v in
+         rc._asdict().items()}
+    w = {k: v.numpy().reshape(v.shape[0] * v.shape[1], -1) for k, v in
+         rw._asdict().items()}
+    same = (t["seed"] == w["seed"]).all(-1) & \
+        (t["rc_kind"] == w["rc_kind"]).all(-1)
+    surf = w["rc_kind"][:, 0] == RC_SURF
+    off = ~same | _float_off(gc.numpy().reshape(-1, 3),
+                             gw.numpy().reshape(-1, 3))
+    for k in ("rc_pos", "rc_emit", "w_sum", "M", "target_p"):
+        off |= _float_off(t[k], w[k])
+    for k in ("rc_normal", "rc_alb", "rc_mr", "rc_nee_dir", "rc_nee_L",
+              "rc_in_dir", "rc_in_L"):
+        off |= surf & _float_off(t[k], w[k])
+    res = dict(pixels=int(same.size), kept_differs=float(1 - same.mean()),
+               off=float(off.mean()))
+    if res["off"] > HOLD_GI_OFF:
+        raise RuntimeError(f"phase {tag}: the card's restir_gi_pass departs "
+                           f"from the CPU's: {res}")
+    return res
+
+
+def restir_renderer(W, H, depth, shift, scene=SCENE):
+    """A ReSTIRRenderer on the card, as --renderer=restir builds it."""
+    import torch
+    from tauray_torch.app.main import create_renderer, load_scenes
+    from tauray_torch.options import parse_command_line_options
+    opt = parse_command_line_options([
+        "--renderer=restir", f"--width={W}", f"--height={H}",
+        f"--max-ray-depth={depth}", "--tonemap=linear",
+        f"--restir.shift-mapping-type={shift}", "--headless=unused",
+        "--filetype=none", scene])
+    s = load_scenes(opt)
+    rr = create_renderer(opt, s, torch.device("cuda"))
+    rr.set_scene(s)
+    return rr
+
+
+def restir_hold_phase(tag, W, H, depth, shift):
+    """Phases 15b/15c: 2 frames on the card; the second frame's passes
+    again on the CPU from the card's inputs, their waves traced by the
+    card's kernel (CardTraced)."""
+    from tauray_torch.stages.restir import restir_di_pass
+    from tauray_torch.stages.restir_gi import restir_gi_pass
+    rr = restir_renderer(W, H, depth, shift)
+    card_ms = []
+    with restir_capture(1) as rec:
+        for k in range(2):
+            if k:
+                rr.update_frame()
+            img, ms = sync_ms(rr.render_device)
+            card_ms.append(ms)
+            check_image(img[0].cpu().numpy(), W, H, f"phase {tag} frame {k}")
+    scene_c, tracer_c = scene_to_cpu(rr.device_scene), CardTraced(rr.bvh)
+    out = dict(size=f"{W}x{H}", depth=depth, shift=shift, frame_ms=card_ms)
+    for kind, fn, hold in (("di", restir_di_pass, hold_di_cpu),
+                           ("gi", restir_gi_pass, hold_gi_cpu)):
+        r = rec[kind]
+        want, ms = sync_ms(lambda: fn(scene_c, tracer_c, *r["args"],
+                                      **r["kw"]))
+        out[kind] = dict(hold(r["out"], want, tag), cpu_ms=ms,
+                         color_mean_card=float(r["out"][0].mean()),
+                         color_mean_cpu=float(want[0].mean()))
+    print(f"phase {tag} " + json.dumps(out), flush=True)
+    return out
+
+
+def _grid_over(scene, res=8):
+    """An SH grid entity of res^3 probes over the scene's bounds."""
+    import numpy as np
+    from tauray_torch.scene.sh_grid import SHGrid
+    from tauray_torch.scene.transformable import Transformable
+    pts = []
+    for e in scene.entities:
+        if e.model is None:
+            continue
+        M = np.asarray(e.transform.get_global_transform())
+        for g in e.model.groups:
+            pts.append(g.mesh.positions @ M[:3, :3].T + M[:3, 3])
+    pts = np.concatenate(pts)
+    lo, hi = pts.min(0), pts.max(0)
+    ge = scene.add("probes")
+    ge.transform = Transformable(position=(lo + hi) / 2,
+                                 scaling=(hi - lo) / 2)
+    ge.sh_grid = SHGrid(resolution=(res, res, res), order=2)
+    return ge
+
+
+def hybrid_phase():
+    """Phase 15d."""
+    import types
+    import numpy as np
+    import torch
+    from tauray_torch.app.main import create_renderer, load_scenes
+    from tauray_torch.ops import trace_kernel
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.renderer.sh_renderer import SHRenderer
+    W, H = HD_W, HD_H
+    opt = parse_command_line_options([
+        "--preset=restir-hybrid", f"--width={W}", f"--height={H}",
+        "--headless=unused", "--filetype=none", SCENE])
+    scene = load_scenes(opt)
+    grid = _grid_over(scene).sh_grid
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trace_kernel.reset_launch_counts()
+    rr = create_renderer(opt, scene, torch.device("cuda"))
+    rr.set_scene(scene)
+    sh = rr.sh_source
+    step, bake_ms, frame_ms, prev = sh.step, [], [], {}
+
+    def timed_step(host):
+        prev["frame"] = sh.frame
+        prev["coef"] = (None if sh.frame == 0 else
+                        torch.as_tensor(grid.coefficients).cpu().clone())
+        _, ms = sync_ms(lambda: step(host))
+        bake_ms.append(ms)
+    sh.step = timed_step
+    for k in range(3):
+        if k:
+            rr.update_frame()
+        img, ms = sync_ms(rr.render_device)
+        frame_ms.append(ms)
+        check_image(img[0].cpu().numpy(), W, H, f"phase 15d frame {k}")
+    launches = dict(trace_kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = grid.coefficients.cpu().numpy()
+    # the last bake again on the CPU, from the card's previous grid, its
+    # waves traced by the card's kernel
+    cpu = SHRenderer(opt, "cpu")
+    cpu.frame = prev["frame"]
+    grid.coefficients = prev["coef"]
+    host = types.SimpleNamespace(arrays=rr.arrays,
+                                 device_scene=scene_to_cpu(rr.device_scene),
+                                 bvh=CardTraced(rr.bvh))
+    _, cpu_ms = sync_ms(lambda: cpu.step(host))
+    want = grid.coefficients.numpy()
+    scale = float(np.abs(want).max())
+    diff = np.abs(got - want)
+    res = dict(size=f"{W}x{H}", preset="restir-hybrid",
+               grid=list(grid.resolution), probes=grid.probe_count(),
+               samples_per_probe=min(opt.samples_per_probe, 512),
+               depth=opt.max_ray_depth, frame_ms=frame_ms, bake_ms=bake_ms,
+               cpu_bake_ms=cpu_ms, launches=launches, peak_mem_gb=peak,
+               coef_scale=scale, coef_max_diff_of_scale=float(diff.max()) /
+               scale, coef_share_within_1e3_of_scale=float(
+                   (diff <= 1e-3 * scale).mean()))
+    print("phase 15d " + json.dumps(res), flush=True)
+    if launches["trace_vm3"] <= 0 or \
+            res["coef_share_within_1e3_of_scale"] < 0.999 or \
+            res["coef_max_diff_of_scale"] > 2e-3:
+        raise RuntimeError(f"phase 15d: the card's bake departs from the "
+                           f"CPU's, or K1 never launched: {res}")
+
+
+@contextlib.contextmanager
+def traced_waves():
+    """Records every wave the flat tracer traces inside the block as its
+    kernel is handed it (padded, in the order traced). Yields a dict
+    {label: (rays8, any_hit)}, each label the file:line that asked for
+    the trace (#k on its k-th wave), and "tracer": the tracer."""
+    from tauray_torch.ops import cluster
+    impl = cluster._trace_padded
+    rec = {}
+
+    def recording(tracer, rays8, any_hit, need_uv):
+        f = sys._getframe(1)
+        while f.f_code.co_filename.endswith(("cluster.py",
+                                             "trace_utils.py")):
+            f = f.f_back
+        base = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
+        label, k = base, 1
+        while label in rec:
+            k += 1
+            label = f"{base}#{k}"
+        rec[label] = (rays8.clone(), any_hit)
+        rec["tracer"] = tracer
+        return impl(tracer, rays8, any_hit, need_uv)
+    cluster._trace_padded = recording
+    try:
+        yield rec
+    finally:
+        cluster._trace_padded = impl
+
+
+def restir_wave_phase():
+    """Phase 15f: every wave of the second frame of 15a's ReSTIR run
+    (1080p, depth 4, reconnection) held to K1's plain version; returns
+    the per-wave results."""
+    import torch
+    rr = restir_renderer(HD_W, HD_H, 4, "reconnection-shift")
+    rr.render_device()
+    rr.update_frame()
+    with traced_waves() as rec:
+        rr.render_device()
+        torch.cuda.synchronize()
+    tracer = rec.pop("tracer")
+    del rr
+    torch.cuda.empty_cache()
+    if len(rec) != 10:
+        raise RuntimeError(f"phase 15f: {len(rec)} waves, not 10")
+    return kernel_check(tracer, {k: r8 for k, (r8, _) in rec.items()},
+                        tag="15f K1")
+
+
+def restir_large_phase(tmp):
+    """Phase 15e; returns K2's launches and the per-(wave, mode) results
+    of its waves, each held to K2's plain version in the mode traced."""
+    with traced_waves() as rec:
+        ms, img, launches, peak = main_path(tmp, "restir_lg", [
+            "--renderer=restir", "--width=256", "--height=256",
+            "--max-ray-depth=4", "--tonemap=linear", "--frames=1"],
+            SCENE_LARGE)
+    check_image(img, 256, 256, "phase 15e")
+    print("phase 15e " + json.dumps(dict(
+        size="256x256", depth=4, scene=SCENE_LARGE, frame_ms=ms,
+        launches=launches, peak_mem_gb=peak)), flush=True)
+    if launches["trace_mt"] <= 0:
+        raise RuntimeError(f"phase 15e launched {launches}")
+    tracer = rec.pop("tracer")
+    held = kernel_check_mt(tracer, {k: r8 for k, (r8, _) in rec.items()},
+                           "K2", traced={k: a for k, (_, a) in rec.items()},
+                           tag="15e K2")
+    return launches["trace_mt"], held
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -954,37 +1352,56 @@ def main() -> int:
         post_phase(tmp)
     feature_phase()
     bench_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        l_k1_restir = restir_cli_phase(tmp)
+        l_k2_restir, k2_restir = restir_large_phase(tmp)
+    k1_restir = restir_wave_phase()
+    restir_hold_phase("15b", 240, 135, 4, "reconnection-shift")
+    restir_hold_phase("15c", 256, 256, 3, "random-replay-shift")
+    restir_hold_phase("15c", 256, 256, 3, "hybrid-shift")
+    hybrid_phase()
+    print("phase 15 launches " + json.dumps(dict(
+        trace_vm3_restir_1080p_3_frames=l_k1_restir,
+        trace_mt_restir_524k_1_frame=l_k2_restir)), flush=True)
 
-    def row(name, replaces, launches, r):
-        """One kernel's entry: also W and the SASS instructions per test
-        of the instance this wave launches, and the bound under
-        -fmad=false: those instructions for every 32 tests over 4 issue
-        slots x the SMs x the clock."""
+    def row(name, replaces, launches, r, held, restir=None):
+        """One kernel's entry, its times on wave r: also W and the SASS
+        instructions per test of the instance this wave launches, and the
+        bound under -fmad=false: those instructions for every 32 tests
+        over 4 issue slots x the SMs x the clock. max_abs_err is the
+        largest over every wave held; restir: the waves of a ReSTIR frame
+        held (15e/15f), with their rays, times and bounds."""
         w = trace_kernel.bw_warps(r["rays"] // 32, n_sm, name)
         st = sass_of(name, w)
+        held = {**held, **(restir or {})}
+        extra = {} if restir is None else {"restir_waves": {
+            k: {f: v[f] for f in ("rays", "ms", "plain_ms", "bound_ms")}
+            for k, v in restir.items()}}
         return {"name": name, "route": "cuda",
                 "source": "tauray_torch/csrc/trace_tiles.cu",
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "max_abs_err": max(v["max_abs_err"] for v in held.values()),
+                "waves_held": len(held), "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
                 # no single PyTorch call computes a closest-hit traversal
                 "library_ms": None, "warps": w,
                 "sass_instructions_per_test": st["instructions_per_test"],
                 "bound_contract_ms": r["tests"] / 32 *
-                st["instructions_per_test"] / (4 * n_sm * clock) * 1e3}
+                st["instructions_per_test"] / (4 * n_sm * clock) * 1e3,
+                **extra}
     kernels = {"kernels": [
         row("trace_vm3", "tauray_tpu/ops/pallas_trace.py:979", l_k1,
-            k1["bounce"]),
+            k1["bounce"], k1, k1_restir),
         row("trace_mt", "tauray_tpu/ops/pallas_trace.py:64", l_k2,
-            k2["bounce/closest"]),
+            k2["bounce/closest"], k2, k2_restir),
         # the unsorted wave: the instanced tracer does not sort its rays
         row("trace_mt_inst", "tauray_tpu/ops/pallas_trace.py:297", l_k3,
-            k3["bounce_unsorted/closest"]),
+            k3["bounce_unsorted/closest"], k3),
         row("trace_vm2", "tauray_tpu/ops/pallas_trace.py:745", l_k4,
-            k4["bounce/closest"]),
+            k4["bounce/closest"], k4),
         row("trace_vm", "tauray_tpu/ops/pallas_trace.py:565", l_k5,
-            k5["bounce/closest"])]}
+            k5["bounce/closest"], k5)]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

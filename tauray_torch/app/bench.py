@@ -3,7 +3,7 @@ counterpart of the root bench.py (the JAX package's harness) with its
 keys. Prints ONE JSON line.
 
     python -m tauray_torch.app.bench [--cells=headline,sponza_1080p,
-        sponza_1080p_plain,hires]
+        sponza_1080p_plain,hires,restir_1080p]
 
 Cells, all at depth 4 with next-event estimation:
   * headline: proc://sponza?tris=262144 at 256x256, 16 samples per pixel
@@ -13,13 +13,20 @@ Cells, all at depth 4 with next-event estimation:
   * sponza_1080p: proc://sponza?tris=262144&foliage=1 (alpha-tested
     foliage) at 1920x1080, 1 spp;
   * sponza_1080p_plain: proc://sponza?tris=262144 at 1920x1080, 1 spp;
-  * hires: proc://sponza?tris=262144 at 1024x1024, 4 spp.
+  * hires: proc://sponza?tris=262144 at 1024x1024, 4 spp;
+  * restir_1080p: proc://sponza?tris=262144 at 1920x1080 through
+    --renderer=restir (ReSTIR DI and GI, the reconnection shift, the other
+    restir.* options at their defaults); it has no useful-ray count.
 
 Each cell renders one warm-up frame, then 5 timed frames, each from
 render_device to torch.cuda.synchronize on the host clock, and reports their median, min, max and spread (max - min), the
 peak device memory of the timed frames, and:
-  * lane Mrays/s: padded pixels x spp x (2 x depth - 1) waves (depth
-    bounce waves, depth - 1 shadow waves) over the median frame;
+  * lane Mrays/s: the rays the frame hands to the tracer over the median
+    frame, counted in the tracer (ops/cluster.TRACED; the lanes of padded
+    pixels x spp x (2 x depth - 1) waves on the path tracer, depth bounce
+    waves and depth - 1 shadow waves, plus the foliage cell's alpha
+    re-trace sub-waves), with the waves per frame and each kernel's
+    launches per frame;
   * useful Mrays/s and the useful fraction: the lanes that traced (alive
     bounce lanes, shadow lanes of nonzero length), counted on the device
     (PTConfig.count_rays);
@@ -30,8 +37,7 @@ peak device memory of the timed frames, and:
   * device_ms (headline): app/profile.py's range spans of one profiled
     frame (phase1, sig_sort, alpha, shade, traverse), with that frame's
     wall ms, device busy ms and idle share.
-The line also names the card and its power limit (nvidia-smi). The
-alpha re-trace rounds' sub-waves are not counted as lanes."""
+The line also names the card and its power limit (nvidia-smi)."""
 
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ import time
 
 import torch
 
+from ..ops import cluster, trace_kernel
 from ..options import parse_command_line_options
 from .main import create_renderer, load_scenes
 
@@ -52,11 +59,12 @@ SCENE = "proc://sponza?tris=262144"
 SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
 DEPTH = 4
 FRAMES = 5
-# cell -> (scene, width, height, spp)
-CELLS = {"headline": (SCENE, 256, 256, 16),
-         "sponza_1080p": (SCENE_FOLIAGE, 1920, 1080, 1),
-         "sponza_1080p_plain": (SCENE, 1920, 1080, 1),
-         "hires": (SCENE, 1024, 1024, 4)}
+# cell -> (scene, width, height, spp, renderer)
+CELLS = {"headline": (SCENE, 256, 256, 16, "path-tracer"),
+         "sponza_1080p": (SCENE_FOLIAGE, 1920, 1080, 1, "path-tracer"),
+         "sponza_1080p_plain": (SCENE, 1920, 1080, 1, "path-tracer"),
+         "hires": (SCENE, 1024, 1024, 4, "path-tracer"),
+         "restir_1080p": (SCENE, 1920, 1080, 1, "restir")}
 
 
 def card() -> dict:
@@ -67,28 +75,35 @@ def card() -> dict:
     return {"name": name, "power_limit": limit}
 
 
-def make_renderer(scene: str, W: int, H: int, spp: int):
-    """A path tracer on the card with useful-ray counting on."""
+def make_renderer(scene: str, W: int, H: int, spp: int,
+                  renderer: str = "path-tracer"):
+    """A renderer on the card; the path tracer with useful-ray counting
+    on."""
     opt = parse_command_line_options([
-        "--renderer=path-tracer", f"--width={W}", f"--height={H}",
+        f"--renderer={renderer}", f"--width={W}", f"--height={H}",
         f"--max-ray-depth={DEPTH}", f"--samples-per-pixel={spp}",
         f"--samples-per-pass={spp}", "--headless=unused",
         "--filetype=none", scene])
     s = load_scenes(opt)
     rr = create_renderer(opt, s, torch.device("cuda"))
     rr.set_scene(s)
-    rr.cfg = dataclasses.replace(rr.cfg, count_rays=True)
+    if renderer == "path-tracer":
+        rr.cfg = dataclasses.replace(rr.cfg, count_rays=True)
     return rr
 
 
 def time_frames(rr):
     """One warm-up frame, then FRAMES timed ones (host ms from
     render_device to synchronize). Returns (ms per frame, useful rays of
-    the last frame, peak GiB of the timed frames)."""
+    the last frame or None, peak GiB, waves and rays traced per frame,
+    launches per frame of each kernel launched), all of the timed
+    frames."""
     rr.reset_accumulation()
     rr.render_device()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    cluster.reset_traced()
+    trace_kernel.reset_launch_counts()
     ms = []
     for _ in range(FRAMES):
         rr.reset_accumulation()
@@ -96,24 +111,31 @@ def time_frames(rr):
         rr.render_device()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return ms, int(rr.last_useful_rays), \
-        torch.cuda.max_memory_allocated() / 2**30
+    useful = getattr(rr, "last_useful_rays", None)
+    traced = {k: v // FRAMES for k, v in cluster.TRACED.items()}
+    launches = {k: v // FRAMES for k, v in trace_kernel.LAUNCHES.items()
+                if v}
+    return ms, None if useful is None else int(useful), \
+        torch.cuda.max_memory_allocated() / 2**30, traced, launches
 
 
-def run_cell(scene: str, W: int, H: int, spp: int):
-    rr = make_renderer(scene, W, H, spp)
-    ms, useful, peak = time_frames(rr)
-    waves = 2 * DEPTH - 1 if rr.cfg.nee.any else DEPTH
-    lanes = rr._pix.shape[0] * rr.samples_per_pixel * waves
+def run_cell(scene: str, W: int, H: int, spp: int, renderer: str):
+    rr = make_renderer(scene, W, H, spp, renderer)
+    ms, useful, peak, traced, launches = time_frames(rr)
+    lanes = traced["rays"]
     med = statistics.median(ms)
     cell = dict(
-        scene=scene, size=f"{W}x{H}", spp=spp, depth=DEPTH,
-        tris=int(rr.arrays.num_triangles), frames=FRAMES,
+        scene=scene, size=f"{W}x{H}", renderer=renderer, spp=spp,
+        depth=DEPTH, tris=int(rr.arrays.num_triangles), frames=FRAMES,
         ms_per_frame=med, ms_min=min(ms), ms_max=max(ms),
         spread_ms=max(ms) - min(ms), ms_frames=ms,
-        mrays_s=lanes / med / 1e3, lanes=lanes,
-        useful_mrays_s=useful / med / 1e3, useful_fraction=useful / lanes,
-        peak_mem_gb=peak)
+        waves_per_frame=traced["waves"], launches_per_frame=launches,
+        mrays_s=lanes / med / 1e3, lanes=lanes, peak_mem_gb=peak)
+    if renderer == "restir":
+        cell["shift"] = rr.opt.restir.shift_mapping_type
+    if useful is not None:
+        cell.update(useful_mrays_s=useful / med / 1e3,
+                    useful_fraction=useful / lanes)
     return cell, rr
 
 

@@ -4,7 +4,8 @@ command-line grammar.
 
 Flow: parse options -> require a CUDA device -> load scenes -> headless
 replay. The renderer runs on one explicit torch.device; the path-tracer,
-direct and feature (AOV) renderers are ported."""
+direct, whitted, restir, restir-hybrid and feature (AOV) renderers are
+ported."""
 
 from __future__ import annotations
 
@@ -110,8 +111,9 @@ def set_camera_params(opt: Options, s: Scene):
 
 
 def create_renderer(opt: Options, s: Scene, device):
-    """The renderer for `opt` on one torch device. Renderers that are not
-    ported yet raise NotImplementedError naming their ROADMAP item."""
+    """The renderer for `opt` on one torch device. What is not ported yet
+    (raster, dshgi, dshgi-client, dshgi-server, multi-device rendering)
+    raises NotImplementedError naming its ROADMAP item."""
     r = opt.renderer
     if r in _FEATURES:
         from ..renderer.feature_renderer import FeatureRenderer
@@ -124,8 +126,14 @@ def create_renderer(opt: Options, s: Scene, device):
                 "distribution)")
         from ..renderer.rt_renderer import PathTracerRenderer
         return PathTracerRenderer(opt, device, direct_only=(r == "direct"))
-    item = {"raster": "raster", "restir": "ReSTIR", "restir-hybrid": "ReSTIR",
-            "dshgi": "SH/DSHGI", "dshgi-client": "SH/DSHGI",
+    if r == "whitted":
+        from ..renderer.rt_renderer import PathTracerRenderer
+        return PathTracerRenderer(opt, device, direct_only=False)
+    if r in ("restir", "restir-hybrid"):
+        from ..renderer.restir_renderer import ReSTIRRenderer
+        return ReSTIRRenderer(opt, device, hybrid=(r == "restir-hybrid"))
+    item = {"raster": "raster", "dshgi": "SH/DSHGI",
+            "dshgi-client": "SH/DSHGI",
             "dshgi-server": "SH/DSHGI"}.get(r, "app extras")
     raise NotImplementedError(
         f"renderer {r!r} is not ported yet (ROADMAP Queue 1, {item})")

@@ -7,9 +7,11 @@
 Renders one warm-up frame, then profiles the next with torch.profiler and
 prints one JSON line: frame wall ms, device busy ms and idle share, the
 span on the device timeline of each range (sig_sort, phase1, traverse,
-alpha (the re-trace rounds' compaction and alpha tests), shade; a span
-includes gaps between its kernels), device ms of the top
-kernels by name, and the peak device memory.
+alpha (the re-trace rounds' compaction and alpha tests), shade; for
+--renderer=restir / restir-hybrid gbuffer, restir_di, restir_gi and
+sh_bake, which contain their waves' phase1 and traverse; a span includes
+gaps between its kernels), device ms of the top kernels by name, and the
+peak device memory.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from torch.profiler import ProfilerActivity, profile
 from ..options import parse_command_line_options
 from .main import create_renderer, load_scenes
 
-RANGES = ("sig_sort", "phase1", "traverse", "alpha", "shade")
+RANGES = ("sig_sort", "phase1", "traverse", "alpha", "shade", "gbuffer",
+          "restir_di", "restir_gi", "sh_bake")
 
 
 def _self_device_ms(evt) -> float:

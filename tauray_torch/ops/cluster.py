@@ -63,6 +63,19 @@ VM_FITS_CLUSTERS = 2197
 PHASE1_BUDGET_BYTES = 2 << 30
 _LIVE_TEMPS = 8
 
+# every wave handed to a tracer (trace and trace_flagged) and its rays,
+# summed since the last reset_traced(); app/bench.py reads them per frame
+TRACED: Dict[str, int] = {"waves": 0, "rays": 0}
+
+
+def reset_traced() -> None:
+    TRACED.update(waves=0, rays=0)
+
+
+def _count_wave(rays: int) -> None:
+    TRACED["waves"] += 1
+    TRACED["rays"] += rays
+
 
 @dataclass
 class ClusterTracer:
@@ -146,6 +159,7 @@ class ClusterTracer:
         tiling (bounce and shadow waves); camera waves keep pixel-block
         order."""
         R = origins.shape[0]
+        _count_wave(R)
         rays8 = _pack_rays(origins, dirs, t_min, t_max)
         if sort_rays:
             with record_function("sig_sort"):
@@ -655,6 +669,7 @@ class InstancedClusterTracer:
         alpha flag. sort_rays is ignored: waves trace as given, as in
         tauray_tpu."""
         R = origins.shape[0]
+        _count_wave(R)
         rays8 = _pack_rays(origins, dirs, t_min, t_max)
         t, tid, u, v = (x[:R] for x in
                         _trace_padded_inst(self, rays8, any_hit, need_uv))

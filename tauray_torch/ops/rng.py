@@ -59,3 +59,9 @@ def generate_uniform_random_uint(seed: torch.Tensor):
 
 def uint_to_float(u: torch.Tensor) -> torch.Tensor:
     return u.to(torch.float32) * INV_UINT32_MAX
+
+
+def generate_uniform_random(seed: torch.Tensor):
+    """Advance the sampler: (new_seed, (..., 4) float32 in [0, 1])."""
+    v, _ = generate_uniform_random_uint(seed)
+    return v, uint_to_float(v)

@@ -76,6 +76,10 @@ class PTConfig:
     rng_seed: int = 0
     has_alpha_materials: bool = False
     sampler: str = "uniform-random"    # | sobol-owen | sobol-z2 | sobol-z3
+    # SH probe tracer semantics (reference: shader/sh_path_tracer.rgen
+    # defines INDIRECT_CLAMP_FIRST_BOUNCE): indirect clamping applies at
+    # bounce 0 too (path_tracer.glsl:422-427, 465-467)
+    clamp_first_bounce: bool = False
     count_rays: bool = False           # emit useful-ray (alive-lane) counts
     # texture slots (albedo, metallic-roughness, normal, emission) bound by
     # ANY material; unbound slots skip their texture gathers
@@ -377,7 +381,7 @@ def _shade_bounce(cfg: PTConfig, scene: DeviceScene, state, hit, vis,
                              bsdf_pdf / torch.clamp(mis_pdf, min=1e-30), 1.0)
     contrib = attenuation * mis_weight[:, None] * (emission + light)
     contrib = torch.where(alive[:, None], contrib, 0.0)
-    if not is_first:
+    if not is_first or cfg.clamp_first_bounce:
         contrib = _clamp_contribution(cfg, contrib)
     d_new, r_new = add_demodulated_color(primary_lobes, contrib,
                                          diffuse[:, :3], reflection[:, :3])
@@ -428,6 +432,8 @@ def _shade_bounce(cfg: PTConfig, scene: DeviceScene, state, hit, vis,
             primary_lobes = BSDFLobes(*(
                 torch.where(active_nee, n_, p_)
                 for n_, p_ in zip(nee_lobes, primary_lobes)))
+            if cfg.clamp_first_bounce:
+                radiance = _clamp_contribution(cfg, radiance)
         radiance = torch.where(active_nee[:, None], radiance, 0.0)
         d_new, r_new = add_demodulated_color(
             primary_lobes, radiance, diffuse[:, :3], reflection[:, :3])

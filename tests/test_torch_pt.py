@@ -138,7 +138,8 @@ def test_bench_requires_cuda():
     ["--denoiser=svgf"], ["--denoiser=bmfr"], ["--taa=8"],
     ["--temporal-reprojection=0.5"], ["--renderer=albedo"],
     ["--fake-devices=2", "--camera-grid=2,1,0.1,0.1",
-     "--spatial-reprojection=0"]])
+     "--spatial-reprojection=0"], ["--renderer=whitted"],
+    ["--renderer=restir"], ["--preset=restir-hybrid"]])
 def test_ported_features_render(args):
     """What this slice ported renders through the CLI's renderer choice
     (two frames, the second after update_frame): a finite image of the
@@ -160,7 +161,8 @@ def test_ported_features_render(args):
         img = rr.render()
     views = opt.camera_grid.w * opt.camera_grid.h
     assert img.shape == (views, 8, 16, 4)
-    if opt.renderer == "path-tracer":
+    if opt.renderer in ("path-tracer", "whitted", "restir",
+                        "restir-hybrid"):
         assert np.isfinite(img).all() and img[..., :3].mean() > 0
     for v in range(views):
         assert img[v, ..., :3].max() > 0, v
@@ -175,8 +177,8 @@ def test_wave_stats_requires_cuda():
 
 
 @pytest.mark.parametrize("args", [
-    ["--renderer=raster"], ["--renderer=restir"], ["--renderer=dshgi"],
-    ["--renderer=restir-hybrid"], ["--renderer=dshgi-server"],
+    ["--renderer=raster"], ["--renderer=dshgi-client"], ["--renderer=dshgi"],
+    ["--mesh-shape=2"], ["--renderer=dshgi-server"],
     ["--fake-devices=2"]])
 def test_unported_features_raise(args):
     """Features outside the slice raise NotImplementedError, never a
@@ -191,3 +193,23 @@ def test_unported_features_raise(args):
     load_scene(SPONZA, s)
     with pytest.raises(NotImplementedError):
         create_renderer(opt, s, CPU).set_scene(s)
+
+
+def test_whitted_equals_path_tracer():
+    """--renderer=whitted is the path tracer with direct_only off, as in
+    tauray_tpu: at 8x8 its image equals --renderer=path-tracer's with the
+    same options and seeds."""
+    from tauray_torch.app.main import create_renderer, load_scenes
+    from tauray_torch.options import parse_command_line_options
+    imgs = []
+    for r in ("whitted", "path-tracer"):
+        opt = parse_command_line_options([
+            f"--renderer={r}", "--width=8", "--height=8",
+            "--samples-per-pixel=2", "--max-ray-depth=3", "--tonemap=linear",
+            SPONZA])
+        s = load_scenes(opt)
+        rr = create_renderer(opt, s, CPU)
+        rr.set_scene(s)
+        imgs.append(rr.render())
+    assert imgs[0][..., :3].mean() > 0
+    np.testing.assert_array_equal(imgs[0], imgs[1])
