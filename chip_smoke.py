@@ -93,11 +93,43 @@ non-zero:
        15f. a second frame of 15a's run, built as 15b builds it: each of
            its 10 waves of 2,073,600 rays (G-buffer, DI temporal and final
            visibility, GI bounces, NEE and final visibility), unsorted as
-           traced, held bit for bit to K1's plain version.
+           traced, held bit for bit to K1's plain version;
+  16. the raster renderer (renderer/raster_renderer.py, stages/raster.py,
+     stages/shadow_map.py, ops/brdf_lut.py) and DSHGI
+     (renderer/dshgi_renderer.py, net/dshgi.py):
+       16a. `python -m tauray_torch --renderer=raster` at 1920x1080 with
+           the defaults (2048^2 maps, 4 cascades, --pcf=64, --pcss=32, 1
+           sample per pixel), 2 frames: each frame checked, its ms split
+           into the shadow maps and the draw, the peak memory and K1's
+           launches, which must equal the count the code gives (every map
+           at set_scene and at update_frame, a camera wave a frame);
+       16b. frame 2's waves of 16a, as traced (16 maps of 4,194,304 rays:
+           the sun's 4 cascades of parallel rays and two omni lights' 6
+           cube faces, each sharing an origin; the camera wave of
+           2,073,600), each held bit for bit to K1's plain version;
+       16c. frame 2's render_raster again on the CPU from the card's maps,
+           camera and scene, its camera wave traced by the card's kernel:
+           at most HOLD_RASTER_OFF (0.1%) of the pixels with shadow_vis off
+           by more than one PCF tap (1/64) or another value by more than
+           1e-4 of its key's scale;
+       16d. --preset=ddish-gi (renderer dshgi, depth 4, 512 samples a
+           probe, 8 samples per pixel: a shaded pass and 8 coverage waves;
+           its 4096^2 maps clamp to 2048^2) on the scene with an 8x8x8 SH
+           grid over its bounds, 1920x1080, 3 frames: ms split into bake,
+           maps and draw, K1's launches; the last bake held to a CPU bake
+           as in 15d; the grid through net/dshgi's message and back, bit
+           for bit;
+       16e. one raster frame of the foliage scene at 1920x1080: its maps
+           traced through trace_alpha (cutoff 0.5) and the alpha rounds;
+           K1's launches equal the count the code gives;
+       16f. one raster frame of proc://sponza?tris=524288 at 1920x1080
+           with 1024^2 maps: K2's launches equal the count the code gives,
+           and each of its 17 waves, as traced, held bit for bit to K2's
+           plain version.
 The last lines are the card, the kernel table (each row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
-the number of waves held; K1 and K2 with the ReSTIR waves' times), and
-{"ok": true, "device": {...}}.
+the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
+times), and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -299,20 +331,30 @@ def _compare(name, t_k, id_k, t_r, id_r):
     return same_id, same_t, err
 
 
-def kernel_check(tracer, waves, reps: int = 5, tag: str = "3a K1"):
-    """K1 vs its plain version on each wave; returns per-wave results."""
+def kernel_check(tracer, waves, reps: int = 5, tag: str = "3a K1",
+                 plain_slice=None):
+    """K1 vs its plain version on each wave; returns per-wave results.
+    plain_slice: run the plain version over slices of that many tiles
+    (the same per-tile work, in less memory)."""
+    import torch
     from tauray_torch.ops.cluster import _phase1
     from tauray_torch.ops.trace_kernel import (trace_tiles_vm3,
                                                trace_tiles_vm3_reference)
     out = {}
     C = tracer.n_clusters
+
+    def plain(counts, keys, r3, tris12):
+        n = plain_slice or counts.shape[0]
+        parts = [trace_tiles_vm3_reference(counts[a:a + n], keys[a:a + n],
+                                           r3[a:a + n], tris12)
+                 for a in range(0, counts.shape[0], n)]
+        return tuple(torch.cat(x) for x in zip(*parts))
     for name, rays8 in waves.items():
         counts, keys = _phase1(tracer, rays8)
         r3 = rays8.reshape(-1, 32, 8)
         args = (counts, keys, r3, tracer.tris12)
         t_k, id_k = trace_tiles_vm3(*args)
-        (t_r, id_r), plain_ms = timed(
-            lambda: trace_tiles_vm3_reference(*args))
+        (t_r, id_r), plain_ms = timed(lambda: plain(*args))
         same_id, same_t, err = _compare(name, t_k, id_k, t_r, id_r)
         ms = cuda_ms(lambda: trace_tiles_vm3(*args), reps)
         n_tiles, R = counts.shape[0], rays8.shape[0]
@@ -977,66 +1019,54 @@ def restir_hold_phase(tag, W, H, depth, shift):
     return out
 
 
-def _grid_over(scene, res=8):
-    """An SH grid entity of res^3 probes over the scene's bounds."""
-    import numpy as np
-    from tauray_torch.scene.sh_grid import SHGrid
-    from tauray_torch.scene.transformable import Transformable
-    pts = []
-    for e in scene.entities:
-        if e.model is None:
-            continue
-        M = np.asarray(e.transform.get_global_transform())
-        for g in e.model.groups:
-            pts.append(g.mesh.positions @ M[:3, :3].T + M[:3, 3])
-    pts = np.concatenate(pts)
-    lo, hi = pts.min(0), pts.max(0)
-    ge = scene.add("probes")
-    ge.transform = Transformable(position=(lo + hi) / 2,
-                                 scaling=(hi - lo) / 2)
-    ge.sh_grid = SHGrid(resolution=(res, res, res), order=2)
-    return ge
-
-
-def hybrid_phase():
-    """Phase 15d."""
+def probe_phase(tag, preset):
+    """Phases 15d and 16d: --preset=<preset> on SCENE with an 8x8x8 SH
+    grid over its bounds, 1920x1080, 3 frames: frame and bake ms, the
+    frames' parts (app/bench.raster_split), K1's launches and the peak
+    memory; the last frame's bake runs again on the CPU from the card's
+    previous coefficients, its waves traced by the card's kernel
+    (CardTraced), and is held to the card's. Returns (stats, the grid's
+    last coefficients on the CPU, world_to_local)."""
     import types
     import numpy as np
     import torch
+    from tauray_torch.app.bench import grid_over, raster_split
     from tauray_torch.app.main import create_renderer, load_scenes
     from tauray_torch.ops import trace_kernel
     from tauray_torch.options import parse_command_line_options
     from tauray_torch.renderer.sh_renderer import SHRenderer
     W, H = HD_W, HD_H
     opt = parse_command_line_options([
-        "--preset=restir-hybrid", f"--width={W}", f"--height={H}",
+        f"--preset={preset}", f"--width={W}", f"--height={H}",
         "--headless=unused", "--filetype=none", SCENE])
     scene = load_scenes(opt)
-    grid = _grid_over(scene).sh_grid
+    grid = grid_over(scene).sh_grid
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     trace_kernel.reset_launch_counts()
-    rr = create_renderer(opt, scene, torch.device("cuda"))
-    rr.set_scene(scene)
-    sh = rr.sh_source
-    step, bake_ms, frame_ms, prev = sh.step, [], [], {}
+    frame_ms, update_frame_ms, prev = [], [], {}
+    with raster_split() as split:
+        rr = create_renderer(opt, scene, torch.device("cuda"))
+        rr.set_scene(scene)
+        sh = rr.sh_source
+        step = sh.step
 
-    def timed_step(host):
-        prev["frame"] = sh.frame
-        prev["coef"] = (None if sh.frame == 0 else
-                        torch.as_tensor(grid.coefficients).cpu().clone())
-        _, ms = sync_ms(lambda: step(host))
-        bake_ms.append(ms)
-    sh.step = timed_step
-    for k in range(3):
-        if k:
-            rr.update_frame()
-        img, ms = sync_ms(rr.render_device)
-        frame_ms.append(ms)
-        check_image(img[0].cpu().numpy(), W, H, f"phase 15d frame {k}")
+        def tracked_step(host):
+            prev["frame"] = sh.frame
+            prev["coef"] = (None if sh.frame == 0 else
+                            torch.as_tensor(grid.coefficients).cpu().clone())
+            step(host)
+        sh.step = tracked_step
+        for k in range(3):
+            if k:
+                update_frame_ms.append(sync_ms(rr.update_frame)[1])
+            img, ms = sync_ms(rr.render_device)
+            frame_ms.append(ms)
+            check_image(img[0].cpu().numpy(), W, H, f"phase {tag} frame {k}")
     launches = dict(trace_kernel.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     got = grid.coefficients.cpu().numpy()
+    w2l = sh.current_grid_data()[1].cpu().numpy()
     # the last bake again on the CPU, from the card's previous grid, its
     # waves traced by the card's kernel
     cpu = SHRenderer(opt, "cpu")
@@ -1049,50 +1079,75 @@ def hybrid_phase():
     want = grid.coefficients.numpy()
     scale = float(np.abs(want).max())
     diff = np.abs(got - want)
-    res = dict(size=f"{W}x{H}", preset="restir-hybrid",
+    res = dict(size=f"{W}x{H}", preset=preset, renderer=opt.renderer,
                grid=list(grid.resolution), probes=grid.probe_count(),
                samples_per_probe=min(opt.samples_per_probe, 512),
-               depth=opt.max_ray_depth, frame_ms=frame_ms, bake_ms=bake_ms,
+               depth=opt.max_ray_depth, frame_ms=frame_ms,
+               update_frame_ms=update_frame_ms,
+               frame_with_update_ms=[f + u for f, u in zip(
+                   frame_ms[1:], update_frame_ms)],
+               bake_ms=split["bake"], update_ms=split["update"],
                cpu_bake_ms=cpu_ms, launches=launches, peak_mem_gb=peak,
                coef_scale=scale, coef_max_diff_of_scale=float(diff.max()) /
                scale, coef_share_within_1e3_of_scale=float(
                    (diff <= 1e-3 * scale).mean()))
-    print("phase 15d " + json.dumps(res), flush=True)
+    if split["maps"]:
+        res.update(maps_ms=split["maps"], draw_ms=split["draw"],
+                   shadow_maps=int(rr.shadow_maps.depth.shape[0]),
+                   map_resolution=rr.shadow_maps.resolution,
+                   samples_per_pixel=opt.samples_per_pixel)
+    del rr
+    torch.cuda.empty_cache()
     if launches["trace_vm3"] <= 0 or \
             res["coef_share_within_1e3_of_scale"] < 0.999 or \
             res["coef_max_diff_of_scale"] > 2e-3:
-        raise RuntimeError(f"phase 15d: the card's bake departs from the "
+        raise RuntimeError(f"phase {tag}: the card's bake departs from the "
                            f"CPU's, or K1 never launched: {res}")
+    return res, got, w2l
 
 
 @contextlib.contextmanager
-def traced_waves():
+def traced_waves(after=None, host: bool = False):
     """Records every wave the flat tracer traces inside the block as its
     kernel is handed it (padded, in the order traced). Yields a dict
     {label: (rays8, any_hit)}, each label the file:line that asked for
-    the trace (#k on its k-th wave), and "tracer": the tracer."""
+    the trace (#k on its k-th wave), and "tracer": the tracer. after: a
+    (class, method name) pair: record only from the first call of that
+    method on. host: keep the copies on the host, so the recording does
+    not raise the device's peak memory."""
     from tauray_torch.ops import cluster
     impl = cluster._trace_padded
-    rec = {}
+    rec, on = {}, [after is None]
 
     def recording(tracer, rays8, any_hit, need_uv):
-        f = sys._getframe(1)
-        while f.f_code.co_filename.endswith(("cluster.py",
-                                             "trace_utils.py")):
-            f = f.f_back
-        base = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
-        label, k = base, 1
-        while label in rec:
-            k += 1
-            label = f"{base}#{k}"
-        rec[label] = (rays8.clone(), any_hit)
-        rec["tracer"] = tracer
+        if on[0]:
+            f = sys._getframe(1)
+            while f.f_code.co_filename.endswith(("cluster.py",
+                                                 "trace_utils.py")):
+                f = f.f_back
+            base = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
+            label, k = base, 1
+            while label in rec:
+                k += 1
+                label = f"{base}#{k}"
+            rec[label] = (rays8.cpu() if host else rays8.clone(), any_hit)
+            rec["tracer"] = tracer
         return impl(tracer, rays8, any_hit, need_uv)
     cluster._trace_padded = recording
+    if after is not None:
+        cls, name = after
+        method = getattr(cls, name)
+
+        def started(self, *args, **kw):
+            on[0] = True
+            return method(self, *args, **kw)
+        setattr(cls, name, started)
     try:
         yield rec
     finally:
         cluster._trace_padded = impl
+        if after is not None:
+            setattr(cls, name, method)
 
 
 def restir_wave_phase():
@@ -1133,6 +1188,230 @@ def restir_large_phase(tmp):
     held = kernel_check_mt(tracer, {k: r8 for k, (r8, _) in rec.items()},
                            "K2", traced={k: a for k, (_, a) in rec.items()},
                            tag="15e K2")
+    return launches["trace_mt"], held
+
+
+RASTER_HD = ["--renderer=raster", f"--width={HD_W}", f"--height={HD_H}",
+             "--tonemap=linear"]
+# the share of pixels whose render_raster on the card may depart from the
+# CPU's in phase 16c: shadow_vis by more than one PCF tap, or another
+# G-buffer value by more than 1e-4 of its key's scale
+# (tests/test_torch_smoke_holds.py reads what a broken map gives)
+HOLD_RASTER_OFF = 1e-3
+
+
+def raster_waves_expected(args, scene, frames: int):
+    """K1 launches a raster run of `frames` frames should make, from the
+    code: the maps stages/shadow_map.map_layout lays out (each directional
+    light's cascades, a spotlight's map, an omni light's 6 faces), traced
+    at set_scene and at every update_frame, and one camera wave a frame;
+    on a scene with alpha materials each wave is three traces
+    (trace_alpha's first trace and its 2 rounds). Returns (maps, waves
+    per map or camera trace, launches)."""
+    from tauray_torch.app.main import load_scenes
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.scene.arrays import SceneArrays
+    from tauray_torch.stages.shadow_map import map_layout
+    opt = parse_command_line_options(args + ["--headless=unused",
+                                             "--filetype=none", scene])
+    arrays = SceneArrays(load_scenes(opt), opt)
+    maps = len(map_layout(arrays, opt)["view"])
+    traces = 3 if arrays.any_alpha_materials else 1
+    return maps, traces, traces * (maps * frames + frames)
+
+
+@contextlib.contextmanager
+def raster_capture(last: int):
+    """Holds on to the arguments and result of call number `last` (from
+    0) of the raster renderer's render_raster, by reference (no copy, so
+    neither the frame's time nor its peak memory moves). Yields a dict."""
+    from tauray_torch.renderer import raster_renderer as rmod
+    orig, rec, calls = rmod.render_raster, {}, [0]
+
+    def fn(*args, **kw):
+        out = orig(*args, **kw)
+        if calls[0] == last:
+            rec.update(args=args, kw=kw, out=out)
+        calls[0] += 1
+        return out
+    rmod.render_raster = fn
+    try:
+        yield rec
+    finally:
+        rmod.render_raster = orig
+
+
+def raster_cli_phase(tmp):
+    """Phase 16a: `python -m tauray_torch --renderer=raster` at 1920x1080
+    with the defaults, 2 frames: each frame checked, its ms, the shadow
+    maps' and the draw's ms, the peak memory and K1's launches, held to
+    the count the code gives. Returns (K1 launches, frame 2's waves,
+    frame 2's render_raster call)."""
+    from tauray_torch.app.bench import raster_split
+    from tauray_torch.renderer.raster_renderer import RasterRenderer
+    args = RASTER_HD + ["--frames=2"]
+    maps, traces, expected = raster_waves_expected(args, SCENE, 2)
+    with raster_split() as split, raster_capture(1) as cap, \
+            traced_waves((RasterRenderer, "update_frame"), True) as waves:
+        ms, imgs, launches, peak = main_path(tmp, "raster", args,
+                                             every=True)
+    means = [check_image(img, HD_W, HD_H, f"phase 16a frame {k}")
+             for k, img in enumerate(imgs)]
+    res = dict(size=f"{HD_W}x{HD_H}", renderer="raster", frames=len(imgs),
+               frame_ms=ms, maps_ms=split["maps"], draw_ms=split["draw"],
+               update_ms=split["update"], shadow_maps=maps,
+               map_resolution=cap["args"][4].resolution,
+               launches=launches, launches_expected=expected,
+               peak_mem_gb=peak, image_means=means,
+               waves_recorded=len(waves) - 1)
+    print("phase 16a " + json.dumps(res), flush=True)
+    if len(imgs) != 2 or launches["trace_vm3"] != expected or \
+            len(waves) - 1 != maps + 1:
+        raise RuntimeError(f"phase 16a: {len(imgs)} frames, launches "
+                           f"{launches}, expected {expected} K1 launches "
+                           f"and {maps + 1} waves in frame 2")
+    return launches["trace_vm3"], waves, cap
+
+
+def raster_wave_phase(waves):
+    """Phase 16b: frame 2's waves of 16a, each (4,194,304 rays a map,
+    2,073,600 the camera wave) held bit for bit to K1's plain version (run
+    in slices of 2^20 rays: the same per-tile work); returns the per-wave
+    results."""
+    import torch
+    tracer = waves.pop("tracer")
+    out = {}
+    for name in list(waves):
+        r8 = waves.pop(name)[0].cuda()
+        out.update(kernel_check(tracer, {name: r8}, tag="16b K1",
+                                plain_slice=1 << 15))
+        del r8
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_raster_cpu(card, cpu, tag, taps: int):
+    """Card against CPU render_raster G-buffers (each (V, H, W, ...)): a
+    pixel is off where shadow_vis departs by more than one PCF tap
+    (1/taps), or another value by more than 1e-4 of its key's scale (the
+    largest magnitude over the pixels that hit) + 1e-5 relative, or NaN
+    differs; at most HOLD_RASTER_OFF of the pixels off. Returns stats."""
+    import numpy as np
+    hit = card["color"][..., 3].cpu().numpy().reshape(-1) > 0
+    sg = card["shadow_vis"].cpu().numpy().reshape(-1)
+    sw = cpu["shadow_vis"].cpu().numpy().reshape(-1)
+    shadow_off = ~(np.abs(sg - sw) <= 1.0 / taps + 1e-5)
+    float_off = np.zeros_like(shadow_off)
+    worst = {}
+    for k, w in cpu.items():
+        if k == "shadow_vis":
+            continue
+        g = card[k].cpu().numpy().reshape(hit.size, -1)
+        w = w.cpu().numpy().reshape(hit.size, -1)
+        fin = np.isfinite(w)
+        sel = fin & hit[:, None] if (fin & hit[:, None]).any() else fin
+        scale = max(float(np.abs(w[sel]).max()) if sel.any() else 1.0,
+                    1e-6)
+        d = np.abs(g - w)
+        bad = ~(d <= 1e-4 * scale + 1e-5 * np.abs(w)) & \
+            ~(np.isnan(g) & np.isnan(w))
+        float_off |= bad.any(-1)
+        worst[k] = float(np.nanmax(np.where(fin, d, 0.0))) / scale
+    off = shadow_off | float_off
+    res = dict(pixels=int(off.size), shadow_off=float(shadow_off.mean()),
+               float_off=float(float_off.mean()), off=float(off.mean()),
+               max_diff_of_scale=worst)
+    if res["off"] > HOLD_RASTER_OFF:
+        raise RuntimeError(f"phase {tag}: the card's render_raster departs "
+                           f"from the CPU's: {res}")
+    return res
+
+
+def raster_hold_phase(cap):
+    """Phase 16c: frame 2's render_raster of 16a again on the CPU, from
+    the card's shadow maps, camera uniforms and scene, its camera wave
+    traced by the card's kernel (CardTraced), held to the card's
+    G-buffer by hold_raster_cpu at one tap of its --pcf."""
+    from tauray_torch.stages.raster import render_raster
+    taps = max(min(cap["args"][14], 64), 1)       # pcf_samples
+    args = list(_to(cap["args"], "cpu"))
+    args[0] = scene_to_cpu(cap["args"][0])
+    args[1] = CardTraced(cap["args"][1])
+    want, ms = sync_ms(lambda: render_raster(*args, **_to(cap["kw"],
+                                                          "cpu")))
+    res = dict(hold_raster_cpu(cap["out"], want, "16c", taps), cpu_ms=ms,
+               size=f"{HD_W}x{HD_H}",
+               color_mean_card=float(cap["out"]["color"].mean()),
+               color_mean_cpu=float(want["color"].mean()))
+    print("phase 16c " + json.dumps(res), flush=True)
+    return res
+
+
+def dshgi_phase():
+    """Phase 16d: --preset=ddish-gi as probe_phase runs it, then the
+    baked grid through net/dshgi's message format and back, bit for
+    bit."""
+    import numpy as np
+    from tauray_torch.net.dshgi import _grid_message, _parse_grid_message
+    res, coef, w2l = probe_phase("16d", "ddish-gi")
+    msg = _grid_message(0, int(np.sqrt(coef.shape[3])) - 1, 0.0, w2l, coef)
+    _, _, _, w2l_back, coef_back = _parse_grid_message(msg)
+    res.update(message_bytes=len(msg), message_round_trip=bool(
+        coef_back.tobytes() == coef.tobytes() and
+        w2l_back.tobytes() == w2l.tobytes()))
+    print("phase 16d " + json.dumps(res), flush=True)
+    if not res["message_round_trip"]:
+        raise RuntimeError("phase 16d: the grid does not come back bit for "
+                           "bit through _grid_message/_parse_grid_message")
+    return res
+
+
+def raster_foliage_phase(tmp):
+    """Phase 16e: one raster frame of the foliage scene at 1920x1080: its
+    maps go through trace_alpha (cutoff 0.5) and the alpha rounds; K1's
+    launches held to the count the code gives."""
+    from tauray_torch.app.bench import raster_split
+    args = RASTER_HD + ["--frames=1"]
+    maps, traces, expected = raster_waves_expected(args, SCENE_FOLIAGE, 1)
+    with raster_split() as split:
+        ms, img, launches, peak = main_path(tmp, "raster_fol", args,
+                                            SCENE_FOLIAGE)
+    mean = check_image(img, HD_W, HD_H, "phase 16e")
+    res = dict(size=f"{HD_W}x{HD_H}", scene=SCENE_FOLIAGE, frame_ms=ms,
+               maps_ms=split["maps"], draw_ms=split["draw"],
+               shadow_maps=maps, traces_per_wave=traces, launches=launches,
+               launches_expected=expected, peak_mem_gb=peak,
+               image_mean=mean)
+    print("phase 16e " + json.dumps(res), flush=True)
+    if traces != 3 or launches["trace_vm3"] != expected:
+        raise RuntimeError(f"phase 16e: launches {launches}, expected "
+                           f"{expected} in {traces} traces a wave")
+    return launches["trace_vm3"]
+
+
+def raster_large_phase(tmp):
+    """Phase 16f: one raster frame of SCENE_LARGE (past 2,197 clusters, so
+    K2) at 1920x1080 with 1024^2 maps: K2's launches held to the count the
+    code gives, and each of the frame's waves (16 maps of 1,048,576 rays,
+    the camera wave), as traced, held bit for bit to K2's plain version.
+    Returns (K2 launches, the per-wave results)."""
+    args = RASTER_HD + ["--frames=1", "--shadow-map-resolution=1024"]
+    maps, traces, expected = raster_waves_expected(args, SCENE_LARGE, 1)
+    with traced_waves() as rec:
+        ms, img, launches, peak = main_path(tmp, "raster_lg", args,
+                                            SCENE_LARGE)
+    check_image(img, HD_W, HD_H, "phase 16f")
+    print("phase 16f " + json.dumps(dict(
+        size=f"{HD_W}x{HD_H}", scene=SCENE_LARGE, map_resolution=1024,
+        shadow_maps=maps, frame_ms=ms, launches=launches,
+        launches_expected=expected, peak_mem_gb=peak)), flush=True)
+    if launches["trace_mt"] != expected or launches["trace_vm3"] != 0:
+        raise RuntimeError(f"phase 16f launched {launches}, expected "
+                           f"{expected} of trace_mt")
+    tracer = rec.pop("tracer")
+    held = kernel_check_mt(tracer, {k: r8 for k, (r8, _) in rec.items()},
+                           "K2", traced={k: a for k, (_, a) in rec.items()},
+                           tag="16f K2")
     return launches["trace_mt"], held
 
 
@@ -1359,24 +1638,42 @@ def main() -> int:
     restir_hold_phase("15b", 240, 135, 4, "reconnection-shift")
     restir_hold_phase("15c", 256, 256, 3, "random-replay-shift")
     restir_hold_phase("15c", 256, 256, 3, "hybrid-shift")
-    hybrid_phase()
+    print("phase 15d " + json.dumps(probe_phase("15d", "restir-hybrid")[0]),
+          flush=True)
     print("phase 15 launches " + json.dumps(dict(
         trace_vm3_restir_1080p_3_frames=l_k1_restir,
         trace_mt_restir_524k_1_frame=l_k2_restir)), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        l_k1_raster, raster_waves, raster_cap = raster_cli_phase(tmp)
+        k1_raster = raster_wave_phase(raster_waves)
+        raster_hold_phase(raster_cap)
+        del raster_cap
+        torch.cuda.empty_cache()
+        dshgi = dshgi_phase()
+        l_k1_foliage = raster_foliage_phase(tmp)
+        l_k2_raster, k2_raster = raster_large_phase(tmp)
+    print("phase 16 launches " + json.dumps(dict(
+        trace_vm3_raster_1080p_2_frames=l_k1_raster,
+        trace_vm3_ddish_gi_1080p_3_frames=dshgi["launches"]["trace_vm3"],
+        trace_vm3_raster_foliage_1080p_1_frame=l_k1_foliage,
+        trace_mt_raster_524k_1080p_1_frame=l_k2_raster)), flush=True)
 
-    def row(name, replaces, launches, r, held, restir=None):
+    def row(name, replaces, launches, r, held, restir=None, raster=None):
         """One kernel's entry, its times on wave r: also W and the SASS
         instructions per test of the instance this wave launches, and the
         bound under -fmad=false: those instructions for every 32 tests
         over 4 issue slots x the SMs x the clock. max_abs_err is the
-        largest over every wave held; restir: the waves of a ReSTIR frame
-        held (15e/15f), with their rays, times and bounds."""
+        largest over every wave held; restir / raster: the waves of a
+        ReSTIR frame (15e/15f) and of a raster frame (16b) held, with
+        their rays, times and bounds."""
         w = trace_kernel.bw_warps(r["rays"] // 32, n_sm, name)
         st = sass_of(name, w)
-        held = {**held, **(restir or {})}
-        extra = {} if restir is None else {"restir_waves": {
+        held = {**held, **(restir or {}), **(raster or {})}
+        extra = {f"{kind}_waves": {
             k: {f: v[f] for f in ("rays", "ms", "plain_ms", "bound_ms")}
-            for k, v in restir.items()}}
+            for k, v in waves.items()}
+            for kind, waves in (("restir", restir), ("raster", raster))
+            if waves is not None}
         return {"name": name, "route": "cuda",
                 "source": "tauray_torch/csrc/trace_tiles.cu",
                 "replaces": replaces, "launches": launches,
@@ -1392,9 +1689,9 @@ def main() -> int:
                 **extra}
     kernels = {"kernels": [
         row("trace_vm3", "tauray_tpu/ops/pallas_trace.py:979", l_k1,
-            k1["bounce"], k1, k1_restir),
+            k1["bounce"], k1, k1_restir, k1_raster),
         row("trace_mt", "tauray_tpu/ops/pallas_trace.py:64", l_k2,
-            k2["bounce/closest"], k2, k2_restir),
+            k2["bounce/closest"], k2, k2_restir, k2_raster),
         # the unsorted wave: the instanced tracer does not sort its rays
         row("trace_mt_inst", "tauray_tpu/ops/pallas_trace.py:297", l_k3,
             k3["bounce_unsorted/closest"], k3),
@@ -1402,6 +1699,8 @@ def main() -> int:
             k4["bounce/closest"], k4),
         row("trace_vm", "tauray_tpu/ops/pallas_trace.py:565", l_k5,
             k5["bounce/closest"], k5)]}
+    kernels["kernels"][0]["launches_raster_1080p_2_frames"] = l_k1_raster
+    kernels["kernels"][1]["launches_raster_524k_1_frame"] = l_k2_raster
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

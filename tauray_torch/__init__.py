@@ -10,9 +10,22 @@ Layout:
   scene/     — scene graph, SceneArrays (numpy), DeviceScene (torch)
   ops/       — RNG, sampling, BSDF, lights, shading, cluster tracer, kernel
   csrc/      — CUDA C++ kernel sources, built with nvcc on first use
-  stages/    — path tracer and tonemap
-  renderer/  — PathTracerRenderer
-  app/       — CLI (`python -m tauray_torch`) and headless output
+  stages/    — path tracer, ReSTIR, raster, shadow maps, post, tonemap
+  renderer/  — the path-tracing, feature, ReSTIR, raster and DSHGI
+               renderers
+  net/       — DSHGI probe streaming
+  app/       — CLI (`python -m tauray_torch`), headless output, bench
 """
 
+import os
+from typing import Optional
+
 __version__ = "0.1.0"
+
+
+def reference_data(name: str) -> Optional[str]:
+    """Path of `name` in the data directory of the reference checkout
+    named by TAURAY_REFERENCE_DIR (its data assets: the BRDF LUT, the PCF
+    noise texture), or None when the variable is not set."""
+    root = os.environ.get("TAURAY_REFERENCE_DIR")
+    return os.path.join(root, "data", name) if root else None

@@ -16,11 +16,20 @@ Cells, all at depth 4 with next-event estimation:
   * hires: proc://sponza?tris=262144 at 1024x1024, 4 spp;
   * restir_1080p: proc://sponza?tris=262144 at 1920x1080 through
     --renderer=restir (ReSTIR DI and GI, the reconnection shift, the other
-    restir.* options at their defaults); it has no useful-ray count.
+    restir.* options at their defaults); it has no useful-ray count;
+  * raster_1080p: proc://sponza?tris=262144 at 1920x1080 through
+    --renderer=raster at its defaults (2048^2 shadow maps, 4 cascades,
+    --pcf=64, --pcss=32, 1 sample per pixel);
+  * dshgi_1080p: the same scene with an 8x8x8 SH grid over its bounds
+    (grid_over) through --preset=ddish-gi (renderer dshgi, depth 4, 512
+    samples a probe, 8 samples per pixel: one shaded pass and 8 coverage
+    waves; its 4096^2 maps clamp to 2048^2).
 
 Each cell renders one warm-up frame, then 5 timed frames, each from
-render_device to torch.cuda.synchronize on the host clock, and reports their median, min, max and spread (max - min), the
-peak device memory of the timed frames, and:
+render_device to torch.cuda.synchronize on the host clock (the raster
+cells' frames from update_frame, which rebuilds the shadow maps, as the
+CLI's frames after the first), and reports their median, min, max and
+spread (max - min), the peak device memory of the timed frames, and:
   * lane Mrays/s: the rays the frame hands to the tracer over the median
     frame, counted in the tracer (ops/cluster.TRACED; the lanes of padded
     pixels x spp x (2 x depth - 1) waves on the path tracer, depth bounce
@@ -36,12 +45,17 @@ peak device memory of the timed frames, and:
     wave kind, per_live_ray over the lanes with t_max > 0;
   * device_ms (headline): app/profile.py's range spans of one profiled
     frame (phase1, sig_sort, alpha, shade, traverse), with that frame's
-    wall ms, device busy ms and idle share.
+    wall ms, device busy ms and idle share;
+  * split_ms (raster cells): the median ms of the frame's parts, each
+    timed from a device synchronize to the next (raster_split): the
+    device scene update, the shadow maps, the probe bake and the draw,
+    and the maps' and the draw's shares of the frame.
 The line also names the card and its power limit (nvidia-smi)."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -64,7 +78,10 @@ CELLS = {"headline": (SCENE, 256, 256, 16, "path-tracer"),
          "sponza_1080p": (SCENE_FOLIAGE, 1920, 1080, 1, "path-tracer"),
          "sponza_1080p_plain": (SCENE, 1920, 1080, 1, "path-tracer"),
          "hires": (SCENE, 1024, 1024, 4, "path-tracer"),
-         "restir_1080p": (SCENE, 1920, 1080, 1, "restir")}
+         "restir_1080p": (SCENE, 1920, 1080, 1, "restir"),
+         "raster_1080p": (SCENE, 1920, 1080, 1, "raster"),
+         "dshgi_1080p": (SCENE, 1920, 1080, 8, "ddish-gi")}
+RASTER = ("raster", "ddish-gi")
 
 
 def card() -> dict:
@@ -75,16 +92,84 @@ def card() -> dict:
     return {"name": name, "power_limit": limit}
 
 
+def grid_over(scene, res=8):
+    """An SH grid entity of res^3 probes over the scene's bounds (no
+    procedural scene carries one)."""
+    import numpy as np
+    from ..scene.sh_grid import SHGrid
+    from ..scene.transformable import Transformable
+    pts = []
+    for e in scene.entities:
+        if e.model is None:
+            continue
+        M = np.asarray(e.transform.get_global_transform())
+        for g in e.model.groups:
+            pts.append(g.mesh.positions @ M[:3, :3].T + M[:3, 3])
+    pts = np.concatenate(pts)
+    lo, hi = pts.min(0), pts.max(0)
+    ge = scene.add("probes")
+    ge.transform = Transformable(position=(lo + hi) / 2,
+                                 scaling=(hi - lo) / 2)
+    ge.sh_grid = SHGrid(resolution=(res, res, res), order=2)
+    return ge
+
+
+def _synced_ms(out: list, fn):
+    """fn wrapped to append its ms, device synchronize to synchronize,
+    to out."""
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return res
+    return timed
+
+
+@contextlib.contextmanager
+def raster_split():
+    """Times the parts of raster and DSHGI frames: yields {"update": ms of
+    each device scene update, "maps": of each shadow-map build, "bake": of
+    each probe bake, "draw": of each render_device less its bake}, every
+    part from a device synchronize to the next."""
+    from ..renderer.base import Renderer
+    from ..renderer.raster_renderer import RasterRenderer
+    from ..renderer.sh_renderer import SHRenderer
+    rec = {"update": [], "maps": [], "bake": [], "frame": []}
+    orig = (Renderer.device_update_frame, RasterRenderer._build_shadow_maps,
+            SHRenderer.step, RasterRenderer.render_device)
+    Renderer.device_update_frame = _synced_ms(rec["update"], orig[0])
+    RasterRenderer._build_shadow_maps = _synced_ms(rec["maps"], orig[1])
+    SHRenderer.step = _synced_ms(rec["bake"], orig[2])
+    RasterRenderer.render_device = _synced_ms(rec["frame"], orig[3])
+    try:
+        yield rec
+    finally:
+        (Renderer.device_update_frame, RasterRenderer._build_shadow_maps,
+         SHRenderer.step, RasterRenderer.render_device) = orig
+        bake = list(rec["bake"])
+        if len(bake) < len(rec["frame"]):
+            bake = [0.0] * (len(rec["frame"]) - len(bake)) + bake
+        rec["draw"] = [f - b for f, b in zip(rec["frame"], bake)]
+
+
 def make_renderer(scene: str, W: int, H: int, spp: int,
                   renderer: str = "path-tracer"):
     """A renderer on the card; the path tracer with useful-ray counting
-    on."""
+    on. renderer "ddish-gi" is --preset=ddish-gi on the scene with an
+    8x8x8 SH grid over its bounds."""
+    flag = (f"--preset={renderer}" if renderer == "ddish-gi" else
+            f"--renderer={renderer}")
     opt = parse_command_line_options([
-        f"--renderer={renderer}", f"--width={W}", f"--height={H}",
-        f"--max-ray-depth={DEPTH}", f"--samples-per-pixel={spp}",
-        f"--samples-per-pass={spp}", "--headless=unused",
-        "--filetype=none", scene])
+        flag, f"--width={W}", f"--height={H}"] + (
+        [] if renderer == "ddish-gi" else [
+            f"--max-ray-depth={DEPTH}", f"--samples-per-pixel={spp}",
+            f"--samples-per-pass={spp}"]) + [
+        "--headless=unused", "--filetype=none", scene])
     s = load_scenes(opt)
+    if renderer == "ddish-gi":
+        grid_over(s)
     rr = create_renderer(opt, s, torch.device("cuda"))
     rr.set_scene(s)
     if renderer == "path-tracer":
@@ -92,12 +177,12 @@ def make_renderer(scene: str, W: int, H: int, spp: int,
     return rr
 
 
-def time_frames(rr):
+def time_frames(rr, update: bool = False):
     """One warm-up frame, then FRAMES timed ones (host ms from
-    render_device to synchronize). Returns (ms per frame, useful rays of
-    the last frame or None, peak GiB, waves and rays traced per frame,
-    launches per frame of each kernel launched), all of the timed
-    frames."""
+    render_device, or with update from update_frame, to synchronize).
+    Returns (ms per frame, useful rays of the last frame or None, peak
+    GiB, waves and rays traced per frame, launches per frame of each
+    kernel launched), all of the timed frames."""
     rr.reset_accumulation()
     rr.render_device()
     torch.cuda.synchronize()
@@ -108,6 +193,8 @@ def time_frames(rr):
     for _ in range(FRAMES):
         rr.reset_accumulation()
         t0 = time.perf_counter()
+        if update:
+            rr.update_frame()
         rr.render_device()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
@@ -121,18 +208,29 @@ def time_frames(rr):
 
 def run_cell(scene: str, W: int, H: int, spp: int, renderer: str):
     rr = make_renderer(scene, W, H, spp, renderer)
-    ms, useful, peak, traced, launches = time_frames(rr)
+    raster = renderer in RASTER
+    with (raster_split() if raster else contextlib.nullcontext()) as split:
+        ms, useful, peak, traced, launches = time_frames(rr, update=raster)
     lanes = traced["rays"]
     med = statistics.median(ms)
     cell = dict(
         scene=scene, size=f"{W}x{H}", renderer=renderer, spp=spp,
-        depth=DEPTH, tris=int(rr.arrays.num_triangles), frames=FRAMES,
+        depth=rr.opt.max_ray_depth, tris=int(rr.arrays.num_triangles),
+        frames=FRAMES,
         ms_per_frame=med, ms_min=min(ms), ms_max=max(ms),
         spread_ms=max(ms) - min(ms), ms_frames=ms,
         waves_per_frame=traced["waves"], launches_per_frame=launches,
         mrays_s=lanes / med / 1e3, lanes=lanes, peak_mem_gb=peak)
     if renderer == "restir":
         cell["shift"] = rr.opt.restir.shift_mapping_type
+    if raster:
+        # the timed frames' parts (the warm-up frame's come first)
+        part = {k: statistics.median(v[-FRAMES:]) if v else 0.0
+                for k, v in split.items() if k != "frame"}
+        cell.update(split_ms=part, maps_share=part["maps"] / med,
+                    draw_share=part["draw"] / med,
+                    shadow_maps=int(rr.shadow_maps.depth.shape[0]),
+                    map_resolution=rr.shadow_maps.resolution)
     if useful is not None:
         cell.update(useful_mrays_s=useful / med / 1e3,
                     useful_fraction=useful / lanes)

@@ -4,8 +4,8 @@ command-line grammar.
 
 Flow: parse options -> require a CUDA device -> load scenes -> headless
 replay. The renderer runs on one explicit torch.device; the path-tracer,
-direct, whitted, restir, restir-hybrid and feature (AOV) renderers are
-ported."""
+direct, whitted, raster, restir, restir-hybrid, dshgi, dshgi-client,
+dshgi-server and feature (AOV) renderers are ported."""
 
 from __future__ import annotations
 
@@ -112,8 +112,8 @@ def set_camera_params(opt: Options, s: Scene):
 
 def create_renderer(opt: Options, s: Scene, device):
     """The renderer for `opt` on one torch device. What is not ported yet
-    (raster, dshgi, dshgi-client, dshgi-server, multi-device rendering)
-    raises NotImplementedError naming its ROADMAP item."""
+    (multi-device rendering, the app extras) raises NotImplementedError
+    naming its ROADMAP item."""
     r = opt.renderer
     if r in _FEATURES:
         from ..renderer.feature_renderer import FeatureRenderer
@@ -129,14 +129,20 @@ def create_renderer(opt: Options, s: Scene, device):
     if r == "whitted":
         from ..renderer.rt_renderer import PathTracerRenderer
         return PathTracerRenderer(opt, device, direct_only=False)
+    if r == "raster":
+        from ..renderer.raster_renderer import RasterRenderer
+        return RasterRenderer(opt, device)
     if r in ("restir", "restir-hybrid"):
         from ..renderer.restir_renderer import ReSTIRRenderer
         return ReSTIRRenderer(opt, device, hybrid=(r == "restir-hybrid"))
-    item = {"raster": "raster", "dshgi": "SH/DSHGI",
-            "dshgi-client": "SH/DSHGI",
-            "dshgi-server": "SH/DSHGI"}.get(r, "app extras")
+    if r in ("dshgi", "dshgi-client"):
+        from ..renderer.dshgi_renderer import DSHGIRenderer
+        return DSHGIRenderer(opt, device, remote=(r == "dshgi-client"))
+    if r == "dshgi-server":
+        from ..renderer.dshgi_renderer import DSHGIServer
+        return DSHGIServer(opt, device)
     raise NotImplementedError(
-        f"renderer {r!r} is not ported yet (ROADMAP Queue 1, {item})")
+        f"renderer {r!r} is not ported yet (ROADMAP Queue 1, app extras)")
 
 
 def generate_cameras(s: Scene, opt: Options) -> List:
@@ -234,7 +240,12 @@ def replay_viewer(opt: Options, s: Scene, device):
         if not opt.skip_render:
             anim.update(s, 0, True)
             rr.update_frame()
-            rr.render_device()
+            # renderers whose warm-up only advances internal state (the
+            # DSHGI probe blend) have a warmup_step that skips the draw
+            if hasattr(rr, "warmup_step"):
+                rr.warmup_step()
+            else:
+                rr.render_device()
 
     update_dt = round(1000000.0 / opt.framerate)
     i = 0
@@ -278,7 +289,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (KeyError, ValueError) as e:
         TR_ERR(str(e))
         return 1
-    if not opt.scene_paths:
+    if not opt.scene_paths and opt.renderer != "dshgi-server":
         print(opt_mod.help_text())
         return 1
     if getattr(opt, "stereo", 0.0) > 0.0:
@@ -291,7 +302,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         logger.timing.stream = open(opt.timing_output, "w")
     if opt.validation:
         raise NotImplementedError("--validation is not ported yet")
-    if not (opt.headless or opt.replay):
+    if not (opt.headless or opt.replay or opt.renderer == "dshgi-server"):
         raise NotImplementedError(
             f"display {opt.display!r}: only headless replay is ported "
             "(ROADMAP Queue 1, app extras)")

@@ -9,9 +9,12 @@ prints one JSON line: frame wall ms, device busy ms and idle share, the
 span on the device timeline of each range (sig_sort, phase1, traverse,
 alpha (the re-trace rounds' compaction and alpha tests), shade; for
 --renderer=restir / restir-hybrid gbuffer, restir_di, restir_gi and
-sh_bake, which contain their waves' phase1 and traverse; a span includes
-gaps between its kernels), device ms of the top kernels by name, and the
-peak device memory.
+sh_bake, which contain their waves' phase1 and traverse; for
+--renderer=raster / dshgi shadow_maps, raster_draw and pcf, the profiled
+frame then starting with update_frame, which rebuilds the maps, as the
+CLI's frames after the first do; a span includes gaps between its
+kernels), device ms of the top kernels by name, and the peak device
+memory.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from ..options import parse_command_line_options
 from .main import create_renderer, load_scenes
 
 RANGES = ("sig_sort", "phase1", "traverse", "alpha", "shade", "gbuffer",
-          "restir_di", "restir_gi", "sh_bake")
+          "restir_di", "restir_gi", "sh_bake", "shadow_maps", "raster_draw",
+          "pcf")
 
 
 def _self_device_ms(evt) -> float:
@@ -35,15 +39,18 @@ def _self_device_ms(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0))) / 1e3
 
 
-def profile_frame(rr) -> dict:
-    """Profile one frame of a renderer that has rendered at least once:
-    frame wall ms, device busy ms and idle share, the device-timeline span
-    of each range, device ms of the top kernels by name, and the peak
-    device memory (GiB) since the last reset of the peak."""
+def profile_frame(rr, update: bool = False) -> dict:
+    """Profile one frame of a renderer that has rendered at least once
+    (with update, from its update_frame): frame wall ms, device busy ms
+    and idle share, the device-timeline span of each range, device ms of
+    the top kernels by name, and the peak device memory (GiB) since the
+    last reset of the peak."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        if update:
+            rr.update_frame()
         rr.reset_accumulation()
         rr.render_device().sum().item()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -83,7 +90,8 @@ def main(argv=None) -> int:
     rr = create_renderer(opt, scene, torch.device("cuda"))
     rr.set_scene(scene)
     rr.render_device().sum().item()           # warm-up frame
-    print(json.dumps(profile_frame(rr)))
+    print(json.dumps(profile_frame(
+        rr, update=opt.renderer in ("raster", "dshgi"))))
     return 0
 
 

@@ -98,6 +98,13 @@ def fresnel_importance(cos_d, mat):
     return torch.where(mat.ior_in == mat.ior_out, 0.0, f)
 
 
+def fresnel_schlick_attenuated(cos_d, f0, roughness):
+    """(reference: shader/ggx.glsl fresnel_schlick_attenuated) — grazing
+    response damped by roughness, used for integrated (indirect) light."""
+    return f0 + (torch.maximum(1.0 - roughness, f0) - f0) * \
+        pow5(_clamp0(1.0 - cos_d, 0.0))
+
+
 def _step(edge, x):
     return torch.where(x >= edge, 1.0, 0.0)
 
@@ -159,6 +166,45 @@ def _ggx_brdf_inner(out_dir, view_dir, h, fresnel, distribution, cos_d, mat):
     return BSDFLobes(transmission=torch.zeros_like(cos_l),
                      diffuse=kd * cos_l / M_PI,
                      dielectric_reflection=diel, metallic_reflection=metal)
+
+
+def ggx_bsdf(out_dir, view_dir, mat) -> BSDFLobes:
+    """Full two-sided eval (reference: shader/ggx.glsl ggx_bsdf)."""
+    cos_l = out_dir[..., 2]
+    cos_v = view_dir[..., 2]
+    h_refl = normalize(view_dir + out_dir)
+    sgn = torch.where(mat.ior_in > mat.ior_out, 1.0, -1.0)[..., None]
+    h_refr = sgn * normalize(mat.ior_out[..., None] * out_dir +
+                             mat.ior_in[..., None] * view_dir)
+    h = torch.where((cos_l > 0)[..., None], h_refl, h_refr)
+    cos_h = h[..., 2]
+    cos_d = dot(view_dir, h)
+    cos_o = dot(out_dir, h)
+    fresnel = ggx_fresnel(cos_d, mat)
+    geometry = ggx_masking_shadowing_predivided(cos_v, cos_d, cos_l, cos_o,
+                                                mat.roughness)
+    zero_rough = mat.roughness < 0.001
+    distribution = torch.where(zero_rough, 0.0,
+                               ggx_distribution(cos_h, mat.roughness))
+    # BRDF side
+    kd = (1.0 - fresnel) * (1.0 - mat.metallic) * (1.0 - mat.transmittance)
+    diffuse = kd * _clamp0(cos_l, 0.0) / M_PI
+    dielectric, metallic_r = _colored_fresnel_split(
+        fresnel * geometry * distribution * cos_l * (1.0 - mat.metallic),
+        geometry * distribution * cos_l * mat.metallic, cos_d)
+    # BTDF side
+    geometry4 = geometry * 4.0
+    denom = mat.ior_in / mat.ior_out * cos_d + cos_o
+    transmission = -cos_l * (cos_d * cos_o).abs() * mat.transmittance * \
+        (1.0 - mat.metallic) * (1.0 - fresnel) * geometry4 * distribution / \
+        _clamp0(denom * denom, 1e-20)
+    refl = cos_l > 0
+    z = torch.zeros_like(cos_l)
+    return BSDFLobes(
+        transmission=torch.where(refl, z, transmission),
+        diffuse=torch.where(refl, diffuse, z),
+        dielectric_reflection=torch.where(refl, dielectric, z),
+        metallic_reflection=torch.where(refl, metallic_r, z))
 
 
 def _lobe_probabilities(view_dir, mat):

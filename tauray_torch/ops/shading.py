@@ -15,7 +15,7 @@ from ..scene.device import (IP_ALBEDO, IP_DOUBLE, IP_EMISSION, IP_IOR,
                             TP_HARDN, TP_INST, TP_IP, TP_NORMAL, TP_POS,
                             TP_PREV, TP_TANGENT, TP_UV, CameraUniforms,
                             DeviceScene)
-from .sampling import cross, dot, length, normalize
+from .sampling import cross, dot, length, normalize, xla_int32
 
 
 def _mv(m, v):
@@ -151,6 +151,51 @@ def sample_texture_quad(scene: DeviceScene, tex_id, size, uv, block=None):
     return torch.where(tex_id[:, None] >= 0, col, 1.0)
 
 
+def sample_texture_lod(scene: DeviceScene, tex_id, uv, lod):
+    """True trilinear mip sample (reference: src/texture.cc
+    generate_mipmaps + the sampler's hardware trilinear): bilinear at
+    floor(lod) and floor(lod)+1, blended by the lod fraction. lod: (R,)
+    float."""
+    tid = tex_id.to(torch.int64).clamp(min=0)
+    nmips = scene.tex_nmips[tid].to(torch.int64)
+    l0 = torch.minimum(torch.clamp(xla_int32(torch.floor(lod)).long(),
+                                   min=0), nmips - 1)
+    l1 = torch.minimum(l0 + 1, nmips - 1)
+    f = torch.clamp(lod - l0.to(torch.float32), 0.0, 1.0)[:, None]
+    m0 = scene.tex_meta[tid, l0].to(torch.float32)
+    m1 = scene.tex_meta[tid, l1].to(torch.float32)
+    c0 = sample_texture_quad(scene, tex_id, m0[:, 2:4], uv, block=m0[:, 0:2])
+    c1 = sample_texture_quad(scene, tex_id, m1[:, 2:4], uv, block=m1[:, 0:2])
+    # when l1 == l0 (last level) the blend is a no-op by construction
+    return c0 * (1 - f) + c1 * f
+
+
+def ray_cone_lod(scene: DeviceScene, v: "VertexData", footprint_world,
+                 view_dir):
+    """log2 of the UV-space pixel footprint at the hit, from a ray-cone
+    width in world units (the ray-cast raster's analogue of fragment
+    derivatives; the reference raster samples with implicit derivatives
+    and hardware trilinear, shader/forward.frag). Texel density comes
+    from the hit triangle's uv-area / world-area ratio; grazing incidence
+    widens the footprint by 1/|n.d| (clamped)."""
+    g = scene.tri_packed[v.primitive_id.clamp(min=0).long()]
+    p0 = g[:, TP_POS:TP_POS + 3]
+    p1 = g[:, TP_POS + 3:TP_POS + 6]
+    p2 = g[:, TP_POS + 6:TP_POS + 9]
+    u0 = g[:, TP_UV:TP_UV + 2]
+    u1 = g[:, TP_UV + 2:TP_UV + 4]
+    u2 = g[:, TP_UV + 4:TP_UV + 6]
+    wa = length(cross(p1 - p0, p2 - p0))
+    e1 = u1 - u0
+    e2 = u2 - u0
+    ua = (e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]).abs()
+    density = torch.sqrt(ua / torch.clamp(wa, min=1e-20))
+    n = g[:, TP_HARDN:TP_HARDN + 3]
+    spread = 1.0 / torch.clamp(dot(n, view_dir).abs(), 0.1, 1.0)
+    return torch.log2(torch.clamp(footprint_world * density * spread,
+                                  min=1e-20))
+
+
 def inverse_srgb_correction(col):
     """(reference: shader/color.glsl:7-12) — the exact polynomial."""
     low = col * 0.07739938
@@ -246,14 +291,20 @@ def interpolate_vertex(scene: DeviceScene, tri_id, bary_u, bary_v, view_dir,
 
 
 def sample_material(scene: DeviceScene, v: VertexData,
-                    slots: Optional[Tuple[bool, ...]] = None, row=None
-                    ) -> Tuple[SampledMaterial, VertexData]:
+                    slots: Optional[Tuple[bool, ...]] = None, lod_uv=None,
+                    row=None) -> Tuple[SampledMaterial, VertexData]:
     """(reference: shader/scene.glsl sample_material). Returns the material
     and the vertex with normal mapping applied. The material constants
     come from the same tri_packed row as the vertex (pass `row`).
 
     slots: per-scene (albedo, mr, normal, emission) "any material binds
-    this slot" flags; unbound slots skip their texture gather."""
+    this slot" flags; unbound slots skip their texture gather.
+
+    lod_uv: optional (R,) log2 UV footprint (ray_cone_lod); the raster
+    path passes it for the reference's fragment-derivative trilinear
+    filtering (scene.glsl USE_EXPLICIT_GRADIENTS textureGrad). Ray-traced
+    paths leave it None: the base level, as the reference's texture()
+    outside fragment stages."""
     m = (scene.tri_packed[v.primitive_id.long()] if row is None
          else row)[:, TP_IP:]
     tex = m[:, IP_TEX:IP_TEX + 4].to(torch.int32)
@@ -262,6 +313,11 @@ def sample_material(scene: DeviceScene, v: VertexData,
 
     def tex_at(slot):
         size = m[:, IP_TEXSIZE + 2 * slot:IP_TEXSIZE + 2 * slot + 2]
+        if lod_uv is not None:
+            # texture-space lod: footprint in texels of this texture
+            lod = lod_uv + 0.5 * torch.log2(torch.clamp(
+                size[:, 0] * size[:, 1], min=1.0))
+            return sample_texture_lod(scene, tex[:, slot], v.uv, lod)
         blk = m[:, IP_TEXBLOCK + 2 * slot:IP_TEXBLOCK + 2 * slot + 2]
         return sample_texture_quad(scene, tex[:, slot], size, v.uv,
                                    block=blk)

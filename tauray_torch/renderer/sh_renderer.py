@@ -6,8 +6,8 @@ Per SH grid: path-trace `samples_per_probe` rays from each probe center,
 project the sampled radiance onto the SH basis (the sh_compact reduction)
 and blend it into the grid over time with `--dshgi-temporal-ratio`
 (reference: src/sh_path_tracer_stage.hh temporal_ratio). Draws nothing
-itself (reference: src/sh_renderer.hh:15-47): restir-hybrid reads the
-first grid. The probe-sharded bake over several devices is not ported:
+itself (reference: src/sh_renderer.hh:15-47): restir-hybrid and DSHGI
+read the first grid. The probe-sharded bake over several devices is not ported:
 options that ask for several devices raise."""
 
 from __future__ import annotations
@@ -127,8 +127,9 @@ class SHRenderer:
         opt = self.opt
         dev = self.device
         arrays = host_renderer.arrays
-        # the host (ReSTIRRenderer) traces without slot ids, so its
-        # device scene is in original triangle order as the tracer's ids
+        # the host (ReSTIRRenderer, RasterRenderer or the DSHGI server's
+        # scene) traces without slot ids, so its device scene is in
+        # original triangle order as the tracer's ids
         scene = host_renderer.device_scene
         tracer = host_renderer.bvh
         grids = arrays.scene.sh_grids()

@@ -501,3 +501,92 @@ def test_feature_render_goes_through_kernel(cuda):
     ref, _ = _sponza_renderer(torch.device("cpu"),
                               ["--renderer=instance-id"])
     np.testing.assert_array_equal(got, ref.render())
+
+
+def _gbuf_share(got: dict, want: dict) -> dict:
+    """Per G-buffer key, the share of elements within 1e-4 + 1e-3 x |want|
+    (NaN matching NaN)."""
+    out = {}
+    for k, w in want.items():
+        g, w = got[k].cpu().numpy(), w.cpu().numpy()
+        ok = (np.abs(g - w) <= 1e-4 + 1e-3 * np.abs(w)) | \
+            (np.isnan(g) & np.isnan(w))
+        out[k] = float(ok.mean())
+    return out
+
+
+RASTER_SMALL = ["--renderer=raster", "--shadow-map-resolution=256",
+                "--pcf=16", "--pcss=8"]
+
+
+def test_raster_on_card_matches_cpu(cuda):
+    """--renderer=raster at 64x48 with 256^2 maps, two frames: the maps'
+    waves go through K1; the card's maps and every G-buffer key of the
+    second frame agree with the CPU's (>= 99% of the elements within
+    1e-4 + 1e-3 relative; shadow_vis off by more than one PCF tap (1/16)
+    on at most 0.5% of the pixels). The second frame's maps trace the
+    geometry of update_frame, whose transforms round differently on the
+    card (cuBLAS contracts into FMAs), so a ray through a crack between
+    two triangles may hit a farther surface on one side: at most 0.1% of
+    the texels differ, hit or miss or depth beyond 1e-5 relative."""
+    from tauray_torch.ops.trace_kernel import LAUNCHES
+    before = LAUNCHES["trace_vm3"]
+    sides = []
+    for dev in (cuda, torch.device("cpu")):
+        rr, _ = _sponza_renderer(dev, RASTER_SMALL)
+        rr.render_device()
+        rr.update_frame()
+        rr.render_device()
+        sides.append(rr)
+    # 16 maps at set_scene and 16 at update_frame, 1 camera wave a frame
+    assert LAUNCHES["trace_vm3"] - before == 34, LAUNCHES
+    card, cpu = sides
+    dc, dw = card.shadow_maps.depth.cpu(), cpu.shadow_maps.depth
+    far = cpu.shadow_maps.params[:, 3, None, None]
+    differ = ((dc < far) != (dw < far)) | \
+        ((dc - dw).abs() > 1e-5 * dw.abs())
+    assert float(differ.float().mean()) <= 1e-3, int(differ.sum())
+    shares = _gbuf_share(card.last_gbuf, cpu.last_gbuf)
+    assert min(shares.values()) >= 0.99, shares
+    sv = (card.last_gbuf["shadow_vis"].cpu() -
+          cpu.last_gbuf["shadow_vis"]).abs()
+    off = float((sv > 1 / 16 + 1e-5).float().mean())
+    assert off <= 5e-3, off
+
+
+def test_dshgi_on_card_matches_cpu(cuda):
+    """--renderer=dshgi with a 2x2x2 SH grid over the scene, 64 samples a
+    probe, two frames: the bake within 2e-3 of the largest coefficient
+    (99.9% within 1e-3) and the G-buffer as the raster test holds it."""
+    from tauray_torch.app.main import create_renderer, load_scenes
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.scene.sh_grid import SHGrid
+    from tauray_torch.scene.transformable import Transformable
+    sides = []
+    for dev in (cuda, torch.device("cpu")):
+        opt = parse_command_line_options(
+            ["--renderer=dshgi", "--shadow-map-resolution=128", "--pcf=8",
+             "--pcss=8", "--samples-per-probe=64", "--width=64",
+             "--height=48", "--samples-per-pixel=1", "--max-ray-depth=2",
+             "--tonemap=linear", "proc://sponza?tris=8192"])
+        s = load_scenes(opt)
+        ge = s.add("probes")
+        ge.transform = Transformable(position=(0, 4, 0),
+                                     scaling=(10, 4, 6))
+        ge.sh_grid = SHGrid(resolution=(2, 2, 2), order=2)
+        rr = create_renderer(opt, s, dev)
+        rr.set_scene(s)
+        for k in range(2):
+            if k:
+                rr.update_frame()
+            rr.render_device()
+        sides.append(rr)
+    card, cpu = sides
+    got = card.sh_source.current_grid_data()[0].cpu().numpy()
+    want = cpu.sh_source.current_grid_data()[0].numpy()
+    scale = float(np.abs(want).max())
+    diff = np.abs(got - want)
+    assert float(diff.max()) <= 2e-3 * scale
+    assert float((diff <= 1e-3 * scale).mean()) >= 0.999
+    shares = _gbuf_share(card.last_gbuf, cpu.last_gbuf)
+    assert min(shares.values()) >= 0.99, shares

@@ -139,7 +139,12 @@ def test_bench_requires_cuda():
     ["--temporal-reprojection=0.5"], ["--renderer=albedo"],
     ["--fake-devices=2", "--camera-grid=2,1,0.1,0.1",
      "--spatial-reprojection=0"], ["--renderer=whitted"],
-    ["--renderer=restir"], ["--preset=restir-hybrid"]])
+    ["--renderer=restir"], ["--preset=restir-hybrid"],
+    ["--renderer=raster", "--shadow-map-resolution=32", "--pcf=4",
+     "--pcss=4"],
+    ["--renderer=dshgi", "--shadow-map-resolution=32", "--pcf=4",
+     "--pcss=4"],
+    ["--preset=ddish-gi", "--shadow-map-resolution=32"]])
 def test_ported_features_render(args):
     """What this slice ported renders through the CLI's renderer choice
     (two frames, the second after update_frame): a finite image of the
@@ -162,7 +167,7 @@ def test_ported_features_render(args):
     views = opt.camera_grid.w * opt.camera_grid.h
     assert img.shape == (views, 8, 16, 4)
     if opt.renderer in ("path-tracer", "whitted", "restir",
-                        "restir-hybrid"):
+                        "restir-hybrid", "raster", "dshgi"):
         assert np.isfinite(img).all() and img[..., :3].mean() > 0
     for v in range(views):
         assert img[v, ..., :3].max() > 0, v
@@ -177,8 +182,10 @@ def test_wave_stats_requires_cuda():
 
 
 @pytest.mark.parametrize("args", [
-    ["--renderer=raster"], ["--renderer=dshgi-client"], ["--renderer=dshgi"],
-    ["--mesh-shape=2"], ["--renderer=dshgi-server"],
+    ["--renderer=dshgi", "--mesh-shape=2"],
+    ["--renderer=restir-hybrid", "--fake-devices=2"],
+    ["--renderer=dshgi-server", "--fake-devices=2"],
+    ["--mesh-shape=2"], ["--renderer=dshgi", "--fake-devices=2"],
     ["--fake-devices=2"]])
 def test_unported_features_raise(args):
     """Features outside the slice raise NotImplementedError, never a

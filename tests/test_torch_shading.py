@@ -185,6 +185,27 @@ def test_bsdf_sample_and_pdf(mode):
            "modulate_color")
 
 
+def test_ggx_bsdf_and_attenuated_fresnel():
+    """The raster path's full two-sided GGX eval and the roughness-damped
+    Schlick term of its split-sum indirect light."""
+    mats = [_material(np.random.default_rng(14), m, lib) for m, lib in (
+        (tsh.SampledMaterial, torch.from_numpy),
+        (jsh.SampledMaterial, jnp.asarray))]
+    rng = np.random.default_rng(114)
+    view, out = _view(rng), _unit(rng)
+    _close(tuple(tg.ggx_bsdf(torch.from_numpy(out), torch.from_numpy(view),
+                             mats[0])),
+           tuple(jg.ggx_bsdf(jnp.asarray(out), jnp.asarray(view), mats[1])),
+           "ggx_bsdf", atol=1e-5)
+    cos = np.concatenate([rng.random(N - 4), [0.0, 1.0, -0.5, 1.5]]
+                         ).astype(np.float32)
+    _close(tg.fresnel_schlick_attenuated(torch.from_numpy(cos),
+                                         mats[0].f0, mats[0].roughness),
+           jg.fresnel_schlick_attenuated(jnp.asarray(cos), mats[1].f0,
+                                         mats[1].roughness),
+           "fresnel_schlick_attenuated")
+
+
 @pytest.fixture(scope="module")
 def scenes():
     """(port DeviceScene, JAX DeviceScene) of proc://sponza?tris=8192."""
@@ -347,6 +368,47 @@ def test_texture_quad_floor_mod(scenes):
                                    jnp.asarray(uv), block=jnp.asarray(blk))
     _close(got, want, "texture", atol=1e-5)
     assert math.isclose(float(np.asarray(want)[::5].min()), 1.0)
+
+
+def test_texture_lod_and_ray_cone(scenes):
+    """The raster path's trilinear mip sample (sample_texture_lod, lods
+    below 0 and past the last level included), its ray-cone lod and
+    sample_material's lod_uv, on the textured scene."""
+    td, jd, tsa = scenes
+    rng = np.random.default_rng(71)
+    uv = rng.uniform(-2, 2, (N, 2)).astype(np.float32)
+    tex = rng.integers(-1, tsa.tex_meta.shape[0], N).astype(np.int32)
+    lod = rng.uniform(-2, 9, N).astype(np.float32)
+    _close(tsh.sample_texture_lod(td, torch.from_numpy(tex),
+                                  torch.from_numpy(uv),
+                                  torch.from_numpy(lod)),
+           jsh.sample_texture_lod(jd, jnp.asarray(tex), jnp.asarray(uv),
+                                  jnp.asarray(lod)), "texture lod",
+           atol=1e-5)
+    # well-shaped triangles only: a degenerate one's world area is 0 in
+    # the port and rounding noise under XLA's FMAs, so its texel density
+    # differs without bound (ROADMAP Queue 3), and no ray hits it
+    pos = tsa.tri_pos[:tsa.num_triangles].astype(np.float64)
+    e1, e2 = pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0]
+    sin = np.linalg.norm(np.cross(e1, e2), axis=1) / np.maximum(
+        np.linalg.norm(e1, axis=1) * np.linalg.norm(e2, axis=1), 1e-30)
+    tri = rng.choice(np.flatnonzero(sin > 1e-2), N).astype(np.int32)
+    b = rng.dirichlet([1, 1, 1], N).astype(np.float32)
+    d = _unit(rng)
+    fp = rng.uniform(1e-4, 1e-1, N).astype(np.float32)
+    tv = tsh.interpolate_vertex(td, torch.from_numpy(tri),
+                                torch.from_numpy(b[:, 1]),
+                                torch.from_numpy(b[:, 2]),
+                                torch.from_numpy(d))
+    jv = jsh.interpolate_vertex(jd, jnp.asarray(tri), jnp.asarray(b[:, 1]),
+                                jnp.asarray(b[:, 2]), jnp.asarray(d))
+    lod_t = tsh.ray_cone_lod(td, tv, torch.from_numpy(fp),
+                             torch.from_numpy(d))
+    lod_j = jsh.ray_cone_lod(jd, jv, jnp.asarray(fp), jnp.asarray(d))
+    _close(lod_t, lod_j, "ray cone lod", atol=1e-4)
+    tm, _ = tsh.sample_material(td, tv, lod_uv=lod_t)
+    jm, _ = jsh.sample_material(jd, jv, lod_uv=lod_j)
+    _close(tuple(tm), tuple(jm), "material lod", rtol=1e-4, atol=1e-5)
 
 
 def test_environment_map_sampling():

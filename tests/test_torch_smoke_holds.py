@@ -7,8 +7,14 @@ Sponza-class scene of those phases is, so that nearly every ray hits), at
 restir_di_pass and restir_gi_pass run again from the same inputs. Through
 the same tracer no pixel is off; through a tracer that loses the hit of 1
 ray in 64 of every wave (a fault of a traversal kernel on a class of rays)
-the hold reads more than its limit and raises. Each case prints its
-readings."""
+the hold reads more than its limit and raises.
+
+Phase 16c's hold (hold_raster_cpu, HOLD_RASTER_OFF): 2 raster frames of
+the raster test scene (tests/test_torch_raster.py) at 64x64 with 256^2
+maps, --pcf=16 --pcss=8; the second frame's render_raster again from the
+same inputs reads no pixel off, and from maps broken as a build fault
+would break them (the bias dropped, or every texel shifted by one) more
+than the limit. Each case prints its readings."""
 
 import numpy as np
 import pytest
@@ -108,3 +114,43 @@ def test_hold_limits_catch_lost_hits(second_frame, kind):
     with pytest.raises(RuntimeError, match="departs") as err:
         hold(r["out"], fault, "fault")
     print(kind, "fault", err.value, "limit", limit)
+
+
+@pytest.fixture(scope="module")
+def raster_frame():
+    """The second frame's render_raster call of a 2-frame raster run."""
+    from tauray_torch.renderer.raster_renderer import RasterRenderer
+    from test_torch_raster import options, raster_scene
+    opt = options("tauray_torch", width=N, height=N, pcf=16, pcss=8,
+                  shadow_map_resolution=256)
+    rr = RasterRenderer(opt, CPU)
+    rr.set_scene(raster_scene("tauray_torch"))
+    with chip_smoke.raster_capture(1) as cap:
+        rr.render_device()
+        rr.update_frame()
+        rr.render_device()
+    return cap
+
+
+def _broken(maps, fault):
+    if fault == "bias":
+        return maps._replace(min_bias=torch.zeros_like(maps.min_bias),
+                             max_bias=torch.zeros_like(maps.max_bias))
+    return maps._replace(depth=torch.roll(maps.depth, 1, dims=2))
+
+
+@pytest.mark.parametrize("fault", ["bias", "shift"])
+def test_raster_hold_catches_broken_maps(raster_frame, fault):
+    from tauray_torch.stages.raster import render_raster
+    args, kw = list(raster_frame["args"]), raster_frame["kw"]
+    sound = chip_smoke.hold_raster_cpu(raster_frame["out"],
+                                       render_raster(*args, **kw), "sound",
+                                       taps=16)
+    print("raster sound", sound)
+    assert sound["off"] == 0.0
+    args[4] = _broken(args[4], fault)
+    with pytest.raises(RuntimeError, match="departs") as err:
+        chip_smoke.hold_raster_cpu(raster_frame["out"],
+                                   render_raster(*args, **kw), "fault",
+                                   taps=16)
+    print("raster", fault, err.value, "limit", chip_smoke.HOLD_RASTER_OFF)
