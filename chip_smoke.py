@@ -125,11 +125,41 @@ non-zero:
        16f. one raster frame of proc://sponza?tris=524288 at 1920x1080
            with 1024^2 maps: K2's launches equal the count the code gives,
            and each of its 17 waves, as traced, held bit for bit to K2's
-           plain version.
+           plain version;
+  17. multi-device rendering on the one card (renderer/distributed.py,
+     parallel/, the probe-sharded bake of renderer/sh_renderer.py):
+       17a. `python -m tauray_torch --fake-devices=4` (shuffled strips) at
+           1920x1080, depth 4, 2 frames: ms, lane Mrays/s (ops/cluster
+           TRACED), peak memory and K1's launches; frame 1 held to a
+           one-device PathTracerRenderer frame of the same options (at
+           most HOLD_DIST_OFF, 0.01%, of the pixels off by more than
+           1e-3; the largest difference and the pixels not bit-equal
+           printed);
+       17b. skewed times into LoadBalancer.update between two frames of
+           4 workloads with --accumulation: the new shares cover every
+           pixel once and the second frame is held to the one-device
+           2-frame accumulation by 17a's rule; one frame of scanline over
+           3 workloads (interleaved rows) held to the one-device frame;
+       17c. the bench's quilt_5x9 (45 views at 256x256, depth 2)
+           view-sharded over [cuda:0] * 4, held to the one-device render
+           of the same views by 17a's rule; ms per view and K1's launches;
+       17d. the probe-sharded bake (an 8x8x8 grid, --preset=ddish-gi's
+           512 samples a probe) over [cuda:0] * 2, held to the one-device
+           bake within 1e-5 of the largest coefficient;
+  18. Looking Glass, the interactive frame stream and --validation:
+       18a. `python -m tauray_torch --display=looking-glass` with 8 views
+           at 256x256: one image per view; compose_quilt and lkg_compose
+           of those views on the card held bit-equal to the CPU;
+       18b. the interactive viewer streaming to a loopback FrameClient,
+           which takes 3 frames of the right size, not all zero, then
+           sends a key, a mouse move and quit;
+       18c. --validation passes a clean frame and, with a NaN injected
+           into the shading's input, raises naming bounce 0's shading.
 The last lines are the card, the kernel table (each row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
 the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
-times), and {"ok": true, "device": {...}}.
+times; K1 with its launches on 17a's and 17c's paths), and
+{"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -1415,6 +1445,347 @@ def raster_large_phase(tmp):
     return launches["trace_mt"], held
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-18: multi-device rendering on one card, Looking Glass, the
+# interactive frame stream and --validation
+# ---------------------------------------------------------------------------
+
+# 17a-17c: the share of pixels that may differ by more than HOLD_DIST_ATOL
+# between a distributed frame and the one-device frame of the same options
+# (hits are per ray, so only the rounding of a ray's place in its wave
+# may differ)
+HOLD_DIST_OFF = 1e-4
+HOLD_DIST_ATOL = 1e-3
+DIST = ["--fake-devices=4", "--distribution-strategy=shuffled-strips"]
+
+
+def hold_frames(got, want, tag):
+    """17a's rule: at most HOLD_DIST_OFF of the pixels (over every view)
+    differ by more than HOLD_DIST_ATOL in a channel. Returns the largest
+    difference and the counts of pixels off and not bit-equal."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise RuntimeError(f"phase {tag}: {got.shape} against {want.shape}"
+                           f", finite={np.isfinite(got).all()}")
+    d = np.abs(got - want).reshape(-1, got.shape[-1]).max(-1)
+    res = dict(max_abs_diff=float(d.max()), pixels=int(d.size),
+               pixels_off=int((d > HOLD_DIST_ATOL).sum()),
+               pixels_not_bit_equal=int((d > 0).sum()))
+    if res["pixels_off"] > HOLD_DIST_OFF * d.size:
+        raise RuntimeError(f"phase {tag}: the distributed frame departs "
+                           f"from the one-device frame: {res}")
+    return res
+
+
+def pt_renderer(args, W, H, dev, devices=None, views=1, depth=4):
+    """A path tracer of SCENE on dev: the one-device renderer, or with
+    devices the distributed one over them; views > 1 adds the bench's
+    quilt cameras."""
+    from tauray_torch.app.bench import quilt_cameras
+    from tauray_torch.app.main import load_scenes
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.renderer.distributed import \
+        DistributedPathTracerRenderer
+    from tauray_torch.renderer.rt_renderer import PathTracerRenderer
+    opt = parse_command_line_options([
+        "--renderer=path-tracer", f"--width={W}", f"--height={H}",
+        "--samples-per-pixel=1", f"--max-ray-depth={depth}",
+        "--tonemap=linear"] + list(args) + [
+        "--headless=unused", "--filetype=none", SCENE])
+    s = load_scenes(opt)
+    if views > 1:
+        quilt_cameras(s, views)
+    rr = PathTracerRenderer(opt, dev) if devices is None else \
+        DistributedPathTracerRenderer(opt, dev, devices=devices)
+    rr.set_scene(s)
+    return rr
+
+
+def frame(rr):
+    """One frame (reset_accumulation, render_device) on the host, and its
+    ms to a device synchronize."""
+    rr.reset_accumulation()
+    img, ms = sync_ms(rr.render_device)
+    return img.cpu().numpy(), ms
+
+
+def distributed_phase(tmp, W=HD_W, H=HD_H, dev=None):
+    """Phases 17a and 17b. Returns K1's launches of 17a's CLI run."""
+    import numpy as np
+    import torch
+    from tauray_torch.ops import cluster
+    from tauray_torch.parallel.load_balancer import LoadBalancer
+    dev = dev or torch.device("cuda")
+    size = [f"--width={W}", f"--height={H}"]
+    # 17a: the CLI, 4 workloads on the card, 2 frames, float32 EXRs
+    cluster.reset_traced()
+    ms, imgs, launches, peak = main_path(
+        tmp, "dist", HD + size + DIST + ["--format=rgba32"], every=True)
+    traced = dict(cluster.TRACED)
+    for k, img in enumerate(imgs):
+        check_image(img, W, H, f"phase 17a frame {k}")
+    if launches["trace_vm3"] <= 0:
+        raise RuntimeError(f"phase 17a launched {launches}")
+    # the one-device frames of the same options (with --accumulation its
+    # second frame is the running mean that 17b's rebalanced frame is)
+    one = pt_renderer(["--accumulation"], W, H, dev)
+    f1, one_ms = frame(one)
+    res = dict(size=f"{W}x{H}", workloads=4, strategy="shuffled-strips",
+               frame_ms=ms, frame2_ms=ms[-1],
+               mrays_s=traced["rays"] / 2 / (ms[-1] * 1e3),
+               lanes_per_frame=traced["rays"] // 2,
+               waves_per_frame=traced["waves"] // 2, launches=launches,
+               peak_mem_gb=peak, one_device_frame_ms=one_ms,
+               **hold_frames(imgs[0][..., :3], f1[0, ..., :3], "17a"))
+    print("phase 17a " + json.dumps(res), flush=True)
+    # 17b: skewed times into the load balancer between two frames
+    rr = pt_renderer(DIST + ["--accumulation"], W, H, dev,
+                     devices=[dev])
+    frame(rr)
+    times = [0.3, 0.1, 0.1, 0.1]
+    workloads = LoadBalancer(rr.n_devices).update(rr, times)
+    cover = torch.bincount(rr._lin[0].long(), minlength=W * H)
+    if not bool((cover == 1).all()) or rr._stitch_blend != 0.5:
+        raise RuntimeError("phase 17b: the rebalanced shares do not cover "
+                           "the frame once")
+    f2, ms2 = frame(rr)
+    g2, _ = frame(one)
+    res = dict(workloads=workloads,
+               pixels_per_workload=[int(w[3]) for w in rr._work],
+               frame_ms=ms2, **hold_frames(f2, g2, "17b"))
+    print("phase 17b " + json.dumps(res), flush=True)
+    del rr, one
+    # 17b: scanline with 3 workloads, interleaved rows
+    rr = pt_renderer(["--fake-devices=3", "--distribution-strategy=scanline"],
+                     W, H, dev, devices=[dev])
+    if rr.strategy != "scanline" or rr.n_devices != 3:
+        raise RuntimeError(f"phase 17b: {rr.strategy} over {rr.n_devices}")
+    f3, ms3 = frame(rr)
+    res = dict(strategy="scanline", workloads=3,
+               rows_per_workload=[int(w[3]) // W for w in rr._work],
+               frame_ms=ms3, **hold_frames(f3, f1, "17b scanline"))
+    print("phase 17b " + json.dumps(res), flush=True)
+    del rr
+    torch.cuda.empty_cache()
+    return launches["trace_vm3"]
+
+
+def view_sharded_phase(W=256, H=256, dev=None):
+    """Phase 17c: the bench's quilt_5x9 (45 views, depth 2) over the card
+    named four times, held to the one-device render of the same views.
+    Returns K1's launches of the view-sharded frame."""
+    import torch
+    from tauray_torch.app.bench import QUILT_VIEWS
+    from tauray_torch.ops import trace_kernel
+    dev = dev or torch.device("cuda")
+    rr = pt_renderer([], W, H, dev, devices=[dev] * 4, views=QUILT_VIEWS,
+                     depth=2)
+    if not rr.view_sharded:
+        raise RuntimeError("phase 17c: 45 views over 4 devices did not "
+                           "shard the views")
+    trace_kernel.reset_launch_counts()
+    got, ms = frame(rr)
+    launches = dict(trace_kernel.LAUNCHES)
+    one = pt_renderer([], W, H, dev, views=QUILT_VIEWS, depth=2)
+    want, one_ms = frame(one)
+    for v in (0, QUILT_VIEWS // 2, QUILT_VIEWS - 1):
+        check_image(got[v], W, H, f"phase 17c view {v}")
+    res = dict(views=QUILT_VIEWS, size=f"{W}x{H}", devices=4, frame_ms=ms,
+               ms_per_view=ms / QUILT_VIEWS, one_device_frame_ms=one_ms,
+               one_device_ms_per_view=one_ms / QUILT_VIEWS,
+               launches=launches, **hold_frames(got, want, "17c"))
+    print("phase 17c " + json.dumps(res), flush=True)
+    if launches["trace_vm3"] <= 0:
+        raise RuntimeError(f"phase 17c launched {launches}")
+    return launches["trace_vm3"]
+
+
+def sharded_bake_phase(dev=None):
+    """Phase 17d: the probe-sharded bake (an 8x8x8 grid over SCENE,
+    --preset=ddish-gi's 512 samples a probe at depth 4) over the card
+    named twice, held to the one-device bake within 1e-5 of the largest
+    coefficient."""
+    import numpy as np
+    import torch
+    from tauray_torch.app.bench import grid_over
+    from tauray_torch.app.main import load_scenes
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.renderer.raster_renderer import FlatTracerHost
+    from tauray_torch.renderer.sh_renderer import SHRenderer
+    dev = dev or torch.device("cuda")
+    opt = parse_command_line_options([
+        "--preset=ddish-gi", "--headless=unused", "--filetype=none", SCENE])
+    s = load_scenes(opt)
+    grid = grid_over(s).sh_grid
+    host = FlatTracerHost(opt, dev)
+    host.set_scene(s)
+    out = {}
+    for name, devices in (("sharded", [dev] * 2), ("one", None)):
+        sh = SHRenderer(opt, dev)
+        sh.devices = devices
+        _, ms = sync_ms(lambda: sh.step(host))
+        out[name] = (torch.as_tensor(grid.coefficients).cpu().numpy().copy(),
+                     ms)
+    got, want = out["sharded"][0], out["one"][0]
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / scale
+    res = dict(probes=grid.probe_count(), devices=2,
+               bake_ms=out["sharded"][1], one_device_bake_ms=out["one"][1],
+               coef_scale=scale, max_diff_of_scale=err,
+               bit_equal=bool((got == want).all()))
+    print("phase 17d " + json.dumps(res), flush=True)
+    if not np.isfinite(got).all() or err > 1e-5:
+        raise RuntimeError(f"phase 17d: the sharded bake departs: {res}")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def lkg_phase(tmp, W=256, H=256, n=8):
+    """Phase 18a: --display=looking-glass through the CLI with n
+    views, one image per view; compose_quilt and lkg_compose of those
+    views on the card held bit-equal to the CPU."""
+    import numpy as np
+    import torch
+    from tauray_torch.io.exr import read_rgb
+    from tauray_torch.stages.looking_glass import (LKGCalibration,
+                                                   compose_quilt,
+                                                   lkg_compose)
+    from tauray_torch.app.main import main
+    from tauray_torch.log import logger
+    from tauray_torch.ops import trace_kernel
+    timing = os.path.join(tmp, "lkg_timing.txt")
+    trace_kernel.reset_launch_counts()
+    rc = main([
+        "--display=looking-glass", f"--lkg-params.viewports={n}",
+        f"--width={W}", f"--height={H}", "--samples-per-pixel=1",
+        "--max-ray-depth=2", "--tonemap=linear", "--format=rgba32",
+        f"--headless={os.path.join(tmp, 'lkg')}", "--compression=zip",
+        "--timing", f"--timing-output={timing}", SCENE])
+    launches = dict(trace_kernel.LAUNCHES)
+    logger.timing.stream.close()
+    logger.timing.stream = None
+    with open(timing) as f:
+        ms = [float(m) for m in re.findall(r"HOST: ([0-9.]+)ms", f.read())]
+    if rc != 0:
+        raise RuntimeError(f"phase 18a: main() returned {rc}")
+    files = sorted(f for f in os.listdir(tmp) if re.fullmatch(
+        r"lkg\d+_\.exr", f))
+    if len(files) != n:
+        raise RuntimeError(f"phase 18a: {len(files)} images for {n} views")
+    views = np.stack([read_rgb(os.path.join(tmp, f"lkg{v}_.exr"))
+                      for v in range(n)]).astype(np.float32)
+    for v in range(n):
+        check_image(views[v], W, H, f"phase 18a view {v}")
+    cal = LKGCalibration()
+    args = (cal.pitch, cal.slope, cal.center, cal.screenW, cal.screenH, n)
+    cpu = torch.from_numpy(views)
+    card = cpu.cuda()
+    same = dict(
+        quilt=bool(torch.equal(compose_quilt(card).cpu(),
+                               compose_quilt(cpu))),
+        lenticular=bool(torch.equal(lkg_compose(card, *args).cpu(),
+                                    lkg_compose(cpu, *args))))
+    res = dict(views=n, size=f"{W}x{H}", frame_ms=ms, launches=launches,
+               images=len(files), bit_equal_to_cpu=same)
+    print("phase 18a " + json.dumps(res), flush=True)
+    if not all(same.values()) or launches["trace_vm3"] <= 0:
+        raise RuntimeError(f"phase 18a: {res}")
+
+
+def interactive_phase(W=256, H=256, dev=None):
+    """Phase 18b: the interactive viewer streaming to a FrameClient on
+    loopback, which takes 3 frames, sends a key, a mouse move and quit."""
+    import threading
+    import time
+    import numpy as np
+    import torch
+    from tauray_torch.app.interactive import interactive_viewer
+    from tauray_torch.app.main import load_scenes
+    from tauray_torch.net.frame_stream import (EVENT_KEY_DOWN, EVENT_KEY_UP,
+                                               EVENT_MOUSE_MOTION,
+                                               EVENT_QUIT, FrameClient)
+    from tauray_torch.options import parse_command_line_options
+    dev = dev or torch.device("cuda")
+    port = _free_port()
+    opt = parse_command_line_options([
+        f"--width={W}", f"--height={H}", "--samples-per-pixel=1",
+        "--max-ray-depth=2", f"--port={port}", SCENE])
+    s = load_scenes(opt)
+    frames, errors = [], []
+
+    def viewer():
+        try:
+            end = time.monotonic() + 120
+            while True:
+                try:
+                    client = FrameClient(f"127.0.0.1:{port}")
+                    break
+                except OSError:
+                    if time.monotonic() > end:
+                        raise
+                    time.sleep(0.05)
+            try:
+                client.sock.settimeout(120)
+                while len(frames) < 3:
+                    frames.append(client.recv_frame())
+                client.send_events([(EVENT_KEY_DOWN, ord("w"), 0),
+                                    (EVENT_MOUSE_MOTION, 5, -3),
+                                    (EVENT_KEY_UP, ord("w"), 0),
+                                    (EVENT_QUIT, 0, 0)])
+                while client.recv_frame() is not None:
+                    pass
+            finally:
+                client.close()
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+    th = threading.Thread(target=viewer, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    interactive_viewer(opt, s, dev, read_line=lambda: None)
+    th.join(120)
+    wall = time.perf_counter() - t0
+    ok = not th.is_alive() and not errors and len(frames) >= 3 and all(
+        f is not None and f.shape == (H, W, 3) and f.any() for f in frames)
+    res = dict(size=f"{W}x{H}", frames_received=len(frames),
+               wall_s=wall, errors=errors,
+               frame_means=[float(np.mean(f)) for f in frames
+                            if f is not None])
+    print("phase 18b " + json.dumps(res), flush=True)
+    if not ok:
+        raise RuntimeError(f"phase 18b: {res}")
+
+
+def validation_phase(W=256, H=256, dev=None):
+    """Phase 18c: --validation passes a clean frame, and names the stage
+    when a NaN is injected into the shading's input (every triangle's
+    albedo factor)."""
+    import numpy as np
+    import torch
+    from tauray_torch.scene.device import IP_ALBEDO, TP_IP
+    dev = dev or torch.device("cuda")
+    rr = pt_renderer(["--validation"], W, H, dev, depth=2)
+    clean, ms = frame(rr)
+    check_image(clean[0], W, H, "phase 18c clean")
+    tp = rr.device_scene.tri_packed.clone()
+    tp[:, TP_IP + IP_ALBEDO:TP_IP + IP_ALBEDO + 3] = float("nan")
+    rr.device_scene = rr.device_scene._replace(tri_packed=tp)
+    try:
+        frame(rr)
+        msg = None
+    except FloatingPointError as e:
+        msg = str(e)
+    res = dict(clean_frame_ms=ms, raised=msg)
+    print("phase 18c " + json.dumps(res), flush=True)
+    if msg is None or "bounce 0 shade" not in msg:
+        raise RuntimeError(f"phase 18c: {res}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -1657,6 +2028,14 @@ def main() -> int:
         trace_vm3_ddish_gi_1080p_3_frames=dshgi["launches"]["trace_vm3"],
         trace_vm3_raster_foliage_1080p_1_frame=l_k1_foliage,
         trace_mt_raster_524k_1080p_1_frame=l_k2_raster)), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        l_k1_dist = distributed_phase(tmp)
+    l_k1_quilt = view_sharded_phase()
+    sharded_bake_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        lkg_phase(tmp)
+    interactive_phase()
+    validation_phase()
 
     def row(name, replaces, launches, r, held, restir=None, raster=None):
         """One kernel's entry, its times on wave r: also W and the SASS
@@ -1700,6 +2079,8 @@ def main() -> int:
         row("trace_vm", "tauray_tpu/ops/pallas_trace.py:565", l_k5,
             k5["bounce/closest"], k5)]}
     kernels["kernels"][0]["launches_raster_1080p_2_frames"] = l_k1_raster
+    kernels["kernels"][0]["launches_distributed_1080p_2_frames"] = l_k1_dist
+    kernels["kernels"][0]["launches_quilt_5x9"] = l_k1_quilt
     kernels["kernels"][1]["launches_raster_524k_1_frame"] = l_k2_raster
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -10,11 +10,14 @@ Layout:
   scene/     — scene graph, SceneArrays (numpy), DeviceScene (torch)
   ops/       — RNG, sampling, BSDF, lights, shading, cluster tracer, kernel
   csrc/      — CUDA C++ kernel sources, built with nvcc on first use
-  stages/    — path tracer, ReSTIR, raster, shadow maps, post, tonemap
-  renderer/  — the path-tracing, feature, ReSTIR, raster and DSHGI
-               renderers
-  net/       — DSHGI probe streaming
-  app/       — CLI (`python -m tauray_torch`), headless output, bench
+  stages/    — path tracer, ReSTIR, raster, shadow maps, post, tonemap,
+               Looking Glass composition
+  renderer/  — the path-tracing, distributed, feature, ReSTIR, raster and
+               DSHGI renderers
+  parallel/  — devices, distribution strategies, stitch, load balancer
+  net/       — DSHGI probe streaming, the frame/input stream
+  app/       — CLI (`python -m tauray_torch`), headless output, the
+               interactive loop and frame client, bench
 """
 
 import os

@@ -3,7 +3,8 @@ counterpart of the root bench.py (the JAX package's harness) with its
 keys. Prints ONE JSON line.
 
     python -m tauray_torch.app.bench [--cells=headline,sponza_1080p,
-        sponza_1080p_plain,hires,restir_1080p]
+        sponza_1080p_plain,hires,restir_1080p,raster_1080p,dshgi_1080p,
+        distributed_1080p,quilt_5x9]
 
 Cells, all at depth 4 with next-event estimation:
   * headline: proc://sponza?tris=262144 at 256x256, 16 samples per pixel
@@ -23,7 +24,16 @@ Cells, all at depth 4 with next-event estimation:
   * dshgi_1080p: the same scene with an 8x8x8 SH grid over its bounds
     (grid_over) through --preset=ddish-gi (renderer dshgi, depth 4, 512
     samples a probe, 8 samples per pixel: one shaded pass and 8 coverage
-    waves; its 4096^2 maps clamp to 2048^2).
+    waves; its 4096^2 maps clamp to 2048^2);
+  * distributed_1080p: sponza_1080p_plain through the CLI's renderer
+    choice with --fake-devices=4 and shuffled strips: four workloads on
+    the card, stitched on it (renderer/distributed.py);
+  * quilt_5x9: the 45-view light field of scripts/bench_extra.py (44
+    cameras added in a row beside the scene's, quilt_cameras) on
+    proc://sponza?tris=262144 at 256x256, 1 spp, depth 2, timed twice in
+    one run: through the CLI's renderer on one card (`cli`), and
+    view-sharded over [cuda:0] * 4 (`view_sharded`), each with ms per
+    view.
 
 Each cell renders one warm-up frame, then 5 timed frames, each from
 render_device to torch.cuda.synchronize on the host clock (the raster
@@ -73,14 +83,19 @@ SCENE = "proc://sponza?tris=262144"
 SCENE_FOLIAGE = "proc://sponza?tris=262144&foliage=1"
 DEPTH = 4
 FRAMES = 5
-# cell -> (scene, width, height, spp, renderer)
-CELLS = {"headline": (SCENE, 256, 256, 16, "path-tracer"),
-         "sponza_1080p": (SCENE_FOLIAGE, 1920, 1080, 1, "path-tracer"),
-         "sponza_1080p_plain": (SCENE, 1920, 1080, 1, "path-tracer"),
-         "hires": (SCENE, 1024, 1024, 4, "path-tracer"),
-         "restir_1080p": (SCENE, 1920, 1080, 1, "restir"),
-         "raster_1080p": (SCENE, 1920, 1080, 1, "raster"),
-         "dshgi_1080p": (SCENE, 1920, 1080, 8, "ddish-gi")}
+# cell -> (scene, width, height, spp, renderer, further options)
+CELLS = {"headline": (SCENE, 256, 256, 16, "path-tracer", ()),
+         "sponza_1080p": (SCENE_FOLIAGE, 1920, 1080, 1, "path-tracer", ()),
+         "sponza_1080p_plain": (SCENE, 1920, 1080, 1, "path-tracer", ()),
+         "hires": (SCENE, 1024, 1024, 4, "path-tracer", ()),
+         "restir_1080p": (SCENE, 1920, 1080, 1, "restir", ()),
+         "raster_1080p": (SCENE, 1920, 1080, 1, "raster", ()),
+         "dshgi_1080p": (SCENE, 1920, 1080, 8, "ddish-gi", ()),
+         "distributed_1080p": (SCENE, 1920, 1080, 1, "path-tracer", (
+             "--fake-devices=4", "--distribution-strategy=shuffled-strips")),
+         "quilt_5x9": (SCENE, 256, 256, 1, "path-tracer", (
+             "--max-ray-depth=2",))}
+QUILT_VIEWS = 45
 RASTER = ("raster", "ddish-gi")
 
 
@@ -154,23 +169,46 @@ def raster_split():
         rec["draw"] = [f - b for f, b in zip(rec["frame"], bake)]
 
 
+def quilt_cameras(scene, n: int = QUILT_VIEWS):
+    """n - 1 perspective cameras in a row beside the scene's camera, 0.05
+    apart at z = 6 (scripts/bench_extra.py bench_quilt's 5x9 grid)."""
+    from ..scene.camera import Camera
+    from ..scene.transformable import Transformable
+    for k in range(n - 1):
+        ce = scene.add(f"quiltcam{k}")
+        ce.transform = Transformable(position=(0.05 * (k - 22), 0, 6))
+        ce.camera = Camera()
+        ce.camera.perspective(45, 1.0, 0.1, 100.0)
+        ce.camera_enabled = True
+
+
 def make_renderer(scene: str, W: int, H: int, spp: int,
-                  renderer: str = "path-tracer"):
+                  renderer: str = "path-tracer", extra=(), devices=None,
+                  views: int = 1):
     """A renderer on the card; the path tracer with useful-ray counting
     on. renderer "ddish-gi" is --preset=ddish-gi on the scene with an
-    8x8x8 SH grid over its bounds."""
+    8x8x8 SH grid over its bounds. extra: further options (the last
+    --max-ray-depth wins); views > 1: the scene gets quilt_cameras; with
+    devices the path tracer is the distributed one over them."""
     flag = (f"--preset={renderer}" if renderer == "ddish-gi" else
             f"--renderer={renderer}")
     opt = parse_command_line_options([
         flag, f"--width={W}", f"--height={H}"] + (
         [] if renderer == "ddish-gi" else [
             f"--max-ray-depth={DEPTH}", f"--samples-per-pixel={spp}",
-            f"--samples-per-pass={spp}"]) + [
+            f"--samples-per-pass={spp}"]) + list(extra) + [
         "--headless=unused", "--filetype=none", scene])
     s = load_scenes(opt)
     if renderer == "ddish-gi":
         grid_over(s)
-    rr = create_renderer(opt, s, torch.device("cuda"))
+    if views > 1:
+        quilt_cameras(s, views)
+    if devices is not None:
+        from ..renderer.distributed import DistributedPathTracerRenderer
+        rr = DistributedPathTracerRenderer(opt, devices[0],
+                                           devices=devices)
+    else:
+        rr = create_renderer(opt, s, torch.device("cuda"))
     rr.set_scene(s)
     if renderer == "path-tracer":
         rr.cfg = dataclasses.replace(rr.cfg, count_rays=True)
@@ -206,8 +244,9 @@ def time_frames(rr, update: bool = False):
         torch.cuda.max_memory_allocated() / 2**30, traced, launches
 
 
-def run_cell(scene: str, W: int, H: int, spp: int, renderer: str):
-    rr = make_renderer(scene, W, H, spp, renderer)
+def run_cell(scene: str, W: int, H: int, spp: int, renderer: str,
+             extra=(), devices=None, views: int = 1):
+    rr = make_renderer(scene, W, H, spp, renderer, extra, devices, views)
     raster = renderer in RASTER
     with (raster_split() if raster else contextlib.nullcontext()) as split:
         ms, useful, peak, traced, launches = time_frames(rr, update=raster)
@@ -220,7 +259,12 @@ def run_cell(scene: str, W: int, H: int, spp: int, renderer: str):
         ms_per_frame=med, ms_min=min(ms), ms_max=max(ms),
         spread_ms=max(ms) - min(ms), ms_frames=ms,
         waves_per_frame=traced["waves"], launches_per_frame=launches,
-        mrays_s=lanes / med / 1e3, lanes=lanes, peak_mem_gb=peak)
+        mrays_s=lanes / med / 1e3, lanes=lanes, peak_mem_gb=peak,
+        views=len(rr.viewports()))
+    if hasattr(rr, "n_devices"):
+        cell.update(devices=len(rr.devices), workloads=rr.n_devices,
+                    strategy=rr.strategy, view_sharded=rr.view_sharded,
+                    ms_per_view=med / rr.cfg.n_views)
     if renderer == "restir":
         cell["shift"] = rr.opt.restir.shift_mapping_type
     if raster:
@@ -267,6 +311,18 @@ def main(argv=None) -> int:
     result = {"metric": "pt_throughput", "unit": "Mrays/s",
               "device": card()}
     for name in cells:
+        if name == "quilt_5x9":
+            # the CLI's renderer (one card: the single-device path
+            # tracer), then view-sharded over the card named four times
+            cell, rr = run_cell(*CELLS[name], views=QUILT_VIEWS)
+            cell["ms_per_view"] = cell["ms_per_frame"] / cell["views"]
+            del rr
+            torch.cuda.empty_cache()
+            cell = {"cli": cell, "view_sharded": run_cell(
+                *CELLS[name], devices=[torch.device("cuda", 0)] * 4,
+                views=QUILT_VIEWS)[0]}
+            result[name] = cell
+            continue
         cell, rr = run_cell(*CELLS[name])
         if name == "headline":
             from .profile import profile_frame

@@ -2,10 +2,11 @@
 src/tauray.cc); the counterpart of tauray_tpu.app.main with the same
 command-line grammar.
 
-Flow: parse options -> require a CUDA device -> load scenes -> headless
-replay. The renderer runs on one explicit torch.device; the path-tracer,
-direct, whitted, raster, restir, restir-hybrid, dshgi, dshgi-client,
-dshgi-server and feature (AOV) renderers are ported."""
+Flow: parse options -> (frame-client: view a remote stream) -> require a
+CUDA device -> load scenes -> Looking Glass cameras -> headless replay or
+the interactive frame stream. The renderer runs on one explicit
+torch.device; with several cards, --fake-devices or --mesh-shape the path
+tracer spreads over devices (renderer/distributed.py)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from ..scene.environment_map import EnvironmentMap
 from ..scene.scene import Scene
 from ..scene.transformable import Transformable
 from ..tracing import TracingRecord
+from ..validation import check_nan
 from .headless import HeadlessOutput
 
 _FEATURES = ("albedo", "world-normal", "view-normal", "world-pos", "view-pos",
@@ -111,19 +113,21 @@ def set_camera_params(opt: Options, s: Scene):
 
 
 def create_renderer(opt: Options, s: Scene, device):
-    """The renderer for `opt` on one torch device. What is not ported yet
-    (multi-device rendering, the app extras) raises NotImplementedError
-    naming its ROADMAP item."""
+    """The renderer for `opt` on `device`. The path tracer spreads over
+    devices when the device has more than one card, or --fake-devices or
+    --mesh-shape asks for it (tauray_tpu/app/main.py:115-125)."""
     r = opt.renderer
     if r in _FEATURES:
         from ..renderer.feature_renderer import FeatureRenderer
         return FeatureRenderer(opt, device, r)
     if r in ("path-tracer", "direct"):
-        if (opt.fake_devices > 1 or opt.mesh_shape) and \
-                not opt.spatial_reprojection:
-            raise NotImplementedError(
-                "multi-device rendering is not ported yet (ROADMAP Queue 1, "
-                "distribution)")
+        from ..parallel.mesh import make_devices
+        use_dist = len(make_devices("", device)) > 1 or \
+            opt.fake_devices > 1 or bool(opt.mesh_shape)
+        if use_dist and not opt.spatial_reprojection:
+            from ..renderer.distributed import DistributedPathTracerRenderer
+            return DistributedPathTracerRenderer(
+                opt, device, direct_only=(r == "direct"))
         from ..renderer.rt_renderer import PathTracerRenderer
         return PathTracerRenderer(opt, device, direct_only=(r == "direct"))
     if r == "whitted":
@@ -141,8 +145,7 @@ def create_renderer(opt: Options, s: Scene, device):
     if r == "dshgi-server":
         from ..renderer.dshgi_renderer import DSHGIServer
         return DSHGIServer(opt, device)
-    raise NotImplementedError(
-        f"renderer {r!r} is not ported yet (ROADMAP Queue 1, app extras)")
+    raise ValueError(f"Renderer {r} not implemented yet")
 
 
 def generate_cameras(s: Scene, opt: Options) -> List:
@@ -198,15 +201,18 @@ def _finish_frame(img: torch.Tensor, pull: bool):
 
 def replay_viewer(opt: Options, s: Scene, device):
     """Offline/replay render loop (reference: src/tauray.cc:1017-1132).
-    A failing frame ends the run."""
+    A failing frame ends the run. Each view is written to its own file
+    (tauray_tpu counts the camera grid only, so its Looking Glass views
+    all go to one file name)."""
+    generate_cameras(s, opt)
     out = None
     if opt.headless:
-        out = HeadlessOutput(opt, (opt.width, opt.height),
-                             opt.camera_grid.w * opt.camera_grid.h)
+        views = sum(e.camera is not None and e.camera_enabled
+                    for e in s.entities)
+        out = HeadlessOutput(opt, (opt.width, opt.height), views)
         out.skip_nan_check = (opt.renderer in _FEATURES and
                               math.isnan(opt.default_value))
 
-    generate_cameras(s, opt)
     if opt.taa.sequence_length > 0:
         seq = get_camera_jitter_sequence(
             opt.taa.sequence_length, (opt.width, opt.height))
@@ -262,7 +268,9 @@ def replay_viewer(opt: Options, s: Scene, device):
                 rr.update_frame()
             rr.reset_accumulation()
             pull = out is not None and out.filetype != "none"
-            img = _finish_frame(rr.render_device(), pull)
+            img = rr.render_device()
+            check_nan(opt.validation, "frame", img)
+            img = _finish_frame(img, pull)
             tracing.end_frame(rr.get_timing())
             if opt.timing:
                 tracing.print_last_trace()
@@ -300,20 +308,42 @@ def main(argv: Optional[List[str]] = None) -> int:
         opt.camera_grid.y = 0.0
     if opt.timing_output:
         logger.timing.stream = open(opt.timing_output, "w")
-    if opt.validation:
-        raise NotImplementedError("--validation is not ported yet")
-    if not (opt.headless or opt.replay or opt.renderer == "dshgi-server"):
-        raise NotImplementedError(
-            f"display {opt.display!r}: only headless replay is ported "
-            "(ROADMAP Queue 1, app extras)")
+    # --validation: the renderers check each stage's outputs for NaNs
+    # (validation.py), the counterpart of tauray_tpu's jax_debug_nans
+
+    # run-mode selection (reference: src/tauray.cc:1169-1187)
+    if opt.display == "frame-client":
+        from .frame_viewer import frame_client_viewer
+        return frame_client_viewer(opt)
     if not torch.cuda.is_available():
         raise RuntimeError("tauray_torch renders on a CUDA device and none "
                            "is available")
     s = load_scenes(opt)
     if opt.scene_stats:
         TR_LOG("Scene stats:", s.stats())
-    replay_viewer(opt, s, torch.device("cuda"))
+    setup_display(opt, s)
+    run(opt, s, torch.device("cuda"))
     return 0
+
+
+def setup_display(opt: Options, s: Scene):
+    """--display=looking-glass: lkg-params.viewports cameras on an arc
+    replace the scene camera (tauray_tpu/app/main.py:340-345)."""
+    if opt.display == "looking-glass":
+        from ..stages.looking_glass import setup_lkg_cameras
+        base = next((e for e in s.entities
+                     if e.camera is not None and e.camera_enabled), None)
+        if base is not None:
+            setup_lkg_cameras(s, base, opt)
+
+
+def run(opt: Options, s: Scene, device):
+    """Headless replay, or the interactive frame stream for a display."""
+    if opt.headless or opt.replay or opt.renderer == "dshgi-server":
+        replay_viewer(opt, s, device)
+    else:
+        from .interactive import interactive_viewer
+        interactive_viewer(opt, s, device)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ span on the device timeline of each range (sig_sort, phase1, traverse,
 alpha (the re-trace rounds' compaction and alpha tests), shade; for
 --renderer=restir / restir-hybrid gbuffer, restir_di, restir_gi and
 sh_bake, which contain their waves' phase1 and traverse; for
---renderer=raster / dshgi shadow_maps, raster_draw and pcf, the profiled
+--renderer=raster / dshgi shadow_maps, raster_draw and pcf; for
+--fake-devices / --mesh-shape stitch (the gather of the partial frames
+onto the first device and the scatter into the accumulation); the profiled
 frame then starting with update_frame, which rebuilds the maps, as the
 CLI's frames after the first do; a span includes gaps between its
 kernels), device ms of the top kernels by name, and the peak device
@@ -31,7 +33,7 @@ from .main import create_renderer, load_scenes
 
 RANGES = ("sig_sort", "phase1", "traverse", "alpha", "shade", "gbuffer",
           "restir_di", "restir_gi", "sh_bake", "shadow_maps", "raster_draw",
-          "pcf")
+          "pcf", "stitch")
 
 
 def _self_device_ms(evt) -> float:

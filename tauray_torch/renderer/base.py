@@ -100,5 +100,9 @@ class Renderer:
     def reset_accumulation(self, keep_samples: bool = False):
         pass
 
+    def set_device_workloads(self, ratios: List[float]):
+        """Per-device workload ratios from the load balancer
+        (parallel/load_balancer.py); one-device renderers ignore them."""
+
     def get_timing(self):
         return {}

@@ -62,6 +62,9 @@ class DSHGIServer:
     def reset_accumulation(self, keep_samples=False):
         pass
 
+    def set_device_workloads(self, ratios):
+        pass
+
     def get_timing(self):
         return {}
 

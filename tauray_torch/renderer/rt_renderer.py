@@ -21,6 +21,7 @@ from ..ops.lights import NEEWeights
 from ..scene.device import to_camera_uniforms, to_device_scene
 from ..stages.path_tracer import PTConfig, accumulate, pt_trace_pass
 from ..stages.tonemap import tonemap
+from ..validation import check_nan
 from .base import Renderer
 from .post_processing import PostProcessingPipeline
 
@@ -98,7 +99,8 @@ class PathTracerRenderer(Renderer):
             tex_slots=tuple(
                 bool((self.arrays.inst_tex[:, k] >= 0).any())
                 for k in range(4)),
-            tl_textured=bool((self.arrays.tl_tex >= 0).any()))
+            tl_textured=bool((self.arrays.tl_tex >= 0).any()),
+            validate=opt.validation)
         V, H, W = self.cfg.n_views, opt.height, opt.width
         # sparse viewport rendering for light fields: only the viewports in
         # --spatial-reprojection are traced; the rest are reprojected
@@ -242,6 +244,7 @@ class PathTracerRenderer(Renderer):
                                    float(self.samples_per_pass),
                                    float(sample_base +
                                          p * self.samples_per_pass))
+                check_nan(cfg.validate, "accumulation", color)
         self.accum_color = color
         self.samples_accumulated = sample_base + self.samples_per_pixel
         self.last_useful_rays = useful        # device scalar or None
@@ -252,10 +255,13 @@ class PathTracerRenderer(Renderer):
             color = color[self._ray_unorder]
         V, H, W = cfg.n_views, cfg.height, cfg.width
         if not self.use_post:
-            img = color.reshape(V, H, W, 4)
-            return tonemap(img, self.opt.tonemap, self.opt.exposure,
-                           self.opt.gamma)
-        return self._post_process(color, gchunks, cam)
+            img = tonemap(color.reshape(V, H, W, 4), self.opt.tonemap,
+                          self.opt.exposure, self.opt.gamma)
+            check_nan(cfg.validate, "tonemap", img)
+            return img
+        img = self._post_process(color, gchunks, cam)
+        check_nan(cfg.validate, "post processing", img)
+        return img
 
     def _gbuffer_field(self, gchunks, field: str):
         """One first-hit field of the last pass, (AV, H, W, C) in

@@ -7,13 +7,14 @@ project the sampled radiance onto the SH basis (the sh_compact reduction)
 and blend it into the grid over time with `--dshgi-temporal-ratio`
 (reference: src/sh_path_tracer_stage.hh temporal_ratio). Draws nothing
 itself (reference: src/sh_renderer.hh:15-47): restir-hybrid and DSHGI
-read the first grid. The probe-sharded bake over several devices is not ported:
-options that ask for several devices raise."""
+read the first grid. With more than one device (several cards, or an
+explicit list) the probe axis is sharded over them, as tauray_tpu shards it
+over its mesh (sh_renderer.py:133-185)."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ from ..ops import sh as sh_ops
 from ..ops.ggx import modulate_color
 from ..ops.lights import NEEWeights
 from ..ops.sampling import sample_blackman_harris, sample_sphere
+from ..parallel.mesh import make_devices, to_device
 from ..stages.path_tracer import PTConfig, _FirstHit, evaluate_ray
 
 
@@ -102,14 +104,45 @@ class SHRenderer:
     restir-hybrid (reference: src/dshgi_renderer.hh local SH source)."""
 
     def __init__(self, opt, device):
-        if opt.mesh_shape or opt.fake_devices > 1:
-            raise NotImplementedError(
-                "the multi-device SH probe bake is not ported yet (ROADMAP "
-                "Queue 1, distribution)")
         self.opt = opt
         self.device = torch.device(device)
         self.frame = 0
         self._grids = None
+        # the probe-sharded bake's devices: every card (cut by
+        # --mesh-shape) when there is more than one, as tauray_tpu builds
+        # its mesh only when len(jax.devices()) > 1; --fake-devices alone
+        # bakes on one device. Callers may set an explicit list.
+        devs = make_devices(opt.mesh_shape, self.device)
+        self.devices: Optional[List[torch.device]] = \
+            devs if len(devs) > 1 else None
+
+    def _bake_sharded(self, cfg, scene, tracer, coord, u_even, nt, fwd,
+                      w2l_lin, res3, probes, order: int, S: int):
+        """Probe-sharded bake: pad P to a multiple of the device count by
+        repeating probe 0 (its sample rows with coord[:, 0] offset by P),
+        bake each device's contiguous probe slice on its copy of the scene
+        and tracer, concatenate on the first device and cut back to P."""
+        devs = self.devices
+        D = len(devs)
+        Pn = probes.shape[0]
+        pad = (-Pn) % D
+        if pad:
+            probes = torch.cat([probes, probes[:1].expand(pad, 3)])
+            extra = coord[:S * pad].clone()
+            extra[:, 0] += Pn
+            coord = torch.cat([coord, extra])
+            u_even = torch.cat([u_even, u_even[:S * pad]])
+        per = probes.shape[0] // D
+        reps = {d: (to_device(scene, d), to_device(tracer, d))
+                for d in dict.fromkeys(devs)}
+        parts = []
+        for k, d in enumerate(devs):
+            rows = slice(k * per * S, (k + 1) * per * S)
+            parts.append(_bake_grid_impl(
+                cfg, *reps[d], coord[rows].to(d), u_even[rows].to(d),
+                nt.to(d), fwd.to(d), w2l_lin.to(d), res3.to(d),
+                probes[k * per:(k + 1) * per].to(d), order=order, S=S))
+        return torch.cat([p.to(self.device) for p in parts])[:Pn]
 
     def current_grid_data(self) -> Optional[Tuple]:
         """(coef_grid, world_to_local) of the first grid."""
@@ -195,7 +228,9 @@ class SHRenderer:
             def t(x):
                 return torch.from_numpy(
                     np.ascontiguousarray(x, np.float32)).to(dev)
-            coef = _bake_grid_impl(
+            bake = _bake_grid_impl if self.devices is None else \
+                self._bake_sharded
+            coef = bake(
                 cfg, scene, tracer, torch.from_numpy(coord).to(dev),
                 t(u_even), t(nt), t(fwd), t(w2l[:3, :3]), t(res3),
                 t(probes), order=g.order, S=S)             # (P, C, 4)

@@ -39,6 +39,7 @@ from ..ops.shading import (get_camera_projection, get_screen_camera_ray,
                            interpolate_vertex, rgb_to_luminance,
                            sample_material, sample_texture_quad)
 from ..ops.trace_utils import per_ray, row_alpha
+from ..validation import check_nan
 from ..scene.device import (IP_HASALPHA, IP_LIGHTBASE, TL_EMISSION, TL_POS,
                             TL_TEX, TL_TEXBLOCK, TL_TEXSIZE, TL_UV, TP_IP,
                             TP_POS, CameraUniforms, DeviceScene)
@@ -85,6 +86,8 @@ class PTConfig:
     # ANY material; unbound slots skip their texture gathers
     tex_slots: Tuple[bool, bool, bool, bool] = (True, True, True, True)
     tl_textured: bool = True           # any emissive tri with a texture
+    # --validation: check each stage's outputs for NaNs (validation.py)
+    validate: bool = False
 
 
 class PTOutput(NamedTuple):
@@ -632,6 +635,7 @@ def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
         _WAVE_DUMP.append(("bounce", pos, view, t_min, t_max))
     hit = host_trace_alpha(scene, tracer, pos, view, t_min, t_max, alpha_u,
                            cfg.has_alpha_materials, sort=not is_first)
+    check_nan(cfg.validate, f"bounce {b_idx} trace", *hit)
     useful = (t_max > 0.0).sum() if cfg.count_rays else None
     if cfg.nee.any and b_idx < max_bounces - 1:
         slot = -1 if sobol_bounce < 0 else sobol_bounce * 2
@@ -639,6 +643,7 @@ def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
             sh_o, sh_d, sh_len, nee_alpha_u = _nee_prep(
                 cfg, scene, seed, alpha_seed, hit, pos, view, coord, slot)
         sh_len = torch.where(alive & (hit.tri_id >= 0), sh_len, 0.0)
+        check_nan(cfg.validate, f"bounce {b_idx} NEE", sh_o, sh_d, sh_len)
         if _WAVE_DUMP is not None:
             _WAVE_DUMP.append(("shadow", sh_o, sh_d, cfg.min_ray_dist,
                                sh_len))
@@ -654,6 +659,7 @@ def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
         state, first = _shade_bounce(cfg, scene, state, hit, vis, b_idx,
                                      is_first, max_bounces, coord,
                                      sobol_bounce)
+    check_nan(cfg.validate, f"bounce {b_idx} shade", *state)
     return state, first, useful
 
 
@@ -779,11 +785,13 @@ def pt_trace_pass(cfg: PTConfig, scene: DeviceScene, tracer,
                          device=previous_samples.device).repeat(R)
 
     seed, origin, d, coord = _begin_sample(cfg, cam, pix_b, vp_b, prev_b)
+    check_nan(cfg.validate, "camera rays", origin, d)
     diffuse, refl, fh, useful = evaluate_ray(cfg, scene, tracer, seed,
                                              origin, d, coord)
     color, screen_motion = _finalize_sample(
         cfg, prev_cam, vp_b, diffuse, refl, fh["albedo"], fh["metallic"],
         fh["emission"], fh["vertex_prev_pos"])
+    check_nan(cfg.validate, "sample colour", color)
 
     if S == 1:
         sum_color, sum_diffuse, sum_reflection = color, diffuse, refl

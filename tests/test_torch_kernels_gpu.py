@@ -590,3 +590,36 @@ def test_dshgi_on_card_matches_cpu(cuda):
     assert float((diff <= 1e-3 * scale).mean()) >= 0.999
     shares = _gbuf_share(card.last_gbuf, cpu.last_gbuf)
     assert min(shares.values()) >= 0.99, shares
+
+
+def test_distributed_on_card_matches_one_device(cuda):
+    """DistributedPathTracerRenderer over the card named twice, 3
+    workloads each (shuffled strips), and the view-sharded path over a
+    4x2 camera grid: every workload's waves through K1, each image equal
+    to the one-device render within 1e-5 (hits are per ray)."""
+    from tauray_torch.app.main import generate_cameras, load_scenes
+    from tauray_torch.ops.trace_kernel import LAUNCHES
+    from tauray_torch.options import parse_command_line_options
+    from tauray_torch.renderer.distributed import \
+        DistributedPathTracerRenderer
+    from tauray_torch.renderer.rt_renderer import PathTracerRenderer
+    for extra, views in ((["--fake-devices=3"], False),
+                         (["--camera-grid=4,2,0.05,0.05"], True)):
+        opt = parse_command_line_options([
+            "--width=64", "--height=48", "--max-ray-depth=2",
+            "--tonemap=linear"] + extra + [
+            "--headless=unused", "--filetype=none",
+            "proc://sponza?tris=8192"])
+        imgs = []
+        for devices in ([cuda] * 2, None):
+            s = load_scenes(opt)
+            generate_cameras(s, opt)
+            rr = PathTracerRenderer(opt, cuda) if devices is None else \
+                DistributedPathTracerRenderer(opt, cuda, devices=devices)
+            rr.set_scene(s)
+            before = LAUNCHES["trace_vm3"]
+            imgs.append(rr.render())
+            assert LAUNCHES["trace_vm3"] > before
+            if devices is not None:
+                assert rr.view_sharded == views
+        np.testing.assert_allclose(imgs[0], imgs[1], rtol=0, atol=1e-5)
