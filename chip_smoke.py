@@ -44,6 +44,8 @@ non-zero:
   8. the main path on the foliage scene at 1920x1080: (a) by default K1
      launched and the alpha rounds skip transparent hits; (b) under
      TAURAY_VM_KERNEL=v2 K4 launched and K1 never, the image held to (a)'s;
+     both print each wave's pending rays at the start of each alpha round
+     and after the last (path_tracer.ALPHA_PENDING);
   9. --sampler=sobol-owen on the foliage scene at 256x256, 4 spp;
   10. `python -m tauray_torch.app.wave_stats` at its default size: K5
      launched, one line per wave;
@@ -154,7 +156,15 @@ non-zero:
            which takes 3 frames of the right size, not all zero, then
            sends a key, a mouse move and quit;
        18c. --validation passes a clean frame and, with a NaN injected
-           into the shading's input, raises naming bounce 0's shading.
+           into the shading's input, raises naming bounce 0's shading;
+  19. the native host library (tauray_torch/native, built with g++): a
+     seeded 1024x512 sky written as a half RGB PIZ EXR with the port's
+     writer (the headless default; timed), read back through the native
+     Huffman decoder and under TAURAY_NATIVE=0 (timed, bit-equal to each
+     other and to the sky in half), then one frame at 1920x1080 through
+     the CLI without and with --envmap=<that file>: the image checked,
+     more than a tenth of its pixels off the frame without the map by
+     more than 1e-3, the map's 16 chunks decoded natively, K1 launched.
 The last lines are the card, the kernel table (each row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
 the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
@@ -171,6 +181,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = "proc://sponza?tris=262144"
@@ -504,9 +515,11 @@ def kernel_check_mt(tracer, waves, kind: str, reps: int = 5, traced=None,
 
 @contextlib.contextmanager
 def alpha_rays():
-    """Counts the rounds of the path tracer's alpha re-trace program and
-    the rays they skip past a transparent hit (summed on the card, read
-    once at the end): yields a dict filled on exit."""
+    """Counts the rounds of the path tracer's alpha re-trace program, the
+    rays they skip past a transparent hit, and each wave's pending rays at
+    the start of each round it runs and after the last
+    (path_tracer.ALPHA_PENDING; summed on the card, read once at the end):
+    yields a dict filled on exit."""
     import torch
     from tauray_torch.stages import path_tracer as pt
     impl = pt._alpha_skip_impl
@@ -518,12 +531,15 @@ def alpha_rays():
         acc.append(out[0].sum())
         return out
     pt._alpha_skip_impl = counting
+    pt.ALPHA_PENDING = []
     try:
         yield counts
     finally:
         pt._alpha_skip_impl = impl
+        pending, pt.ALPHA_PENDING = pt.ALPHA_PENDING, None
         counts.update(rounds=len(acc),
-                      skipped=int(torch.stack(acc).sum()) if acc else 0)
+                      skipped=int(torch.stack(acc).sum()) if acc else 0,
+                      pending=[[r] + p.tolist() for r, p in pending])
 
 
 def run_main(args, tmp, tag, scene=SCENE, every=False):
@@ -584,7 +600,6 @@ HD = ["--renderer=path-tracer", f"--width={HD_W}", f"--height={HD_H}",
 
 def sync_ms(fn):
     """(fn's result, host ms of fn to a device synchronize)."""
-    import time
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1702,7 +1717,6 @@ def interactive_phase(W=256, H=256, dev=None):
     """Phase 18b: the interactive viewer streaming to a FrameClient on
     loopback, which takes 3 frames, sends a key, a mouse move and quit."""
     import threading
-    import time
     import numpy as np
     import torch
     from tauray_torch.app.interactive import interactive_viewer
@@ -1784,6 +1798,64 @@ def validation_phase(W=256, H=256, dev=None):
     print("phase 18c " + json.dumps(res), flush=True)
     if msg is None or "bounce 0 shade" not in msg:
         raise RuntimeError(f"phase 18c: {res}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the native host library (tauray_torch/native) on a scene load
+# ---------------------------------------------------------------------------
+
+ENVMAP_W, ENVMAP_H = 1024, 512
+
+
+def envmap_phase(tmp):
+    """Phase 19: a seeded 1024x512 sky (app/exr_io.sky) written as a half
+    RGB PIZ EXR with the port's writer (the headless writer's default
+    codec; timed), read back through the native Huffman decoder and under
+    TAURAY_NATIVE=0 (each timed; both bit-equal to each other and to the
+    sky rounded to half); then one frame of SCENE at 1920x1080, 1 spp,
+    depth 4 through the CLI, first without the map and then with
+    --envmap=<that file>, the same frame and seed: the image checked, the
+    map's 16 chunks decoded natively, K1 launched, and the map's light
+    seen. A map read and then ignored would leave the two frames equal;
+    the check asks for more than a tenth of the pixels off by more than
+    1e-3 relative, the share by which phase 6 lets two tracers differ."""
+    import numpy as np
+    from tauray_torch import native
+    from tauray_torch.app.exr_io import piz_roundtrip, sky
+    path = os.path.join(tmp, "sky.exr")
+    res = piz_roundtrip(path, sky(ENVMAP_W, ENVMAP_H, seed=19))
+    print("phase 19 envmap " + json.dumps(res), flush=True)
+    args = [a for a in HD if a != "--frames=2"] + ["--frames=1"]
+    _, bare, _, _ = main_path(tmp, "noenv", args)
+    bare = np.asarray(bare)[..., :3]
+    decode = native.huf_decode
+    calls = []
+
+    def counting(*a):
+        calls.append(1)
+        return decode(*a)
+    native.huf_decode = counting
+    try:
+        t0 = time.perf_counter()
+        ms, img, launches, peak = main_path(
+            tmp, "env", args + [f"--envmap={path}"])
+        cli_s = time.perf_counter() - t0
+    finally:
+        native.huf_decode = decode
+    mean = check_image(img, HD_W, HD_H, "phase 19")
+    rgb = np.asarray(img)[..., :3]
+    rel = np.abs(rgb - bare) / np.maximum(np.abs(bare), 1e-6)
+    out = dict(size=f"{HD_W}x{HD_H}", spp=1, depth=4, scene=SCENE,
+               envmap=f"{ENVMAP_W}x{ENVMAP_H} piz half", frame_ms=ms,
+               cli_s=cli_s, native_decodes=len(calls), launches=launches,
+               peak_mem_gb=peak, image_mean=mean,
+               no_envmap_mean=float(bare.mean()),
+               pixels_off_no_envmap=float((rel.max(-1) > 1e-3).mean()))
+    print("phase 19 render " + json.dumps(out), flush=True)
+    # a PIZ chunk holds 32 scanlines
+    if len(calls) != ENVMAP_H // 32 or launches["trace_vm3"] <= 0 or \
+            out["pixels_off_no_envmap"] <= 0.1:
+        raise RuntimeError(f"phase 19: {out}")
 
 
 def main() -> int:
@@ -1951,7 +2023,10 @@ def main() -> int:
                        mrays_s=LANES_1080P / (ms8[-1] * 1e3),
                        launches=launches8, peak_mem_gb=peak8,
                        image_mean=mean8, alpha_rounds=alpha["rounds"],
-                       alpha_rays_skipped=alpha["skipped"])
+                       alpha_rays_skipped=alpha["skipped"],
+                       # per wave: its rays, then its pending rays at the
+                       # start of each round it ran and after the last
+                       alpha_pending=alpha["pending"])
             if tag == "8b":
                 ref_img, ref_mean, _ = fol["8a"]
                 rel = np.abs(img8[..., :3] - ref_img) / np.maximum(
@@ -2036,6 +2111,8 @@ def main() -> int:
         lkg_phase(tmp)
     interactive_phase()
     validation_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        envmap_phase(tmp)
 
     def row(name, replaces, launches, r, held, restir=None, raster=None):
         """One kernel's entry, its times on wave r: also W and the SASS

@@ -10,6 +10,8 @@ Layout:
   scene/     — scene graph, SceneArrays (numpy), DeviceScene (torch)
   ops/       — RNG, sampling, BSDF, lights, shading, cluster tracer, kernel
   csrc/      — CUDA C++ kernel sources, built with nvcc on first use
+  native/    — host C++ (EXR PIZ Huffman decode, Morton order), built
+               with g++ on first use
   stages/    — path tracer, ReSTIR, raster, shadow maps, post, tonemap,
                Looking Glass composition
   renderer/  — the path-tracing, distributed, feature, ReSTIR, raster and

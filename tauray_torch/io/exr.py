@@ -1,4 +1,4 @@
-# Copied from tauray_tpu/io/exr.py; only import paths differ, and PIZ decoding always takes the pure-Python Huffman path.
+# Copied from tauray_tpu/io/exr.py; only import paths differ: PIZ decoding calls the port's native library (tauray_torch/native), and the Python Huffman decoder only under TAURAY_NATIVE=0.
 """OpenEXR 2.0 scanline codec in pure Python/numpy.
 
 The reference uses tinyexr to write frames with ZIP/ZIPS/RLE/PIZ/NONE
@@ -598,7 +598,8 @@ def _piz_uncompress(data: bytes, nx: int, ny: int, channels) -> bytes:
 
     him, hiM, tlen, nbits, _ = struct.unpack_from("<IIIII", huf_data, 0)
     hcode, consumed = _huf_unpack_enc_table(huf_data[20:20 + tlen], him, hiM)
-    decoded = None  # no native host library in this package
+    from ..native import huf_decode as _native_huf
+    decoded = _native_huf(huf_data[20 + tlen:], nbits, hcode, hiM, total)
     if decoded is None:
         dec = _huf_build_dec_table(hcode, him, hiM)
         decoded = _huf_decode(huf_data[20 + tlen:], nbits, hcode, dec,

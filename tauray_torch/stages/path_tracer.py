@@ -515,6 +515,10 @@ def _advance_alpha(alpha_seed):
 
 # stochastic-alpha re-trace rounds of the path tracer's waves
 ALPHA_ROUNDS = 6
+# None, or a list to which each alpha-tested wave appends (its rays, its
+# pending rays at the start of each round and after the last, as one
+# device tensor); read by chip_smoke phase 8
+ALPHA_PENDING = None
 
 
 def _as_i32(x):
@@ -543,9 +547,8 @@ def _trace_alpha_program(scene: DeviceScene, tracer, o, d, t_min, t_max,
     flagged again. The per-round state moves as one int32 row per ray
     (floats as their bits), so ids never pass through a float.
 
-    Rounds stop early, with one host read per round, once nothing is
-    pending: a round with nothing pending changes nothing, and skipping it
-    saves its sort over the wave and its re-trace."""
+    Every round runs, with no host read, as tauray_tpu's device loop
+    reads none: a round with nothing pending changes nothing."""
     R = o.shape[0]
     t_min, t_max = per_ray(t_min, o), per_ray(t_max, o)
     if not has_alpha:
@@ -562,9 +565,10 @@ def _trace_alpha_program(scene: DeviceScene, tracer, o, d, t_min, t_max,
     cur = torch.stack([_as_i32(hit.t), _as_i32(hit.u), _as_i32(hit.v),
                        _as_i32(t_min), hit.tri_id,
                        pending.to(torch.int32)], dim=1)
+    counts = [] if ALPHA_PENDING is not None else None
     for _ in range(rounds):
-        if not bool(pending.any()):
-            break
+        if counts is not None:
+            counts.append(pending.sum())
         with record_function("alpha"):
             idx = torch.argsort((~pending).to(torch.int32),
                                 stable=True)[:cap]
@@ -591,6 +595,9 @@ def _trace_alpha_program(scene: DeviceScene, tracer, o, d, t_min, t_max,
                 (skip_s & reflag).to(torch.int32)], dim=1)
             cur[idx] = out
             pending = cur[:, 5] > 0
+    if counts is not None:
+        counts.append(pending.sum())
+        ALPHA_PENDING.append((R, torch.stack(counts)))
     return Hit(_as_f32(cur[:, 0]), cur[:, 4].contiguous(),
                _as_f32(cur[:, 1]), _as_f32(cur[:, 2]))
 

@@ -7,7 +7,8 @@ tauray_tpu's, on the CPU.
     t * (1 + 1e-5) + 1e-6 into one FMA);
   * the compacted re-trace rounds (_trace_alpha_program) on a wave with
     more than 8,192 pending rays, so that rounds service a capped sub-wave
-    and leave the rest pending;
+    and leave the rest pending; its pending rays per round (ALPHA_PENDING),
+    and rounds run once nothing is pending changing nothing, bit for bit;
   * 16x16 foliage images under the flat default (K1), flat
     TAURAY_VM_KERNEL=v2 (K4) and per-model (K3) tracers against
     tauray_tpu's renderer (its XLA traversal on the CPU), with the bar of
@@ -247,6 +248,44 @@ def test_trace_alpha_program_past_the_cap(quads, any_hit):
     np.testing.assert_allclose(h.t.numpy()[h.tri_id.numpy() >= 0],
                                np.asarray(jh.t)[h.tri_id.numpy() >= 0],
                                rtol=T_RTOL, atol=T_ATOL)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_alpha_pending_per_round(quads, monkeypatch, any_hit):
+    """_trace_alpha_program runs every round with no host read. On the
+    capped wave of test_trace_alpha_program_past_the_cap with 16 rounds:
+    ALPHA_PENDING holds the wave's pending rays at the start of each
+    round and after the last, falling to 0 within the rounds; the rounds
+    run after that change nothing, so the hits equal, bit for bit, those
+    of a run that stops at the first round with nothing pending."""
+    f = quads
+    R = f["o"].shape[0]
+    cut = torch.from_numpy(np.random.default_rng(8).random(R).astype(
+        np.float32))
+    tmax = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.5, 12, R).astype(np.float32)) if any_hit else float("inf")
+
+    def trace(rounds):
+        monkeypatch.setattr(tpt, "ALPHA_PENDING", [])
+        hit = tpt._trace_alpha_program(
+            f["tscene"], f["rr"].bvh, torch.from_numpy(f["o"]),
+            torch.from_numpy(f["d"]), 1e-4, tmax, cut, True,
+            any_hit=any_hit, rounds=rounds, sort=True)
+        [(rays, c)] = tpt.ALPHA_PENDING
+        assert rays == R
+        return hit, c.tolist()
+
+    hit, run = trace(16)
+    assert len(run) == 17 and run[0] > 8192 and run[-1] == 0
+    assert all(a >= b for a, b in zip(run, run[1:]))
+    n = run.index(0)
+    assert 1 < n < 16
+    short, run_n = trace(n)
+    assert run_n == run[:n + 1]
+    for a, b in zip(hit, short):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
 
 
 # tauray_tpu's images by (scene, options): the flat foliage image serves
