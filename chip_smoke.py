@@ -7,9 +7,10 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> error;
   2. build the traversal kernels (csrc/trace_tiles.cu, every instance of
-     K1-K5; one nvcc per source, started together) and print what ptxas
-     reports, and the SASS of each instance's inner test loop (cuobjdump);
-     any spill or shared load narrower than 16 bytes in a test loop fails;
+     K1-K5) and the K1 labs (csrc/k1_lab.cu; one nvcc per source, started
+     together) and print what ptxas reports, and the SASS of each K1-K5
+     instance's inner test loop (cuobjdump); any spill or shared load
+     narrower than 16 bytes in a test loop of trace_tiles fails;
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
@@ -164,12 +165,25 @@ non-zero:
      other and to the sky in half), then one frame at 1920x1080 through
      the CLI without and with --envmap=<that file>: the image checked,
      more than a tenth of its pixels off the frame without the map by
-     more than 1e-3, the map's 16 chunks decoded natively, K1 launched.
-The last lines are the card, the kernel table (each row also with W, the
+     more than 1e-3, the map's 16 chunks decoded natively, K1 launched;
+  20. the K1 labs (tauray_torch/lab, the counterparts of
+     scripts/kernel_lab8-11.py) through their entry points' run() at the
+     scripts' sizes, every mode timed (CUDA events) with its bound, each
+     lab's launches counted over that run alone: L8 (2^20 rays, modes
+     0-3), L9 (2^20 rays on phase 3's Sponza table, 5 modes at 1, 2 and 4
+     steps a tile), L10 (phase 3's sorted 2^18- and 2^20-ray bounce
+     waves, 4 modes), L11 (4,096 tiles x 8 steps, vpu and mxu); then each
+     mode held to its plain version on the same inputs, bit for bit (L9
+     and L10 on 32,768 rays of each input), L11 mxu tie-aware (t within
+     1e-5 of max(1, |t|), or on at most 1e-4 of the rays, ill-conditioned,
+     within the TF32 split's error bound of t in FP64; a differing id only
+     at a tie; kernel_lab11.mxu_agreement), and L10 full to K1 (trace_vm3)
+     on both waves, bit for bit.
+The last lines are the card, the kernel table (each K row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
 the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
-times; K1 with its launches on 17a's and 17c's paths), and
-{"ok": true, "device": {...}}.
+times; K1 with its launches on 17a's and 17c's paths; each lab row with
+its modes), and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -1858,6 +1872,171 @@ def envmap_phase(tmp):
         raise RuntimeError(f"phase 19: {out}")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 20: the K1 labs (tauray_torch/lab, csrc/k1_lab.cu)
+# ---------------------------------------------------------------------------
+
+# tiles of a plain version's hold where its full size would take more than
+# a few seconds: 32,768 rays
+LAB_SLICE_TILES = 1024
+# each lab's TPU kernel: the script's pallas_call line
+LAB_SITES = {"lab8": "scripts/kernel_lab8.py:105",
+             "lab9": "scripts/kernel_lab9.py:189",
+             "lab10": "scripts/kernel_lab10.py:193",
+             "lab11": "scripts/kernel_lab11.py:139"}
+# the mode whose times stand at the top of each lab's kernels-line row
+LAB_HEADLINE = {"lab8": "mode3/count16", "lab9": "full/s4",
+                "lab10": "full/bounce_512", "lab11": "mxu"}
+
+
+def _mid_tiles(n_tiles: int, n: int = LAB_SLICE_TILES) -> slice:
+    """n tiles from the middle of a wave, whole groups of 32."""
+    if n_tiles <= n:
+        return slice(0, n_tiles)
+    a = (n_tiles - n) // 2 // 32 * 32
+    return slice(a, a + n)
+
+
+def lab_phase(dev, tracer, bounce):
+    """Phase 20: the four K1 labs through their entry points' run() at the
+    scripts' sizes (L9 on tracer's table; L10 on bounce, phase 3's sorted
+    2^18- and 2^20-ray waves of tracer's scene), every mode timed; the
+    launches counted over that run alone. Then each mode held to its plain
+    version on the same inputs, bit for bit (L9 and L10 on LAB_SLICE_TILES
+    tiles of each input), L11 mxu by kernel_lab11.mxu_agreement, and L10
+    full to K1 (trace_vm3) on both whole waves. Returns the kernels line's
+    rows."""
+    import torch
+    from tauray_torch.lab import kernel_lab8 as l8
+    from tauray_torch.lab import kernel_lab9 as l9
+    from tauray_torch.lab import kernel_lab10 as l10
+    from tauray_torch.lab import kernel_lab11 as l11
+    from tauray_torch.lab import lab_kernel
+    from tauray_torch.ops.trace_kernel import trace_tiles_vm3
+    t0 = time.perf_counter()
+    lab_kernel.reset_launch_counts()
+    in8, res8 = l8.run(dev)
+    in9, res9 = l9.run(dev, tracer=tracer)
+    _, args10, res10 = l10.run(dev, waves=(tracer, bounce))
+    in11, res11 = l11.run(dev)
+    torch.cuda.synchronize()
+    launches = dict(lab_kernel.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    print("phase 20 launches " + json.dumps(launches), flush=True)
+    if any(v <= 0 for v in launches.values()):
+        raise RuntimeError(f"phase 20: a lab never launched: {launches}")
+    failures, modes = [], {}
+
+    def hold(tag, out, plain):
+        """(plain ms, max |t - t_plain|): plain() against the kernel's
+        out, t and id bits alike."""
+        ref, ms = timed(plain)
+        off = int((out.view(torch.int32) != ref.view(torch.int32)).any(
+            -1).sum())
+        if off:
+            failures.append(f"{tag}: {off} rays depart from the plain "
+                            f"version")
+        return ms, float((out[..., 0] - ref[..., 0]).abs().max())
+
+    def emit(lab, key, r, plain_ms, err, **extra):
+        e = dict(ms=r["ms"], min_ms=r["min_ms"], plain_ms=plain_ms,
+                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                 max_abs_err=err, **extra)
+        modes.setdefault(lab, {})[key] = e
+        print(f"phase 20 {lab} {key} " + json.dumps(e), flush=True)
+
+    for r in res8:
+        key = f"mode{r['mode']}/count{r['count']}"
+        ms, err = hold(f"lab8 {key}", r["out"], lambda: l8.lab8_reference(
+            r["counts"], in8["heads"], in8["o3"], in8["d3"], in8["mm2"],
+            r["mode"]))
+        emit("lab8", key, r, ms, err, us_per_tile=r["us_per_tile"],
+             plain_rays=r["out"].shape[0] * 32)
+    sl = slice(0, LAB_SLICE_TILES)
+    for r in res9:
+        key = f"{r['mode']}/s{r['count'] // 8}"
+        stats = {}
+        ms, err = hold(f"lab9 {key}", r["out"][sl], lambda: l9.lab9_reference(
+            r["counts"][sl], in9["heads"][sl], in9["o3"][sl], in9["d3"][sl],
+            in9["mm2"][sl], in9["tris12"], r["mode"], stats))
+        extra = {}
+        if r["mode"] == "exit":
+            extra = dict(plain_steps=stats["steps"],
+                         tiles_that_could_exit=l9.lab9_exits(
+                             r["out"], in9["n_clusters"]))
+        emit("lab9", key, r, ms, err, us_per_tile=r["us_per_tile"],
+             gtests_s=r["gtests_s"], hits=r["hits"],
+             plain_rays=r["out"][sl].shape[0] * 32, **extra)
+    by = {(r["mode"], r["count"]): r["out"] for r in res9}
+    nocat_same = all(torch.equal(by["full", c].view(torch.int32),
+                                 by["nocat", c].view(torch.int32))
+                     for c in l9.COUNTS)
+    for r in res10:
+        key = f"{r['mode']}/{r['wave']}"
+        counts, keys, r3, idmask = args10[r["wave"]]
+        ts = _mid_tiles(counts.shape[0])
+        ms, err = hold(f"lab10 {key}", r["out"][ts],
+                       lambda: l10.lab10_reference(
+                           counts[ts], keys[ts], r3[ts], tracer.tris12,
+                           r["mode"], idmask))
+        extra = {}
+        if r["mode"] == "full":
+            t, tid = trace_tiles_vm3(counts, keys, r3, tracer.tris12)
+            ids = r["out"][..., 1].reshape(-1).view(torch.int32)
+            t_lab = torch.where(ids < 0, float("inf"),
+                                r["out"][..., 0].reshape(-1))
+            extra["equals_trace_vm3"] = bool(
+                torch.equal(ids, tid) and
+                torch.equal(t_lab.view(torch.int32), t.view(torch.int32)))
+            if not extra["equals_trace_vm3"]:
+                failures.append(f"lab10 {key}: departs from trace_vm3")
+        emit("lab10", key, r, ms, err, rays=r["rays"],
+             us_per_tile=r["us_per_tile"], gtests_s=r["gtests_s"],
+             tiles_over_heads=r["tiles_over_heads"],
+             plain_rays=(ts.stop - ts.start) * 32, **extra)
+    for r in res11:
+        tris = in11["tris12"] if r["mode"] == "vpu" else in11["m"]
+
+        def plain():
+            return l11.lab11_reference(in11["steps"], in11["rays"], tris,
+                                       r["mode"])
+        extra = {}
+        if r["mode"] == "vpu":
+            ms, err = hold("lab11 vpu", r["out"], plain)
+        else:
+            ref, ms = timed(plain)
+            extra = l11.mxu_agreement(r["out"], ref, in11["rays"],
+                                      in11["m"])
+            err = float((r["out"][..., 0] - ref[..., 0]).abs().max())
+            if not extra["ok"]:
+                failures.append(f"lab11 mxu: {extra}")
+        emit("lab11", r["mode"], r, ms, err, us_per_step=r["us_per_step"],
+             gtests_s=r["gtests_s"], plain_rays=r["out"].shape[0] * 32,
+             **extra)
+    print("phase 20 " + json.dumps(dict(
+        run_s=run_s, seconds=time.perf_counter() - t0,
+        lab9_full_equals_nocat=nocat_same)), flush=True)
+    if failures:
+        raise RuntimeError("phase 20: " + "; ".join(failures))
+    rows = []
+    for lab, ms in modes.items():
+        head = ms[LAB_HEADLINE[lab]]
+        rows.append({
+            "name": lab, "route": "cuda",
+            "source": "tauray_torch/csrc/k1_lab.cu",
+            "replaces": LAB_SITES[lab], "launches": launches[lab],
+            "max_abs_err": max(m["max_abs_err"] for m in ms.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            # no single PyTorch call computes any lab's function
+            "library_ms": None, "mode": LAB_HEADLINE[lab],
+            "modes": {k: {f: m[f] for f in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")}
+                      for k, m in ms.items()}})
+    return rows
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -1878,7 +2057,8 @@ def main() -> int:
     for name, info in sorted(trace_kernel.BUILD_INFO.items()):
         print(f"phase 2 build {name}: {info['seconds']:.2f} s; " +
               " | ".join(ptxas_lines(str(info["log"]))), flush=True)
-        sass.update(sass_loops(str(info["path"])))
+        if name == "trace_tiles":     # K1-K5; k1_lab is phase 20's
+            sass.update(sass_loops(str(info["path"])))
     for fn, st in sorted(sass.items()):
         print(f"phase 2 sass {fn}: " + json.dumps(st), flush=True)
     if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
@@ -1899,9 +2079,12 @@ def main() -> int:
 
     tracer, waves = kernel_waves(dev)
     k1 = kernel_check(tracer, waves)
+    # phase 20's L9 table and L10 waves
+    lab_tracer, lab_bounce = tracer, {"bounce_512": waves["bounce"]}
     del tracer, waves
     tracer, waves = kernel_waves(dev, size=1024)
     k1.update(kernel_check(tracer, {"bounce_2^20": waves["bounce"]}))
+    lab_bounce["bounce_1024"] = waves["bounce"]
     del tracer, waves
     ties = tie_stack(dev)
     tie_wave = {"ties": torch.from_numpy(tie_rays(8192)).to(dev)}
@@ -2113,6 +2296,8 @@ def main() -> int:
     validation_phase()
     with tempfile.TemporaryDirectory() as tmp:
         envmap_phase(tmp)
+    lab_rows = lab_phase(dev, lab_tracer, lab_bounce)
+    del lab_tracer, lab_bounce
 
     def row(name, replaces, launches, r, held, restir=None, raster=None):
         """One kernel's entry, its times on wave r: also W and the SASS
@@ -2159,6 +2344,7 @@ def main() -> int:
     kernels["kernels"][0]["launches_distributed_1080p_2_frames"] = l_k1_dist
     kernels["kernels"][0]["launches_quilt_5x9"] = l_k1_quilt
     kernels["kernels"][1]["launches_raster_524k_1_frame"] = l_k2_raster
+    kernels["kernels"] += lab_rows
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

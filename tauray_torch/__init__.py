@@ -20,6 +20,8 @@ Layout:
   net/       — DSHGI probe streaming, the frame/input stream
   app/       — CLI (`python -m tauray_torch`), headless output, the
                interactive loop and frame client, bench
+  lab/       — the K1 labs: the TPU lab scripts' kernels that take K1
+               apart (csrc/k1_lab.cu), with their entry points
 """
 
 import os

@@ -3,8 +3,8 @@ counterpart of the root bench.py (the JAX package's harness) with its
 keys. Prints ONE JSON line.
 
     python -m tauray_torch.app.bench [--cells=headline,sponza_1080p,
-        sponza_1080p_plain,hires,restir_1080p,raster_1080p,dshgi_1080p,
-        distributed_1080p,quilt_5x9]
+        sponza_1080p_plain,hires,restir_1080p,raster_1080p,
+        raster_foliage_1080p,dshgi_1080p,distributed_1080p,quilt_5x9]
 
 Cells, all at depth 4 with next-event estimation:
   * headline: proc://sponza?tris=262144 at 256x256, 16 samples per pixel
@@ -21,6 +21,9 @@ Cells, all at depth 4 with next-event estimation:
   * raster_1080p: proc://sponza?tris=262144 at 1920x1080 through
     --renderer=raster at its defaults (2048^2 shadow maps, 4 cascades,
     --pcf=64, --pcss=32, 1 sample per pixel);
+  * raster_foliage_1080p: raster_1080p's options on
+    proc://sponza?tris=262144&foliage=1: every map and camera wave
+    through trace_alpha, never the path tracer's alpha rounds;
   * dshgi_1080p: the same scene with an 8x8x8 SH grid over its bounds
     (grid_over) through --preset=ddish-gi (renderer dshgi, depth 4, 512
     samples a probe, 8 samples per pixel: one shaded pass and 8 coverage
@@ -90,6 +93,8 @@ CELLS = {"headline": (SCENE, 256, 256, 16, "path-tracer", ()),
          "hires": (SCENE, 1024, 1024, 4, "path-tracer", ()),
          "restir_1080p": (SCENE, 1920, 1080, 1, "restir", ()),
          "raster_1080p": (SCENE, 1920, 1080, 1, "raster", ()),
+         "raster_foliage_1080p": (SCENE_FOLIAGE, 1920, 1080, 1, "raster",
+                                  ()),
          "dshgi_1080p": (SCENE, 1920, 1080, 8, "ddish-gi", ()),
          "distributed_1080p": (SCENE, 1920, 1080, 1, "path-tracer", (
              "--fake-devices=4", "--distribution-strategy=shuffled-strips")),

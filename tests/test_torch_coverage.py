@@ -4,10 +4,16 @@ port's options with the same kind, default and fields.
 
 The one module without a namesake is ops/pallas_trace.py, whose Pallas
 kernels are ops/trace_kernel.py's wrappers over csrc/trace_tiles.cu. A
-module added to tauray_tpu without a counterpart fails here."""
+module added to tauray_tpu without a counterpart fails here.
+
+Every pl.pallas_call site of the repo (tauray_tpu/ and the TPU lab
+scripts) is accounted for: ported, with the source of its Hopper
+counterpart, or in the set still to port. A new or moved site fails
+here."""
 
 import math
 import pathlib
+import re
 
 import pytest
 
@@ -21,6 +27,61 @@ PORT = ROOT / "tauray_torch"
 # tauray_tpu module -> the port's files that take its place
 MAPPED = {"ops/pallas_trace.py": ("ops/trace_kernel.py",
                                   "csrc/trace_tiles.cu")}
+
+
+# every pl.pallas_call site, file:line -> the port's source of its Hopper
+# counterpart (K1-K5 and the K1 labs L8-L11), or None: still to port
+# (L1-L7, L12; ROADMAP Queue 1)
+PALLAS_SITES = {
+    "tauray_tpu/ops/pallas_trace.py:281": "csrc/trace_tiles.cu",    # K2
+    "tauray_tpu/ops/pallas_trace.py:525": "csrc/trace_tiles.cu",    # K3
+    "tauray_tpu/ops/pallas_trace.py:942": "csrc/trace_tiles.cu",    # K4
+    "tauray_tpu/ops/pallas_trace.py:1197": "csrc/trace_tiles.cu",   # K1
+    "tauray_tpu/ops/pallas_trace.py:1247": "csrc/trace_tiles.cu",   # K5
+    "scripts/kernel_lab.py:61": None,                               # L1
+    "scripts/kernel_lab.py:424": None,                              # L2
+    "scripts/kernel_lab.py:586": None,                              # L3
+    "scripts/kernel_lab2.py:234": None,                             # L4
+    "scripts/kernel_lab3.py:172": None,                             # L5
+    "scripts/kernel_lab4.py:199": None,                             # L6
+    "scripts/kernel_lab5.py:159": None,                             # L7
+    "scripts/kernel_lab8.py:105": "csrc/k1_lab.cu",                 # L8
+    "scripts/kernel_lab9.py:189": "csrc/k1_lab.cu",                 # L9
+    "scripts/kernel_lab10.py:193": "csrc/k1_lab.cu",                # L10
+    "scripts/kernel_lab11.py:139": "csrc/k1_lab.cu",                # L11
+    "scripts/mxu_lab.py:66": None,                                  # L12
+}
+_CALL = re.compile(r"^[^#]*\bpl\.pallas_call\(")
+
+
+def _pallas_sites():
+    found = set()
+    for root in ("tauray_tpu", "scripts"):
+        for path in sorted((ROOT / root).rglob("*.py")):
+            for n, line in enumerate(path.read_text().splitlines(), 1):
+                if _CALL.match(line):
+                    found.add(f"{path.relative_to(ROOT).as_posix()}:{n}")
+    return found
+
+
+def test_every_pallas_call_site_is_accounted_for():
+    assert _pallas_sites() == set(PALLAS_SITES)
+    assert len(PALLAS_SITES) == 17
+
+
+@pytest.mark.parametrize("site", sorted(PALLAS_SITES))
+def test_pallas_call_site_has_its_counterpart(site):
+    """A ported site's Hopper source exists and names the TPU kernel's
+    file; a site still to port is one of the eight lab kernels L1-L7 and
+    L12."""
+    src = PALLAS_SITES[site]
+    path = site.split(":")[0]
+    if src is None:
+        assert path.startswith("scripts/")
+        assert sum(v is None for v in PALLAS_SITES.values()) == 8
+        return
+    text = (PORT / src).read_text()
+    assert pathlib.PurePosixPath(path).name in text
 
 
 def _jax_modules():

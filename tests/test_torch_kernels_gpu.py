@@ -623,3 +623,64 @@ def test_distributed_on_card_matches_one_device(cuda):
             if devices is not None:
                 assert rr.view_sharded == views
         np.testing.assert_allclose(imgs[0], imgs[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("lab", ["lab8", "lab9", "lab10", "lab11"])
+def test_k1_lab_matches_plain_version(cuda, lab):
+    """Every mode of each K1 lab (csrc/k1_lab.cu) at a small size against
+    its plain torch version on the same card inputs: t and id bits equal
+    (-fmad=false), L11 mxu by kernel_lab11.mxu_agreement; each launch
+    counted."""
+    from tauray_torch.app.kernel_waves import kernel_waves, retrace_slice
+    from tauray_torch.lab import common, lab_kernel
+    from tauray_torch.lab import kernel_lab8, kernel_lab9, kernel_lab10, \
+        kernel_lab11
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    runs = []
+    if lab == "lab8":
+        o3, d3, mm2, _ = map(t, common.lab8_inputs(4096, seed=1))
+        heads = t(np.random.default_rng(2).integers(
+            0, 999, (128, common.KC)).astype(np.int32))
+        for mode in lab_kernel.MODES[lab]:
+            counts = t(np.arange(128, dtype=np.int32) % 24)
+            args = (counts, heads, o3, d3, mm2, mode)
+            runs.append((mode, kernel_lab8.lab8(*args),
+                         kernel_lab8.lab8_reference(*args)))
+    elif lab == "lab9":
+        tracer = common.scene_tracer(cuda, "proc://sponza?tris=8192")
+        o3, d3, mm2, heads = map(t, common.lab9_inputs(
+            tracer.n_clusters, 4096, seed=3))
+        counts = t(np.arange(128, dtype=np.int32) % 40)
+        for mode in lab_kernel.MODES[lab]:
+            args = (counts, heads, o3, d3, mm2, tracer.tris12, mode)
+            runs.append((mode, kernel_lab9.lab9(*args),
+                         kernel_lab9.lab9_reference(*args)))
+    elif lab == "lab10":
+        tracer, waves = kernel_waves(cuda, scene="proc://sponza?tris=8192",
+                                     size=64)
+        counts, keys, r3, idmask = kernel_lab10.wave_args(
+            tracer, retrace_slice(waves["bounce"], 2048))
+        counts[40:] = 0
+        for mode in lab_kernel.MODES[lab]:
+            for w in (4, 8):
+                args = (counts, keys, r3, tracer.tris12, mode, idmask)
+                runs.append((mode, kernel_lab10.lab10(*args, warps=w),
+                             kernel_lab10.lab10_reference(*args)))
+    else:
+        steps, rays, tris12, m = map(t, common.lab11_inputs(
+            C=64, n_tiles=96, n_steps=3, seed=4))
+        for mode, tris in (("vpu", tris12), ("mxu", m)):
+            args = (steps, rays, tris, mode)
+            runs.append((mode, kernel_lab11.lab11(*args),
+                         kernel_lab11.lab11_reference(*args)))
+    torch.cuda.synchronize()
+    assert lab_kernel.LAUNCHES[lab] >= len(runs)
+    for mode, got, want in runs:
+        if mode == "mxu":
+            agree = kernel_lab11.mxu_agreement(got, want, rays, m)
+            assert agree["ok"], agree
+        else:
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), mode
