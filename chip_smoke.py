@@ -7,8 +7,9 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> error;
   2. build the traversal kernels (csrc/trace_tiles.cu, every instance of
-     K1-K5) and the K1 labs (csrc/k1_lab.cu; one nvcc per source, started
-     together) and print what ptxas reports, and the SASS of each K1-K5
+     K1-K5), the K1 labs (csrc/k1_lab.cu) and the brick labs
+     (csrc/brick_lab.cu; one nvcc per source, started together) and print
+     what ptxas reports, and the SASS of each K1-K5 and brick_lab
      instance's inner test loop (cuobjdump); any spill or shared load
      narrower than 16 bytes in a test loop of trace_tiles fails;
   3. each kernel against its plain torch version, ids identical and t
@@ -178,12 +179,23 @@ non-zero:
      1e-5 of max(1, |t|), or on at most 1e-4 of the rays, ill-conditioned,
      within the TF32 split's error bound of t in FP64; a differing id only
      at a tie; kernel_lab11.mxu_agreement), and L10 full to K1 (trace_vm3)
-     on both waves, bit for bit.
+     on both waves, bit for bit;
+  21. the brick and resident-table labs (tauray_torch/lab, the
+     counterparts of scripts/kernel_lab2-5.py; csrc/brick_lab.cu, built
+     in phase 2, which prints each instance's SASS instructions per test)
+     through their entry points' run() at the scripts' sizes, every
+     configuration of each main timed (median and min of 5 CUDA-event
+     runs) with its bound, the launches counted over that run alone: L4
+     (k6, k7, k6f, k7f at KB 4, 8, 16), L5 (TILE 8, 16, 32 x KB 1, 2, 4,
+     8), L6 (5 variants x 3 shapes), L7 (mt and bw x 3); each held to its
+     plain version bit for bit (L7 on 1,024 tiles of each), mtfast's rays
+     with t < 0 counted, and L6 while / while2 on a meta where the exit
+     fires, held the same way and walking fewer steps than fixed.
 The last lines are the card, the kernel table (each K row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
 the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
 times; K1 with its launches on 17a's and 17c's paths; each lab row with
-its modes), and {"ok": true, "device": {...}}.
+its modes or configurations), and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -291,50 +303,59 @@ INSTANCE = {"trace_vm3": (0, 12, 0), "trace_vm2": (1, 12, 0),
             "trace_mt_inst": (1, 9, 1)}
 
 
-def sass_loops(lib_path: str):
-    """{kernel: stats of its inner test loop} from cuobjdump -sass: of the
-    innermost loops (a backward branch with no other inside it), the one
-    holding the most shared-load words, with its instructions, 16-byte
-    (LDS.128) and narrower shared loads, the tests one pass makes (shared
-    words / the 12 Baldwin-Weber or 9 Möller-Trumbore components of a
-    triangle, the instance's kRows template argument) and instructions per
-    test."""
+def _inner_loops(chunk: str):
+    """The innermost loops (a backward branch with no other inside it) of
+    one function of cuobjdump -sass: each loop's instructions."""
+    insns, labels, pending = [], {}, []
+    for ln in chunk.splitlines():
+        m = _LABEL.match(ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSN.search(ln)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            insns.append((addr, m.group(2)))
+    loops = []
+    for addr, op in insns:
+        if not re.search(r"\bBRA\b", op):
+            continue
+        m = re.search(r"\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", op)
+        if not m:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else \
+            int(m.group(2), 16)
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    return [[o for a, o in insns if target <= a <= addr]
+            for target, addr in loops
+            if not any((t2, a2) != (target, addr) and target <= t2 and
+                       a2 <= addr for t2, a2 in loops)]
+
+
+def _sass(lib_path: str):
+    """{function name: its cuobjdump -sass text}."""
     text = subprocess.run([_cuobjdump(), "-sass", lib_path],
                           capture_output=True, text=True,
                           check=True).stdout
+    return {chunk.split()[0]: chunk
+            for chunk in text.split("Function : ")[1:]}
+
+
+def sass_loops(lib_path: str):
+    """{kernel: stats of its inner test loop} from cuobjdump -sass: of the
+    innermost loops, the one holding the most shared-load words, with its
+    instructions, 16-byte (LDS.128) and narrower shared loads, the tests
+    one pass makes (shared words / the 12 Baldwin-Weber or 9
+    Möller-Trumbore components of a triangle, the instance's kRows
+    template argument) and instructions per test."""
     out = {}
-    for chunk in text.split("Function : ")[1:]:
-        name = chunk.split()[0]
-        insns, labels, pending = [], {}, []
-        for ln in chunk.splitlines():
-            m = _LABEL.match(ln)
-            if m:
-                pending.append(m.group(1))
-                continue
-            m = _INSN.search(ln)
-            if m:
-                addr = int(m.group(1), 16)
-                for lab in pending:
-                    labels[lab] = addr
-                pending = []
-                insns.append((addr, m.group(2)))
-        loops = []
-        for addr, op in insns:
-            if not re.search(r"\bBRA\b", op):
-                continue
-            m = re.search(r"\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", op)
-            if not m:
-                continue
-            target = labels.get(m.group(1)) if m.group(1) else \
-                int(m.group(2), 16)
-            if target is not None and target <= addr:
-                loops.append((target, addr))
+    for name, chunk in _sass(lib_path).items():
         best = None
-        for target, addr in loops:
-            if any((t2, a2) != (target, addr) and target <= t2 and
-                   a2 <= addr for t2, a2 in loops):
-                continue                          # not innermost
-            body = [o for a, o in insns if target <= a <= addr]
+        for body in _inner_loops(chunk):
             lds128 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS\.128\b", o))
                          for o in body)
             lds64 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS\.64\b", o))
@@ -1921,7 +1942,7 @@ def lab_phase(dev, tracer, bounce):
     _, args10, res10 = l10.run(dev, waves=(tracer, bounce))
     in11, res11 = l11.run(dev)
     torch.cuda.synchronize()
-    launches = dict(lab_kernel.LAUNCHES)
+    launches = {lab: lab_kernel.LAUNCHES[lab] for lab in LAB_SITES}
     run_s = time.perf_counter() - t0
     print("phase 20 launches " + json.dumps(launches), flush=True)
     if any(v <= 0 for v in launches.values()):
@@ -2037,6 +2058,170 @@ def lab_phase(dev, tracer, bounce):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the brick and resident-table labs (tauray_torch/lab,
+# csrc/brick_lab.cu)
+# ---------------------------------------------------------------------------
+
+BRICK_SITES = {"lab4": "scripts/kernel_lab2.py:234",
+               "lab5": "scripts/kernel_lab3.py:172",
+               "lab6": "scripts/kernel_lab4.py:199",
+               "lab7": "scripts/kernel_lab5.py:159"}
+# the configuration (mode, rays a tile, KB, steps) whose times stand at the
+# top of each lab's kernels-line row: bounds.CONFIGS's
+BRICK_HEADLINE = {"lab4": ("mt", 32, 4, 13), "lab5": ("mt", 32, 1, 52),
+                  "lab6": ("fixed", 32, 8, 6), "lab7": ("mt", 32, 8, 6)}
+# brick_kernel<kStaged, kLab7, kBody, kVariant>'s mangled template arguments
+_BRICK_TARGS = re.compile(r"brick_kernelILb([01])ELb([01])ELi(\d)ELi(\d)E")
+_BRICK_INSTANCES = {(1, 0, 0, 0): "lab4 mt", (1, 0, 1, 0): "lab4 mtfast",
+                    (0, 0, 0, 0): "lab5, lab6 fixed/slot",
+                    (0, 0, 0, 1): "lab6 cid", (0, 0, 0, 2): "lab6 while",
+                    (0, 0, 0, 3): "lab6 while2", (0, 1, 0, 0): "lab7 mt",
+                    (0, 1, 2, 0): "lab7 bw"}
+
+
+def brick_sass(lib_path: str):
+    """{instance: its test loop's statistics}: of the innermost loops of
+    each brick_kernel instance, the one with the most 16-byte row loads
+    (LDS.128 from the staged buffer, LDG.128 in place), its instructions,
+    the tests a pass makes (4 a load of each of the 9 or 12 rows) and the
+    instructions per test."""
+    out = {}
+    for name, chunk in _sass(lib_path).items():
+        targs = _BRICK_TARGS.search(name)
+        if targs is None:
+            continue
+        key = tuple(int(g) for g in targs.groups())
+        best = max(_inner_loops(chunk) or [[]], key=lambda body: sum(
+            bool(re.match(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b", o))
+            for o in body))
+        wide = sum(bool(re.match(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b", o))
+                   for o in best)
+        tests = 4 * wide / (12 if key[2] == 2 else 9)
+        out[_BRICK_INSTANCES[key]] = dict(
+            loop_instructions=len(best), loads128=wide, tests=tests,
+            instructions_per_test=len(best) / tests if tests else None)
+    return out
+
+
+def brick_phase(dev):
+    """Phase 21: L4-L7 through their entry points' run() at the scripts'
+    sizes, every configuration of each main timed; the launches counted
+    over that run alone. Then each configuration held to its plain version
+    on the same inputs, bit for bit (L7 on LAB_SLICE_TILES tiles of each),
+    and L6's while / while2 on a meta where the exit fires (every 8th entry
+    0x7f000000, at the headline's inputs), held the same way and walking
+    fewer steps and hitting less than fixed. Returns the kernels line's
+    rows."""
+    import torch
+    from tauray_torch.lab import brick, lab_kernel
+    from tauray_torch.lab import kernel_lab2 as l4
+    from tauray_torch.lab import kernel_lab3 as l5
+    from tauray_torch.lab import kernel_lab4 as l6
+    from tauray_torch.lab import kernel_lab5 as l7
+    from tauray_torch.lab.bounds import brick_bound
+    from tauray_torch.lab.common import ROW, time_cuda
+    t0 = time.perf_counter()
+    lab_kernel.reset_launch_counts()
+    res = {"lab4": l4.run(dev), "lab5": l5.run(dev), "lab6": l6.run(dev),
+           "lab7": l7.run(dev)}
+    torch.cuda.synchronize()
+    launches = {lab: lab_kernel.LAUNCHES[lab] for lab in BRICK_SITES}
+    run_s = time.perf_counter() - t0
+    print("phase 21 launches " + json.dumps(launches), flush=True)
+    if any(v <= 0 for v in launches.values()):
+        raise RuntimeError(f"phase 21: a lab never launched: {launches}")
+    failures, configs = [], {}
+
+    def hold(tag, out, plain):
+        """(plain ms, max |t - t_plain|): plain() against the kernel's
+        out, t and id bits alike."""
+        ref, ms = timed(plain)
+        off = int((out.view(torch.int32) != ref.view(torch.int32)).any(
+            -1).sum())
+        if off:
+            failures.append(f"{tag}: {off} rays depart from the plain "
+                            f"version")
+        return ms, float((out[..., 0] - ref[..., 0]).abs().max())
+
+    for lab, rs in res.items():
+        for r in rs:
+            c = r["cfg"]
+            n = min(c.n_tiles, LAB_SLICE_TILES) if lab == "lab7" else \
+                c.n_tiles
+            key = f"{c.label.strip()} steps={c.steps}"
+            ms, err = hold(f"{lab} {key}", r["out"][:n],
+                           lambda: brick.walk_reference(
+                               c.lab, c.mode, r["meta"][:n * ROW],
+                               r["rays"][:n], r["tris"], c.kb, c.steps))
+            e = dict(ms=r["ms"], min_ms=r["min_ms"],
+                     us_per_tile=r["us_per_tile"], gtests_s=r["gtests_s"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     plain_ms=ms, plain_rays=n * c.tile, max_abs_err=err,
+                     hits=brick.hits(r["out"], c))
+            if c.mode == "mtfast":
+                e["t_negative"] = int((r["out"][..., 0] < 0).sum())
+            e["headline"] = (c.mode, c.tile, c.kb, c.steps) == \
+                BRICK_HEADLINE[lab]
+            configs.setdefault(lab, {})[key] = e
+            print(f"phase 21 {lab} {key} " + json.dumps(e), flush=True)
+    # L6's exit where it fires, on the headline's inputs
+    head = next(r for r in res["lab6"] if (
+        r["cfg"].mode, r["cfg"].tile, r["cfg"].kb, r["cfg"].steps) ==
+        BRICK_HEADLINE["lab6"])
+    meta = head["meta"].clone()
+    meta[::8] = 0x7F000000
+    lab_kernel.reset_launch_counts()
+    for v in ("while", "while2"):
+        c = head["cfg"]._replace(mode=v)
+
+        def walk():
+            return brick.brick("lab6", v, meta, head["rays"], head["tris"],
+                               c.kb, c.steps)
+        t = time_cuda(walk)
+        out = walk()
+        stats = {}
+        ms, err = hold(f"lab6 {v} exit", out, lambda: brick.walk_reference(
+            "lab6", v, meta, head["rays"], head["tris"], c.kb, c.steps,
+            stats))
+        fixed = brick.walk_reference("lab6", "fixed", meta, head["rays"],
+                                     head["tris"], c.kb, c.steps)
+        e = dict(ms=t["ms"], min_ms=t["min_ms"], plain_ms=ms,
+                 max_abs_err=err, tile_steps=stats["steps"],
+                 tile_steps_fixed=c.n_tiles * c.steps,
+                 hits=brick.hits(out, c), hits_fixed=brick.hits(fixed, c))
+        e["bound_ms"], e["bound_by"] = brick_bound(c, stats["steps"])
+        if not (e["tile_steps"] < e["tile_steps_fixed"] and
+                e["hits"] < e["hits_fixed"]):
+            failures.append(f"lab6 {v}: the exit did not fire: {e}")
+        configs["lab6"][f"{v} exit fires"] = e
+        print(f"phase 21 lab6 {v} exit fires " + json.dumps(e), flush=True)
+    if lab_kernel.LAUNCHES["lab6"] < 2:
+        failures.append("lab6's exit runs never launched")
+    print("phase 21 " + json.dumps(dict(
+        run_s=run_s, seconds=time.perf_counter() - t0)), flush=True)
+    if failures:
+        raise RuntimeError("phase 21: " + "; ".join(failures))
+    rows = []
+    for lab, cs in configs.items():
+        head = next(e for e in cs.values() if e.get("headline"))
+        rows.append({
+            "name": lab, "route": "cuda",
+            "source": "tauray_torch/csrc/brick_lab.cu",
+            "replaces": BRICK_SITES[lab], "launches": launches[lab],
+            "max_abs_err": max(e["max_abs_err"] for e in cs.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            # no single PyTorch call computes any lab's function
+            "library_ms": None,
+            "configuration": next(k for k, e in cs.items()
+                                  if e.get("headline")),
+            "configurations": {k: {f: e[f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
+                for k, e in cs.items()}})
+    return rows
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -2057,10 +2242,14 @@ def main() -> int:
     for name, info in sorted(trace_kernel.BUILD_INFO.items()):
         print(f"phase 2 build {name}: {info['seconds']:.2f} s; " +
               " | ".join(ptxas_lines(str(info["log"]))), flush=True)
-        if name == "trace_tiles":     # K1-K5; k1_lab is phase 20's
+        if name == "trace_tiles":     # K1-K5; the labs' are 20's, 21's
             sass.update(sass_loops(str(info["path"])))
     for fn, st in sorted(sass.items()):
         print(f"phase 2 sass {fn}: " + json.dumps(st), flush=True)
+    for inst, st in sorted(brick_sass(str(
+            trace_kernel.BUILD_INFO["brick_lab"]["path"])).items()):
+        print(f"phase 2 sass brick_lab {inst}: " + json.dumps(st),
+              flush=True)
     if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
         raise RuntimeError("not every instance of trace_tiles has a test "
                            "loop of 16-byte shared loads only")
@@ -2298,6 +2487,8 @@ def main() -> int:
         envmap_phase(tmp)
     lab_rows = lab_phase(dev, lab_tracer, lab_bounce)
     del lab_tracer, lab_bounce
+    lab_rows += brick_phase(dev)
+    torch.cuda.empty_cache()
 
     def row(name, replaces, launches, r, held, restir=None, raster=None):
         """One kernel's entry, its times on wave r: also W and the SASS

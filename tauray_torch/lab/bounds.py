@@ -3,7 +3,8 @@ repo (the pl.pallas_call sites of scripts/), reckoned from its script's
 shapes at the largest configuration its main runs: the larger of the FP32
 operations at 67 TFLOP/s (TF32 at 495 for a matrix form) and the bytes at
 3.35 TB/s, each input read once. L10's bound depends on its wave's keys;
-chip_smoke phase 20 reckons it from the wave.
+chip_smoke phase 20 reckons it from the wave. brick_bound gives L4-L7's
+bound of each configuration of their scripts' mains.
 
     python -m tauray_torch.lab.bounds
 
@@ -13,13 +14,18 @@ from __future__ import annotations
 
 import sys
 
-from .common import CLUSTER, FLOPS_BW, PEAK_TF32, bound
+from .common import (CC, CLUSTER, FLOPS_BW, FLOPS_MT, PEAK_TF32,
+                     BrickConfig, bound)
 from .kernel_lab8 import lab8_bound
 from .kernel_lab9 import lab9_bound
 from .kernel_lab11 import lab11_bound
 
-FLOPS_MT = 46          # FP32 operations of a Möller-Trumbore test
-C_LABS = 636           # clusters of the scripts' synthetic tables
+C_LABS = CC            # clusters of the scripts' synthetic tables
+# FP32 operations of one deferred-division Möller-Trumbore test
+# (kernel_lab2.py mtfast_body): h, a, s, the numerators of u, v and t (41),
+# the four products by a's sign, u + v, t_min |a|, best |a| and the one
+# division
+FLOPS_MTFAST = 49
 # lab -> (site, rays, tests a ray, FP32 operations a test, floats a
 # triangle, what the configuration is)
 CONFIGS = {
@@ -29,8 +35,8 @@ CONFIGS = {
            "as L1, 8 tiles a grid step"),
     "L3": ("scripts/kernel_lab.py:586", 65536, 8 * 8 * CLUSTER, FLOPS_MT, 9,
            "as L1, G tiles a grid step"),
-    "L4": ("scripts/kernel_lab2.py:234", 65536, 13 * 4 * 32, FLOPS_MT, 9,
-           "32-ray tiles, 13 steps of 4 bricks of 32"),
+    "L4": ("scripts/kernel_lab2.py:234", 65536, 13 * 4 * CLUSTER, FLOPS_MT,
+           9, "32-ray tiles, 13 steps of 4 clusters of 128"),
     "L5": ("scripts/kernel_lab3.py:172", 65536, 52 * 1 * CLUSTER, FLOPS_MT, 9,
            "32-ray tiles, 52 steps of 1 cluster"),
     "L6": ("scripts/kernel_lab4.py:199", 65536, 6 * 8 * CLUSTER, FLOPS_MT, 9,
@@ -57,6 +63,24 @@ def lab_bound(lab: str, flops_per_test=None):
     return bound(tests * (flops_per_test or flops), nbytes)
 
 
+def brick_bound(cfg: BrickConfig, tile_steps=None):
+    """(ms, what sets it) of one L4-L7 configuration: its tests' FP32
+    operations (46 a Möller-Trumbore test, 49 deferred-division, 32
+    Baldwin-Weber); the rays (o, d, t_min, t_max) and the output once, the
+    meta entries the walk reads (with while / while2 the exit's too) and
+    the table. tile_steps: the steps the tiles walked, where an exit ended
+    walks early; every step of every tile by default."""
+    if tile_steps is None:
+        tile_steps = cfg.n_tiles * cfg.steps
+    flops = {"mtfast": FLOPS_MTFAST, "bw": FLOPS_BW}.get(cfg.mode, FLOPS_MT)
+    floats = 12 if cfg.mode == "bw" else 9
+    tests = tile_steps * cfg.tile * cfg.kb * CLUSTER
+    meta = tile_steps * (cfg.kb + cfg.mode.startswith("while"))
+    nbytes = (cfg.n_tiles * cfg.tile * (32 + 8) + 4 * meta +
+              C_LABS * floats * CLUSTER * 4)
+    return bound(tests * flops, nbytes)
+
+
 def rows():
     """(lab, site, configuration, ms, what sets it) of every lab kernel
     but L10."""
@@ -67,6 +91,8 @@ def rows():
     out.append(("L12 matrix", CONFIGS["L12"][0], "the Plücker products",
                 *max(bound(tests * L12_MATRIX[1], 0),
                      (tf32_ms, "operations"))))
+    out.append(("L4 deferred division", CONFIGS["L4"][0], "mtfast_body",
+                *lab_bound("L4", FLOPS_MTFAST)))
     out.append(("L7 Baldwin-Weber", CONFIGS["L7"][0], "its tris12 body",
                 *lab_bound("L7", FLOPS_BW)))
     out.append(("L8", "scripts/kernel_lab8.py:105", "2^20 rays, mode 3, "

@@ -1,8 +1,8 @@
-"""What the four K1 labs share: the constants of scripts/kernel_lab8-11.py,
-their seeded inputs (made with numpy.random.default_rng exactly as each
-script's main makes them), a CUDA-event timer, the card's name and power
-limit, and each lab's entry-point plumbing (--device, the bound of a
-mode)."""
+"""What the TPU labs share: the constants of scripts/kernel_lab2-5.py and
+kernel_lab8-11.py, their seeded inputs (made with numpy.random.default_rng
+exactly as each script's main makes them), a CUDA-event timer, the card's
+name and power limit, and each lab's entry-point plumbing (--device, the
+bound of a mode)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import argparse
 import statistics
 import subprocess
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterator, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +27,20 @@ BIG = 3.0e38
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
-# FP32 operations of one Baldwin-Weber test (csrc/trace_tiles.cu)
+# FP32 operations of one Baldwin-Weber test (csrc/trace_tiles.cu) and of
+# one Möller-Trumbore test: 9 for h, 5 for a, the reciprocal, 3 for s, 6
+# each for u, v and t (q's 9 once), u + v
 FLOPS_BW = 32
+FLOPS_MT = 46
+
+# scripts/kernel_lab2-5.py (L4-L7): a synthetic table of CC clusters of
+# BRICK triangles, ROW meta entries a tile, R_BRICK rays a configuration
+# (L7: L7_TILES tiles of 32)
+CC = 636
+BRICK = CLUSTER
+ROW = 1024
+R_BRICK = 65536
+L7_TILES = 32768
 
 SCENE = "proc://sponza?tris=262144"
 
@@ -93,6 +105,112 @@ def lab11_inputs(C: int = 1024, n_tiles: int = 4096, n_steps: int = 8,
         m[:, t, 3] = -dd.reshape(C, CLUSTER)
     steps = np.full((n_tiles,), n_steps, np.int32)
     return steps, rays, tris12, m
+
+
+class BrickConfig(NamedTuple):
+    """One configuration of an L4-L7 script's main: the lab (lab4-lab7),
+    its mode (lab_kernel.MODES), rays a tile, clusters a step, steps,
+    tiles, and the script's label."""
+    lab: str
+    mode: str
+    tile: int
+    kb: int
+    steps: int
+    n_tiles: int
+    label: str
+
+
+# each script's targets of tests a ray, by rays a tile
+_TARGET = {8: 14, 16: 26, 32: 52}
+LAB4_NAMES = ("k6", "k7", "k6f", "k7f")
+
+
+def lab4_configs(names: Sequence[str] = LAB4_NAMES):
+    """scripts/kernel_lab2.py main's runs: k8 / k6 / k7 (8, 16 or 32 rays a
+    tile), an f suffix for the deferred-division body, KB 4, 8 and 16."""
+    out = []
+    for name in names:
+        tile = 8 if name.startswith("k8") else \
+            16 if name.startswith("k6") else 32
+        for kb in (4, 8, 16):
+            out.append(BrickConfig(
+                "lab4", "mtfast" if name.endswith("f") else "mt", tile, kb,
+                max(_TARGET[tile] // kb, 1), R_BRICK // tile,
+                f"{name} TILE={tile} KB={kb}"))
+    return out
+
+
+def lab5_configs():
+    """scripts/kernel_lab3.py main's runs: TILE 8, 16, 32 x KB 1, 2, 4, 8."""
+    return [BrickConfig("lab5", "mt", tile, kb, max(_TARGET[tile] // kb, 1),
+                        R_BRICK // tile, f"vmem TILE={tile} KB={kb}")
+            for tile in (8, 16, 32) for kb in (1, 2, 4, 8)]
+
+
+def lab6_configs():
+    """scripts/kernel_lab4.py main's runs: each variant (fixed, slot, cid,
+    while, while2) at (TILE, KB) = (32, 8), (32, 16), (16, 8)."""
+    out = []
+    for v in ("fixed", "slot", "cid", "while", "while2"):
+        for tile, kb in ((32, 8), (32, 16), (16, 8)):
+            steps = {8: 6, 16: 3}[kb] if tile == 32 else 3
+            out.append(BrickConfig("lab6", v, tile, kb, steps,
+                                   R_BRICK // tile,
+                                   f"{v:6s} TILE={tile} KB={kb:2d}"))
+    return out
+
+
+def lab7_configs():
+    """scripts/kernel_lab5.py main's runs: mt then bw, each at (KB, steps)
+    = (8, 6), (8, 4), (4, 8); 32,768 tiles of 32."""
+    return [BrickConfig("lab7", v, TILE, kb, steps, L7_TILES,
+                        f"{v:3s} KB={kb:2d}")
+            for v in ("mt", "bw") for kb, steps in ((8, 6), (8, 4), (4, 8))]
+
+
+Inputs = Iterator[Tuple[BrickConfig, np.ndarray, np.ndarray]]
+
+
+def _brick_inputs(tables: Sequence[Tuple[str, int]],
+                  configs) -> Tuple[Dict[str, np.ndarray], Inputs]:
+    """The draws of an L4-L7 script from its one default_rng(0): the tables
+    (name, floats a triangle) when called, as the script draws them at
+    import; then, as the generator is read, each configuration's meta
+    (n_tiles x 1,024,) i32 in [0, CC) and rays (n_tiles, tile, 8) f32 in
+    [0, 1), in main's order, as its run draws them. A configuration's
+    inputs so depend on every one before it."""
+    rng = np.random.default_rng(0)
+    tabs = {name: rng.random((CC, nf, 1, BRICK), dtype=np.float32)
+            for name, nf in tables}
+
+    def draws():
+        for cfg in configs:
+            meta = rng.integers(0, CC, cfg.n_tiles * ROW, dtype=np.int32)
+            rays = rng.random((cfg.n_tiles, cfg.tile, 8), dtype=np.float32)
+            yield cfg, meta, rays
+    return tabs, draws()
+
+
+def lab4_inputs(names: Sequence[str] = LAB4_NAMES):
+    """scripts/kernel_lab2.py's tris9 (CC, 9, 1, 128), then main's inputs
+    for names."""
+    return _brick_inputs((("tris9", 9),), lab4_configs(names))
+
+
+def lab5_inputs():
+    """scripts/kernel_lab3.py's tris9, then main's inputs."""
+    return _brick_inputs((("tris9", 9),), lab5_configs())
+
+
+def lab6_inputs():
+    """scripts/kernel_lab4.py's tris9, then main's inputs."""
+    return _brick_inputs((("tris9", 9),), lab6_configs())
+
+
+def lab7_inputs():
+    """scripts/kernel_lab5.py's tris9, tris12 (CC, 12, 1, 128), then main's
+    inputs (128 MB of meta a configuration)."""
+    return _brick_inputs((("tris9", 9), ("tris12", 12)), lab7_configs())
 
 
 def scene_tracer(device, scene: str = SCENE):

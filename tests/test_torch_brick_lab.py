@@ -1,0 +1,585 @@
+"""The brick and resident-table labs L4-L7 (tauray_torch/lab/kernel_lab2-5.py)
+against the TPU lab scripts they port, scripts/kernel_lab2.py to
+kernel_lab5.py, on the CPU. Each script's own make_kernel runs under
+pl.pallas_call(..., interpret=True) with its run's grid spec at 64 tiles
+(two grid steps of G = 32; the pallas_call patched inside the test, no
+file changed), on the first 64 tiles of the inputs its main draws first at
+that tile size, and the lab's plain torch version (the wrappers take it
+for CPU tensors) runs on the same inputs.
+
+Tolerances: Möller-Trumbore (mt) and Baldwin-Weber (bw): t within 1e-5
+relative and absolute, the tolerance of tests/test_torch_lab.py (XLA:CPU
+contracts the products into FMAs, torch does not), and ids exact but
+where the rounding decides the test: an id may differ on at most 2 rays of
+a run, and only where the two winners' t tie within 1e-5 or one of the two
+triangles lies within 1e-5 of an edge or of t_min in FP64 (L7 mt, KB 8: one
+ray, its triangle 2.5e-8 below t_min). The deferred-division body
+(mtfast): ids exact; t's int32 bits within one quantum of its truncated
+key as t sees it, since an FMA can move t across a quantum: 1,024, or
+2,048 where both keys carry bit 10 (at KB = 16 a lane >= 1,024 sets it,
+fault 3, and a crossing then moves the key by two quanta; 2 rays of 512 at
+TILE 8).
+
+The faults of the scripts that the port keeps (ROADMAP Queue 3) each have
+a test: mtfast's t < 0 for back-facing hits, its lane bit 10 lost at
+KB = 16, and L6's exit that never fires on the script's own meta. The
+scripts' mains are also run with their kernels replaced by a recorder:
+their seeded inputs equal common.lab4_inputs-lab7_inputs bit for bit, and
+their tests a ray (as run counts them) give bounds.CONFIGS."""
+
+import ast
+import contextlib
+import functools
+import hashlib
+import importlib.util
+import io
+import pathlib
+import sys
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from tauray_torch.lab import (bounds, brick, common, kernel_lab2, kernel_lab3,
+                              kernel_lab4, kernel_lab5, lab_kernel)
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SCRIPTS = ROOT / "scripts"
+T_TOL = 1e-5
+# an id may depart only where one of the two triangles lies this near an
+# edge or t_min in FP64 (or the two t tie within T_TOL), on at most
+# MAX_DEPARTING rays of a run: XLA:CPU's FMAs move such a test across
+EDGE = 1e-5
+MAX_DEPARTING = 2
+N_TILES = 64
+G = 32
+# lab -> its script
+SCRIPT = {"lab4": "kernel_lab2", "lab5": "kernel_lab3", "lab6": "kernel_lab4",
+          "lab7": "kernel_lab5"}
+# every L4 name: main's and the 8-ray tiles it runs when asked
+L4_NAMES = ("k8", "k6", "k7", "k8f", "k6f", "k7f")
+CONFIGS = {"lab4": common.lab4_configs(L4_NAMES),
+           "lab5": common.lab5_configs(), "lab6": common.lab6_configs(),
+           "lab7": common.lab7_configs()}
+
+
+def _load(name):
+    """scripts/<name>.py as a module (its module-level draws run)."""
+    spec = importlib.util.spec_from_file_location(
+        f"_brick_{name}", SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _script(name, monkeypatch):
+    """scripts/<name>.py as a module, its Pallas kernels in interpret
+    mode."""
+    monkeypatch.syspath_prepend(str(SCRIPTS))
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    return _load(name)
+
+
+def _config(lab, mode, tile, kb):
+    return next(c for c in CONFIGS[lab] if (c.mode, c.tile, c.kb) ==
+                (mode, tile, kb))
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs(lab, tile):
+    """The tables and the first N_TILES tiles of the first inputs that
+    lab's main draws at tile rays a tile (L4's k8 from a run of k8 alone):
+    ({name: table}, meta, rays) as numpy."""
+    names = {8: ("k8",), 16: ("k6",), 32: ("k7",)}[tile]
+    tables, draws = {"lab4": lambda: common.lab4_inputs(names),
+                     "lab5": common.lab5_inputs, "lab6": common.lab6_inputs,
+                     "lab7": common.lab7_inputs}[lab]()
+    _, meta, rays = next(d for d in draws if d[0].tile == tile)
+    return tables, meta[:N_TILES * common.ROW], rays[:N_TILES]
+
+
+def _pallas(mod, lab, cfg, meta, rays, tris):
+    """The script's kernel for cfg over N_TILES tiles, with its run's grid
+    spec (kernel_lab2.py:238-252, kernel_lab3.py:195-208,
+    kernel_lab4.py:203-217, kernel_lab5.py:166-180)."""
+    n_tiles = rays.shape[0]
+    hbm = pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM)
+    ray_spec = pl.BlockSpec((G, cfg.tile, 8), lambda b: (b, 0, 0),
+                            memory_space=pltpu.VMEM)
+    out_spec = pl.BlockSpec((G, cfg.tile, 2), lambda b: (b, 0, 0),
+                            memory_space=pltpu.VMEM)
+    meta_scr = [pltpu.SMEM((2 * G * 1024,), jnp.int32),
+                pltpu.SemaphoreType.DMA((2,))]
+    nf = tris.shape[1]
+    table_spec = pl.BlockSpec((common.CC, nf, 1, 128),
+                              lambda b: (0, 0, 0, 0), memory_space=pltpu.VMEM)
+    if lab == "lab4":
+        body = mod.mtfast_body if cfg.mode == "mtfast" else mod.mt_body
+        kernel, bk = mod.make_kernel(cfg.tile, cfg.kb, body, G)
+        in_specs = [hbm, ray_spec, hbm]
+        scratch = [pltpu.VMEM((2, 9, 1, bk), jnp.float32), *meta_scr,
+                   pltpu.SemaphoreType.DMA((2, cfg.kb))]
+    elif lab == "lab5":
+        kernel, _ = mod.make_kernel(cfg.tile, cfg.kb, G)
+        resident = kernel
+
+        def kernel(meta_ref, rays_ref, tris_in, out_ref, tri_scr, meta_scr,
+                   meta_sem, *, steps):
+            # the script's kernel_wrap (kernel_lab3.py:187-192)
+            @pl.when(pl.program_id(0) == 0)
+            def _():
+                tri_scr[...] = tris_in[...]
+            resident(meta_ref, rays_ref, out_ref, tri_scr, meta_scr,
+                     meta_sem, steps=steps)
+        in_specs = [hbm, ray_spec, table_spec]
+        scratch = [pltpu.VMEM((common.CC, 9, 1, 128), jnp.float32),
+                   *meta_scr]
+    elif lab == "lab6":
+        kernel, _ = mod.make_kernel(cfg.tile, cfg.kb, G, cfg.mode)
+        in_specs = [hbm, ray_spec, table_spec]
+        scratch = [pltpu.VMEM((common.CC, 9, 1, 128), jnp.float32),
+                   *meta_scr]
+    else:
+        kernel, _ = mod.make_kernel(cfg.kb, cfg.mode)
+        in_specs = [hbm, ray_spec, table_spec]
+        scratch = meta_scr
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=0, grid=(n_tiles // G,), in_specs=in_specs,
+        out_specs=out_spec, scratch_shapes=scratch)
+    out_shape = jax.ShapeDtypeStruct((n_tiles, cfg.tile, 2), jnp.float32)
+    return np.asarray(pl.pallas_call(
+        partial(kernel, steps=cfg.steps), out_shape=out_shape,
+        grid_spec=grid_spec)(jnp.asarray(meta), jnp.asarray(rays),
+                             jnp.asarray(tris)))
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _plain(lab, cfg, meta, rays, tris, stats=None):
+    return brick.walk_reference(lab, cfg.mode, _t(meta), _t(rays), _t(tris),
+                                cfg.kb, cfg.steps, stats)
+
+
+def _triangle(lab, cfg, meta, tris, tile, rid):
+    """The (rows,) of the triangle that id rid names in tile's walk, as
+    float64: a slot's (lab4-lab7) or, for cid, a cluster * 128 + lane."""
+    if cfg.mode == "cid":
+        return tris[rid // 128, :, 0, rid % 128].astype(np.float64)
+    step, lane = divmod(rid, cfg.kb * 128)
+    m = int(meta[tile * common.ROW + step * cfg.kb + lane // 128])
+    c = min(m & 1023, common.CC - 1) if lab == "lab7" else \
+        min(max(m, 0), common.CC - 1)
+    return tris[c, :, 0, lane % 128].astype(np.float64)
+
+
+def _fp64_test(w, ray):
+    """The triangle's hit test for ray in FP64: (t, the signed distance
+    from its nearest boundary: u, v, 1 - u - v and (t - t_min) / max(1,
+    |t|), positive inside)."""
+    o, d, tmin = ray[0:3], ray[3:6], ray[6]
+    if w.shape[0] == 9:
+        v0, e1, e2 = w[0:3], w[3:6], w[6:9]
+        h = np.cross(d, e2)
+        f = 1.0 / (e1 @ h)
+        s = o - v0
+        q = np.cross(s, e1)
+        u, v, t = f * (s @ h), f * (d @ q), f * (e2 @ q)
+    else:
+        t = (w[3] - w[0:3] @ o) / (w[0:3] @ d)
+        p = o + t * d
+        u, v = w[4:7] @ p - w[7], w[8:11] @ p - w[11]
+    return t, min(u, v, 1 - u - v, (t - tmin) / max(1.0, abs(t)))
+
+
+def _departures(got, want, lab, cfg, meta, rays, tris):
+    """Rays whose ids differ, each checked to lie within rounding of the
+    test's boundaries (tie-aware), in FP64: one of the two winners within
+    EDGE of an edge or of t_min (kept by one package's rounding, dropped by
+    the other's), or both hits whose t tie within T_TOL of max(1, |t|).
+    Returns (departing mask, the ones not so explained)."""
+    if lab == "lab7":
+        ids = [np.where(x[..., 0] < common.BIG, x[..., 1], -1).astype(
+            np.int64) for x in (got, want)]
+    else:
+        ids = [x[..., 1].view(np.int32) for x in (got, want)]
+    off = ids[0] != ids[1]
+    unexplained = []
+    for tile, r in np.argwhere(off):
+        ray = rays[tile, r].astype(np.float64)
+        tests = [_fp64_test(_triangle(lab, cfg, meta, tris, tile, int(i)),
+                            ray)
+                 for i in (ids[0][tile, r], ids[1][tile, r]) if i >= 0]
+        edge = min(abs(m) for _, m in tests) <= EDGE
+        tie = len(tests) == 2 and min(m for _, m in tests) >= -EDGE and \
+            abs(tests[0][0] - tests[1][0]) <= T_TOL * max(1.0,
+                                                         abs(tests[0][0]))
+        if not (edge or tie):
+            unexplained.append((int(tile), int(r)))
+    return off, unexplained
+
+
+def _hold(got, want, lab, cfg, meta, rays, tris):
+    """Raw (n_tiles, tile, 2) blocks under the module's tolerances; returns
+    the rays whose ids depart (each within rounding of a boundary)."""
+    got = got.numpy()
+    if cfg.mode == "mtfast":
+        np.testing.assert_array_equal(got[..., 1].view(np.int32),
+                                      want[..., 1].view(np.int32))
+        g, w = (x[..., 0].view(np.int32) for x in (got, want))
+        d = np.abs(g.astype(np.int64) - w)
+        lane_bit = (g & 1024 != 0) & (w & 1024 != 0)
+        assert bool(((d <= 1024) | ((d == 2048) & lane_bit)).all())
+        return 0
+    off, unexplained = _departures(got, want, lab, cfg, meta, rays, tris)
+    assert not unexplained, unexplained
+    assert off.sum() <= MAX_DEPARTING
+    np.testing.assert_allclose(got[..., 0][~off], want[..., 0][~off],
+                               rtol=T_TOL, atol=T_TOL)
+    return int(off.sum())
+
+
+def _check_script(monkeypatch, lab, cfg, meta=None):
+    """The script's kernel and the lab's wrapper (its plain version here)
+    on the same inputs, held; returns the wrapper's output."""
+    mod = _script(SCRIPT[lab], monkeypatch)
+    tables, meta0, rays = _inputs(lab, cfg.tile)
+    meta = meta0 if meta is None else meta
+    tris = tables["tris12" if cfg.mode == "bw" else "tris9"]
+    np.testing.assert_array_equal(tris, np.asarray(
+        getattr(mod, "tris12" if cfg.mode == "bw" else "tris9")))
+    want = _pallas(mod, lab, cfg, meta, rays, tris)
+    args = (_t(meta), _t(rays), _t(tris))
+    if lab == "lab4":
+        got = kernel_lab2.lab4(*args, cfg.mode, cfg.kb, cfg.steps)
+    elif lab == "lab5":
+        got = kernel_lab3.lab5(*args, cfg.kb, cfg.steps)
+    elif lab == "lab6":
+        got = kernel_lab4.lab6(*args, cfg.mode, cfg.kb, cfg.steps)
+    else:
+        got = kernel_lab5.lab7(*args, cfg.mode, cfg.kb, cfg.steps)
+    _hold(got, want, lab, cfg, meta, rays, tris)
+    assert brick.hits(got, cfg) >= N_TILES * cfg.tile // 4
+    return got
+
+
+# ---------------------------------------------------------------------------
+# Every mode and body against its script
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile,kb", [(8, 16), (16, 8), (32, 4)])
+@pytest.mark.parametrize("mode", ["mt", "mtfast"])
+def test_lab4_matches_script(monkeypatch, mode, tile, kb):
+    _check_script(monkeypatch, "lab4", _config("lab4", mode, tile, kb))
+
+
+@pytest.mark.parametrize("tile,kb", [(8, 1), (16, 2), (32, 8)])
+def test_lab5_matches_script(monkeypatch, tile, kb):
+    _check_script(monkeypatch, "lab5", _config("lab5", "mt", tile, kb))
+
+
+@pytest.mark.parametrize("variant,tile,kb", [
+    ("fixed", 32, 8), ("slot", 32, 16), ("cid", 16, 8), ("while", 32, 16),
+    ("while2", 16, 8)])
+def test_lab6_matches_script(monkeypatch, variant, tile, kb):
+    _check_script(monkeypatch, "lab6", _config("lab6", variant, tile, kb))
+
+
+@pytest.mark.parametrize("body,kb", [("mt", 8), ("bw", 4)])
+def test_lab7_matches_script(monkeypatch, body, kb):
+    _check_script(monkeypatch, "lab7", _config("lab7", body, 32, kb))
+
+
+def test_hold_flags_a_wrong_id():
+    """The tie-aware hold passes the plain version against itself, and
+    refuses a ray whose id names another triangle away from every edge."""
+    cfg = _config("lab7", "mt", 32, 8)
+    tables, meta, rays = _inputs("lab7", 32)
+    tris = tables["tris9"]
+    ref = _plain("lab7", cfg, meta, rays, tris)
+    assert _hold(ref, ref.numpy(), "lab7", cfg, meta, rays, tris) == 0
+    want = ref.numpy().copy()
+    tile, r = map(int, np.argwhere(want[..., 0] < common.BIG)[0])
+    want[tile, r, 1] = (int(want[tile, r, 1]) + 1) % (cfg.kb * 128)
+    off, unexplained = _departures(ref.numpy(), want, "lab7", cfg, meta,
+                                   rays, tris)
+    assert int(off.sum()) == 1 and unexplained == [(tile, r)]
+
+
+# ---------------------------------------------------------------------------
+# The faults of the scripts, kept (ROADMAP Queue 3)
+# ---------------------------------------------------------------------------
+
+def _ids(out):
+    return out[..., 1].view(torch.int32)
+
+
+def test_mtfast_negates_t_of_back_facing_hits():
+    """Fault 2 (kernel_lab2.py:195 divides t_n by |a|): on the first 64
+    tiles of k7 (TILE 32, KB 4, 13 steps) mtfast gives t < 0 exactly on the
+    rays where it departs from mt (884 of the 965 that hit: a back-facing
+    hit's negative key wins every later minimum); wherever its t >= 0 it
+    names mt's triangle, its t within one quantum of the key (2^-13)."""
+    tables, meta, rays = _inputs("lab4", 32)
+    mt, fast = (_plain("lab4", _config("lab4", m, 32, 4), meta, rays,
+                       tables["tris9"]) for m in ("mt", "mtfast"))
+    neg = fast[..., 0] < 0
+    bits = (mt[..., 0].view(torch.int32).long() -
+            fast[..., 0].view(torch.int32)).abs()
+    departs = (_ids(mt) != _ids(fast)) | (bits > 1024)
+    assert torch.equal(departs, neg)
+    assert int(neg.sum()) == 884 and int((_ids(mt) >= 0).sum()) == 965
+    assert torch.equal(_ids(fast)[~neg], _ids(mt)[~neg])
+    assert bool((bits[~neg] <= 1024).all())
+
+
+def test_mtfast_loses_lane_bit_10_at_kb_16():
+    """Fault 3 (kernel_lab2.py:198, :204): at KB = 16 a step has 2,048
+    lanes, and the key's 10 id bits drop lane bit 10. On the rays where
+    mtfast's t >= 0 and mt's winning slot in its step is >= 1,024 (30 of
+    the first 64 tiles of k7f, TILE 32, KB 16, 3 steps), mtfast's id is
+    mt's less 1,024; no ray there has two keys tied within one quantum
+    (0 exceptions), and below slot 1,024 (20 rays) the ids agree."""
+    tables, meta, rays = _inputs("lab4", 32)
+    mt, fast = (_plain("lab4", _config("lab4", m, 32, 16), meta, rays,
+                       tables["tris9"]) for m in ("mt", "mtfast"))
+    im, i_f = _ids(mt), _ids(fast)
+    ok = (fast[..., 0] >= 0) & (im >= 0)
+    high = ok & (im % 2048 >= 1024)
+    assert int(high.sum()) == 30 and int((ok & ~high).sum()) == 20
+    assert int((i_f[high] != im[high] - 1024).sum()) == 0
+    assert torch.equal(i_f[ok & ~high], im[ok & ~high])
+
+
+def _crafted(meta):
+    """The script's meta with every 8th entry 0x7f000000: the exit's bound
+    (the entry of the next step's first slot) then exceeds every t < 1."""
+    meta = meta.copy()
+    meta[::8] = 0x7F000000
+    return meta
+
+
+def test_lab6_exit_never_fires_on_the_scripts_meta():
+    """Fault 4 (kernel_lab4.py:135-138 compares t bits with a cluster id
+    below 636): on the script's own inputs while and while2 walk every
+    step and equal fixed bit for bit; on the crafted meta they stop after
+    the first / second step, with fewer hits than fixed."""
+    tables, meta, rays = _inputs("lab6", 32)
+    tris = tables["tris9"]
+    fixed = _config("lab6", "fixed", 32, 8)
+    for m, exits in ((meta, False), (_crafted(meta), True)):
+        want = _plain("lab6", fixed, m, rays, tris)
+        for v, first in (("while", 1), ("while2", 2)):
+            stats = {}
+            got = _plain("lab6", fixed._replace(mode=v), m, rays, tris,
+                         stats)
+            if exits:
+                assert stats["steps"] == first * N_TILES
+                assert brick.hits(got, fixed) < brick.hits(want, fixed)
+            else:
+                assert stats["steps"] == fixed.steps * N_TILES
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["while", "while2"])
+def test_lab6_exit_fires_in_the_script_alike(monkeypatch, variant):
+    """On the crafted meta the script's while / while2 stop as the plain
+    version does (fault 4's other side)."""
+    cfg = _config("lab6", variant, 32, 8)
+    tables, meta, rays = _inputs("lab6", 32)
+    got = _check_script(monkeypatch, "lab6", cfg, _crafted(meta))
+    fixed = _plain("lab6", cfg._replace(mode="fixed"), _crafted(meta), rays,
+                   tables["tris9"])
+    assert brick.hits(got, cfg) < brick.hits(fixed, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The scripts' mains: inputs and tests a ray
+# ---------------------------------------------------------------------------
+
+def _digest(x):
+    x = np.asarray(x)
+    return x.dtype.str, x.shape, hashlib.sha256(x.tobytes()).hexdigest()
+
+
+def _main_block(path):
+    """The code under the script's `if __name__ == "__main__":`."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.If) and "__main__" in ast.unparse(node.test):
+            return compile(ast.Module(body=node.body, type_ignores=[]),
+                           str(path), "exec")
+    raise AssertionError(f"{path} has no main block")
+
+
+@functools.lru_cache(maxsize=None)
+def _captured(lab):
+    """Runs lab's script's main with pl.pallas_call replaced by a recorder
+    that returns zeros, jax.jit by the identity and scan_time by one call
+    of f(0): ({table: digest}, [one dict per run: make_kernel's arguments
+    and BK, steps, rays a run, the meta and rays digests])."""
+    name = SCRIPT[lab]
+    runs = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.syspath_prepend(str(SCRIPTS))
+        mp.setattr(sys, "argv", [name])
+
+        def record(kernel, out_shape, grid_spec):
+            def call(meta, rays, tris):
+                runs[-1].update(steps=kernel.keywords["steps"],
+                                rays=_digest(rays), meta=_digest(meta),
+                                n_rays=rays.shape[0] * rays.shape[1])
+                return jnp.zeros(out_shape.shape, out_shape.dtype)
+            return call
+        mp.setattr(pl, "pallas_call", record)
+        mp.setattr(jax, "jit", lambda f: f)
+        mod = _load(name)
+        tables = {k: _digest(getattr(mod, k)) for k in ("tris9", "tris12")
+                  if hasattr(mod, k)}
+        make = mod.make_kernel
+
+        def make_kernel(*args):
+            kernel, second = make(*args)
+            runs.append(dict(args=args, second=second))
+            return kernel, second
+
+        def scan_time(f, n=32, warmup=True):
+            f(jnp.int32(0))
+            return 1.0
+        mp.setattr(mod, "make_kernel", make_kernel)
+        mp.setattr(mod, "scan_time", scan_time)
+        with contextlib.redirect_stdout(io.StringIO()):
+            exec(_main_block(SCRIPTS / f"{name}.py"), mod.__dict__)
+    return tables, runs
+
+
+def _bk(lab, run):
+    """The run's triangles a step, as its run counts tests: make_kernel's
+    BK (kernel_lab2-4.py), or KB * 128 (kernel_lab5.py:189)."""
+    return run["args"][0] * 128 if lab == "lab7" else run["second"]
+
+
+@pytest.mark.parametrize("lab", ["lab4", "lab5", "lab6", "lab7"])
+def test_inputs_are_the_scripts(lab):
+    """Each script's main, its kernel recorded, draws the table(s) and each
+    run's meta and rays that common.labN_inputs draws, bit for bit, for
+    configurations that match common.labN_configs (rays a tile, KB, steps)
+    in main's order. Digests, not arrays: L7's six 128 MB metas never sit
+    in memory together."""
+    tables, runs = _captured(lab)
+    mine, draws = {"lab4": common.lab4_inputs, "lab5": common.lab5_inputs,
+                   "lab6": common.lab6_inputs,
+                   "lab7": common.lab7_inputs}[lab]()
+    assert {k: _digest(v) for k, v in mine.items()} == tables
+    n = 0
+    for (cfg, meta, rays), run in zip(draws, runs):
+        assert (run["meta"], run["rays"]) == (_digest(meta), _digest(rays))
+        assert run["steps"] == cfg.steps
+        assert _bk(lab, run) == cfg.kb * 128
+        assert run["n_rays"] == cfg.n_tiles * cfg.tile
+        n += 1
+    assert n == len(runs) == len(CONFIGS[lab]) - 6 * (lab == "lab4")
+
+
+@pytest.mark.parametrize("lab", ["lab4", "lab5", "lab6", "lab7"])
+def test_bound_counts_the_scripts_tests(lab):
+    """bounds.CONFIGS's rays and tests a ray are those of the largest
+    configuration of the script's main, reckoned as its run reckons tests
+    (R * steps * BK); L4's is 13 steps of 4 clusters of 128 (6,656 tests
+    a ray, 0.2995 ms), and brick_bound's headline equals lab_bound's."""
+    _, runs = _captured(lab)
+    per_ray = max(r["steps"] * _bk(lab, r) for r in runs)
+    n_rays = {r["n_rays"] for r in runs}
+    key = f"L{lab[3:]}"
+    site, rays, tests, *_ = bounds.CONFIGS[key]
+    assert (n_rays, tests) == ({rays}, per_ray)
+    assert site.startswith(f"scripts/{SCRIPT[lab]}.py:")
+    head = {"lab4": ("mt", 32, 4), "lab5": ("mt", 32, 1),
+            "lab6": ("fixed", 32, 8), "lab7": ("mt", 32, 8)}[lab]
+    cfg = _config(lab, *head)
+    assert cfg.steps * cfg.kb * 128 == per_ray
+    assert bounds.brick_bound(cfg) == bounds.lab_bound(key)
+    if lab == "lab4":
+        assert per_ray == 6656
+        assert round(bounds.lab_bound(key)[0], 4) == 0.2995
+
+
+# ---------------------------------------------------------------------------
+# Entry points, wrappers, the build
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lab", [kernel_lab2, kernel_lab3, kernel_lab4,
+                                 kernel_lab5], ids=["L4", "L5", "L6", "L7"])
+def test_brick_entry_point_needs_a_card(monkeypatch, lab):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        lab.main([])
+
+
+@pytest.mark.parametrize("lab", [kernel_lab2, kernel_lab3, kernel_lab4,
+                                 kernel_lab5], ids=["L4", "L5", "L6", "L7"])
+def test_brick_run_on_the_cpu(lab):
+    """run() walks every configuration of the script's main, in its order,
+    on its inputs (here their first tile): each result is the plain
+    version's, with its tests' rate and bound."""
+    res = lab.run(torch.device("cpu"), tiles=1)
+    name = lab.__name__.rsplit(".", 1)[1]
+    labkey = next(k for k, v in SCRIPT.items() if v == name)
+    want = [c.label for c in CONFIGS[labkey] if not c.label.startswith("k8")]
+    assert [r["cfg"].label for r in res] == want
+    for r in res:
+        c = r["cfg"]
+        assert r["out"].shape == (1, c.tile, 2) and c.n_tiles == 1
+        ref = brick.walk_reference(c.lab, c.mode, r["meta"], r["rays"],
+                                   r["tris"], c.kb, c.steps)
+        assert torch.equal(r["out"].view(torch.int32),
+                           ref.view(torch.int32))
+        assert r["bound_ms"] > 0 and r["gtests_s"] > 0
+
+
+@pytest.mark.parametrize("lab,first", [
+    (kernel_lab2, "k6 TILE=16 KB=4" + " " * 19 + " steps=6: "),
+    (kernel_lab3, "vmem TILE=8 KB=1" + " " * 12 + " steps=14: "),
+    (kernel_lab4, "fixed  TILE=32 KB= 8 steps=6: "),
+    (kernel_lab5, "mt  KB= 8 steps=6: ")], ids=["L4", "L5", "L6", "L7"])
+def test_brick_entry_point_prints_the_scripts_lines(monkeypatch, capsys,
+                                                    lab, first):
+    """main(["--device=cpu"]) prints the script's line per configuration
+    (here with run cut to one tile of each): label, steps, ms, us a tile,
+    G tests/s, then the bound."""
+    run = lab.run
+    monkeypatch.setattr(lab, "run", lambda dev: run(dev, reps=1, tiles=1))
+    assert lab.main(["--device=cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == {kernel_lab2: 12, kernel_lab3: 12,
+                          kernel_lab4: 15, kernel_lab5: 6}[lab]
+    assert lines[0].startswith(first)
+    assert all("host ms (cpu plain)" in ln and "us/tile" in ln and
+               "G tests/s; bound " in ln for ln in lines)
+
+
+def test_brick_wrappers_check_their_arguments():
+    cfg = _config("lab4", "mt", 32, 4)
+    tables, meta, rays = _inputs("lab4", 32)
+    args = [_t(meta), _t(rays), _t(tables["tris9"])]
+    with pytest.raises(ValueError, match="no mode"):
+        lab_kernel.check_brick("lab5", "mtfast", *args, 4, 13)
+    with pytest.raises(ValueError, match="meta entries"):
+        lab_kernel.check_brick("lab4", "mt", args[0][:-1], *args[1:], 4, 13)
+    with pytest.raises(ValueError, match=r"not \(C, 12, 1, 128\)"):
+        lab_kernel.check_brick("lab7", "bw", *args, 8, 6)
+    with pytest.raises(ValueError, match="KB 32"):
+        lab_kernel.check_brick("lab4", "mt", *args, 32, 1)
+    lab_kernel.check_brick("lab4", "mt", *args, cfg.kb, cfg.steps)
+    meta_dev = torch.zeros(1, device="meta")
+    with pytest.raises(ValueError, match="no lab kernel"):
+        kernel_lab2.lab4(args[0], meta_dev, args[2], "mt", 4, 13)

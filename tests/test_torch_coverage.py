@@ -30,8 +30,8 @@ MAPPED = {"ops/pallas_trace.py": ("ops/trace_kernel.py",
 
 
 # every pl.pallas_call site, file:line -> the port's source of its Hopper
-# counterpart (K1-K5 and the K1 labs L8-L11), or None: still to port
-# (L1-L7, L12; ROADMAP Queue 1)
+# counterpart (K1-K5, the brick labs L4-L7 and the K1 labs L8-L11), or
+# None: still to port (L1-L3, L12; ROADMAP Queue 1)
 PALLAS_SITES = {
     "tauray_tpu/ops/pallas_trace.py:281": "csrc/trace_tiles.cu",    # K2
     "tauray_tpu/ops/pallas_trace.py:525": "csrc/trace_tiles.cu",    # K3
@@ -41,10 +41,10 @@ PALLAS_SITES = {
     "scripts/kernel_lab.py:61": None,                               # L1
     "scripts/kernel_lab.py:424": None,                              # L2
     "scripts/kernel_lab.py:586": None,                              # L3
-    "scripts/kernel_lab2.py:234": None,                             # L4
-    "scripts/kernel_lab3.py:172": None,                             # L5
-    "scripts/kernel_lab4.py:199": None,                             # L6
-    "scripts/kernel_lab5.py:159": None,                             # L7
+    "scripts/kernel_lab2.py:234": "csrc/brick_lab.cu",              # L4
+    "scripts/kernel_lab3.py:172": "csrc/brick_lab.cu",              # L5
+    "scripts/kernel_lab4.py:199": "csrc/brick_lab.cu",              # L6
+    "scripts/kernel_lab5.py:159": "csrc/brick_lab.cu",              # L7
     "scripts/kernel_lab8.py:105": "csrc/k1_lab.cu",                 # L8
     "scripts/kernel_lab9.py:189": "csrc/k1_lab.cu",                 # L9
     "scripts/kernel_lab10.py:193": "csrc/k1_lab.cu",                # L10
@@ -72,13 +72,13 @@ def test_every_pallas_call_site_is_accounted_for():
 @pytest.mark.parametrize("site", sorted(PALLAS_SITES))
 def test_pallas_call_site_has_its_counterpart(site):
     """A ported site's Hopper source exists and names the TPU kernel's
-    file; a site still to port is one of the eight lab kernels L1-L7 and
+    file; a site still to port is one of the four lab kernels L1-L3 and
     L12."""
     src = PALLAS_SITES[site]
     path = site.split(":")[0]
     if src is None:
         assert path.startswith("scripts/")
-        assert sum(v is None for v in PALLAS_SITES.values()) == 8
+        assert sum(v is None for v in PALLAS_SITES.values()) == 4
         return
     text = (PORT / src).read_text()
     assert pathlib.PurePosixPath(path).name in text

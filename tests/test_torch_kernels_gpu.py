@@ -684,3 +684,40 @@ def test_k1_lab_matches_plain_version(cuda, lab):
         else:
             assert torch.equal(got.view(torch.int32),
                                want.view(torch.int32)), mode
+
+
+@pytest.mark.parametrize("lab", ["lab4", "lab5", "lab6", "lab7"])
+def test_brick_lab_matches_plain_version(cuda, lab):
+    """Every configuration of each brick lab's script main (csrc/
+    brick_lab.cu; L4 with k8 and k8f too) on the first 64 tiles of its
+    inputs against its plain version on the same card inputs: t and id bits
+    equal (-fmad=false); L6's while and while2 also where the exit fires
+    (every 8th meta entry 0x7f000000); each launch counted."""
+    from tauray_torch.lab import brick, common, lab_kernel
+    tables, draws = {
+        "lab4": lambda: common.lab4_inputs(
+            ("k8", "k6", "k7", "k8f", "k6f", "k7f")),
+        "lab5": common.lab5_inputs, "lab6": common.lab6_inputs,
+        "lab7": common.lab7_inputs}[lab]()
+    tabs = {k: torch.from_numpy(v).to(cuda) for k, v in tables.items()}
+    before = lab_kernel.LAUNCHES[lab]
+    n = 0
+    for cfg, meta, rays in draws:
+        meta = meta[:64 * common.ROW]
+        metas = [meta]
+        if cfg.mode.startswith("while"):
+            crafted = meta.copy()
+            crafted[::8] = 0x7F000000
+            metas.append(crafted)
+        r = torch.from_numpy(rays[:64]).to(cuda)
+        tris = tabs["tris12" if cfg.mode == "bw" else "tris9"]
+        for m in metas:
+            m = torch.from_numpy(m).to(cuda)
+            args = (cfg.lab, cfg.mode, m, r, tris, cfg.kb, cfg.steps)
+            got = brick.brick(*args)
+            want = brick.walk_reference(*args)
+            n += 1
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), cfg.label
+    torch.cuda.synchronize()
+    assert lab_kernel.LAUNCHES[lab] - before == n

@@ -339,10 +339,10 @@ def test_lab_entry_point_needs_a_card(monkeypatch, lab):
 
 
 def test_k1_lab_builds_beside_trace_tiles(monkeypatch, tmp_path):
-    """build_all compiles csrc/k1_lab.cu with trace_tiles.cu's nvcc flags
-    (sm_90a, -fmad=false), one process per source started together, into
-    the build directory, and binds k1_lab_launch; nothing is built at
-    import."""
+    """build_all compiles csrc/k1_lab.cu and csrc/brick_lab.cu with
+    trace_tiles.cu's nvcc flags (sm_90a, -fmad=false), one process per
+    source started together, into the build directory, and binds
+    k1_lab_launch and brick_lab_launch; nothing is built at import."""
     calls = []
 
     class Proc:
@@ -367,15 +367,16 @@ def test_k1_lab_builds_beside_trace_tiles(monkeypatch, tmp_path):
     monkeypatch.setattr(tk.subprocess, "Popen", Proc)
     monkeypatch.setattr(tk.ctypes, "CDLL", lambda path: Lib())
     libs = tk.build_all()
-    assert sorted(libs) == ["k1_lab", "trace_tiles"]
+    assert sorted(libs) == ["brick_lab", "k1_lab", "trace_tiles"]
     srcs = {pathlib.Path(c[-1]).name: c for c in calls}
-    assert sorted(srcs) == ["k1_lab.cu", "trace_tiles.cu"]
+    assert sorted(srcs) == ["brick_lab.cu", "k1_lab.cu", "trace_tiles.cu"]
     for cmd in srcs.values():
         assert cmd[1:1 + len(tk.NVCC_FLAGS)] == tk.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
     assert "-fmad=false" in tk.NVCC_FLAGS
-    fn = libs["k1_lab"].k1_lab_launch
-    assert fn.argtypes == tk._ARGTYPES["k1_lab_launch"]
+    for name in ("k1_lab", "brick_lab"):
+        fn = getattr(libs[name], f"{name}_launch")
+        assert fn.argtypes == tk._ARGTYPES[f"{name}_launch"]
     assert all(p.parent == tmp_path for p in map(
         lambda c: pathlib.Path(tk.BUILD_INFO[c]["path"]), libs))
 
