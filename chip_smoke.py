@@ -7,8 +7,9 @@ Phases, each printed on its own lines; any failure raises and exits
 non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> error;
   2. build the traversal kernels (csrc/trace_tiles.cu, every instance of
-     K1-K5), the K1 labs (csrc/k1_lab.cu) and the brick labs
-     (csrc/brick_lab.cu; one nvcc per source, started together) and print
+     K1-K5), the K1 labs (csrc/k1_lab.cu), the brick labs
+     (csrc/brick_lab.cu), the tile labs (csrc/tile_lab.cu) and the Plücker
+     lab (csrc/mxu_lab.cu; one nvcc per source, started together) and print
      what ptxas reports, and the SASS of each K1-K5 and brick_lab
      instance's inner test loop (cuobjdump); any spill or shared load
      narrower than 16 bytes in a test loop of trace_tiles fails;
@@ -190,7 +191,24 @@ non-zero:
      8), L6 (5 variants x 3 shapes), L7 (mt and bw x 3); each held to its
      plain version bit for bit (L7 on 1,024 tiles of each), mtfast's rays
      with t < 0 counted, and L6 while / while2 on a meta where the exit
-     fires, held the same way and walking fewer steps than fixed.
+     fires, held the same way and walking fewer steps than fixed;
+  22. the 128-ray tile labs and the Plücker lab (tauray_torch/lab, the
+     counterparts of scripts/kernel_lab.py and mxu_lab.py; csrc/tile_lab.cu
+     and csrc/mxu_lab.cu, built in phase 2) through kernel_lab.run and
+     mxu_lab.run at the scripts' sizes, the launches counted over that run
+     alone: L1 k0 and k1 at 0 and 1 steps, k2 and k3 at 0, 1, 2, 4 and 8,
+     L2 (k4, 8 tiles a block) and L3 (k5 at G 8 and 32) at the same steps,
+     L12 mt and plucker; each timed (median and min of 5 CUDA-event runs)
+     with its bound and held to its plain version bit for bit (plucker by
+     mxu_lab.plucker_agreement: t within 1e-5 of max(1, |t|), ids equal or
+     at a tie, as L11; or, on at most 1e-4 of the rays, where the two
+     sides' verdicts on one winner's test differ and FP64 puts that test
+     within rounding of turning, with t within its bound of the FP64 t of
+     the kernel's triangle; each such ray printed with its margin); k4
+     and k5 equal to k3 at each step count on the script's meta, and on a
+     meta whose tnear third is 0x7f000000 their exit firing after one step
+     (fewer hits than k3), held the same way; the intercept and slope of
+     ms over steps of k2-k5.
 The last lines are the card, the kernel table (each K row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
 the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
@@ -2222,6 +2240,166 @@ def brick_phase(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the 128-ray tile labs and the Plücker lab (tauray_torch/lab,
+# csrc/tile_lab.cu, csrc/mxu_lab.cu)
+# ---------------------------------------------------------------------------
+
+TILE_SITES = {"lab1": "scripts/kernel_lab.py:61",
+              "lab2": "scripts/kernel_lab.py:424",
+              "lab3": "scripts/kernel_lab.py:586",
+              "lab12": "scripts/mxu_lab.py:66"}
+TILE_SOURCES = {"lab1": "tauray_torch/csrc/tile_lab.cu",
+                "lab2": "tauray_torch/csrc/tile_lab.cu",
+                "lab3": "tauray_torch/csrc/tile_lab.cu",
+                "lab12": "tauray_torch/csrc/mxu_lab.cu"}
+# the configuration whose times stand at the top of each row: k3, k4 and
+# k5 G = 8 at 8 steps; L12 plucker (mt beside it)
+TILE_HEADLINE = {"lab1": "k3 G=1 steps=8", "lab2": "k4 G=8 steps=8",
+                 "lab3": "k5 G=8 steps=8", "lab12": "plucker"}
+
+
+def tile_phase(dev):
+    """Phase 22: L1-L3 through kernel_lab.run(dev) at the script's size
+    (k0 and k1 at 0 and 1 steps; k2, k3, k4, k5 at G 8 and 32 at 0, 1, 2,
+    4 and 8) and L12 through mxu_lab.run(dev), each timed (median and min
+    of 5 CUDA-event runs); the launches counted over that run alone. Then
+    every L1-L3 configuration and L12 mt held to its plain version bit for
+    bit, plucker by mxu_lab.plucker_agreement; k4 and k5 equal k3 bit for
+    bit at each step count on the script's meta; on a meta whose tnear
+    third is 0x7f000000 their exit fires (one step a tile, fewer hits than
+    k3), held the same way. Prints the intercept and slope of ms over steps
+    of k2-k5. Returns the kernels line's rows."""
+    import torch
+    from tauray_torch.lab import kernel_lab as kl
+    from tauray_torch.lab import lab_kernel
+    from tauray_torch.lab import mxu_lab as ml
+    from tauray_torch.lab.bounds import tile_bound
+    from tauray_torch.lab.common import CPAD, ROW_L1, time_cuda
+    t0 = time.perf_counter()
+    lab_kernel.reset_launch_counts()
+    inp, res = kl.run(dev, ("k0", "k1", "k2", "k3", "k4", "k5", "k532"))
+    linp, lres = ml.run(dev)
+    torch.cuda.synchronize()
+    launches = {lab: lab_kernel.LAUNCHES[lab] for lab in TILE_SITES}
+    run_s = time.perf_counter() - t0
+    print("phase 22 launches " + json.dumps(launches), flush=True)
+    if any(v <= 0 for v in launches.values()):
+        raise RuntimeError(f"phase 22: a lab never launched: {launches}")
+    failures, configs = [], {}
+    n_tiles = inp["n_tiles"]
+    lab_of = {"k4": "lab2", "k5": "lab3"}
+
+    def hold(tag, name, out, plain):
+        """(plain ms, max |t - t_plain|): plain() against the kernel's
+        out, t and id bits alike."""
+        ref, ms = timed(plain)
+        (t, i), (t_r, i_r) = kl.flat(name, out), kl.flat(name, ref)
+        off = int(((t.view(torch.int32) != t_r.view(torch.int32)) |
+                   (i != i_r)).sum())
+        if off:
+            failures.append(f"{tag}: {off} rays depart from the plain "
+                            f"version")
+        return ms, float((t - t_r).abs().max())
+
+    k3 = {r["cfg"].steps: kl.flat("k3", r["out"]) for r in res
+          if r["cfg"].name == "k3"}
+    for r in res:
+        c = r["cfg"]
+        lab = lab_of.get(c.name, "lab1")
+        key = f"{c.name} G={c.group} steps={c.steps}"
+        ms, err = hold(f"{lab} {key}", c.name, r["out"],
+                       lambda: kl.call_reference(c, inp, r["counts"]))
+        e = dict(ms=r["ms"], min_ms=r["min_ms"], us_per_tile=r["us_per_tile"],
+                 gtests_s=r["gtests_s"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], plain_ms=ms, max_abs_err=err,
+                 blocks=n_tiles // c.group, staged_bytes=r["staged_bytes"])
+        if c.name in ("k4", "k5"):
+            t, i = kl.flat(c.name, r["out"])
+            t3, i3 = k3[c.steps]
+            e["equals_k3"] = bool(torch.equal(i, i3) and torch.equal(
+                t.view(torch.int32), t3.view(torch.int32)))
+            if not e["equals_k3"]:
+                failures.append(f"{lab} {key}: departs from k3")
+        configs.setdefault(lab, {})[key] = e
+        print(f"phase 22 {lab} {key} " + json.dumps(e), flush=True)
+    for (name, group), (icpt, slope) in kl.step_fit(res).items():
+        if name not in ("k0", "k1"):
+            print(f"phase 22 fit {name} G={group} " + json.dumps(dict(
+                intercept_ms=icpt, slope_ms_a_step=slope)), flush=True)
+    # the exit where it fires: the tnear third of every row 0x7f000000
+    meta = inp["meta"].view(n_tiles, ROW_L1).clone()
+    meta[:, CPAD:2 * CPAD] = 0x7F000000
+    crafted = dict(inp, meta=meta.view(-1))
+    counts = kl.counts_of(n_tiles, 8, dev)
+    hits3 = int((k3[8][1] >= 0).sum())
+    lab_kernel.reset_launch_counts()
+    for name, group in (("k4", 8), ("k5", 8), ("k5", 32)):
+        c = kl.TileConfig(name, group, 8, "")
+        lab = lab_of[name]
+        t = time_cuda(lambda: kl.call(c, crafted, counts))
+        out = kl.call(c, crafted, counts)
+        stats = {}
+        ms, err = hold(f"{lab} {name} G={group} exit", name, out,
+                       lambda: kl.call_reference(c, crafted, counts, stats))
+        hits = int((kl.flat(name, out)[1] >= 0).sum())
+        e = dict(ms=t["ms"], min_ms=t["min_ms"], plain_ms=ms,
+                 max_abs_err=err, tile_steps=stats["steps"],
+                 tile_steps_k3=n_tiles * 8, hits=hits, hits_k3=hits3)
+        e["bound_ms"], e["bound_by"] = tile_bound(name, 8, n_tiles,
+                                                  stats["steps"])
+        if not (e["tile_steps"] == n_tiles and hits < hits3):
+            failures.append(f"{lab} {name}: the exit did not fire: {e}")
+        configs[lab][f"{name} G={group} steps=8 exit fires"] = e
+        print(f"phase 22 {lab} {name} G={group} exit fires " + json.dumps(e),
+              flush=True)
+    if lab_kernel.LAUNCHES["lab2"] < 1 or lab_kernel.LAUNCHES["lab3"] < 2:
+        failures.append("the exit runs never launched")
+    for r in lres:
+        tris = linp["tris9" if r["mode"] == "mt" else "tris24"]
+
+        def plain():
+            return ml.lab12_reference(linp["order"], linp["o3"], linp["d3"],
+                                      linp["mm2"], tris, r["mode"])
+        e = dict(ms=r["ms"], min_ms=r["min_ms"],
+                 us_per_tile=r["ms"] * 1e3 / linp["order"].shape[0],
+                 gtests_s=r["gtests_s"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], blocks=linp["order"].shape[0])
+        if r["mode"] == "mt":
+            # an (n_tiles, 32, 2) block reads as k5's (n_tiles, 128, 2)
+            e["plain_ms"], e["max_abs_err"] = hold("lab12 mt", "k5", r["out"],
+                                                   plain)
+        else:
+            ref, e["plain_ms"] = timed(plain)
+            agree = ml.plucker_agreement(r["out"], ref, linp)
+            e["max_abs_err"] = agree["max_abs_t"]
+            e.update(agree)
+            if not agree["ok"]:
+                failures.append(f"lab12 plucker: {agree}")
+        configs.setdefault("lab12", {})[r["mode"]] = e
+        print(f"phase 22 lab12 {r['mode']} " + json.dumps(e), flush=True)
+    print("phase 22 " + json.dumps(dict(
+        run_s=run_s, seconds=time.perf_counter() - t0)), flush=True)
+    if failures:
+        raise RuntimeError("phase 22: " + "; ".join(failures))
+    rows = []
+    for lab, cs in configs.items():
+        head = cs[TILE_HEADLINE[lab]]
+        row = {
+            "name": lab, "route": "cuda", "source": TILE_SOURCES[lab],
+            "replaces": TILE_SITES[lab], "launches": launches[lab],
+            "max_abs_err": max(e["max_abs_err"] for e in cs.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            # no single PyTorch call computes any lab's function
+            "library_ms": None, "configuration": TILE_HEADLINE[lab],
+            "configurations": {k: {f: e[f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
+                for k, e in cs.items()}}
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -2488,6 +2666,8 @@ def main() -> int:
     lab_rows = lab_phase(dev, lab_tracer, lab_bounce)
     del lab_tracer, lab_bounce
     lab_rows += brick_phase(dev)
+    torch.cuda.empty_cache()
+    lab_rows += tile_phase(dev)
     torch.cuda.empty_cache()
 
     def row(name, replaces, launches, r, held, restir=None, raster=None):

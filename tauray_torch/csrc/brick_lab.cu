@@ -57,6 +57,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "lab_common.cuh"
+
 namespace {
 
 constexpr int kCluster = 128;          // triangles per cluster
@@ -71,55 +73,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 enum Body { kMT = 0, kMTFast = 1, kBW = 2 };
 enum Variant { kFixed = 0, kCid = 1, kWhile = 2, kWhile2 = 3 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Waits until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, tmin;
-};
-
-__device__ __forceinline__ float comp(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-// Möller-Trumbore in the order of kernel_lab2.py mt_body (and of
-// trace_kernel._mt_test): whether it hits closer than bound, its t in tt.
-__device__ __forceinline__ bool mt_hit(const Ray& r, const float (&w)[9],
-                                       float bound, float& tt) {
-  const float v0x = w[0], v0y = w[1], v0z = w[2];
-  const float e1x = w[3], e1y = w[4], e1z = w[5];
-  const float e2x = w[6], e2y = w[7], e2z = w[8];
-  const float hx = r.dy * e2z - r.dz * e2y;
-  const float hy = r.dz * e2x - r.dx * e2z;
-  const float hz = r.dx * e2y - r.dy * e2x;
-  const float a = e1x * hx + e1y * hy + e1z * hz;
-  const float f = a != 0.0f ? 1.0f / a : 0.0f;
-  const float sx = r.ox - v0x;
-  const float sy = r.oy - v0y;
-  const float sz = r.oz - v0z;
-  const float uu = f * (sx * hx + sy * hy + sz * hz);
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float vv = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  tt = f * (e2x * qx + e2y * qy + e2z * qz);
-  return a != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-         tt >= r.tmin && tt < bound;
-}
 
 // Baldwin-Weber in the order of kernel_lab5.py (and of
 // trace_kernel._bw_test).

@@ -56,6 +56,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lab_common.cuh"
+
 namespace {
 
 constexpr int kCluster = 128;  // triangles per cluster
@@ -72,12 +74,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // L11 mxu: a staged row of 128 floats takes 136, so that the four rows a
 // B fragment reads (k = 0..3) fall on different banks
 constexpr int kPadRow = 34;    // float4 per padded row
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -99,10 +95,6 @@ __device__ __forceinline__ void stage(float4* buf, const float* tris, int c,
   }
   cp_async_wait_all();
 }
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, tmin;
-};
 
 // One Baldwin-Weber test in the order of pallas_trace.py:1108-1117 (and
 // of trace_kernel._bw_test): whether it hits closer than bound, with its
@@ -416,40 +408,6 @@ lab11_vpu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
     bw_step<false, false>(buf, tris, orders, lane, r, bt, bi);
   }
   reinterpret_cast<float2*>(out)[ray] = make_float2(bt, __int_as_float(bi));
-}
-
-// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
-// from zero, low 13 bits cleared: a float that mma reads exactly
-__device__ __forceinline__ float to_tf32(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
-
-struct Split {
-  unsigned hi, lo;
-};
-
-__device__ __forceinline__ Split split(float x) {
-  const float hi = to_tf32(x);
-  return Split{__float_as_uint(hi), __float_as_uint(to_tf32(x - hi))};
-}
-
-// d += a (16 x 4, row) . b (4 x 8, col), TF32 in, FP32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], unsigned a0,
-                                         unsigned a1, unsigned b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-// a . b in TF32 split in two: lo.hi + hi.lo + hi.hi
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Split& a0,
-                                           const Split& a1, const Split& b) {
-  d[0] = d[1] = d[2] = d[3] = 0.0f;
-  mma_tf32(d, a0.lo, a1.lo, b.hi);
-  mma_tf32(d, a0.hi, a1.hi, b.lo);
-  mma_tf32(d, a0.hi, a1.hi, b.hi);
 }
 
 // One warp per tile. Lane l is row group g = l / 4 and column k = l % 4 of

@@ -4,7 +4,10 @@ shapes at the largest configuration its main runs: the larger of the FP32
 operations at 67 TFLOP/s (TF32 at 495 for a matrix form) and the bytes at
 3.35 TB/s, each input read once. L10's bound depends on its wave's keys;
 chip_smoke phase 20 reckons it from the wave. brick_bound gives L4-L7's
-bound of each configuration of their scripts' mains.
+bound of each configuration of their scripts' mains, tile_bound L1-L3's
+and lab12_bound L12's. A matrix form's TF32 products count three times,
+for the split in two that brings them near FP32 (kernel_lab11.SPLIT, which
+L11 and L12 share).
 
     python -m tauray_torch.lab.bounds
 
@@ -14,11 +17,12 @@ from __future__ import annotations
 
 import sys
 
-from .common import (CC, CLUSTER, FLOPS_BW, FLOPS_MT, PEAK_TF32,
-                     BrickConfig, bound)
+from .common import (CC, CLUSTER, FLOPS_BW, FLOPS_MT, KB_L1, KBV,
+                     N_TILES_L12, PEAK_FP32, PEAK_TF32, R_TILE, ROW_L1,
+                     STEPS_L12, TILE, TILE_L1, BrickConfig, bound)
 from .kernel_lab8 import lab8_bound
 from .kernel_lab9 import lab9_bound
-from .kernel_lab11 import lab11_bound
+from .kernel_lab11 import SPLIT, lab11_bound
 
 C_LABS = CC            # clusters of the scripts' synthetic tables
 # FP32 operations of one deferred-division Möller-Trumbore test
@@ -47,10 +51,11 @@ CONFIGS = {
             "6 steps of 8 clusters, the Möller-Trumbore body"),
 }
 # L12's matrix form: three products of K = 6 and one of K = 4 a test (44
-# TF32 operations), and an FP32 epilogue of 14 (the three-term sum, six
-# sign tests, the reciprocal, t, the two range tests, the minimum), which
-# can run at once: the larger of the two times
-L12_MATRIX = (3 * 12 + 8, 14)
+# TF32 operations, each product taken SPLIT times), and an FP32 epilogue of
+# 14 (the three-term sum, six sign tests, the reciprocal, t, the two range
+# tests, the minimum), which can run at once: the larger of the two times
+L12_TF32_OPS = 3 * 12 + 8
+L12_EPILOGUE = 14
 
 
 def lab_bound(lab: str, flops_per_test=None):
@@ -81,16 +86,76 @@ def brick_bound(cfg: BrickConfig, tile_steps=None):
     return bound(tests * flops, nbytes)
 
 
+def tile_bound(kernel: str, steps: int, n_tiles: int = R_TILE // TILE_L1,
+               tile_steps=None):
+    """(ms, what sets it) of scripts/kernel_lab.py's kernel k0-k5 at steps
+    steps of KB_L1 clusters a tile: t_max read and t and the id written
+    (12 bytes a ray); from k1 on the tiles' meta rows (ROW_L1 int32 each);
+    from k2 on, where a step is walked, the table (tris9); from k3 on the
+    other seven floats of each ray and 46 FP32 operations a test. k1's and
+    k2's are bounds on the copies they make, the lab's question: their
+    output needs one meta entry a tile (k1) or one float a step (k2), whose
+    bound is k0's, ~10x lower. tile_steps: the steps the tiles walked,
+    where an exit ended walks early; every step of every tile by default."""
+    if tile_steps is None:
+        tile_steps = n_tiles * steps
+    rays = n_tiles * TILE_L1
+    nbytes = rays * 12
+    flops = 0
+    if kernel != "k0":
+        nbytes += n_tiles * ROW_L1 * 4
+    if kernel not in ("k0", "k1") and tile_steps:
+        nbytes += C_LABS * 9 * CLUSTER * 4
+    if kernel not in ("k0", "k1", "k2"):
+        nbytes += rays * 28
+        flops = tile_steps * TILE_L1 * KB_L1 * CLUSTER * FLOPS_MT
+    return bound(flops, nbytes)
+
+
+def staged_bytes(steps: int, n_tiles: int = R_TILE // TILE_L1) -> int:
+    """The bytes k2-k5 copy into shared memory: KB_L1 clusters of 9 rows of
+    128 floats a tile and step."""
+    return n_tiles * steps * KB_L1 * 9 * CLUSTER * 4
+
+
+def lab12_bound(mode: str, n_tiles: int = N_TILES_L12):
+    """(ms, what sets it) of scripts/mxu_lab.py's mode over n_tiles tiles
+    of 32 rays at its STEPS_L12 steps of 8 clusters: mt 46 FP32 operations a test;
+    plucker the larger of its TF32 products (L12_TF32_OPS a test, SPLIT
+    times over) and its FP32 epilogue (lab12_epilogue_ms). Bytes: o3, d3,
+    mm2 and the output once, the order entries walked and the table rows
+    read (9, or 22 of tris24's 24)."""
+    rays = n_tiles * TILE
+    tests = rays * STEPS_L12 * KBV * CLUSTER
+    rows = 9 if mode == "mt" else 22
+    nbytes = rays * (32 + 8) + n_tiles * STEPS_L12 * KBV * 4 + \
+        C_LABS * rows * CLUSTER * 4
+    if mode == "mt":
+        return bound(tests * FLOPS_MT, nbytes)
+    ops_ms = max(tests * L12_TF32_OPS * SPLIT / PEAK_TF32 * 1e3,
+                 lab12_epilogue_ms(n_tiles))
+    b_ms, b_by = bound(0, nbytes)
+    return (ops_ms, "operations") if ops_ms >= b_ms else (b_ms, b_by)
+
+
+def lab12_epilogue_ms(n_tiles: int = N_TILES_L12) -> float:
+    """The least ms of plucker's FP32 epilogue on the CUDA cores."""
+    tests = n_tiles * TILE * STEPS_L12 * KBV * CLUSTER
+    return tests * L12_EPILOGUE / PEAK_FP32 * 1e3
+
+
 def rows():
     """(lab, site, configuration, ms, what sets it) of every lab kernel
     but L10."""
     out = [(lab, c[0], c[5], *lab_bound(lab)) for lab, c in CONFIGS.items()]
-    _, rays, per_ray, *_ = CONFIGS["L12"]
-    tests = rays * per_ray
-    tf32_ms = tests * L12_MATRIX[0] / PEAK_TF32 * 1e3
-    out.append(("L12 matrix", CONFIGS["L12"][0], "the Plücker products",
-                *max(bound(tests * L12_MATRIX[1], 0),
-                     (tf32_ms, "operations"))))
+    for k in ("k0", "k1", "k2"):
+        staged = f"; {staged_bytes(8) / 1e6:.0f} MB staged" if k == "k2" \
+            else ""
+        out.append((f"L1 {k}", CONFIGS["L1"][0], f"8 steps{staged}",
+                    *tile_bound(k, 8)))
+    out.append(("L12 matrix", CONFIGS["L12"][0],
+                f"the Plücker products x {SPLIT}; FP32 epilogue "
+                f"{lab12_epilogue_ms():.4f} ms", *lab12_bound("plucker")))
     out.append(("L4 deferred division", CONFIGS["L4"][0], "mtfast_body",
                 *lab_bound("L4", FLOPS_MTFAST)))
     out.append(("L7 Baldwin-Weber", CONFIGS["L7"][0], "its tris12 body",

@@ -1,8 +1,8 @@
-"""What the TPU labs share: the constants of scripts/kernel_lab2-5.py and
-kernel_lab8-11.py, their seeded inputs (made with numpy.random.default_rng
-exactly as each script's main makes them), a CUDA-event timer, the card's
-name and power limit, and each lab's entry-point plumbing (--device, the
-bound of a mode)."""
+"""What the TPU labs share: the constants of scripts/kernel_lab.py,
+kernel_lab2-5.py, kernel_lab8-11.py and mxu_lab.py, their seeded inputs
+(made with numpy.random.default_rng exactly as each script makes them), a
+CUDA-event timer, the card's name and power limit, and each lab's
+entry-point plumbing (--device, the bound of a mode)."""
 
 from __future__ import annotations
 
@@ -41,6 +41,21 @@ BRICK = CLUSTER
 ROW = 1024
 R_BRICK = 65536
 L7_TILES = 32768
+
+# scripts/kernel_lab.py (L1-L3): R_TILE rays in tiles of TILE_L1 over CC
+# clusters, KB_L1 clusters a step; a tile's meta row holds CPAD cluster
+# entries, then from CPAD on the tnear bits the exit reads, ROW_L1 in all
+TILE_L1 = 128
+KB_L1 = 8
+CPAD = 1024
+ROW_L1 = 3 * CPAD
+R_TILE = 65536
+
+# scripts/mxu_lab.py (L12): N_TILES_L12 tiles of TILE rays, STEPS_L12
+# steps of KBV clusters a tile, ORDER_L12 cluster entries a tile
+N_TILES_L12 = 2048
+STEPS_L12 = 6
+ORDER_L12 = 64
 
 SCENE = "proc://sponza?tris=262144"
 
@@ -105,6 +120,39 @@ def lab11_inputs(C: int = 1024, n_tiles: int = 4096, n_steps: int = 8,
         m[:, t, 3] = -dd.reshape(C, CLUSTER)
     steps = np.full((n_tiles,), n_steps, np.int32)
     return steps, rays, tris12, m
+
+
+def lab1_inputs():
+    """scripts/kernel_lab.py's module-level draws from one default_rng(0),
+    in its order (:31-35): the 8 ray columns (R_TILE, 1) f32 in [0, 1),
+    returned stacked as (8, R_TILE) [ox, oy, oz, dx, dy, dz, t_min,
+    t_max]; tris9 (CC, 9, 1, 128) f32 in [0, 1); meta (R_TILE / TILE_L1 x
+    ROW_L1,) i32 in [0, CC)."""
+    rng = np.random.default_rng(0)
+    rays = np.stack([rng.random((R_TILE, 1), dtype=np.float32)[:, 0]
+                     for _ in range(8)])
+    tris9 = rng.random((CC, 9, 1, CLUSTER), dtype=np.float32)
+    meta = rng.integers(0, CC, R_TILE // TILE_L1 * ROW_L1, dtype=np.int32)
+    return rays, tris9, meta
+
+
+def lab12_inputs():
+    """scripts/mxu_lab.py's module-level draws from one default_rng(0), in
+    its order (:34-42): o3 (N_TILES_L12, 32, 3) f32 in [0, 1), d3 (the same
+    shape, standard normal in f64, cast), mm2 (N_TILES_L12, 32, 2) [0 |
+    3e38] (no draw), tris9 (CC, 9, 1, 128), tris24 (CC, 24, 1, 128) and
+    order (N_TILES_L12, 64) i32 in [0, CC)."""
+    rng = np.random.default_rng(0)
+    o3 = rng.random((N_TILES_L12, TILE, 3), dtype=np.float32)
+    d3 = rng.standard_normal((N_TILES_L12, TILE, 3)).astype(np.float32)
+    mm2 = np.concatenate(
+        [np.zeros((N_TILES_L12, TILE, 1), np.float32),
+         np.full((N_TILES_L12, TILE, 1), BIG, np.float32)], -1)
+    tris9 = rng.random((CC, 9, 1, CLUSTER), dtype=np.float32)
+    tris24 = rng.random((CC, 24, 1, CLUSTER), dtype=np.float32)
+    order = rng.integers(0, CC, (N_TILES_L12, ORDER_L12), dtype=np.int32)
+    return dict(o3=o3, d3=d3, mm2=mm2, tris9=tris9, tris24=tris24,
+                order=order)
 
 
 class BrickConfig(NamedTuple):

@@ -19,8 +19,9 @@
 
 All five are instances of one kernel, csrc/trace_tiles.cu: one block per
 tile, its W warps sharing the tile's clusters; bw_warps picks W from the
-wave's size and the kernel's kind. build_all also builds csrc/k1_lab.cu
-and csrc/brick_lab.cu, the TPU labs' kernels (tauray_torch/lab/).
+wave's size and the kernel's kind. build_all also builds csrc/k1_lab.cu,
+csrc/brick_lab.cu, csrc/tile_lab.cu and csrc/mxu_lab.cu, the TPU labs'
+kernels (tauray_torch/lab/).
 
 For CUDA tensors each wrapper launches the hand-written kernel; for CPU
 tensors it runs the plain torch version beside it (the *_reference
@@ -54,7 +55,8 @@ KEY_SENTINEL = 0x7FFFFFFF
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> its CUDA source
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("trace_tiles", "k1_lab", "brick_lab")}
+           for name in ("trace_tiles", "k1_lab", "brick_lab", "tile_lab",
+                        "mxu_lab")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -75,6 +77,8 @@ _ARGTYPES = {
     "k1_lab_launch": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P, _P],
     "brick_lab_launch": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "tile_lab_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "mxu_lab_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 # the kernel kind trace_tiles_launch takes for each wrapper
 _KIND = {"trace_vm3": 0, "trace_vm2": 1, "trace_vm": 1, "trace_mt": 2,

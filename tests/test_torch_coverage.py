@@ -7,9 +7,8 @@ kernels are ops/trace_kernel.py's wrappers over csrc/trace_tiles.cu. A
 module added to tauray_tpu without a counterpart fails here.
 
 Every pl.pallas_call site of the repo (tauray_tpu/ and the TPU lab
-scripts) is accounted for: ported, with the source of its Hopper
-counterpart, or in the set still to port. A new or moved site fails
-here."""
+scripts) is ported: it maps to the source of its Hopper counterpart. A new
+or moved site fails here."""
 
 import math
 import pathlib
@@ -30,17 +29,17 @@ MAPPED = {"ops/pallas_trace.py": ("ops/trace_kernel.py",
 
 
 # every pl.pallas_call site, file:line -> the port's source of its Hopper
-# counterpart (K1-K5, the brick labs L4-L7 and the K1 labs L8-L11), or
-# None: still to port (L1-L3, L12; ROADMAP Queue 1)
+# counterpart (K1-K5, the tile labs L1-L3, the brick labs L4-L7, the K1
+# labs L8-L11 and the Plücker lab L12)
 PALLAS_SITES = {
     "tauray_tpu/ops/pallas_trace.py:281": "csrc/trace_tiles.cu",    # K2
     "tauray_tpu/ops/pallas_trace.py:525": "csrc/trace_tiles.cu",    # K3
     "tauray_tpu/ops/pallas_trace.py:942": "csrc/trace_tiles.cu",    # K4
     "tauray_tpu/ops/pallas_trace.py:1197": "csrc/trace_tiles.cu",   # K1
     "tauray_tpu/ops/pallas_trace.py:1247": "csrc/trace_tiles.cu",   # K5
-    "scripts/kernel_lab.py:61": None,                               # L1
-    "scripts/kernel_lab.py:424": None,                              # L2
-    "scripts/kernel_lab.py:586": None,                              # L3
+    "scripts/kernel_lab.py:61": "csrc/tile_lab.cu",                 # L1
+    "scripts/kernel_lab.py:424": "csrc/tile_lab.cu",                # L2
+    "scripts/kernel_lab.py:586": "csrc/tile_lab.cu",                # L3
     "scripts/kernel_lab2.py:234": "csrc/brick_lab.cu",              # L4
     "scripts/kernel_lab3.py:172": "csrc/brick_lab.cu",              # L5
     "scripts/kernel_lab4.py:199": "csrc/brick_lab.cu",              # L6
@@ -49,7 +48,7 @@ PALLAS_SITES = {
     "scripts/kernel_lab9.py:189": "csrc/k1_lab.cu",                 # L9
     "scripts/kernel_lab10.py:193": "csrc/k1_lab.cu",                # L10
     "scripts/kernel_lab11.py:139": "csrc/k1_lab.cu",                # L11
-    "scripts/mxu_lab.py:66": None,                                  # L12
+    "scripts/mxu_lab.py:66": "csrc/mxu_lab.cu",                     # L12
 }
 _CALL = re.compile(r"^[^#]*\bpl\.pallas_call\(")
 
@@ -71,15 +70,11 @@ def test_every_pallas_call_site_is_accounted_for():
 
 @pytest.mark.parametrize("site", sorted(PALLAS_SITES))
 def test_pallas_call_site_has_its_counterpart(site):
-    """A ported site's Hopper source exists and names the TPU kernel's
-    file; a site still to port is one of the four lab kernels L1-L3 and
-    L12."""
+    """Every site is ported: its Hopper source exists and names the TPU
+    kernel's file."""
     src = PALLAS_SITES[site]
     path = site.split(":")[0]
-    if src is None:
-        assert path.startswith("scripts/")
-        assert sum(v is None for v in PALLAS_SITES.values()) == 4
-        return
+    assert src is not None and src.startswith("csrc/")
     text = (PORT / src).read_text()
     assert pathlib.PurePosixPath(path).name in text
 

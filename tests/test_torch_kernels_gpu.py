@@ -721,3 +721,68 @@ def test_brick_lab_matches_plain_version(cuda, lab):
                                want.view(torch.int32)), cfg.label
     torch.cuda.synchronize()
     assert lab_kernel.LAUNCHES[lab] - before == n
+
+
+@pytest.mark.parametrize("lab", ["lab1", "lab2", "lab3"])
+def test_tile_lab_matches_plain_version(cuda, lab):
+    """Each L1-L3 kernel (csrc/tile_lab.cu) on the first 64 tiles of
+    scripts/kernel_lab.py's inputs, at 0, 1, 3 and 8 steps and on uneven
+    counts (slots past a tile's count skipped), against its plain version
+    on the same card inputs: t and id bits equal (-fmad=false); k4 and k5
+    (at G 8 and 32) also where the exit fires (the tnear third of each row
+    0x7f000000), walking one step a tile; each launch counted."""
+    from tauray_torch.lab import common, kernel_lab, lab_kernel
+    inp = kernel_lab.tile_inputs(cuda, tiles=64)
+    meta = inp["meta"].view(64, common.ROW_L1).clone()
+    meta[:, common.CPAD:2 * common.CPAD] = 0x7F000000
+    crafted = dict(inp, meta=meta.view(-1))
+    cfgs = {"lab1": [kernel_lab.TileConfig(k, 1, 0, "")
+                     for k in ("k0", "k1", "k2", "k3")],
+            "lab2": [kernel_lab.TileConfig("k4", 8, 0, "")],
+            "lab3": [kernel_lab.TileConfig("k5", g, 0, "")
+                     for g in (8, 32)]}[lab]
+    uneven = torch.arange(64, dtype=torch.int32, device=cuda) % 23
+    before = lab_kernel.LAUNCHES[lab]
+    n = 0
+    for cfg in cfgs:
+        runs = [(inp, kernel_lab.counts_of(64, s, cuda))
+                for s in (0, 1, 3, 8)]
+        runs.append((inp, uneven))
+        if lab != "lab1":
+            runs.append((crafted, kernel_lab.counts_of(64, 8, cuda)))
+        for data, counts in runs:
+            got = kernel_lab.flat(cfg.name, kernel_lab.call(cfg, data, counts))
+            stats = {}
+            want = kernel_lab.flat(cfg.name, kernel_lab.call_reference(
+                cfg, data, counts, stats))
+            n += 1
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32)), (cfg, counts)
+            assert torch.equal(got[1], want[1]), (cfg, counts)
+            if data is crafted:
+                assert stats["steps"] == 64
+    torch.cuda.synchronize()
+    assert lab_kernel.LAUNCHES[lab] - before == n
+
+
+def test_mxu_lab_matches_plain_version(cuda):
+    """L12 (csrc/mxu_lab.cu) on the first 256 tiles of scripts/mxu_lab.py's
+    inputs: mt's t and id bits equal to its plain version; plucker held by
+    mxu_lab.plucker_agreement; each launch counted."""
+    from tauray_torch.lab import common, lab_kernel, mxu_lab
+    inp = {k: torch.from_numpy(v if k.startswith("tris") else
+                               np.ascontiguousarray(v[:256])).to(cuda)
+           for k, v in common.lab12_inputs().items()}
+    before = lab_kernel.LAUNCHES["lab12"]
+    args = [inp[k] for k in ("order", "o3", "d3", "mm2")]
+    for mode in ("mt", "plucker"):
+        tris = inp["tris9" if mode == "mt" else "tris24"]
+        got = mxu_lab.lab12(*args, tris, mode)
+        want = mxu_lab.lab12_reference(*args, tris, mode)
+        if mode == "mt":
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        else:
+            agree = mxu_lab.plucker_agreement(got, want, inp)
+            assert agree["ok"], agree
+    torch.cuda.synchronize()
+    assert lab_kernel.LAUNCHES["lab12"] - before == 2

@@ -339,10 +339,10 @@ def test_lab_entry_point_needs_a_card(monkeypatch, lab):
 
 
 def test_k1_lab_builds_beside_trace_tiles(monkeypatch, tmp_path):
-    """build_all compiles csrc/k1_lab.cu and csrc/brick_lab.cu with
-    trace_tiles.cu's nvcc flags (sm_90a, -fmad=false), one process per
-    source started together, into the build directory, and binds
-    k1_lab_launch and brick_lab_launch; nothing is built at import."""
+    """build_all compiles csrc/k1_lab.cu, brick_lab.cu, tile_lab.cu and
+    mxu_lab.cu with trace_tiles.cu's nvcc flags (sm_90a, -fmad=false), one
+    process per source started together, into the build directory, and
+    binds each lab's launch function; nothing is built at import."""
     calls = []
 
     class Proc:
@@ -367,14 +367,15 @@ def test_k1_lab_builds_beside_trace_tiles(monkeypatch, tmp_path):
     monkeypatch.setattr(tk.subprocess, "Popen", Proc)
     monkeypatch.setattr(tk.ctypes, "CDLL", lambda path: Lib())
     libs = tk.build_all()
-    assert sorted(libs) == ["brick_lab", "k1_lab", "trace_tiles"]
+    labs = ["brick_lab", "k1_lab", "mxu_lab", "tile_lab"]
+    assert sorted(libs) == sorted(labs + ["trace_tiles"])
     srcs = {pathlib.Path(c[-1]).name: c for c in calls}
-    assert sorted(srcs) == ["brick_lab.cu", "k1_lab.cu", "trace_tiles.cu"]
+    assert sorted(srcs) == sorted(f"{n}.cu" for n in labs + ["trace_tiles"])
     for cmd in srcs.values():
         assert cmd[1:1 + len(tk.NVCC_FLAGS)] == tk.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
     assert "-fmad=false" in tk.NVCC_FLAGS
-    for name in ("k1_lab", "brick_lab"):
+    for name in labs:
         fn = getattr(libs[name], f"{name}_launch")
         assert fn.argtypes == tk._ARGTYPES[f"{name}_launch"]
     assert all(p.parent == tmp_path for p in map(
