@@ -11,8 +11,10 @@ non-zero:
      (csrc/brick_lab.cu), the tile labs (csrc/tile_lab.cu) and the Plücker
      lab (csrc/mxu_lab.cu; one nvcc per source, started together) and print
      what ptxas reports, and the SASS of each K1-K5 and brick_lab
-     instance's inner test loop (cuobjdump); any spill or shared load
-     narrower than 16 bytes in a test loop of trace_tiles fails;
+     instance's inner test loop (cuobjdump) and of L9's and L7's
+     (app/sass.lab_test_loops: instructions per test); any spill or shared
+     load narrower than 16 bytes in a test loop of trace_tiles fails, as
+     does a spill in an instance of L9's or L7's kernel;
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
@@ -179,8 +181,15 @@ non-zero:
      and L10 on 32,768 rays of each input), L11 mxu tie-aware (t within
      1e-5 of max(1, |t|), or on at most 1e-4 of the rays, ill-conditioned,
      within the TF32 split's error bound of t in FP64; a differing id only
-     at a tie; kernel_lab11.mxu_agreement), and L10 full to K1 (trace_vm3)
-     on both waves, bit for bit;
+     at a tie; kernel_lab11.mxu_agreement), L9's modes with a test (FMA
+     body) by kernel_lab9.lab9_agreement (t within the two bodies' rounding
+     bound, ids equal or at an FP64 tie, or on at most 1e-4 of the rays a
+     verdict that rounding decides, each such ray printed), L9 loads bit
+     for bit, exit and nocat equal to full on the card (lab9_exits: no
+     tile could exit early), L9 full again on rays whose denominator
+     leaves the in-range reciprocal's range (subnormal: the step redone
+     with __frcp_rn; 0; NaN), and L10 full to K1 (trace_vm3) on both
+     waves, bit for bit;
   21. the brick and resident-table labs (tauray_torch/lab, the
      counterparts of scripts/kernel_lab2-5.py; csrc/brick_lab.cu, built
      in phase 2, which prints each instance's SASS instructions per test)
@@ -189,9 +198,11 @@ non-zero:
      runs) with its bound, the launches counted over that run alone: L4
      (k6, k7, k6f, k7f at KB 4, 8, 16), L5 (TILE 8, 16, 32 x KB 1, 2, 4,
      8), L6 (5 variants x 3 shapes), L7 (mt and bw x 3); each held to its
-     plain version bit for bit (L7 on 1,024 tiles of each), mtfast's rays
-     with t < 0 counted, and L6 while / while2 on a meta where the exit
-     fires, held the same way and walking fewer steps than fixed;
+     plain version bit for bit, L7 (FMA bodies) on 1,024 tiles of each by
+     kernel_lab5.lab7_agreement (phase 20's rule) and again with
+     subnormal and NaN denominators; mtfast's rays with t < 0 counted, and
+     L6 while / while2 on a meta where the exit fires, held the same way
+     and walking fewer steps than fixed;
   22. the 128-ray tile labs and the Plücker lab (tauray_torch/lab, the
      counterparts of scripts/kernel_lab.py and mxu_lab.py; csrc/tile_lab.cu
      and csrc/mxu_lab.cu, built in phase 2) through kernel_lab.run and
@@ -221,7 +232,6 @@ import io
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -297,70 +307,12 @@ def ptxas_lines(log: str):
             if re.search(r"registers|spill|Compiling entry", ln)]
 
 
-def _cuobjdump() -> str:
-    """The CUDA toolkit's cuobjdump, or the copy in Triton's package."""
-    import importlib.util
-    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
-    spec = importlib.util.find_spec("triton")
-    if spec is not None and spec.origin:
-        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
-                                  "nvidia", "bin", "cuobjdump"))
-    for cand in cands:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("cuobjdump not found")
-
-
-_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 # trace_tiles_kernel<W, kExit, kRows, kInst>'s mangled template arguments
 _TARGS = re.compile(r"trace_tiles_kernelILi(\d+)ELb([01])ELi(\d+)ELb([01])E")
 # each wrapper's instance: (kExit, kRows, kInst)
 INSTANCE = {"trace_vm3": (0, 12, 0), "trace_vm2": (1, 12, 0),
             "trace_vm": (1, 12, 0), "trace_mt": (1, 9, 0),
             "trace_mt_inst": (1, 9, 1)}
-
-
-def _inner_loops(chunk: str):
-    """The innermost loops (a backward branch with no other inside it) of
-    one function of cuobjdump -sass: each loop's instructions."""
-    insns, labels, pending = [], {}, []
-    for ln in chunk.splitlines():
-        m = _LABEL.match(ln)
-        if m:
-            pending.append(m.group(1))
-            continue
-        m = _INSN.search(ln)
-        if m:
-            addr = int(m.group(1), 16)
-            for lab in pending:
-                labels[lab] = addr
-            pending = []
-            insns.append((addr, m.group(2)))
-    loops = []
-    for addr, op in insns:
-        if not re.search(r"\bBRA\b", op):
-            continue
-        m = re.search(r"\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", op)
-        if not m:
-            continue
-        target = labels.get(m.group(1)) if m.group(1) else \
-            int(m.group(2), 16)
-        if target is not None and target <= addr:
-            loops.append((target, addr))
-    return [[o for a, o in insns if target <= a <= addr]
-            for target, addr in loops
-            if not any((t2, a2) != (target, addr) and target <= t2 and
-                       a2 <= addr for t2, a2 in loops)]
-
-
-def _sass(lib_path: str):
-    """{function name: its cuobjdump -sass text}."""
-    text = subprocess.run([_cuobjdump(), "-sass", lib_path],
-                          capture_output=True, text=True,
-                          check=True).stdout
-    return {chunk.split()[0]: chunk
-            for chunk in text.split("Function : ")[1:]}
 
 
 def sass_loops(lib_path: str):
@@ -370,10 +322,11 @@ def sass_loops(lib_path: str):
     one pass makes (shared words / the 12 Baldwin-Weber or 9
     Möller-Trumbore components of a triangle, the instance's kRows
     template argument) and instructions per test."""
+    from tauray_torch.app import sass as sass_mod
     out = {}
-    for name, chunk in _sass(lib_path).items():
+    for name, chunk in sass_mod.functions(lib_path).items():
         best = None
-        for body in _inner_loops(chunk):
+        for body in sass_mod.inner_loops(chunk):
             lds128 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS\.128\b", o))
                          for o in body)
             lds64 = sum(bool(re.match(r"(@!?P\d+\s+)?LDS\.64\b", o))
@@ -1996,21 +1949,57 @@ def lab_phase(dev, tracer, bounce):
     for r in res9:
         key = f"{r['mode']}/s{r['count'] // 8}"
         stats = {}
-        ms, err = hold(f"lab9 {key}", r["out"][sl], lambda: l9.lab9_reference(
-            r["counts"][sl], in9["heads"][sl], in9["o3"][sl], in9["d3"][sl],
-            in9["mm2"][sl], in9["tris12"], r["mode"], stats))
+
+        def plain():
+            return l9.lab9_reference(
+                r["counts"][sl], in9["heads"][sl], in9["o3"][sl],
+                in9["d3"][sl], in9["mm2"][sl], in9["tris12"], r["mode"],
+                stats)
         extra = {}
+        if r["mode"] == "loads":     # no test: bit for bit
+            ms, err = hold(f"lab9 {key}", r["out"][sl], plain)
+        else:                        # the FMA body: tie-aware
+            ref, ms = timed(plain)
+            extra = l9.lab9_agreement(r["out"][sl], ref, in9["o3"][sl],
+                                      in9["d3"][sl], in9["mm2"][sl],
+                                      in9["tris12"], r["mode"])
+            err = extra["max_abs_t"]
+            if not extra["ok"]:
+                failures.append(f"lab9 {key}: {extra}")
         if r["mode"] == "exit":
-            extra = dict(plain_steps=stats["steps"],
+            # no tile could stop early on these inputs, so exit computes
+            # full's function and is held as full
+            extra.update(plain_steps=stats["steps"],
                          tiles_that_could_exit=l9.lab9_exits(
                              r["out"], in9["n_clusters"]))
+            if extra["tiles_that_could_exit"]:
+                failures.append(f"lab9 {key}: a tile could exit early")
         emit("lab9", key, r, ms, err, us_per_tile=r["us_per_tile"],
              gtests_s=r["gtests_s"], hits=r["hits"],
              plain_rays=r["out"][sl].shape[0] * 32, **extra)
+    # the in-range reciprocal (csrc/lab_common.cuh rcp_in_range): every
+    # 13th direction scaled by 1e-39 (a subnormal den: every step redone
+    # with __frcp_rn), every 7th axis-aligned (den exactly 0 against the
+    # table's axis-aligned walls) and every 17th NaN
+    d_odd = in9["d3"][sl].clone()
+    d_odd.view(-1, 3)[::7] = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    d_odd.view(-1, 3)[::13] *= 1e-39
+    d_odd.view(-1, 3)[::17] = float("nan")
+    args = (torch.full((LAB_SLICE_TILES,), 32, dtype=torch.int32,
+                       device=dev), in9["heads"][sl], in9["o3"][sl], d_odd,
+            in9["mm2"][sl], in9["tris12"], "full")
+    odd = l9.lab9_agreement(l9.lab9(*args), l9.lab9_reference(*args),
+                            *args[2:6], "full")
+    print("phase 20 lab9 full/s4 odd denominators " + json.dumps(odd),
+          flush=True)
+    if not odd["ok"]:
+        failures.append(f"lab9 odd denominators: {odd}")
     by = {(r["mode"], r["count"]): r["out"] for r in res9}
     nocat_same = all(torch.equal(by["full", c].view(torch.int32),
-                                 by["nocat", c].view(torch.int32))
-                     for c in l9.COUNTS)
+                                 by[m, c].view(torch.int32))
+                     for c in l9.COUNTS for m in ("nocat", "exit"))
+    if not nocat_same:
+        failures.append("lab9: nocat or exit departs from full on the card")
     for r in res10:
         key = f"{r['mode']}/{r['wave']}"
         counts, keys, r3, idmask = args10[r["wave"]]
@@ -2055,7 +2044,7 @@ def lab_phase(dev, tracer, bounce):
              **extra)
     print("phase 20 " + json.dumps(dict(
         run_s=run_s, seconds=time.perf_counter() - t0,
-        lab9_full_equals_nocat=nocat_same)), flush=True)
+        lab9_full_equals_nocat_and_exit=nocat_same)), flush=True)
     if failures:
         raise RuntimeError("phase 20: " + "; ".join(failures))
     rows = []
@@ -2089,34 +2078,30 @@ BRICK_SITES = {"lab4": "scripts/kernel_lab2.py:234",
 # top of each lab's kernels-line row: bounds.CONFIGS's
 BRICK_HEADLINE = {"lab4": ("mt", 32, 4, 13), "lab5": ("mt", 32, 1, 52),
                   "lab6": ("fixed", 32, 8, 6), "lab7": ("mt", 32, 8, 6)}
-# brick_kernel<kStaged, kLab7, kBody, kVariant>'s mangled template arguments
-_BRICK_TARGS = re.compile(r"brick_kernelILb([01])ELb([01])ELi(\d)ELi(\d)E")
-_BRICK_INSTANCES = {(1, 0, 0, 0): "lab4 mt", (1, 0, 1, 0): "lab4 mtfast",
-                    (0, 0, 0, 0): "lab5, lab6 fixed/slot",
-                    (0, 0, 0, 1): "lab6 cid", (0, 0, 0, 2): "lab6 while",
-                    (0, 0, 0, 3): "lab6 while2", (0, 1, 0, 0): "lab7 mt",
-                    (0, 1, 2, 0): "lab7 bw"}
+# brick_kernel<kStaged, kBody, kVariant>'s mangled template arguments
+_BRICK_TARGS = re.compile(r"brick_kernelILb([01])ELi(\d)ELi(\d)E")
+_BRICK_INSTANCES = {(1, 0, 0): "lab4 mt", (1, 1, 0): "lab4 mtfast",
+                    (0, 0, 0): "lab5, lab6 fixed/slot", (0, 0, 1): "lab6 cid",
+                    (0, 0, 2): "lab6 while", (0, 0, 3): "lab6 while2"}
 
 
 def brick_sass(lib_path: str):
     """{instance: its test loop's statistics}: of the innermost loops of
-    each brick_kernel instance, the one with the most 16-byte row loads
-    (LDS.128 from the staged buffer, LDG.128 in place), its instructions,
-    the tests a pass makes (4 a load of each of the 9 or 12 rows) and the
-    instructions per test."""
+    each brick_kernel instance (L4-L6), the one with the most 16-byte row
+    loads (LDS.128 from the staged buffer, LDG.128 in place), its
+    instructions, the tests a pass makes (4 a load of each of the 9 rows)
+    and the instructions per test."""
+    from tauray_torch.app import sass as sass_mod
     out = {}
-    for name, chunk in _sass(lib_path).items():
+    for name, chunk in sass_mod.functions(lib_path).items():
         targs = _BRICK_TARGS.search(name)
         if targs is None:
             continue
-        key = tuple(int(g) for g in targs.groups())
-        best = max(_inner_loops(chunk) or [[]], key=lambda body: sum(
-            bool(re.match(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b", o))
-            for o in body))
+        best = sass_mod.row_loop(chunk)
         wide = sum(bool(re.match(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b", o))
                    for o in best)
-        tests = 4 * wide / (12 if key[2] == 2 else 9)
-        out[_BRICK_INSTANCES[key]] = dict(
+        tests = 4 * wide / 9
+        out[_BRICK_INSTANCES[tuple(int(g) for g in targs.groups())]] = dict(
             loop_instructions=len(best), loads128=wide, tests=tests,
             instructions_per_test=len(best) / tests if tests else None)
     return out
@@ -2168,21 +2153,50 @@ def brick_phase(dev):
             n = min(c.n_tiles, LAB_SLICE_TILES) if lab == "lab7" else \
                 c.n_tiles
             key = f"{c.label.strip()} steps={c.steps}"
-            ms, err = hold(f"{lab} {key}", r["out"][:n],
-                           lambda: brick.walk_reference(
-                               c.lab, c.mode, r["meta"][:n * ROW],
-                               r["rays"][:n], r["tris"], c.kb, c.steps))
+
+            def plain():
+                return brick.walk_reference(
+                    c.lab, c.mode, r["meta"][:n * ROW], r["rays"][:n],
+                    r["tris"], c.kb, c.steps)
+            agree = {}
+            if lab == "lab7":        # the FMA bodies: tie-aware
+                ref, ms = timed(plain)
+                agree = l7.lab7_agreement(r["out"][:n], ref,
+                                          r["meta"][:n * ROW], r["rays"][:n],
+                                          r["tris"], c.mode)
+                err = agree["max_abs_t"]
+                if not agree["ok"]:
+                    failures.append(f"{lab} {key}: {agree}")
+            else:
+                ms, err = hold(f"{lab} {key}", r["out"][:n], plain)
             e = dict(ms=r["ms"], min_ms=r["min_ms"],
                      us_per_tile=r["us_per_tile"], gtests_s=r["gtests_s"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      plain_ms=ms, plain_rays=n * c.tile, max_abs_err=err,
-                     hits=brick.hits(r["out"], c))
+                     hits=brick.hits(r["out"], c), **agree)
             if c.mode == "mtfast":
                 e["t_negative"] = int((r["out"][..., 0] < 0).sum())
             e["headline"] = (c.mode, c.tile, c.kb, c.steps) == \
                 BRICK_HEADLINE[lab]
             configs.setdefault(lab, {})[key] = e
             print(f"phase 21 {lab} {key} " + json.dumps(e), flush=True)
+    # L7's redo of a step with __frcp_rn: every 13th direction scaled by
+    # 1e-39 (a subnormal den), every 17th NaN
+    for r in res["lab7"]:
+        c = r["cfg"]
+        if (c.kb, c.steps) != (8, 6):
+            continue
+        n = LAB_SLICE_TILES
+        rays = r["rays"][:n].clone()
+        rays.view(-1, 8)[::13, 3:6] *= 1e-39
+        rays.view(-1, 8)[::17, 3:6] = float("nan")
+        args = (r["meta"][:n * ROW], rays, r["tris"], c.mode, c.kb, c.steps)
+        odd = l7.lab7_agreement(l7.lab7(*args), l7.lab7_reference(*args),
+                                *args[:4])
+        print(f"phase 21 lab7 {c.mode} odd denominators " + json.dumps(odd),
+              flush=True)
+        if not odd["ok"]:
+            failures.append(f"lab7 {c.mode} odd denominators: {odd}")
     # L6's exit where it fires, on the headline's inputs
     head = next(r for r in res["lab6"] if (
         r["cfg"].mode, r["cfg"].tile, r["cfg"].kb, r["cfg"].steps) ==
@@ -2415,6 +2429,10 @@ def main() -> int:
     print(f"phase 1 card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
+    # a build directory of this run's own: every kernel is built here from
+    # the checkout's sources, so phase 2 reads ptxas's report of each
+    trace_kernel.BUILD_DIR = os.path.join(trace_kernel.BUILD_DIR,
+                                          f"smoke-{os.getpid()}")
     trace_kernel.build_all()
     sass = {}
     for name, info in sorted(trace_kernel.BUILD_INFO.items()):
@@ -2428,6 +2446,20 @@ def main() -> int:
             trace_kernel.BUILD_INFO["brick_lab"]["path"])).items()):
         print(f"phase 2 sass brick_lab {inst}: " + json.dumps(st),
               flush=True)
+    # L9's and L7's redesigned kernels: SASS a test, and no spill
+    from tauray_torch.app import sass as sass_mod
+    lab_sass, spilled = {}, {}
+    for lib in ("k1_lab", "brick_lab"):
+        info = trace_kernel.BUILD_INFO[lib]
+        lab_sass.update(sass_mod.lab_test_loops(str(info["path"])))
+        spilled.update(sass_mod.spills(str(info["log"]),
+                                       r"lab9_kernel|lab7_kernel"))
+    for inst, st in sorted(lab_sass.items()):
+        print(f"phase 2 sass {inst}: " + json.dumps(st), flush=True)
+    print("phase 2 spills " + json.dumps(spilled), flush=True)
+    if len(lab_sass) != 7 or len(spilled) != 7 or any(spilled.values()):
+        raise RuntimeError(f"L9's and L7's instances: {sorted(lab_sass)}, "
+                           f"spills {spilled}")
     if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
         raise RuntimeError("not every instance of trace_tiles has a test "
                            "loop of 16-byte shared loads only")
@@ -2715,6 +2747,11 @@ def main() -> int:
     kernels["kernels"][0]["launches_distributed_1080p_2_frames"] = l_k1_dist
     kernels["kernels"][0]["launches_quilt_5x9"] = l_k1_quilt
     kernels["kernels"][1]["launches_raster_524k_1_frame"] = l_k2_raster
+    for r in lab_rows:       # the redesigned labs' SASS a test
+        if r["name"] in ("lab7", "lab9"):
+            r["sass_instructions_per_test"] = {
+                k.split()[1]: v["instructions_per_test"]
+                for k, v in lab_sass.items() if k.startswith(r["name"])}
     kernels["kernels"] += lab_rows
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

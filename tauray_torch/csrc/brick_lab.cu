@@ -16,19 +16,21 @@
 //     Möller-Trumbore over tris9 against Baldwin-Weber over tris12.
 // It computes the scripts' functions (tauray_torch/lab/brick.py states
 // them), not their TPU schedules: no group of 32 tiles a grid step, no
-// meta copy into SMEM. One block of 8 warps walks one tile. Each of a
+// meta copy into SMEM.
+//
+// L4-L6 (brick_kernel): one block of 8 warps walks one tile. Each of a
 // tile's rays takes P = 32 / TILE lanes of each warp (TILE 8, 16 or 32),
 // so that no lane idles at TILE < 32; its 8P workers split every step's
 // KB * 128 triangles, 4 at a time (float4 rows), worker q taking the
 // quads q, q + 8P, ... in order.
-//   * Möller-Trumbore and Baldwin-Weber keep a running best per worker
-//     (strict <, so the first smallest in slot order) across every step.
-//     A step's candidate beats the best from before the step exactly when
-//     it beats the running best, so the walk's result is the smallest t,
-//     then the smallest slot, over all its tests: the workers' bests are
-//     combined once, after the last step (shuffles over the P lanes,
-//     shared memory over the warps). cid resolves the winning slot's
-//     cluster from meta then.
+//   * Möller-Trumbore keeps a running best per worker (strict <, so the
+//     first smallest in slot order) across every step. A step's candidate
+//     beats the best from before the step exactly when it beats the
+//     running best, so the walk's result is the smallest t, then the
+//     smallest slot, over all its tests: the workers' bests are combined
+//     once, after the last step (shuffles over the P lanes, shared memory
+//     over the warps). cid resolves the winning slot's cluster from meta
+//     then.
 //   * while / while2 combine the workers' t after each (odd) step and
 //     vote on the exit with __syncthreads_and: the TPU's all-reduce and
 //     scalar branch, the machinery whose cost L6 measures.
@@ -38,21 +40,39 @@
 //     lane bit 10 lost at KB = 16) come out as the script has them.
 //   * L4 stages the next step's KB x 9 rows (4.5 KB a cluster) into a
 //     shared double buffer with cp.async 16-byte copies while the step
-//     tests the other (KB 16: 144 KB, one block an SM); L5-L7 read the
-//     rows in place through the read-only path (the tables, 2.9 and 3.9
-//     MB, stay in the 50 MB L2). Both read 16-byte rows that the P lanes
-//     of a ray share as broadcasts.
-// The results are the scripts' raw (n_tiles, TILE, 2) f32 blocks: t, then
-// the id's int32 bits (L7: float(id)).
+//     tests the other (KB 16: 144 KB, one block an SM); L5 and L6 read the
+//     rows in place through the read-only path (the table, 2.9 MB, stays
+//     in the 50 MB L2). Both read 16-byte rows that the P lanes of a ray
+//     share as broadcasts.
+// L7 (lab7_kernel, redesigned for this card): a warp walks a tile of 32 rays,
+// 4 tiles a block, R = 4 rays a lane: 4 workers of 8 lanes (lane l holds rays
+// l % 8 + 8k, k < 4), worker w taking the quads w, w + 4, ... of each step, so
+// each 16-byte row load (read in place from L2, the 4 workers on 4
+// neighbouring quads) serves 4 triangles x 4 rays, and the loop and address
+// steps 16 tests. The workers keep running bests from t = 3e38 (the candidate
+// to beat is the running best: one compare) and meet by smallest t, then
+// smallest slot, after the last step. Before that L7 ran as brick_kernel (one
+// block of 8 warps a tile, a lane a ray). The results are the scripts' raw
+// (n_tiles, TILE, 2) f32 blocks: t, then the id's int32 bits (L7: float(id)).
 //
 // What bounds it on the card: the FP32 instruction rate (46 operations a
-// Möller-Trumbore test, 49 deferred-division, 32 Baldwin-Weber; none
-// fused under -fmad=false); the bytes are the rays and a few meta entries
-// a tile.
+// Möller-Trumbore test, 49 deferred-division, 32 Baldwin-Weber); the bytes are
+// the rays and a few meta entries a tile. L7's test loop took 79.25 (mt) and
+// 65.75 (bw) SASS instructions a test before the redesign (unfused, one ray a
+// lane, __frcp_rn's range test and branch in every test) and 46.06 (mt) and
+// 32.25 (bw) after it (phase 2 of chip_smoke.py): the FMA bodies (bw_hit_fma,
+// mt_hit_fma: 17 and 31 FP32 instructions, not 31 and 45), 16 tests a load,
+// loop and address step, and __frcp_rn's in-range fast path alone. R = 4, not
+// 2: 3-4% faster on the H100 at 128 registers, no spill (app/lab_bench.py
+// against an R = 2 build). The reciprocal stays correctly rounded, so that t
+// differs from the unfused version's only by the FMAs' roundings, which the
+// tie-aware hold bounds; a step whose warp met a subnormal denominator or one
+// of at least 2^126 is redone with __frcp_rn.
 //
 // Built with -fmad=false (trace_kernel.NVCC_FLAGS), and every 1/a and t_n
-// / |a| an IEEE division, so every mode rounds like its plain torch
-// version in lab/brick.py: t and ids compare bit for bit.
+// / |a| an IEEE division, so L4-L6 round like their plain torch versions
+// in lab/brick.py: t and ids compare bit for bit. L7 takes the FMA bodies
+// and is held by kernel_lab5.lab7_agreement.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -70,26 +90,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kCombFloat4 = 2 * kWarps * 32 / 4;
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTiles7 = 4;             // L7: tiles (warps) a block
+constexpr int kRays7 = 4;              // L7: rays a lane (R), workers a warp
 
 enum Body { kMT = 0, kMTFast = 1, kBW = 2 };
 enum Variant { kFixed = 0, kCid = 1, kWhile = 2, kWhile2 = 3 };
-
-// Baldwin-Weber in the order of kernel_lab5.py (and of
-// trace_kernel._bw_test).
-__device__ __forceinline__ bool bw_hit(const Ray& r, const float (&w)[12],
-                                       float bound, float& tt) {
-  const float den = w[0] * r.dx + w[1] * r.dy + w[2] * r.dz;
-  const float num = w[3] - (w[0] * r.ox + w[1] * r.oy + w[2] * r.oz);
-  const float f = den != 0.0f ? 1.0f / den : 0.0f;
-  tt = num * f;
-  const float px = r.ox + tt * r.dx;
-  const float py = r.oy + tt * r.dy;
-  const float pz = r.oz + tt * r.dz;
-  const float uu = w[4] * px + w[5] * py + w[6] * pz - w[7];
-  const float vv = w[8] * px + w[9] * py + w[10] * pz - w[11];
-  return den != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-         tt >= r.tmin && tt < bound;
-}
 
 // kernel_lab2.py mtfast_body's key of one triangle, (t bits & ~1023) |
 // lane, against best, the tile's best t from before the step; t = t_n /
@@ -161,13 +166,13 @@ __device__ __forceinline__ int order_of(int m, int n_clusters) {
 
 // One tile of tile_rays rays a block: steps steps of kb clusters (see the
 // head of this file). kStaged: L4's shared double buffer, otherwise rows
-// read in place; kLab7: L7's start (t 3e38, id 0), orders and float ids.
-template <bool kStaged, bool kLab7, int kBody, int kVariant>
+// read in place.
+template <bool kStaged, int kBody, int kVariant>
 __global__ void __launch_bounds__(kThreads)
 brick_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
              const float* __restrict__ tris, int tile_rays, int n_clusters,
              int kb, int steps, float* __restrict__ out) {
-  constexpr int NF = kBody == kBW ? 12 : 9;
+  constexpr int NF = 9;
   extern __shared__ float4 smem[];
   float* tcomb = reinterpret_cast<float*>(smem);
   int* icomb = reinterpret_cast<int*>(smem) + kWarps * 32;
@@ -187,7 +192,7 @@ brick_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
   const Ray R{ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z};
   // mtfast: the tile's best t and id; otherwise this worker's running
   // best t and its slot (-1: none)
-  float bt = kLab7 ? kBig : (rb.w > kBig ? kBig : rb.w);  // NaN kept
+  float bt = rb.w > kBig ? kBig : rb.w;  // NaN kept
   int bi = -1;
   const int bk = kb * kCluster;
   const int nq = kb * kQuads;        // quads a step
@@ -201,7 +206,7 @@ brick_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
       const int j = e / (NF * kQuads);
       const int row = e / kQuads % NF;
       const int qc = e % kQuads;
-      const int c = order_of<kLab7>(mrow[s * kb + j], n_clusters);
+      const int c = order_of<false>(mrow[s * kb + j], n_clusters);
       cp_async16(dst + row * nq + j * kQuads + qc,
                  t4 + (static_cast<size_t>(c) * NF + row) * kQuads + qc);
     }
@@ -220,7 +225,7 @@ brick_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
       }
       __syncthreads();  // step s's rows are in for every thread
     } else if (lane < kb) {
-      orders = order_of<kLab7>(mrow[s * kb + lane], n_clusters);
+      orders = order_of<false>(mrow[s * kb + lane], n_clusters);
     }
     int kmin = INT_MAX;
     for (int quad = q; quad < nq; quad += Q) {
@@ -248,12 +253,7 @@ brick_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
           kmin = min(kmin, mtfast_key(R, w, bt, id));
         } else {
           float tt;
-          bool h;
-          if constexpr (kBody == kBW)
-            h = bw_hit(R, w, bt, tt);
-          else
-            h = mt_hit(R, w, bt, tt);
-          if (h) {
+          if (mt_hit(R, w, bt, tt)) {
             bt = tt;
             bi = s * bk + id;
           }
@@ -314,19 +314,126 @@ brick_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
     return;
   }
   if (lane % P != 0) return;
-  const float id = kLab7 ? static_cast<float>(bi < 0 ? 0 : bi)
-                         : __int_as_float(bi);
-  reinterpret_cast<float2*>(out)[ray] = make_float2(bt, id);
+  reinterpret_cast<float2*>(out)[ray] = make_float2(bt, __int_as_float(bi));
 }
 
-template <bool kStaged, bool kLab7, int kBody, int kVariant>
+// One step of L7's walk for worker wk: its quads of the step's kb
+// clusters (lane j < kb of orders names slot j's), rows read in place,
+// each triangle against the lane's R rays (FMA body), a hit closer than
+// ct[k] taking (ct[k], cs[k]). odd: see bw_hit_fma.
+template <int kBody, int R, bool kExact>
+__device__ __forceinline__ void lab7_step(const float4* t4, int orders,
+                                          int kb, int s, int wk,
+                                          const Ray (&r)[R], float (&ct)[R],
+                                          int (&cs)[R], bool& odd) {
+  constexpr int NF = kBody == kBW ? 12 : 9;
+  const int slot0 = s * kb * kCluster;
+#pragma unroll 1
+  for (int quad = wk; quad < kb * kQuads; quad += R) {
+    const int c = __shfl_sync(kFull, orders, quad / kQuads);
+    const float4* b = t4 + static_cast<size_t>(c) * NF * kQuads +
+                      quad % kQuads;
+    float4 v[NF];
+#pragma unroll
+    for (int j = 0; j < NF; ++j) v[j] = __ldg(b + j * kQuads);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float w[NF];
+#pragma unroll
+      for (int j = 0; j < NF; ++j) w[j] = comp(v[j], cc);
+      const int slot = slot0 + 4 * quad + cc;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        float tt;
+        bool h;
+        if constexpr (kBody == kBW)
+          h = bw_hit_fma<kExact>(r[k], w, ct[k], tt, odd);
+        else
+          h = mt_hit_fma<kExact>(r[k], w, ct[k], tt, odd);
+        if (h) {
+          ct[k] = tt;
+          cs[k] = slot;
+        }
+      }
+    }
+  }
+}
+
+// L7: a warp walks a tile of 32 rays, 4 tiles a block, R rays a lane:
+// lane l is lane l % (32 / R) of worker l / (32 / R) and holds rays l %
+// (32 / R) + k (32 / R), k < R. Each step, worker w takes the quads w, w +
+// R, ... of the step's kb clusters, rows read in place (the R workers of
+// a load read R neighbouring quads, 16R bytes), each triangle against the
+// lane's R rays (FMA body). The workers keep running bests from t = 3e38
+// (the candidate to beat is the running best: one compare) and combine by
+// smallest t, then smallest slot, after the last step; the id is the
+// slot, written as a float (0 on a miss).
+template <int kBody, int R>
+__global__ void __launch_bounds__(kTiles7 * 32)
+lab7_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
+            const float* __restrict__ tris, int n_tiles, int n_clusters,
+            int kb, int steps, float* __restrict__ out) {
+  constexpr int kLanes = 32 / R;  // lanes a worker
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tile = blockIdx.x * kTiles7 + warp;
+  if (tile >= n_tiles) return;
+  const int wk = lane / kLanes;
+  const int* mrow = meta + static_cast<size_t>(tile) * kRow;
+  const float4* t4 = reinterpret_cast<const float4*>(tris);
+  const float4* r4 = reinterpret_cast<const float4*>(rays);
+  Ray r[R];
+  float ct[R];
+  int cs[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const size_t ray = static_cast<size_t>(tile) * 32 + lane % kLanes +
+                       k * kLanes;
+    const float4 ra = r4[ray * 2];
+    const float4 rb = r4[ray * 2 + 1];
+    r[k] = Ray{ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z};
+    ct[k] = kBig;
+    cs[k] = -1;
+  }
+  for (int s = 0; s < steps; ++s) {
+    // lane j < kb: the cluster of the step's slot j
+    const int orders =
+        lane < kb ? order_of<true>(mrow[s * kb + lane], n_clusters) : 0;
+    float st[R];
+    int ss[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      st[k] = ct[k];
+      ss[k] = cs[k];
+    }
+    bool odd = false;  // a den outside rcp_in_range's range
+    lab7_step<kBody, R, false>(t4, orders, kb, s, wk, r, ct, cs, odd);
+    if (__any_sync(kFull, odd)) {  // the step again with __frcp_rn
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        ct[k] = st[k];
+        cs[k] = ss[k];
+      }
+      lab7_step<kBody, R, true>(t4, orders, kb, s, wk, r, ct, cs, odd);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) workers_best(ct[k], cs[k], kLanes);
+  if (wk != 0) return;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    reinterpret_cast<float2*>(out)[static_cast<size_t>(tile) * 32 + lane +
+                                   k * kLanes] =
+        make_float2(ct[k], static_cast<float>(cs[k] < 0 ? 0 : cs[k]));
+}
+
+template <bool kStaged, int kBody, int kVariant>
 int launch(const int* meta, const float* rays, const float* tris,
            int n_tiles, int tile_rays, int n_clusters, int kb, int steps,
            float* out, cudaStream_t st) {
-  constexpr int NF = kBody == kBW ? 12 : 9;
   const size_t smem =
-      (kCombFloat4 + (kStaged ? 2 * NF * kb * kQuads : 0)) * sizeof(float4);
-  auto kernel = brick_kernel<kStaged, kLab7, kBody, kVariant>;
+      (kCombFloat4 + (kStaged ? 2 * 9 * kb * kQuads : 0)) * sizeof(float4);
+  auto kernel = brick_kernel<kStaged, kBody, kVariant>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -335,6 +442,17 @@ int launch(const int* meta, const float* rays, const float* tris,
   }
   kernel<<<n_tiles, kThreads, smem, st>>>(meta, rays, tris, tile_rays,
                                           n_clusters, kb, steps, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kBody>
+int launch7(const int* meta, const float* rays, const float* tris,
+            int n_tiles, int tile_rays, int n_clusters, int kb, int steps,
+            float* out, cudaStream_t st) {
+  if (tile_rays != 32) return static_cast<int>(cudaErrorInvalidValue);
+  lab7_kernel<kBody, kRays7>
+      <<<(n_tiles + kTiles7 - 1) / kTiles7, kTiles7 * 32, 0, st>>>(
+          meta, rays, tris, n_tiles, n_clusters, kb, steps, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,23 +477,23 @@ extern "C" int brick_lab_launch(int lab, int mode, const int* meta,
                    steps, out, st
   switch (lab * 10 + mode) {
     case 40:
-      return launch<true, false, kMT, kFixed>(BRICK_ARGS);
+      return launch<true, kMT, kFixed>(BRICK_ARGS);
     case 41:
-      return launch<true, false, kMTFast, kFixed>(BRICK_ARGS);
+      return launch<true, kMTFast, kFixed>(BRICK_ARGS);
     case 50:  // L5 computes L6 fixed's function
     case 60:
     case 61:  // slot: fixed's ids are the order slots
-      return launch<false, false, kMT, kFixed>(BRICK_ARGS);
+      return launch<false, kMT, kFixed>(BRICK_ARGS);
     case 62:
-      return launch<false, false, kMT, kCid>(BRICK_ARGS);
+      return launch<false, kMT, kCid>(BRICK_ARGS);
     case 63:
-      return launch<false, false, kMT, kWhile>(BRICK_ARGS);
+      return launch<false, kMT, kWhile>(BRICK_ARGS);
     case 64:
-      return launch<false, false, kMT, kWhile2>(BRICK_ARGS);
+      return launch<false, kMT, kWhile2>(BRICK_ARGS);
     case 70:
-      return launch<false, true, kMT, kFixed>(BRICK_ARGS);
+      return launch7<kMT>(BRICK_ARGS);
     case 71:
-      return launch<false, true, kBW, kFixed>(BRICK_ARGS);
+      return launch7<kBW>(BRICK_ARGS);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

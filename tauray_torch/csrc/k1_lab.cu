@@ -20,14 +20,23 @@
 //     tile, a lane per ray; mode 2 copies the block's own group of heads
 //     (32 x 128 i32, 16 KB) into shared memory with cp.async and waits
 //     (no prefetch of the next group: a block has no next group);
-//   * L9 and L11: a warp per tile (4 a block), a lane per ray; each
-//     cluster's 6 KB of rows staged in the warp's shared buffer with
-//     cp.async 16-byte copies, then read as 16-byte broadcasts, 4
-//     triangles at a time, as K1 does. "full" tests the step's 8 clusters
-//     against the best from before the step and keeps the first smallest
-//     candidate (the concatenated block's argmin), "nocat" keeps a
-//     running best with strict < (8 per-cluster minima): both return the
-//     same t and id, by different instruction streams;
+//   * L11: a warp per tile (4 a block), a lane per ray; each cluster's
+//     6 KB of rows staged in the warp's shared buffer with cp.async
+//     16-byte copies and waited for, then read as 16-byte broadcasts, 4
+//     triangles at a time, as K1 does (vpu: the step L9 took before its
+//     redesign, unchanged);
+//   * L9 (redesigned for this card): a warp per tile (4 a block), R = 4 rays a
+//     lane. The warp's 32 lanes are 4 workers of 8 lanes over the tile's
+//     32 rays (lane l holds rays l % 8 + 8k, k < 4) and worker w takes the
+//     quads w, w + 4, ... of each cluster, so each 16-byte row load serves
+//     4 triangles x 4 rays and the loop and address steps are shared by
+//     16 tests. The walk's clusters pass through a ring of two 6 KB stages
+//     a warp (48 KB a block): cluster g + 1 is copied (one cp.async group)
+//     while cluster g is tested. "full" starts each worker's candidate at
+//     the best from before the step (one compare, tt < ct, for the two of
+//     the unfused version) and combines the workers by smallest t, then
+//     smallest slot, after the step; "nocat" combines after every cluster
+//     (8 per-cluster minima); both return the same t and id.
 //   * L10: K1's own design (csrc/trace_tiles.cu, kExit = false): a block
 //     per tile, its W warps taking the key slots j = w (mod W), a lane per
 //     ray, each warp's best combined by smallest t, then smallest id;
@@ -43,16 +52,29 @@
 // the slot id's int32 bits (-1 on a miss; t is then the starting best,
 // min(t_max, 3e38), not +inf).
 //
-// What bounds it on the card: L8 moves bytes only (at most 56 bytes a ray
-// and 516 a tile: the write, the ray loads, the heads, the count); L9-L11
-// are bound by the FP32 instruction rate as K1 is (32 FP32 operations a
-// Baldwin-Weber test, none fused under -fmad=false), L11 mxu by 3 x 42
-// TF32 operations a test on the tensor cores plus its FP32 epilogue. The
-// tables (13 MB and 6.3 MB) stay in the 50 MB L2.
+// What bounds it on the card: L8 moves bytes only (at most 56 bytes a ray and
+// 516 a tile: the write, the ray loads, the heads, the count); L9-L11 are
+// bound by the FP32 instruction rate as K1 is (32 FP32 operations a
+// Baldwin-Weber test), L11 mxu by 3 x 42 TF32 operations a test on the tensor
+// cores plus its FP32 epilogue. The tables (13 MB and 6.3 MB) stay in the 50
+// MB L2. L9's test loop took 63.25 SASS instructions a test before the
+// redesign (one ray a lane, unfused, __frcp_rn's range test and branch in
+// every test) and 32.06 after it (phase 2 of chip_smoke.py): the FMA body
+// (bw_hit_fma: 17 FP32 instructions, not 31), 16 tests a load, loop and
+// address step, and __frcp_rn's in-range fast path alone. R = 4, not 2: 4-8%
+// faster on the H100 at 128 registers, no spill (app/lab_bench.py against an R
+// = 2 build); the ring keeps the copies off the test loop's path now that the
+// loop is short (full within 2% of math, which copies nothing). The reciprocal
+// stays correctly rounded: t must differ from the unfused version's only by
+// the FMAs' roundings, so that the tie-aware hold can bound it; a step whose
+// warp met a subnormal denominator or one of at least 2^126 is redone with
+// __frcp_rn.
 //
-// Built with -fmad=false (trace_kernel.NVCC_FLAGS), so every mode but L11
-// mxu rounds exactly like its plain torch version in lab/kernel_lab*.py:
-// t and ids compare bit for bit.
+// Built with -fmad=false (trace_kernel.NVCC_FLAGS): L8, L10, L11 vpu and
+// L9 loads round exactly like their plain torch versions in
+// lab/kernel_lab*.py (t and ids bit for bit). L9's other modes take the
+// FMA body and are held by kernel_lab9.lab9_agreement, L11 mxu by
+// kernel_lab11.mxu_agreement.
 
 #include <cuda_runtime.h>
 
@@ -69,6 +91,7 @@ constexpr int kStep = 8;       // clusters per step
 constexpr int kGroup = 32;     // tiles per group
 constexpr int kHeads = 128;    // key-head lanes per tile
 constexpr int kWarpsPerBlock = 4;  // L9 and L11: tiles per block
+constexpr int kRays9 = 4;      // L9: rays a lane (R), workers a warp
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 // L11 mxu: a staged row of 128 floats takes 136, so that the four rows a
@@ -217,83 +240,212 @@ lab8_kernel(const int* __restrict__ counts, const int* __restrict__ heads,
 }
 
 // ---------------------------------------------------------------------------
-// L9: one Baldwin-Weber step bisected; L11 vpu shares its "full" step
+// L11 vpu's step (and L9's before its redesign): 8 clusters, each staged and
+// waited for, then tested by every lane against its one ray
 // ---------------------------------------------------------------------------
 
-enum Lab9Mode { kFull9 = 0, kExit9 = 1, kLoads9 = 2, kMath9 = 3, kNocat9 = 4 };
-
-// One step over the 8 clusters lane j < 8 of `orders` names: the full
-// (concatenated) step, or with kNocat the running one; with kStatic the
-// rows are cluster 0's, staged once by the caller.
-template <bool kNocat, bool kStatic>
+// One step over the 8 clusters lane j < 8 of `orders` names: each hit
+// must beat bt, the best from before the step, and the first smallest
+// replaces it (the concatenated block's argmin).
 __device__ __forceinline__ void bw_step(float4* buf, const float* tris,
                                         int orders, int lane, const Ray& r,
                                         float& bt, int& bi) {
-  float ct = kNocat ? bt : kBig;
-  int ci = kNocat ? bi : -1;
+  float ct = kBig;
+  int ci = -1;
   for (int j = 0; j < kStep; ++j) {
     const int c = __shfl_sync(kFull, orders, j);
-    if (!kStatic) {
-      stage<false>(buf, tris, c, lane);
-      __syncwarp();
-    }
-    test_cluster<kNocat>(buf, c * kCluster, r, bt, ct, ci);
-    if (!kStatic) __syncwarp();  // every lane is done with buf
+    stage<false>(buf, tris, c, lane);
+    __syncwarp();
+    test_cluster<false>(buf, c * kCluster, r, bt, ct, ci);
+    __syncwarp();  // every lane is done with buf
   }
-  if (kNocat || ct < bt) {
+  if (ct < bt) {
     bt = ct;
     bi = ci;
   }
 }
 
-template <int kMode>
+// ---------------------------------------------------------------------------
+// L9: one Baldwin-Weber step bisected, redesigned for this card
+// ---------------------------------------------------------------------------
+
+enum Lab9Mode { kFull9 = 0, kExit9 = 1, kLoads9 = 2, kMath9 = 3, kNocat9 = 4 };
+
+// Issues the copy of cluster c's 12 x 512 bytes into buf as one cp.async
+// group of 12 16-byte copies a lane, and does not wait for it.
+__device__ __forceinline__ void stage_async(float4* buf, const float* tris,
+                                            int c, int lane) {
+  const float4* src = reinterpret_cast<const float4*>(
+      tris + static_cast<size_t>(c) * kRows * kCluster);
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+    cp_async16(buf + j * kQuads + lane, src + j * kQuads + lane);
+  cp_async_commit();
+}
+
+// Worker wk's share of a cluster's rows (staged, or the table's in place:
+// one layout), quads wk, wk + R, ..., each triangle against the lane's R
+// rays (FMA body): a hit closer than ct[k] takes (ct[k], cs[k]) with its t
+// and its slot, slot0 + its lane in the cluster, so a worker keeps the
+// first smallest in its slot order. odd: see bw_hit_fma.
+template <int R, bool kExact>
+__device__ __forceinline__ void test_quads(const float4* buf, int slot0,
+                                           int wk, const Ray (&r)[R],
+                                           float (&ct)[R], int (&cs)[R],
+                                           bool& odd) {
+#pragma unroll 1
+  for (int q = wk; q < kQuads; q += R) {
+    const float4* b = buf + q;
+    float4 v[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) v[i] = b[i * kQuads];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float w[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) w[i] = comp(v[i], c);
+      const int slot = slot0 + 4 * q + c;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        float tt;
+        if (bw_hit_fma<kExact>(r[k], w, ct[k], tt, odd)) {
+          ct[k] = tt;
+          cs[k] = slot;
+        }
+      }
+    }
+  }
+}
+
+// A warp walks a tile of 32 rays, R rays a lane: lane l is lane l % (32 /
+// R) of worker l / (32 / R) and holds rays l % (32 / R) + k (32 / R), k <
+// R. The walk's clusters (step s, slot j: the (8s + j)-th) pass through a
+// ring of two 6 KB stages: cluster g + 1 is copied while cluster g is
+// tested. Modes: full (each step's candidates start at the best from
+// before the step; the workers' bests combined after the step), nocat
+// (combined after every cluster: 8 per-cluster minima), math (cluster 0
+// staged once, tested for every order), exit (full, then the warp's vote),
+// loads (the rows summed, unfused, every lane alike; no test).
+template <int kMode, int R>
 __global__ void __launch_bounds__(kWarpsPerBlock * kTile)
 lab9_kernel(const int* __restrict__ counts, const int* __restrict__ heads,
             const float* __restrict__ o3, const float* __restrict__ d3,
             const float* __restrict__ mm2, const float* __restrict__ tris,
             int n_tiles, int n_clusters, float* __restrict__ out) {
+  constexpr int kLanes = kTile / R;  // lanes a worker
   extern __shared__ float4 smem[];
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
   const int tile = blockIdx.x * kWarpsPerBlock + warp;
   if (tile >= n_tiles) return;
-  float4* buf = smem + warp * kBuf;
-  const size_t ray = static_cast<size_t>(tile) * kTile + lane;
-  const Ray r{o3[ray * 3], o3[ray * 3 + 1], o3[ray * 3 + 2], d3[ray * 3],
-              d3[ray * 3 + 1], d3[ray * 3 + 2], mm2[ray * 2]};
-  const float tmax = mm2[ray * 2 + 1];
-  float bt = tmax > kBig ? kBig : tmax;  // jnp.minimum keeps a NaN
-  int bi = -1;
+  float4* ring = smem + warp * 2 * kBuf;
+  const int wk = lane / kLanes;
+  Ray r[R];
+  float bt[R];
+  int bi[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const size_t ray = static_cast<size_t>(tile) * kTile + lane % kLanes +
+                       k * kLanes;
+    r[k] = Ray{o3[ray * 3], o3[ray * 3 + 1], o3[ray * 3 + 2], d3[ray * 3],
+               d3[ray * 3 + 1], d3[ray * 3 + 2], mm2[ray * 2]};
+    const float tmax = mm2[ray * 2 + 1];
+    bt[k] = tmax > kBig ? kBig : tmax;  // jnp.minimum keeps a NaN
+    bi[k] = -1;
+  }
   const int* hrow = heads + static_cast<size_t>(tile) * kHeads;
   const int steps = (counts[tile] + kStep - 1) / kStep;
-  if (kMode == kMath9) {
-    stage<false>(buf, tris, 0, lane);
-    __syncwarp();
-  }
+  const int n = steps * kStep;  // clusters of the walk
+  if (n > 0)
+    stage_async(ring, tris,
+                kMode == kMath9 ? 0 : min(hrow[0] & 1023, n_clusters - 1),
+                lane);
   for (int step = 0; step < steps; ++step) {
     // lane j < 8: the order of the step's slot j; lane 8: the next step's
-    // first key (the exit's bound)
+    // first key (the next step's first cluster, the exit's bound)
     const int key = hrow[min(step * kStep + lane, kHeads - 1)];
     const int orders = min(key & 1023, n_clusters - 1);
-    if (kMode == kLoads9) {
-      float m = __int_as_float(0x7f800000);
-      for (int j = 0; j < kStep; ++j) {
-        stage<false>(buf, tris, __shfl_sync(kFull, orders, j), lane);
-        __syncwarp();
-        m = row_sum_min(buf, m);
-        __syncwarp();
+    float ct[R];
+    int cs[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      ct[k] = bt[k];
+      cs[k] = -1;
+    }
+    float m = __int_as_float(0x7f800000);
+    bool odd = false;  // a den outside rcp_in_range's range
+    for (int j = 0; j < kStep; ++j) {
+      const int g = step * kStep + j;
+      const float4* buf = ring;
+      if (kMode == kMath9) {
+        if (g == 0) cp_async_wait<0>();
+      } else {
+        if (g + 1 < n) {
+          stage_async(ring + ((g + 1) & 1) * kBuf, tris,
+                      __shfl_sync(kFull, orders, j + 1), lane);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        buf = ring + (g & 1) * kBuf;
       }
-      bt = nan_min(bt, m);
+      __syncwarp();  // cluster g's rows are in for every lane
+      if (kMode == kLoads9) {
+        m = row_sum_min(buf, m);
+      } else {
+        test_quads<R, false>(buf, j * kCluster, wk, r, ct, cs, odd);
+        if (kMode == kNocat9) {
+#pragma unroll
+          for (int k = 0; k < R; ++k) workers_best(ct[k], cs[k], kLanes);
+        }
+      }
+      if (kMode != kMath9) __syncwarp();  // every lane is done with buf
+    }
+    if (kMode != kLoads9 && __any_sync(kFull, odd)) {
+      // the step again with __frcp_rn, the rows read in place
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        ct[k] = bt[k];
+        cs[k] = -1;
+      }
+      for (int j = 0; j < kStep; ++j) {
+        const int c = kMode == kMath9 ? 0 : __shfl_sync(kFull, orders, j);
+        test_quads<R, true>(reinterpret_cast<const float4*>(tris) +
+                                static_cast<size_t>(c) * kBuf,
+                            j * kCluster, wk, r, ct, cs, odd);
+      }
+    }
+    if (kMode == kLoads9) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) bt[k] = nan_min(bt[k], m);
     } else {
-      bw_step<kMode == kNocat9, kMode == kMath9>(buf, tris, orders, lane, r,
-                                                  bt, bi);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        // (nocat combined after each cluster; again here for a redone step)
+        workers_best(ct[k], cs[k], kLanes);
+        const int win = __shfl_sync(kFull, orders,
+                                    cs[k] < 0 ? 0 : cs[k] / kCluster);
+        if (cs[k] >= 0) {
+          bt[k] = ct[k];
+          bi[k] = win * kCluster + cs[k] % kCluster;
+        }
+      }
     }
     if (kMode == kExit9) {
       const int next = __shfl_sync(kFull, key, kStep) & ~1023;
-      if (__all_sync(kFull, __float_as_int(bt) <= next)) break;
+      bool done = true;
+#pragma unroll
+      for (int k = 0; k < R; ++k) done &= __float_as_int(bt[k]) <= next;
+      if (__all_sync(kFull, done)) break;
     }
   }
-  reinterpret_cast<float2*>(out)[ray] = make_float2(bt, __int_as_float(bi));
+  cp_async_wait<0>();  // no copy outlives the warp (exit's last prefetch)
+  if (wk != 0) return;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    reinterpret_cast<float2*>(out)[static_cast<size_t>(tile) * kTile + lane +
+                                   k * kLanes] =
+        make_float2(bt[k], __int_as_float(bi[k]));
 }
 
 // ---------------------------------------------------------------------------
@@ -405,7 +557,7 @@ lab11_vpu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
   const int n = steps[tile];
   for (int i = 0; i < n; ++i) {
     const int orders = (i * kStep + lane + tile) % n_clusters;
-    bw_step<false, false>(buf, tris, orders, lane, r, bt, bi);
+    bw_step(buf, tris, orders, lane, r, bt, bi);
   }
   reinterpret_cast<float2*>(out)[ray] = make_float2(bt, __int_as_float(bi));
 }
@@ -585,8 +737,10 @@ extern "C" int k1_lab_launch(int lab, int mode, const int* counts,
 #undef K1_LAB8
 #define K1_LAB9(M)                                                          \
   case 90 + M:                                                              \
-    lab9_kernel<M><<<blocks4, kWarpsPerBlock * kTile, smem4, st>>>(         \
-        counts, keys, rays, d3, mm2, tris, n_tiles, n_clusters, out);       \
+    lab9_kernel<M, kRays9><<<blocks4, kWarpsPerBlock * kTile,               \
+                             2 * smem4, st>>>(counts, keys, rays, d3, mm2,  \
+                                              tris, n_tiles, n_clusters,    \
+                                              out);                         \
     break;
     K1_LAB9(0)
     K1_LAB9(1)

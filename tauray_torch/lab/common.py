@@ -333,3 +333,248 @@ def timed_run(fn: Callable[[], torch.Tensor], device: torch.device,
     out = fn()
     ms = (time.perf_counter() - t0) * 1e3
     return out, {"ms": ms, "min_ms": ms}
+
+
+# ---------------------------------------------------------------------------
+# The tie-aware hold of the labs whose kernels take FMA bodies (L7, L9)
+# ---------------------------------------------------------------------------
+
+# FP32's unit roundoff, and gamma_k = k u / (1 - k u), the bound on the
+# relative error of k roundings in a row (Higham, Accuracy and Stability
+# of Numerical Algorithms, sec. 3.1)
+U32 = 2.0 ** -24
+# the share of the rays that may take the hold's FP64 rule for a verdict
+# that rounding decides (as kernel_lab11's and mxu_lab's)
+ILL_SHARE = 1e-4
+
+
+def _gamma(k: int) -> float:
+    return k * U32 / (1 - k * U32)
+
+
+def _quotient_bound(num, e_num, den, e_den, q):
+    """The bound on |fl(num' * fl(1 / den')) - q| for q = num / den, when
+    |num' - num| <= e_num and |den' - den| <= e_den: (e_num + |q| e_den) /
+    (|den| - e_den) before the reciprocal's and the product's roundings,
+    (1 + gamma_2) that + gamma_2 |q| after them; inf where den's sign is
+    not certain."""
+    a = (e_num + q.abs() * e_den) / (den.abs() - e_den)
+    b = (1 + _gamma(2)) * a + _gamma(2) * q.abs()
+    return torch.where(den.abs() > e_den, b, float("inf"))
+
+
+def _verdict(u, e_u, v, e_v, t, b_t, tmin, nonzero):
+    """(FP64's hit, margin): the hit test u >= 0, v >= 0, u + v <= 1, t >=
+    t_min, and the smallest |value| / its bound over u, v, 1 - u - v and t
+    - t_min: at most 1 where an FP32 body's rounding can turn the verdict."""
+    e_uv = e_u + e_v + U32 * (u + v).abs()
+    hit = nonzero & (u >= 0) & (v >= 0) & (u + v <= 1) & (t >= tmin)
+    ratios = torch.stack([u.abs() / e_u, v.abs() / e_v,
+                          (1 - u - v).abs() / e_uv, (t - tmin).abs() / b_t])
+    margin = torch.nan_to_num(ratios, nan=0.0).min(0).values
+    return hit, torch.where(nonzero, margin, 0.0)
+
+
+def bw_fp64(rows, o, d, tmin) -> dict:
+    """The Baldwin-Weber test of each ray against one triangle each, in
+    FP64: rows (m, 12) [n | n.v0 | r1 | r1.v0 | r2 | r2.v0], o and d (m,
+    3), tmin (m,). Returns t, FP64's verdict (hit), b_t, the bound on
+    |t_fp32 - t| that holds for the unfused body (trace_kernel._bw_test)
+    and for the FMA body (csrc/lab_common.cuh bw_hit_fma) alike, and
+    margin (_verdict).
+
+    b_t: den = n.d has 3 roundings in either body (3 products and 2 sums,
+    or a product and 2 FMAs), num = n.v0 - n.o at most 4, so |den' - den|
+    <= gamma_3 sum |n_i d_i| and |num' - num| <= gamma_4 (|n.v0| + sum |n_i
+    o_i|); then _quotient_bound. For a well-conditioned test (no
+    cancellation in num or den) b_t is about 9 u |t|, so two bodies' t
+    differ by at most about 18 u |t|: 9-18 ulps; it grows with the
+    condition. u and v: p = o + t d (2 roundings, or 1 FMA) is off by
+    gamma_2 (|o_i| + |t d_i|) + |d_i| b_t, u = r1.p - r1.v0 (4 roundings)
+    by gamma_4 (sum |r1_i p_i| + |r1.v0|) + sum |r1_i| |p_i' - p_i|."""
+    w, o, d, tmin = rows.double(), o.double(), d.double(), tmin.double()
+    n = w[:, 0:3]
+    den = (n * d).sum(1)
+    num = w[:, 3] - (n * o).sum(1)
+    t = num / den
+    e_den = _gamma(3) * (n * d).abs().sum(1)
+    e_num = _gamma(4) * (w[:, 3].abs() + (n * o).abs().sum(1))
+    b_t = _quotient_bound(num, e_num, den, e_den, t)
+    p = o + t[:, None] * d
+    e_p = _gamma(2) * (o.abs() + (t[:, None] * d).abs()) + \
+        d.abs() * b_t[:, None]
+
+    def edge(r):
+        val = (r[:, 0:3] * p).sum(1) - r[:, 3]
+        err = _gamma(4) * ((r[:, 0:3] * p).abs().sum(1) + r[:, 3].abs()) + \
+            (r[:, 0:3].abs() * e_p).sum(1)
+        return val, err
+    u, e_u = edge(w[:, 4:8])
+    v, e_v = edge(w[:, 8:12])
+    hit, margin = _verdict(u, e_u, v, e_v, t, b_t, tmin, den != 0)
+    return dict(t=t, hit=hit, b_t=b_t, margin=margin)
+
+
+def _abs_cross(a, b):
+    """|a_y b_z| + |a_z b_y| and its like: what a x b's rounding scales
+    with."""
+    return (a[:, [1, 2, 0]] * b[:, [2, 0, 1]]).abs() + \
+        (a[:, [2, 0, 1]] * b[:, [1, 2, 0]]).abs()
+
+
+def mt_fp64(rows, o, d, tmin) -> dict:
+    """The Möller-Trumbore test of each ray against one triangle each, in
+    FP64: rows (m, 9) [v0 | e1 | e2], o, d (m, 3), tmin (m,). Returns t,
+    hit, b_t (the bound on |t_fp32 - t| of the unfused body,
+    trace_kernel._mt_test, and of the FMA body, lab_common.cuh mt_hit_fma,
+    alike) and margin, as bw_fp64.
+
+    Each component of h = d x e2 has 2 roundings (gamma_2 |d| x |e2|), of
+    s = o - v0 one, of q = s x e1 3 with s's (gamma_3 |s| x |e1|); a = e1.h,
+    u_n = s.h, v_n = d.q and t_n = e2.q each add 3 to the errors of their
+    factors; u, v and t are u_n, v_n, t_n times the reciprocal of a
+    (_quotient_bound)."""
+    w, o, d, tmin = rows.double(), o.double(), d.double(), tmin.double()
+    v0, e1, e2 = w[:, 0:3], w[:, 3:6], w[:, 6:9]
+    g3 = _gamma(3)
+    h = torch.cross(d, e2, dim=1)
+    e_h = _gamma(2) * _abs_cross(d, e2)
+    s = o - v0
+    e_s = U32 * s.abs()
+    q = torch.cross(s, e1, dim=1)
+    e_q = g3 * _abs_cross(s, e1)
+
+    def dot(x, e_x, y, e_y):
+        val = (x * y).sum(1)
+        err = g3 * (x * y).abs().sum(1) + (1 + g3) * (
+            x.abs() * e_y + y.abs() * e_x + e_x * e_y).sum(1)
+        return val, err
+    zero = torch.zeros_like(d)
+    a, e_a = dot(e1, zero, h, e_h)
+    u_n, e_un = dot(s, e_s, h, e_h)
+    v_n, e_vn = dot(d, zero, q, e_q)
+    t_n, e_tn = dot(e2, zero, q, e_q)
+    u, v, t = u_n / a, v_n / a, t_n / a
+    b_u = _quotient_bound(u_n, e_un, a, e_a, u)
+    b_v = _quotient_bound(v_n, e_vn, a, e_a, v)
+    b_t = _quotient_bound(t_n, e_tn, a, e_a, t)
+    hit, margin = _verdict(u, b_u, v, b_v, t, b_t, tmin, a != 0)
+    return dict(t=t, hit=hit, b_t=b_t, margin=margin)
+
+
+def _fma(a, b, c):
+    """fl32(a b + c) by way of FP64: the product is exact there, the sum
+    rounds once to 53 bits, then to 24 (in rare ties this double rounding
+    can differ from the card's single one by an ulp)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def bw_test_fma(rows, ox, oy, oz, dx, dy, dz):
+    """csrc/lab_common.cuh bw_hit_fma's arithmetic on the CPU, in its
+    order (trace_kernel._bw_test's signature): (den, t, u, v)."""
+    nx, ny, nz, nd, r1x, r1y, r1z, r1d, r2x, r2y, r2z, r2d = rows
+    den = _fma(nz, dz, _fma(ny, dy, nx * dx))
+    num = _fma(-nz, oz, _fma(-ny, oy, _fma(-nx, ox, nd)))
+    tt = num * (1.0 / den.double()).float()
+    px, py, pz = _fma(tt, dx, ox), _fma(tt, dy, oy), _fma(tt, dz, oz)
+    uu = _fma(r1z, pz, _fma(r1y, py, _fma(r1x, px, -r1d)))
+    vv = _fma(r2z, pz, _fma(r2y, py, _fma(r2x, px, -r2d)))
+    return den, tt, uu, vv
+
+
+def mt_test_fma(rows, ox, oy, oz, dx, dy, dz):
+    """csrc/lab_common.cuh mt_hit_fma's arithmetic on the CPU, in its
+    order (trace_kernel._mt_test's signature): (a, t, u, v)."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
+    hx = _fma(dy, e2z, -(dz * e2y))
+    hy = _fma(dz, e2x, -(dx * e2z))
+    hz = _fma(dx, e2y, -(dy * e2x))
+    a = _fma(e1z, hz, _fma(e1y, hy, e1x * hx))
+    f = (1.0 / a.double()).float()
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    uu = f * _fma(sz, hz, _fma(sy, hy, sx * hx))
+    qx = _fma(sy, e1z, -(sz * e1y))
+    qy = _fma(sz, e1x, -(sx * e1z))
+    qz = _fma(sx, e1y, -(sy * e1x))
+    vv = f * _fma(dz, qz, _fma(dy, qy, dx * qx))
+    tt = f * _fma(e2z, qz, _fma(e2y, qy, e2x * qx))
+    return a, tt, uu, vv
+
+
+def tie_aware_hold(t_k, id_k, t_p, id_p, t_start, analyse,
+                   ill_share: float = ILL_SHARE) -> dict:
+    """The hold of a lab kernel whose test is an FMA body against its
+    unfused plain version, ray by ray (flat (n,) tensors: t f32, the
+    winning triangle's id (-1: none), t_start the t a ray keeps on a miss).
+    analyse(rays (m,), ids (m,)) gives each ray's test against the
+    triangle an id names in FP64 (bw_fp64, mt_fp64: t, hit, b_t, margin).
+      * Ids equal: t equal, or, with a hit, |t_k - t_p| <= 2 b_t, the sum
+        of the two bodies' bounds;
+      * ids differ at an FP64 tie: both winners pass FP64's test or come
+        within rounding of it (margin <= 1), each side's t lies within
+        b_t of its winner's FP64 t, and the two FP64 t within the sum of
+        their b_t: rounding, not the walk, picked the winner;
+      * on at most ill_share of the rays, a turned verdict: a winner of
+        either side whose test rounding decides (margin <= 1), the
+        kernel's t within b_t of its winner's FP64 t, or, where the
+        kernel hit nothing, its t_start.
+    Returns the rays, the ids that differ, the ties, the turned rays
+    (ill_conditioned, each in `held` with its margin and whose winner it
+    is), the largest |t_k - t_p| and |t_k - t_p| / (2 b_t) over the rays
+    with equal ids (max_abs_t, max_t_over_bound), the rays that break every
+    rule (rays_off) and ok."""
+    n = t_k.numel()
+    same_bits = t_k.view(torch.int32) == t_p.view(torch.int32)
+    same_id = id_k == id_p
+    off = torch.zeros(n, dtype=torch.bool, device=t_k.device)
+    diff_t = torch.where(same_id, (t_k - t_p).abs(), 0.0)
+    worst = 0.0
+    # ids equal, t not bit-equal
+    sel = torch.nonzero(same_id & ~same_bits).squeeze(1)
+    if sel.numel():
+        hit = id_k[sel] >= 0
+        f = analyse(sel, id_k[sel].clamp(min=0))
+        d = (t_k[sel] - t_p[sel]).double().abs()
+        ok = hit & (d <= 2 * f["b_t"])
+        off[sel] = ~ok
+        ratio = torch.where(hit, d / (2 * f["b_t"]), float("inf"))
+        worst = float(torch.nan_to_num(ratio, nan=float("inf")).max())
+    held, tie = [], torch.zeros_like(off)
+    turn = torch.zeros_like(off)
+    sel = torch.nonzero(~same_id).squeeze(1)
+    if sel.numel():
+        ik, ip = id_k[sel], id_p[sel]
+        tk, tp = t_k[sel].double(), t_p[sel].double()
+        fk = analyse(sel, ik.clamp(min=0))
+        fp = analyse(sel, ip.clamp(min=0))
+
+        def legit(f, ids, t):
+            return (ids >= 0) & (f["hit"] | (f["margin"] <= 1)) & \
+                ((t - f["t"]).abs() <= f["b_t"])
+        lk, lp = legit(fk, ik, tk), legit(fp, ip, tp)
+        is_tie = lk & lp & ((fk["t"] - fp["t"]).abs() <=
+                            fk["b_t"] + fp["b_t"])
+        turn_k = (ik >= 0) & (fk["margin"] <= 1)
+        turn_p = (ip >= 0) & (fp["margin"] <= 1)
+        kernel_ok = lk | ((ik < 0) & (t_k[sel].view(torch.int32) ==
+                                      t_start[sel].view(torch.int32)))
+        is_turn = ~is_tie & (turn_k | turn_p) & kernel_ok
+        tie[sel], turn[sel] = is_tie, is_turn
+        off[sel] = ~(is_tie | is_turn)
+        for i in torch.nonzero(is_turn).reshape(-1).tolist():
+            k = bool(turn_k[i])
+            f, ids = (fk, ik) if k else (fp, ip)
+            held.append(dict(ray=int(sel[i]), id_k=int(ik[i]),
+                             id_p=int(ip[i]),
+                             turned="kernel's" if k else "plain's",
+                             margin=float(f["margin"][i]),
+                             fp64_hit=bool(f["hit"][i]),
+                             t_k=float(t_k[sel[i]]), t_p=float(t_p[sel[i]]),
+                             t64=float(f["t"][i]), b_t=float(f["b_t"][i])))
+    n_turn = int(turn.sum())
+    return dict(rays=n, ids_differ=int((~same_id).sum()),
+                ties=int(tie.sum()), ill_conditioned=n_turn, held=held,
+                t_bits_differ=int((same_id & ~same_bits).sum()),
+                max_abs_t=float(diff_t.max()) if n else 0.0,
+                max_t_over_bound=worst, rays_off=int(off.sum()),
+                ok=not bool(off.any()) and n_turn <= ill_share * n)

@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from ..ops.trace_kernel import _check
-from .common import (BIG, CLUSTER, FLOPS_BW, KBV, PEAK_FP32, PEAK_TF32,
-                     TILE, bound, card, lab11_inputs, parse_args, timed_run)
+from .common import (BIG, CLUSTER, FLOPS_BW, ILL_SHARE, KBV, PEAK_FP32,
+                     PEAK_TF32, TILE, bound, card, lab11_inputs, parse_args,
+                     timed_run)
 from .kernel_lab9 import _hit
 from .lab_kernel import MODES, check_tiles, launch, on_card
 
@@ -54,7 +55,6 @@ TOL = 1e-5
 # ILL_SHARE of the rays may take that rule (measured on the H100: 2 of
 # 131,072, condition 115 and 470, at 0.41 of the bound; PERF.md).
 GAMMA_3XTF32 = 2.0 ** -21
-ILL_SHARE = 1e-4
 
 
 def lab11(steps: torch.Tensor, rays: torch.Tensor, tris: torch.Tensor,

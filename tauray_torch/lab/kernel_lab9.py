@@ -19,6 +19,13 @@ The script reads a captured table from a file outside the repo; this lab
 takes the port's own tracer of proc://sponza?tris=262144 (C = 2,116,
 13.0 MB of rows), t_min 0, t_max 1e30 and heads uniform in [0, C).
 
+The plain version (lab9_reference) takes the unfused Baldwin-Weber test.
+The card's kernel (csrc/k1_lab.cu lab9_kernel) takes its FMA body, so
+every mode with a test is held to the plain version by lab9_agreement
+(common.tie_aware_hold: t within the two bodies' rounding bound, ids equal
+or at an FP64 tie, or on at most 1e-4 of the rays a verdict that rounding
+decides); loads, which has no test, stays bit for bit.
+
     python -m tauray_torch.lab.kernel_lab9 [--device=cpu]
 
 prints one line per mode with, per count, ms (CUDA events) and us per
@@ -31,8 +38,9 @@ import sys
 import torch
 
 from ..ops.trace_kernel import _bw_test, _check
-from .common import (BIG, CLUSTER, FLOPS_BW, KBV, KC, TILE, bound, card,
-                     lab9_inputs, parse_args, scene_tracer, timed_run)
+from .common import (BIG, CLUSTER, FLOPS_BW, KBV, KC, TILE, bound, bw_fp64,
+                     card, lab9_inputs, parse_args, scene_tracer,
+                     tie_aware_hold, timed_run)
 from .lab_kernel import MODES, check_tiles, launch, on_card
 
 COUNTS = (8, 16, 32)
@@ -141,6 +149,30 @@ def lab9_reference(counts, heads, o3, d3, mm2, tris12, mode: str,
     if stats is not None:
         stats["steps"] = walked
     return torch.stack([bt, bi.view(torch.float32)], -1)
+
+
+def lab9_agreement(out: torch.Tensor, ref: torch.Tensor, o3, d3, mm2,
+                   tris12, mode: str) -> dict:
+    """The tie-aware hold of mode's kernel output against its plain
+    version (both (n_tiles, 32, 2)) on their inputs: common.tie_aware_hold,
+    each ray's winner analysed in FP64 by common.bw_fp64 (math: the rows of
+    cluster 0 at the id's lane, which math tests for every order)."""
+    if mode == "loads":
+        raise ValueError("lab9 loads has no test: it is held bit for bit")
+    C = tris12.shape[0]
+    rows = tris12.reshape(C, 12, CLUSTER)
+    o, d, mm = o3.reshape(-1, 3), d3.reshape(-1, 3), mm2.reshape(-1, 2)
+
+    def analyse(rays, ids):
+        c = torch.zeros_like(ids) if mode == "math" else ids // CLUSTER
+        return bw_fp64(rows[c.long(), :, (ids % CLUSTER).long()], o[rays],
+                       d[rays], mm[rays, 0])
+
+    def flat(x):
+        return (x[..., 0].reshape(-1),
+                x[..., 1].contiguous().view(torch.int32).reshape(-1))
+    t_start = torch.where(mm[:, 1] > BIG, BIG, mm[:, 1])
+    return tie_aware_hold(*flat(out), *flat(ref), t_start, analyse)
 
 
 def lab9_bound(n_tiles: int, mode: str, count: int, n_clusters: int):

@@ -101,8 +101,8 @@ def launch(lab: str, mode, counts: torch.Tensor,
 def check_brick(lab: str, mode, meta: torch.Tensor, rays: torch.Tensor,
                 tris: torch.Tensor, kb: int, steps: int) -> None:
     """An L4-L7 walk's arguments: meta (n_tiles x 1,024,) i32, rays
-    (n_tiles, 8 | 16 | 32, 8) f32 and tris (C, 9 | 12, 1, 128) f32 (12 for
-    L7 bw) on one device, contiguous and aligned; 1 <= kb <= 16 and the
+    (n_tiles, 8 | 16 | 32, 8) f32 (L7: 32) and tris (C, 9 | 12, 1, 128) f32
+    (12 for L7 bw) on one device, contiguous and aligned; 1 <= kb <= 16 and the
     steps' meta entries within a tile's row."""
     if mode not in MODES[lab]:
         raise ValueError(f"{lab}: no mode {mode}")
@@ -112,9 +112,9 @@ def check_brick(lab: str, mode, meta: torch.Tensor, rays: torch.Tensor,
     _check(tris, "tris", torch.float32, 4, dev)
     n_tiles, tile, width = rays.shape
     nf = 12 if mode == "bw" else 9
-    if tile not in (8, 16, 32) or width != 8:
+    if tile not in ((32,) if lab == "lab7" else (8, 16, 32)) or width != 8:
         raise ValueError(f"{lab}: rays {tuple(rays.shape)}, not tiles of "
-                         f"8, 16 or 32 x 8")
+                         f"{'32' if lab == 'lab7' else '8, 16 or 32'} x 8")
     if meta.shape[0] != n_tiles * ROW:
         raise ValueError(f"{lab}: {meta.shape[0]} meta entries for "
                          f"{n_tiles} tiles of {ROW}")

@@ -316,6 +316,184 @@ def test_hold_flags_a_wrong_id():
 
 
 # ---------------------------------------------------------------------------
+# L7's redesigned kernel (csrc/brick_lab.cu lab7_kernel): R rays a lane,
+# each step's quads split over R workers, their bests combined by (t,
+# slot) after the last step; the FMA bodies, held tie-aware
+# ---------------------------------------------------------------------------
+
+def _dup_lab7(seed=21, n_tiles=16, kb=4, steps=3):
+    """test_torch_lab's duplicate scene as L7 takes it: tris9 [v0 | e1 |
+    e2] and tris12 (Baldwin-Weber rows) (C, nf, 1, 128), meta naming
+    cluster 0 at slot 0 and at the next step's first slot and cluster 1
+    (cluster 0's copy) at slot 1, and rays (n_tiles, 32, 8); the rays with
+    t_max < t_min have t_min 5 (L7 reads no t_max)."""
+    from test_torch_lab import _bw_rows, _dup_scene
+    (v0, e1, e2), heads, (o3, d3, mm2) = _dup_scene(seed, n_tiles=n_tiles)
+    C = v0.shape[0] // common.CLUSTER
+
+    def table(rows):
+        return _t(np.swapaxes(rows.reshape(C, common.CLUSTER, -1), 1, 2)[
+            :, :, None, :])
+    tris = {"mt": table(np.concatenate([v0, e1, e2], -1)),
+            "bw": table(_bw_rows(v0, e1, e2))}
+    meta = np.random.default_rng(seed).integers(
+        0, C, (n_tiles, common.ROW)).astype(np.int32)
+    meta[:, 0], meta[:, 1], meta[:, kb] = 0, 1, 0
+    mm = mm2.copy()
+    mm[mm[..., 0] > mm[..., 1]] = (5.0, 1.0)
+    rays = np.concatenate([o3, d3, mm], -1)
+    return tris, _t(meta.reshape(-1)), _t(rays), kb, steps
+
+
+def workers_lab7(meta, rays, tris, body, kb, steps, R):
+    """A plain torch model of lab7_kernel's work split (unfused bodies):
+    worker w takes the quads q = w (mod R) of each step's kb clusters and
+    keeps the first smallest hit (strict <) of all its slots from t = 3e38;
+    the workers' bests meet by smallest t, then smallest slot, after the
+    last step. Returns what lab7 returns."""
+    from test_torch_lab import _first_min
+    n_tiles, C = rays.shape[0], tris.shape[0]
+    rows = tris.reshape(C, tris.shape[1], common.CLUSTER)
+    m2 = meta.reshape(n_tiles, common.ROW)
+    bk = kb * common.CLUSTER
+    worker = torch.arange(bk) // 4 % R
+    test = brick._bw_test if body == "bw" else brick._mt_test
+    inf = torch.tensor(float("inf"))
+    ct = torch.full((n_tiles, 32, R), float("inf"))
+    cs = torch.full((n_tiles, 32, R), 1 << 30)
+    o = [rays[..., k, None] for k in range(3)]
+    d = [rays[..., 3 + k, None] for k in range(3)]
+    tmin = rays[..., 6, None]
+    for s in range(steps):
+        orders = (m2[:, s * kb:(s + 1) * kb] & 1023).clamp(max=C - 1).long()
+        tri = rows[orders].permute(0, 2, 1, 3).reshape(n_tiles, -1, 1, bk)
+        a, tt, uu, vv = test([tri[:, i] for i in range(tri.shape[1])], *o,
+                             *d)
+        hit = (a != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
+            (tt >= tmin) & (tt < common.BIG)
+        for w in range(R):
+            t_w, arg = torch.where(hit & (worker == w), tt, inf).min(dim=2)
+            closer = t_w < ct[..., w]
+            ct[..., w] = torch.where(closer, t_w, ct[..., w])
+            cs[..., w] = torch.where(closer, s * bk + arg, cs[..., w])
+    t, slot = _first_min(ct, cs)
+    hit = t < inf
+    return torch.stack([torch.where(hit, t, common.BIG),
+                        torch.where(hit, slot, 0).float()], -1)
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("body", ["mt", "bw"])
+def test_lab7_worker_split_matches_reference(body, R):
+    """The model of the card's R-worker split and its (t, slot) combine
+    equals lab7_reference bit for bit on exact duplicate triangles within
+    a quad, across workers, within a step and across steps, and on NaN
+    rays and rays with t_max < t_min; and on the script's own first
+    tiles."""
+    tris, meta, rays, kb, steps = _dup_lab7()
+    cases = [(tris[body], meta, rays, kb, steps)]
+    tables, m, r = _inputs("lab7", 32)
+    cfg = _config("lab7", body, 32, 8)
+    cases.append((_t(tables["tris12" if body == "bw" else "tris9"]), _t(m),
+                  _t(r), cfg.kb, cfg.steps))
+    for tr, me, ra, kb_, st in cases:
+        want = kernel_lab5.lab7_reference(me, ra, tr, body, kb_, st)
+        got = workers_lab7(me, ra, tr, body, kb_, st, R)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    hits = want[..., 0] < common.BIG
+    assert int(hits.sum()) > 100
+
+
+def _lab7_fma(monkeypatch, *args):
+    """lab7_reference with the card's FMA bodies (common.bw_test_fma,
+    mt_test_fma)."""
+    monkeypatch.setattr(brick, "_bw_test", common.bw_test_fma)
+    monkeypatch.setattr(brick, "_mt_test", common.mt_test_fma)
+    try:
+        return kernel_lab5.lab7_reference(*args)
+    finally:
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("body", ["mt", "bw"])
+def test_lab7_agreement_holds_the_fma_body(monkeypatch, body):
+    """Every ray of the FMA bodies' results (emulated in FP64) meets a rule
+    of lab7_agreement against the plain version, on the script's first 256
+    tiles at each (KB, steps) and on the duplicate scene, with t off by at
+    most 1/2 of its bound."""
+    tables, draws = common.lab7_inputs()
+    tris = _t(tables["tris12" if body == "bw" else "tris9"])
+    cases = []
+    for cfg, meta, rays in draws:
+        if cfg.mode == body:
+            cases.append((_t(meta[:256 * common.ROW]), _t(rays[:256]), tris,
+                          cfg.kb, cfg.steps))
+    dup, meta, rays, kb, steps = _dup_lab7()
+    cases.append((meta, rays, dup[body], kb, steps))
+    for meta, rays, tris, kb, steps in cases:
+        args = (meta, rays, tris, body, kb, steps)
+        ref = kernel_lab5.lab7_reference(*args)
+        fma = _lab7_fma(monkeypatch, *args)
+        agree = kernel_lab5.lab7_agreement(fma, ref, meta, rays, tris, body)
+        assert agree["rays_off"] == 0 and agree["ill_conditioned"] <= 1 and \
+            agree["max_t_over_bound"] <= 0.5, agree
+
+
+@pytest.mark.parametrize("body", ["mt", "bw"])
+def test_lab7_agreement_rules(body):
+    """lab7_agreement accepts a t one ulp off and a tie swap (a winner's
+    copy one quad over), and refuses a wrong slot and a t off by more than
+    its bound."""
+    tris, meta, rays, kb, steps = _dup_lab7()
+    tris = tris[body]
+    ref = kernel_lab5.lab7_reference(meta, rays, tris, body, kb, steps)
+
+    def hold(out):
+        return kernel_lab5.lab7_agreement(out, ref, meta, rays, tris, body)
+    assert hold(ref)["ok"]
+    flat = ref.reshape(-1, 2)
+    t, slot = flat[:, 0], flat[:, 1].long()
+    hit = t < common.BIG
+    # a winner in cluster 0's quad 0 at slot 0 (its copy: quad 1)
+    dup = int(torch.nonzero(hit & (slot < 4)).reshape(-1)[0])
+    far = int(torch.nonzero(hit & (t > 0.5)).reshape(-1)[0])
+
+    def moved(i, t_=None, slot_=None):
+        out = flat.clone()
+        if t_ is not None:
+            out[i, 0] = t_
+        if slot_ is not None:
+            out[i, 1] = float(slot_)
+        return out.reshape(ref.shape)
+    a = hold(moved(far, t_=float(np.nextafter(np.float32(t[far]),
+                                              np.float32(np.inf)))))
+    assert a["ok"] and a["t_bits_differ"] == 1
+    a = hold(moved(dup, slot_=int(slot[dup]) + 4))
+    assert a["ok"] and a["ties"] == 1 and a["ill_conditioned"] == 0
+    a = hold(moved(far, slot_=(int(slot[far]) + 37) % (kb * 128 * steps)))
+    assert not a["ok"] and a["rays_off"] == 1
+    a = hold(moved(dup, slot_=int(slot[dup]) + 128))   # cluster 1's copy
+    assert a["ok"] and a["ties"] == 1
+    m = meta.reshape(rays.shape[0], common.ROW)
+    s_ = int(slot[far])
+    c = min(int(m[far // 32, s_ // 128]) & 1023, tris.shape[0] - 1)
+    test = common.bw_fp64 if body == "bw" else common.mt_fp64
+    r8 = rays.reshape(-1, 8)
+    f = test(tris[c, :, 0, s_ % 128][None], r8[[far], 0:3], r8[[far], 3:6],
+             r8[[far], 6])
+    a = hold(moved(far, t_=float(t[far] + 4 * f["b_t"][0])))
+    assert not a["ok"] and a["rays_off"] == 1 and a["max_t_over_bound"] > 1
+
+
+def test_lab7_takes_32_ray_tiles_only():
+    tables, meta, rays = _inputs("lab7", 32)
+    with pytest.raises(ValueError, match="not tiles of 32"):
+        lab_kernel.check_brick("lab7", "mt", _t(meta[:16 * common.ROW]),
+                               _t(rays[:32].reshape(-1, 16, 8)[:32]),
+                               _t(tables["tris9"]), 8, 6)
+
+
+# ---------------------------------------------------------------------------
 # The faults of the scripts, kept (ROADMAP Queue 3)
 # ---------------------------------------------------------------------------
 

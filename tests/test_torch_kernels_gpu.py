@@ -629,8 +629,9 @@ def test_distributed_on_card_matches_one_device(cuda):
 def test_k1_lab_matches_plain_version(cuda, lab):
     """Every mode of each K1 lab (csrc/k1_lab.cu) at a small size against
     its plain torch version on the same card inputs: t and id bits equal
-    (-fmad=false), L11 mxu by kernel_lab11.mxu_agreement; each launch
-    counted."""
+    (-fmad=false), L11 mxu by kernel_lab11.mxu_agreement, L9's modes with
+    a test (its kernel takes the FMA body) by kernel_lab9.lab9_agreement,
+    L9 loads bit for bit; each launch counted."""
     from tauray_torch.app.kernel_waves import kernel_waves, retrace_slice
     from tauray_torch.lab import common, lab_kernel
     from tauray_torch.lab import kernel_lab8, kernel_lab9, kernel_lab10, \
@@ -681,6 +682,10 @@ def test_k1_lab_matches_plain_version(cuda, lab):
         if mode == "mxu":
             agree = kernel_lab11.mxu_agreement(got, want, rays, m)
             assert agree["ok"], agree
+        elif lab == "lab9" and mode != "loads":
+            agree = kernel_lab9.lab9_agreement(got, want, o3, d3, mm2,
+                                               tracer.tris12, mode)
+            assert agree["ok"], agree
         else:
             assert torch.equal(got.view(torch.int32),
                                want.view(torch.int32)), mode
@@ -691,9 +696,13 @@ def test_brick_lab_matches_plain_version(cuda, lab):
     """Every configuration of each brick lab's script main (csrc/
     brick_lab.cu; L4 with k8 and k8f too) on the first 64 tiles of its
     inputs against its plain version on the same card inputs: t and id bits
-    equal (-fmad=false); L6's while and while2 also where the exit fires
-    (every 8th meta entry 0x7f000000); each launch counted."""
-    from tauray_torch.lab import brick, common, lab_kernel
+    equal (-fmad=false); L7 (its kernel takes the FMA bodies) by
+    kernel_lab5.lab7_agreement on the first 1,024 tiles, as chip_smoke
+    holds it (its share of 1e-4 of the rays for a verdict that rounding
+    decides admits none on 2,048 rays); L6's while and while2 also where
+    the exit fires (every 8th meta entry 0x7f000000); each launch
+    counted."""
+    from tauray_torch.lab import brick, common, kernel_lab5, lab_kernel
     tables, draws = {
         "lab4": lambda: common.lab4_inputs(
             ("k8", "k6", "k7", "k8f", "k6f", "k7f")),
@@ -702,14 +711,15 @@ def test_brick_lab_matches_plain_version(cuda, lab):
     tabs = {k: torch.from_numpy(v).to(cuda) for k, v in tables.items()}
     before = lab_kernel.LAUNCHES[lab]
     n = 0
+    tiles = 1024 if lab == "lab7" else 64
     for cfg, meta, rays in draws:
-        meta = meta[:64 * common.ROW]
+        meta = meta[:tiles * common.ROW]
         metas = [meta]
         if cfg.mode.startswith("while"):
             crafted = meta.copy()
             crafted[::8] = 0x7F000000
             metas.append(crafted)
-        r = torch.from_numpy(rays[:64]).to(cuda)
+        r = torch.from_numpy(rays[:tiles]).to(cuda)
         tris = tabs["tris12" if cfg.mode == "bw" else "tris9"]
         for m in metas:
             m = torch.from_numpy(m).to(cuda)
@@ -717,10 +727,57 @@ def test_brick_lab_matches_plain_version(cuda, lab):
             got = brick.brick(*args)
             want = brick.walk_reference(*args)
             n += 1
-            assert torch.equal(got.view(torch.int32),
-                               want.view(torch.int32)), cfg.label
+            if lab == "lab7":
+                agree = kernel_lab5.lab7_agreement(got, want, m, r, tris,
+                                                   cfg.mode)
+                assert agree["ok"], (cfg.label, agree)
+            else:
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), cfg.label
     torch.cuda.synchronize()
     assert lab_kernel.LAUNCHES[lab] - before == n
+
+
+def test_fma_labs_redo_steps_with_odd_denominators(cuda):
+    """L9 full and L7 mt / bw on rays whose denominator leaves the
+    in-range reciprocal's range: directions scaled by 1e-39 (a subnormal
+    den, where the kernels redo the step with __frcp_rn, here every step
+    of every tile), NaN directions and axis-aligned ones against the
+    Sponza table's axis-aligned walls (den NaN or exactly 0, a miss
+    without a redo): held to the plain versions by the tie-aware rules."""
+    from tauray_torch.lab import common, kernel_lab5, kernel_lab9
+    tracer = common.scene_tracer(cuda, "proc://sponza?tris=8192")
+    o3, d3, mm2, heads = (torch.from_numpy(x).to(cuda) for x in
+                          common.lab9_inputs(tracer.n_clusters, 4096,
+                                             seed=7))
+    d3 = d3.clone()
+    d3.view(-1, 3)[::7] = torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    d3.view(-1, 3)[::13] *= 1e-39
+    d3.view(-1, 3)[::17] = float("nan")
+    counts = torch.full((128,), 32, dtype=torch.int32, device=cuda)
+    args = (counts, heads, o3, d3, mm2, tracer.tris12, "full")
+    got, want = kernel_lab9.lab9(*args), kernel_lab9.lab9_reference(*args)
+    agree = kernel_lab9.lab9_agreement(got, want, o3, d3, mm2,
+                                       tracer.tris12, "full")
+    assert agree["ok"], agree
+    hits = want[..., 1].view(torch.int32) >= 0
+    assert bool(hits.view(-1)[::7].any())
+    tables, draws = common.lab7_inputs()
+    for cfg, meta, rays in draws:
+        if (cfg.kb, cfg.steps) != (8, 4):
+            continue
+        meta = torch.from_numpy(meta[:1024 * common.ROW]).to(cuda)
+        rays = torch.from_numpy(rays[:1024]).to(cuda).clone()
+        rays.view(-1, 8)[::13, 3:6] *= 1e-39
+        rays.view(-1, 8)[::17, 3:6] = float("nan")
+        tris = torch.from_numpy(
+            tables["tris12" if cfg.mode == "bw" else "tris9"]).to(cuda)
+        args = (meta, rays, tris, cfg.mode, cfg.kb, cfg.steps)
+        got = kernel_lab5.lab7(*args)
+        agree = kernel_lab5.lab7_agreement(
+            got, kernel_lab5.lab7_reference(*args), meta, rays, tris,
+            cfg.mode)
+        assert agree["ok"], (cfg.label, agree)
 
 
 @pytest.mark.parametrize("lab", ["lab1", "lab2", "lab3"])

@@ -191,6 +191,221 @@ def test_lab9_inputs_are_the_scripts(monkeypatch):
         np.testing.assert_array_equal(got, want)
 
 
+# The redesigned kernel (csrc/k1_lab.cu lab9_kernel): R rays a lane, the
+# step's triangles split over R workers, their bests combined by (t, slot)
+
+def _bw_rows(v0, e1, e2):
+    """Baldwin-Weber rows (m, 12) [n | n.v0 | r1 | r1.v0 | r2 | r2.v0] of
+    the triangles (v0, v0 + e1, v0 + e2), built as
+    common.lab11_inputs builds them."""
+    n = np.cross(e1, e2)
+    inv = 1.0 / (n * n).sum(-1, keepdims=True)
+    r1 = np.cross(e2, n) * inv
+    r2 = np.cross(n, e1) * inv
+
+    def dv(x):
+        return (x * v0).sum(-1, keepdims=True)
+    return np.concatenate([n, dv(n), r1, dv(r1), r2, dv(r2)],
+                          -1).astype(np.float32)
+
+
+def _dup_scene(seed=11, n_clusters=24, n_tiles=16):
+    """A table with exact duplicate triangles and rays aimed at them: (v0,
+    e1, e2) (C * 128, 3) each, the tiles' heads and o3, d3, mm2. Cluster 1
+    copies cluster 0, and in cluster 0 lane 2 copies lane 0 (one quad, one
+    worker) and quad 1 copies quad 0 (two workers); every tile's slot 1
+    names cluster 1 (a duplicate in the step) and slot 8 cluster 0 (across
+    steps). Half the rays aim at a triangle of cluster 0's first quads;
+    some rays are NaN and some have t_max < t_min."""
+    rng = np.random.default_rng(seed)
+    m = n_clusters * common.CLUSTER
+    v0 = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.5, 0.5, (m, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.5, 0.5, (m, 3)).astype(np.float32)
+    for x in (v0, e1, e2):
+        x[2] = x[0]
+        x[4:8] = x[0:4]
+        x[128:256] = x[0:128]
+    heads = rng.integers(0, n_clusters, (n_tiles, common.KC)).astype(np.int32)
+    heads[:, 0] = 0
+    heads[:, 1] = 1
+    heads[:, 8] = 0
+    n = n_tiles * 32
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    o[:, 2] += 4.0
+    tgt = rng.integers(0, 8, n)
+    w = rng.uniform(0.1, 0.4, (n, 2))
+    hit = v0[tgt] + w[:, :1] * e1[tgt] + w[:, 1:] * e2[tgt]
+    d = np.where(rng.random((n, 1)) < 0.5, hit - o,
+                 rng.standard_normal((n, 3))).astype(np.float32)
+    mm = np.stack([np.zeros(n), np.full(n, 1e30)], -1).astype(np.float32)
+    o[5::97] = np.nan
+    mm[7::89] = (1.0, 0.5)
+    return (v0, e1, e2), heads, (o.reshape(n_tiles, 32, 3),
+                                 d.reshape(n_tiles, 32, 3),
+                                 mm.reshape(n_tiles, 32, 2))
+
+
+def _dup_lab9(seed=11):
+    (v0, e1, e2), heads, (o3, d3, mm2) = _dup_scene(seed)
+    C = v0.shape[0] // common.CLUSTER
+    tris12 = np.ascontiguousarray(np.swapaxes(
+        _bw_rows(v0, e1, e2).reshape(C, common.CLUSTER, 12), 1, 2)[
+            :, :, None, :])
+    return tuple(map(_t, (heads, o3, d3, mm2, tris12)))
+
+
+def _first_min(t, slot):
+    """Per row of (..., W) candidates: the smallest t, then the smallest
+    slot (inf / a large slot where a worker has none)."""
+    best = t.min(-1, keepdim=True).values
+    s = torch.where(t == best, slot, 1 << 30).min(-1).values
+    return best[..., 0], s
+
+
+def workers_lab9(counts, heads, o3, d3, mm2, tris12, mode, R):
+    """A plain torch model of lab9_kernel's work split (unfused body):
+    lane l of worker l // (32 / R) holds rays l % (32 / R) + k (32 / R);
+    worker w takes the quads q = w (mod R) of each cluster, keeps the
+    first smallest hit (strict <) from the best before the step (nocat:
+    from the running best), and the workers' bests meet by smallest t, then
+    smallest slot, after each step (nocat: after each cluster). Returns
+    what lab9 returns."""
+    lanes = 32 // R
+    ray_of = (torch.arange(lanes)[:, None] + lanes * torch.arange(R)).T
+    assert sorted(ray_of.reshape(-1).tolist()) == list(range(32))
+    n_tiles, C = counts.shape[0], tris12.shape[0]
+    rows = tris12.reshape(C, 12, common.CLUSTER)
+    worker = torch.arange(common.CLUSTER) // 4 % R
+    bt = torch.where(mm2[..., 1] > common.BIG, common.BIG, mm2[..., 1])
+    bi = torch.full((n_tiles, 32), -1, dtype=torch.int32)
+    steps = (counts.long() + 7) // 8
+    walking = steps > 0
+    inf = torch.tensor(float("inf"))
+    for s in range(int(steps.max())):
+        act = torch.nonzero(walking & (steps > s)).squeeze(1)
+        slots = (s * 8 + torch.arange(8)).clamp(max=common.KC - 1)
+        orders = (heads[act][:, slots] & 1023).clamp(max=C - 1).long()
+        src = torch.zeros_like(orders) if mode == "math" else orders
+        o, d, tmin = o3[act], d3[act], mm2[act][..., 0]
+        ct, cs = bt[act].clone(), torch.full_like(bi[act], -1)
+        groups = [range(8)] if mode != "nocat" else [[j] for j in range(8)]
+        for js in groups:
+            per_w = []
+            for w in range(R):
+                mine = worker == w
+                cols = [(j, lane) for j in js
+                        for lane in torch.nonzero(mine).squeeze(1).tolist()]
+                slot = torch.tensor([j * 128 + ln for j, ln in cols])
+                tri = rows[src[:, [j for j, _ in cols]], :,
+                           torch.tensor([ln for _, ln in cols])]
+                hit, tt = kernel_lab9._hit(
+                    [tri[:, None, :, i] for i in range(12)], o, d, tmin, ct)
+                t_w, a = torch.where(hit, tt, inf).min(dim=2)
+                per_w.append((t_w, torch.where(t_w < inf, slot[a], 1 << 30)))
+            t_c, s_c = _first_min(torch.stack([x[0] for x in per_w], -1),
+                                  torch.stack([x[1] for x in per_w], -1))
+            closer = t_c < ct
+            ct = torch.where(closer, t_c, ct)
+            cs = torch.where(closer, s_c.int(), cs)
+        win = torch.gather(orders, 1, (cs.clamp(min=0) // 128).long())
+        got = cs >= 0
+        bt[act] = torch.where(got, ct, bt[act])
+        bi[act] = torch.where(got, (win * 128 + cs.clamp(min=0) % 128).int(),
+                              bi[act])
+        if mode == "exit":
+            nk = heads[act, min((s + 1) * 8, common.KC - 1)] & ~1023
+            walking[act] = ~(bt[act].view(torch.int32) <= nk[:, None]).all(1)
+    return torch.stack([bt, bi.view(torch.float32)], -1)
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["full", "exit", "math", "nocat"])
+def test_lab9_worker_split_matches_reference(mode, R):
+    """The model of the card's R-worker split and (t, slot) combine equals
+    lab9_reference bit for bit on exact duplicate triangles within a quad,
+    across workers, within a step and across steps, on NaN rays and rays
+    with t_max < t_min, at uneven counts."""
+    heads, o3, d3, mm2, tris12 = _dup_lab9()
+    counts = torch.tensor([0, 3, 8, 9, 16, 17, 24, 32] * 2,
+                          dtype=torch.int32)
+    want = kernel_lab9.lab9_reference(counts, heads, o3, d3, mm2, tris12,
+                                      mode)
+    got = workers_lab9(counts, heads, o3, d3, mm2, tris12, mode, R)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ids = want[..., 1].view(torch.int32)
+    # the duplicates win: cluster 0's quads 0 and 1 and cluster 1's
+    assert int(((ids >= 0) & (ids < 256) & (ids % 128 < 8)).sum()) >= 20
+
+
+def _lab9_fma(monkeypatch, *args):
+    """lab9_reference with the card's FMA body (common.bw_test_fma)."""
+    monkeypatch.setattr(kernel_lab9, "_bw_test", common.bw_test_fma)
+    try:
+        return kernel_lab9.lab9_reference(*args)
+    finally:
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("mode", ["full", "math", "nocat"])
+def test_lab9_agreement_holds_the_fma_body(monkeypatch, small_tracer, mode):
+    """The FMA body's results (emulated in FP64) meet lab9_agreement
+    against the plain version on the script's kind of rays over the small
+    scene and on the duplicate scene, with t off by at most 1/2 of its
+    bound."""
+    C = small_tracer.n_clusters
+    o3, d3, mm2, heads = map(_t, common.lab9_inputs(C, 256 * 32, seed=8))
+    cases = [(heads, o3, d3, mm2, small_tracer.tris12), _dup_lab9(12)]
+    for heads, o3, d3, mm2, tris12 in cases:
+        counts = torch.full((heads.shape[0],), 32, dtype=torch.int32)
+        args = (counts, heads, o3, d3, mm2, tris12, mode)
+        ref = kernel_lab9.lab9_reference(*args)
+        fma = _lab9_fma(monkeypatch, *args)
+        agree = kernel_lab9.lab9_agreement(fma, ref, o3, d3, mm2, tris12,
+                                           mode)
+        assert agree["ok"] and agree["max_t_over_bound"] <= 0.5, agree
+
+
+def test_lab9_agreement_rules():
+    """lab9_agreement accepts a t one ulp off and a tie swap (the same
+    triangle's copy in cluster 1), and refuses a wrong id and a t off by
+    more than its bound."""
+    heads, o3, d3, mm2, tris12 = _dup_lab9()
+    counts = torch.full((heads.shape[0],), 16, dtype=torch.int32)
+    ref = kernel_lab9.lab9_reference(counts, heads, o3, d3, mm2, tris12,
+                                     "full")
+
+    def hold(out):
+        return kernel_lab9.lab9_agreement(out, ref, o3, d3, mm2, tris12,
+                                          "full")
+    assert hold(ref)["ok"]
+    flat = ref.reshape(-1, 2)
+    ids = flat[:, 1].view(torch.int32)
+    dup = int(torch.nonzero((ids >= 0) & (ids < 128)).reshape(-1)[0])
+    hit = int(torch.nonzero((ids >= 0) & (flat[:, 0] > 0.5)).reshape(-1)[0])
+
+    def moved(i, t=None, id_=None):
+        out = flat.clone()
+        if t is not None:
+            out[i, 0] = t
+        if id_ is not None:
+            out[i, 1] = torch.tensor([id_], dtype=torch.int32).view(
+                torch.float32)
+        return out.reshape(ref.shape)
+    a = hold(moved(hit, t=float(np.nextafter(np.float32(flat[hit, 0]),
+                                             np.float32(np.inf)))))
+    assert a["ok"] and a["t_bits_differ"] == 1
+    a = hold(moved(dup, id_=int(ids[dup]) + 128))
+    assert a["ok"] and a["ties"] == 1 and a["ill_conditioned"] == 0
+    a = hold(moved(hit, id_=(int(ids[hit]) + 37) % (128 * 24)))
+    assert not a["ok"] and a["rays_off"] == 1
+    c, lane = int(ids[hit]) // 128, int(ids[hit]) % 128
+    f = common.bw_fp64(tris12[c, :, 0, lane][None], o3.reshape(-1, 3)[[hit]],
+                       d3.reshape(-1, 3)[[hit]], mm2.reshape(-1, 2)[[hit], 0])
+    a = hold(moved(hit, t=float(flat[hit, 0] + 4 * f["b_t"][0])))
+    assert not a["ok"] and a["rays_off"] == 1 and a["max_t_over_bound"] > 1
+
+
 # ---------------------------------------------------------------------------
 # L10
 # ---------------------------------------------------------------------------

@@ -57,9 +57,20 @@ def _close(got, want, name="", rtol=RTOL, atol=ATOL, tail_rtol=TAIL_RTOL):
         np.testing.assert_array_equal(g[~fin], w[~fin], err_msg=name)
         g, w = g[fin], w[fin]
         bad = ~np.isclose(g, w, rtol=rtol, atol=atol)
-        assert bad.sum() <= TAIL * max(bad.size, 1), (name, bad.mean())
+        assert bad.sum() <= TAIL * max(bad.size, 1), _worst(name, g, w, bad)
         np.testing.assert_allclose(g, w, rtol=tail_rtol, atol=atol,
-                                   err_msg=name)
+                                   err_msg=_worst(name, g, w, bad))
+
+
+def _worst(name, g, w, bad):
+    """A failure's report: the name, how many finite elements are off, and
+    the worst one (by |got - want| over the tolerance's scale) with both
+    values."""
+    excess = np.abs(g - w) / (ATOL + RTOL * np.abs(w))
+    i = int(np.argmax(excess)) if excess.size else 0
+    worst = (f"; worst element {i}: got {g.flat[i]!r}, want {w.flat[i]!r}"
+             if excess.size else "")
+    return f"{name}: {int(bad.sum())} of {bad.size} elements off{worst}"
 
 
 def _unit(rng, n=N):
