@@ -11,10 +11,11 @@ non-zero:
      (csrc/brick_lab.cu), the tile labs (csrc/tile_lab.cu) and the Plücker
      lab (csrc/mxu_lab.cu; one nvcc per source, started together) and print
      what ptxas reports, and the SASS of each K1-K5 and brick_lab
-     instance's inner test loop (cuobjdump) and of L9's and L7's
-     (app/sass.lab_test_loops: instructions per test); any spill or shared
-     load narrower than 16 bytes in a test loop of trace_tiles fails, as
-     does a spill in an instance of L9's or L7's kernel;
+     instance's inner test loop (cuobjdump) and of the redesigned labs'
+     L9, L7, L10 and L3 (app/sass.lab_test_loops: instructions per test);
+     any spill or shared load narrower than 16 bytes in a test loop of
+     trace_tiles fails, as does a spill in an instance of L9's, L7's,
+     L10's or L3's kernel;
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
@@ -188,8 +189,11 @@ non-zero:
      for bit, exit and nocat equal to full on the card (lab9_exits: no
      tile could exit early), L9 full again on rays whose denominator
      leaves the in-range reciprocal's range (subnormal: the step redone
-     with __frcp_rn; 0; NaN), and L10 full to K1 (trace_vm3) on both
-     waves, bit for bit;
+     with __frcp_rn; 0; NaN); L10 (FMA body) by
+     kernel_lab10.lab10_agreement, the same rules (nowrite bit for bit to
+     what its kernel's full computes), full also to K1 (trace_vm3) on both
+     whole waves, and K1 and L10 full timed in turns (K1, L10, L10, K1) on
+     each wave, with their ratio and the wave's spread of clusters a tile;
   21. the brick and resident-table labs (tauray_torch/lab, the
      counterparts of scripts/kernel_lab2-5.py; csrc/brick_lab.cu, built
      in phase 2, which prints each instance's SASS instructions per test)
@@ -210,16 +214,18 @@ non-zero:
      alone: L1 k0 and k1 at 0 and 1 steps, k2 and k3 at 0, 1, 2, 4 and 8,
      L2 (k4, 8 tiles a block) and L3 (k5 at G 8 and 32) at the same steps,
      L12 mt and plucker; each timed (median and min of 5 CUDA-event runs)
-     with its bound and held to its plain version bit for bit (plucker by
+     with its bound and held to its plain version bit for bit (L3, whose
+     kernel takes the FMA body, by kernel_lab.lab3_agreement; plucker by
      mxu_lab.plucker_agreement: t within 1e-5 of max(1, |t|), ids equal or
      at a tie, as L11; or, on at most 1e-4 of the rays, where the two
      sides' verdicts on one winner's test differ and FP64 puts that test
      within rounding of turning, with t within its bound of the FP64 t of
      the kernel's triangle; each such ray printed with its margin); k4
-     and k5 equal to k3 at each step count on the script's meta, and on a
-     meta whose tnear third is 0x7f000000 their exit firing after one step
-     (fewer hits than k3), held the same way; the intercept and slope of
-     ms over steps of k2-k5.
+     equal to k3 at each step count on the script's meta, k5 held to k3
+     by lab3_agreement, and on a meta whose tnear third is 0x7f000000 their
+     exit firing after one step (fewer hits than k3), held the same way,
+     k5's steps walked per tile (kernel_lab.walked_steps) held to the
+     plain version's; the intercept and slope of ms over steps of k2-k5.
 The last lines are the card, the kernel table (each K row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
 the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
@@ -1896,15 +1902,17 @@ def lab_phase(dev, tracer, bounce):
     2^18- and 2^20-ray waves of tracer's scene), every mode timed; the
     launches counted over that run alone. Then each mode held to its plain
     version on the same inputs, bit for bit (L9 and L10 on LAB_SLICE_TILES
-    tiles of each input), L11 mxu by kernel_lab11.mxu_agreement, and L10
-    full to K1 (trace_vm3) on both whole waves. Returns the kernels line's
-    rows."""
+    tiles of each input), L11 mxu by kernel_lab11.mxu_agreement, L9's and
+    L10's FMA bodies by lab9_agreement and lab10_agreement, and L10 full to
+    K1 (trace_vm3) on both whole waves, the two timed in turns. Returns the
+    kernels line's rows."""
     import torch
     from tauray_torch.lab import kernel_lab8 as l8
     from tauray_torch.lab import kernel_lab9 as l9
     from tauray_torch.lab import kernel_lab10 as l10
     from tauray_torch.lab import kernel_lab11 as l11
     from tauray_torch.lab import lab_kernel
+    from tauray_torch.lab.common import time_cuda
     from tauray_torch.ops.trace_kernel import trace_tiles_vm3
     t0 = time.perf_counter()
     lab_kernel.reset_launch_counts()
@@ -2000,29 +2008,62 @@ def lab_phase(dev, tracer, bounce):
                      for c in l9.COUNTS for m in ("nocat", "exit"))
     if not nocat_same:
         failures.append("lab9: nocat or exit departs from full on the card")
+    full10 = {r["wave"]: r["out"] for r in res10 if r["mode"] == "full"}
     for r in res10:
         key = f"{r['mode']}/{r['wave']}"
         counts, keys, r3, idmask = args10[r["wave"]]
         ts = _mid_tiles(counts.shape[0])
-        ms, err = hold(f"lab10 {key}", r["out"][ts],
-                       lambda: l10.lab10_reference(
-                           counts[ts], keys[ts], r3[ts], tracer.tris12,
-                           r["mode"], idmask))
-        extra = {}
+        ref, ms = timed(lambda: l10.lab10_reference(
+            counts[ts], keys[ts], r3[ts], tracer.tris12, r["mode"], idmask))
+        extra = l10.lab10_agreement(r["out"][ts], ref, counts[ts], r3[ts],
+                                    tracer.tris12, r["mode"],
+                                    full=full10[r["wave"]][ts])
+        if not extra["ok"]:
+            failures.append(f"lab10 {key}: {extra}")
         if r["mode"] == "full":
+            # K1 on the whole wave, tie-aware, and timed in turns with it
             t, tid = trace_tiles_vm3(counts, keys, r3, tracer.tris12)
-            ids = r["out"][..., 1].reshape(-1).view(torch.int32)
-            t_lab = torch.where(ids < 0, float("inf"),
-                                r["out"][..., 0].reshape(-1))
-            extra["equals_trace_vm3"] = bool(
-                torch.equal(ids, tid) and
-                torch.equal(t_lab.view(torch.int32), t.view(torch.int32)))
-            if not extra["equals_trace_vm3"]:
-                failures.append(f"lab10 {key}: departs from trace_vm3")
-        emit("lab10", key, r, ms, err, rays=r["rays"],
+            k1 = l10.lab10_agreement(r["out"], l10.k1_raw(t, tid, r3),
+                                     counts, r3, tracer.tris12, "full")
+            if not k1["ok"]:
+                failures.append(f"lab10 {key}: departs from trace_vm3: {k1}")
+            turns = {"k1": [], "lab10": []}
+            for side in ("k1", "lab10", "lab10", "k1"):
+                fn = (lambda: trace_tiles_vm3(counts, keys, r3,
+                                              tracer.tris12)) \
+                    if side == "k1" else (lambda: l10.lab10(
+                        counts, keys, r3, tracer.tris12, "full", idmask))
+                turns[side].append(time_cuda(fn)["ms"])
+            extra.update(
+                held_to_trace_vm3={k: k1[k] for k in (
+                    "ok", "ids_differ", "ties", "ill_conditioned",
+                    "t_bits_differ", "max_t_over_bound", "rays_off")},
+                trace_vm3_ms=turns["k1"], lab10_full_ms=turns["lab10"],
+                lab10_over_trace_vm3=min(turns["lab10"]) / min(turns["k1"]),
+                tile_spread=r["tile_spread"])
+            print(f"phase 20 lab10 against K1 {r['wave']} " + json.dumps(
+                {k: extra[k] for k in ("trace_vm3_ms", "lab10_full_ms",
+                                       "lab10_over_trace_vm3",
+                                       "tile_spread")}), flush=True)
+        extra.pop("rays")        # the held rays: plain_rays
+        emit("lab10", key, r, ms, extra["max_abs_t"], rays=r["rays"],
              us_per_tile=r["us_per_tile"], gtests_s=r["gtests_s"],
              tiles_over_heads=r["tiles_over_heads"],
              plain_rays=(ts.stop - ts.start) * 32, **extra)
+    # L10's redo of a cluster with __frcp_rn: full on the 2^18 wave's held
+    # tiles, every 13th direction scaled by 1e-39, every 17th NaN
+    counts, keys, r3, idmask = args10["bounce_512"]
+    ts = _mid_tiles(counts.shape[0])
+    r_odd = r3[ts].clone()
+    r_odd.view(-1, 8)[::13, 3:6] *= 1e-39
+    r_odd.view(-1, 8)[::17, 3:6] = float("nan")
+    args = (counts[ts], keys[ts], r_odd, tracer.tris12, "full", idmask)
+    odd = l10.lab10_agreement(l10.lab10(*args), l10.lab10_reference(*args),
+                              counts[ts], r_odd, tracer.tris12, "full")
+    print("phase 20 lab10 full/bounce_512 odd denominators " +
+          json.dumps(odd), flush=True)
+    if not odd["ok"]:
+        failures.append(f"lab10 odd denominators: {odd}")
     for r in res11:
         tris = in11["tris12"] if r["mode"] == "vpu" else in11["m"]
 
@@ -2278,12 +2319,15 @@ def tile_phase(dev):
     (k0 and k1 at 0 and 1 steps; k2, k3, k4, k5 at G 8 and 32 at 0, 1, 2,
     4 and 8) and L12 through mxu_lab.run(dev), each timed (median and min
     of 5 CUDA-event runs); the launches counted over that run alone. Then
-    every L1-L3 configuration and L12 mt held to its plain version bit for
-    bit, plucker by mxu_lab.plucker_agreement; k4 and k5 equal k3 bit for
-    bit at each step count on the script's meta; on a meta whose tnear
-    third is 0x7f000000 their exit fires (one step a tile, fewer hits than
-    k3), held the same way. Prints the intercept and slope of ms over steps
-    of k2-k5. Returns the kernels line's rows."""
+    every L1-L2 configuration and L12 mt held to its plain version bit for
+    bit, L3 (FMA body) by kernel_lab.lab3_agreement, plucker by
+    mxu_lab.plucker_agreement; k4 equal to k3 bit for bit at each step
+    count on the script's meta, k5 held to k3 by lab3_agreement; on a meta
+    whose tnear third is 0x7f000000 their exit fires (one step a tile,
+    fewer hits than k3), held the same way, k5's steps walked per tile
+    (kernel_lab.walked_steps) held to the plain version's. Prints the
+    intercept and slope of ms over steps of k2-k5. Returns the kernels
+    line's rows."""
     import torch
     from tauray_torch.lab import kernel_lab as kl
     from tauray_torch.lab import lab_kernel
@@ -2316,25 +2360,52 @@ def tile_phase(dev):
                             f"version")
         return ms, float((t - t_r).abs().max())
 
+    def hold3(tag, out, ref, meta, steps=None, rays=None):
+        """lab3_agreement of L3's out against ref (plain, or k3's kernel
+        out as L3's block) on rays (inp's by default): the agreement,
+        without its list of turned rays where it is empty."""
+        agree = kl.lab3_agreement(out, ref, meta,
+                                  inp["rows"] if rays is None else rays,
+                                  inp["tris9"], steps)
+        if not agree["ok"]:
+            failures.append(f"{tag}: {agree}")
+        if not agree["held"]:
+            del agree["held"]
+        return agree
+
     k3 = {r["cfg"].steps: kl.flat("k3", r["out"]) for r in res
           if r["cfg"].name == "k3"}
     for r in res:
         c = r["cfg"]
         lab = lab_of.get(c.name, "lab1")
         key = f"{c.name} G={c.group} steps={c.steps}"
-        ms, err = hold(f"{lab} {key}", c.name, r["out"],
-                       lambda: kl.call_reference(c, inp, r["counts"]))
+        agree = {}
+        if c.name == "k5":           # the FMA body: tie-aware
+            ref, ms = timed(lambda: kl.call_reference(c, inp, r["counts"]))
+            agree = hold3(f"{lab} {key}", r["out"], ref, inp["meta"])
+            err = agree["max_abs_t"]
+        else:
+            ms, err = hold(f"{lab} {key}", c.name, r["out"],
+                           lambda: kl.call_reference(c, inp, r["counts"]))
         e = dict(ms=r["ms"], min_ms=r["min_ms"], us_per_tile=r["us_per_tile"],
                  gtests_s=r["gtests_s"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], plain_ms=ms, max_abs_err=err,
-                 blocks=n_tiles // c.group, staged_bytes=r["staged_bytes"])
-        if c.name in ("k4", "k5"):
+                 blocks=n_tiles if c.name == "k5" else n_tiles // c.group,
+                 staged_bytes=r["staged_bytes"], **agree)
+        e.pop("rays", None)
+        t3, i3 = k3[c.steps]
+        if c.name == "k4":
             t, i = kl.flat(c.name, r["out"])
-            t3, i3 = k3[c.steps]
             e["equals_k3"] = bool(torch.equal(i, i3) and torch.equal(
                 t.view(torch.int32), t3.view(torch.int32)))
             if not e["equals_k3"]:
                 failures.append(f"{lab} {key}: departs from k3")
+        elif c.name == "k5":
+            as_l3 = torch.stack([t3.view(n_tiles, -1),
+                                 i3.view(n_tiles, -1).view(torch.float32)],
+                                -1)
+            e["held_to_k3"] = hold3(f"{lab} {key} against k3", r["out"],
+                                    as_l3, inp["meta"])["ok"]
         configs.setdefault(lab, {})[key] = e
         print(f"phase 22 {lab} {key} " + json.dumps(e), flush=True)
     for (name, group), (icpt, slope) in kl.step_fit(res).items():
@@ -2353,13 +2424,27 @@ def tile_phase(dev):
         lab = lab_of[name]
         t = time_cuda(lambda: kl.call(c, crafted, counts))
         out = kl.call(c, crafted, counts)
-        stats = {}
-        ms, err = hold(f"{lab} {name} G={group} exit", name, out,
-                       lambda: kl.call_reference(c, crafted, counts, stats))
+        stats, agree = {}, {}
+        if name == "k5":             # and the steps each tile walked
+            ref, ms = timed(lambda: kl.call_reference(c, crafted, counts,
+                                                      stats))
+            walked = [kl.walked_steps(lambda n: fn(c, crafted, n), counts)
+                      for fn in (kl.call, kl.call_reference)]
+            agree = hold3(f"{lab} {name} G={group} exit", out, ref, meta,
+                          walked)
+            agree.pop("rays")
+            agree["walked_steps_kernel"] = int(walked[0].sum())
+            agree["walked_steps_plain"] = int(walked[1].sum())
+            err = agree["max_abs_t"]
+        else:
+            ms, err = hold(f"{lab} {name} G={group} exit", name, out,
+                           lambda: kl.call_reference(c, crafted, counts,
+                                                     stats))
         hits = int((kl.flat(name, out)[1] >= 0).sum())
         e = dict(ms=t["ms"], min_ms=t["min_ms"], plain_ms=ms,
                  max_abs_err=err, tile_steps=stats["steps"],
-                 tile_steps_k3=n_tiles * 8, hits=hits, hits_k3=hits3)
+                 tile_steps_k3=n_tiles * 8, hits=hits, hits_k3=hits3,
+                 **agree)
         e["bound_ms"], e["bound_by"] = tile_bound(name, 8, n_tiles,
                                                   stats["steps"])
         if not (e["tile_steps"] == n_tiles and hits < hits3):
@@ -2369,6 +2454,18 @@ def tile_phase(dev):
               flush=True)
     if lab_kernel.LAUNCHES["lab2"] < 1 or lab_kernel.LAUNCHES["lab3"] < 2:
         failures.append("the exit runs never launched")
+    # L3's redo of a warp's share with __frcp_rn: k5 at 8 steps, every 13th
+    # direction scaled by 1e-39, every 17th NaN
+    rows = inp["rows"].clone()
+    rows.view(-1, 8)[::13, 3:6] *= 1e-39
+    rows.view(-1, 8)[::17, 3:6] = float("nan")
+    odd_inp = dict(inp, rows=rows)
+    c = kl.TileConfig("k5", 8, 8, "")
+    odd = hold3("lab3 k5 odd denominators", kl.call(c, odd_inp, counts),
+                kl.call_reference(c, odd_inp, counts), inp["meta"],
+                rays=rows)
+    print("phase 22 lab3 k5 G=8 steps=8 odd denominators " + json.dumps(odd),
+          flush=True)
     for r in lres:
         tris = linp["tris9" if r["mode"] == "mt" else "tris24"]
 
@@ -2446,20 +2543,22 @@ def main() -> int:
             trace_kernel.BUILD_INFO["brick_lab"]["path"])).items()):
         print(f"phase 2 sass brick_lab {inst}: " + json.dumps(st),
               flush=True)
-    # L9's and L7's redesigned kernels: SASS a test, and no spill
+    # the redesigned labs' kernels (L9, L7, L10, L3): SASS a test, and no
+    # spill
     from tauray_torch.app import sass as sass_mod
     lab_sass, spilled = {}, {}
-    for lib in ("k1_lab", "brick_lab"):
+    for lib in ("k1_lab", "brick_lab", "tile_lab"):
         info = trace_kernel.BUILD_INFO[lib]
         lab_sass.update(sass_mod.lab_test_loops(str(info["path"])))
-        spilled.update(sass_mod.spills(str(info["log"]),
-                                       r"lab9_kernel|lab7_kernel"))
+        spilled.update(sass_mod.spills(
+            str(info["log"]),
+            r"lab9_kernel|lab7_kernel|lab10_kernel|lab3_kernel"))
     for inst, st in sorted(lab_sass.items()):
         print(f"phase 2 sass {inst}: " + json.dumps(st), flush=True)
     print("phase 2 spills " + json.dumps(spilled), flush=True)
-    if len(lab_sass) != 7 or len(spilled) != 7 or any(spilled.values()):
-        raise RuntimeError(f"L9's and L7's instances: {sorted(lab_sass)}, "
-                           f"spills {spilled}")
+    if len(lab_sass) != 12 or len(spilled) != 12 or any(spilled.values()):
+        raise RuntimeError(f"the redesigned labs' instances: "
+                           f"{sorted(lab_sass)}, spills {spilled}")
     if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
         raise RuntimeError("not every instance of trace_tiles has a test "
                            "loop of 16-byte shared loads only")
@@ -2748,10 +2847,14 @@ def main() -> int:
     kernels["kernels"][0]["launches_quilt_5x9"] = l_k1_quilt
     kernels["kernels"][1]["launches_raster_524k_1_frame"] = l_k2_raster
     for r in lab_rows:       # the redesigned labs' SASS a test
-        if r["name"] in ("lab7", "lab9"):
+        if r["name"] == "lab3":
+            r["sass_instructions_per_test"] = \
+                lab_sass["lab3"]["instructions_per_test"]
+        elif r["name"] in ("lab7", "lab9", "lab10"):
             r["sass_instructions_per_test"] = {
                 k.split()[1]: v["instructions_per_test"]
-                for k, v in lab_sass.items() if k.startswith(r["name"])}
+                for k, v in lab_sass.items()
+                if k.split()[0] == r["name"]}
     kernels["kernels"] += lab_rows
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,22 +1,31 @@
-"""Times the two labs redesigned with FMA bodies, L9 (csrc/k1_lab.cu
-lab9_kernel) and L7 (csrc/brick_lab.cu lab7_kernel), against an older
+"""Times the four labs redesigned with FMA bodies, L9 and L10
+(csrc/k1_lab.cu lab9_kernel, lab10_kernel), L7 (csrc/brick_lab.cu
+lab7_kernel) and L3 (csrc/tile_lab.cu lab3_kernel), against an older
 checkout's kernels on the same inputs, in turns, on one CUDA card.
 
     python -m tauray_torch.app.lab_bench --parent DIR [--reps N]
 
 DIR is a checkout of the repo (an unpacked `git archive` of an older
-commit in a git-ignored directory). Its csrc/k1_lab.cu and brick_lab.cu
-are built with this tree's nvcc flags (ops/trace_kernel.NVCC_FLAGS) into
-DIR/tauray_torch/_build/; their C interfaces are this tree's, so this
-tree's wrappers launch either library. Every configuration of the two
-labs' mains at the scripts' sizes (L9: 2^20 rays on
-proc://sponza?tris=262144's table, 5 modes at 8, 16 and 32 clusters a
-tile; L7: 32,768 tiles of 32, mt and bw at (KB, steps) (8, 6), (8, 4), (4,
-8)) is timed with CUDA events (median of --reps after a warm-up) in the
-order parent, this tree, this tree, parent. Both sides are held to the
-plain versions on the first 1,024 tiles first (kernel_lab9.lab9_agreement,
-kernel_lab5.lab7_agreement; L9 loads bit for bit). It prints, one JSON
-object a line: the card's name and power limit, each library's test loops
+commit in a git-ignored directory). Its csrc/k1_lab.cu, brick_lab.cu and
+tile_lab.cu are built with this tree's nvcc flags
+(ops/trace_kernel.NVCC_FLAGS) into DIR/tauray_torch/_build/; their C
+interfaces are this tree's, so this tree's wrappers launch either library
+(L10 is launched with K1's W, trace_kernel.bw_warps, which an older L10
+reads and this tree's ignores, and with kernel_lab10.walk_order, computed
+once a wave outside the timing, which an older L10 does not read). Every
+configuration of the four labs' mains at the scripts' sizes (L9: 2^20
+rays on proc://sponza?tris=262144's table, 5 modes at 8, 16 and 32
+clusters a tile; L7: 32,768 tiles of 32, mt and bw at (KB, steps) (8, 6),
+(8, 4), (4, 8); L3: k5 at G 8 and 32, 0, 1, 2, 4 and 8 steps over the
+script's 512 tiles; L10: its 4 modes on the sorted bounce waves of 2^18
+and 2^20 rays) is timed with CUDA events
+(median of --reps after a warm-up) in the order parent, this tree, this
+tree, parent. Both sides are held to the plain versions first
+(kernel_lab9.lab9_agreement and kernel_lab5.lab7_agreement on the first
+1,024 tiles, L9 loads bit for bit; kernel_lab.lab3_agreement on every
+tile; kernel_lab10.lab10_agreement on 1,024 tiles from the wave's middle,
+nowrite against the same side's full). It prints, one JSON object a line:
+the card's name and power limit, each library's test loops
 (app/sass.lab_test_loops: instructions per test), then per configuration
 the two sides' times, Gtests/s and share of the bound."""
 
@@ -33,18 +42,21 @@ import torch
 
 from tauray_torch.app import sass
 from tauray_torch.lab import common, lab_kernel
+from tauray_torch.lab import kernel_lab as l3
 from tauray_torch.lab import kernel_lab5 as l7
 from tauray_torch.lab import kernel_lab9 as l9
-from tauray_torch.lab.bounds import brick_bound
+from tauray_torch.lab import kernel_lab10 as l10
+from tauray_torch.lab.bounds import brick_bound, tile_bound
 from tauray_torch.ops import trace_kernel as tk
 
-LIBS = ("k1_lab", "brick_lab")
+LIBS = ("k1_lab", "brick_lab", "tile_lab")
 SLICE = 1024  # tiles of each hold
 
 
 def build_parent(root: str):
-    """{library: ctypes handle} of the checkout at root's k1_lab and
-    brick_lab, built with this tree's flags; a failed build raises."""
+    """{library: ctypes handle} of the checkout at root's k1_lab,
+    brick_lab and tile_lab, built with this tree's flags; a failed build
+    raises."""
     out_dir = os.path.join(root, "tauray_torch", "_build")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
@@ -69,7 +81,7 @@ def build_parent(root: str):
 
 def configs(dev):
     """(lab, key, launch(), hold(out) -> dict, tests, bound ms) of every
-    configuration the two mains run."""
+    configuration the four mains run."""
     tracer = common.scene_tracer(dev)
     o3, d3, mm2, heads = (torch.from_numpy(x).to(dev) for x in
                           common.lab9_inputs(tracer.n_clusters))
@@ -109,12 +121,57 @@ def configs(dev):
                    meta, rays, tris, cfg.mode, cfg.kb, cfg.steps),
                hold, cfg.n_tiles * 32 * cfg.steps * cfg.kb * common.CLUSTER,
                brick_bound(cfg)[0])
+    del tables, tabs
+    inp = l3.tile_inputs(dev)
+    n_tiles = inp["n_tiles"]
+    for cfg in l3.configs(("k5", "k532")):
+        counts = l3.counts_of(n_tiles, cfg.steps, dev)
+        ref = l3.call_reference(cfg, inp, counts)
+
+        def hold(out, ref=ref):
+            return l3.lab3_agreement(out, ref, inp["meta"], inp["rows"],
+                                     inp["tris9"])
+        yield ("lab3", f"k5 G={cfg.group} steps={cfg.steps}",
+               lambda cfg=cfg, counts=counts: l3.call(cfg, inp, counts),
+               hold, n_tiles * common.TILE_L1 * cfg.steps * l3.BK,
+               tile_bound("k5", cfg.steps, n_tiles)[0])
+    from tauray_torch.app.kernel_waves import kernel_waves
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for size in l10.SIZES:
+        tracer, waves = kernel_waves(dev, size=size)
+        counts, keys, r3, idmask = l10.wave_args(tracer, waves["bounce"])
+        del waves
+        n = counts.shape[0]
+        a = (n - SLICE) // 2 // common.G * common.G if n > SLICE else 0
+        ts = slice(a, min(n, a + SLICE))
+        w = tk.bw_warps(n, n_sm, "trace_vm3")
+        order = l10.walk_order(counts)
+
+        def launch(mode, counts=counts, keys=keys, r3=r3, tracer=tracer,
+                   idmask=idmask, w=w, order=order):
+            return lab_kernel.launch("lab10", mode, counts, keys, r3,
+                                     tris=tracer.tris12, idmask=idmask,
+                                     warps=w, order=order)
+        for mode in lab_kernel.MODES["lab10"]:
+            ref = l10.lab10_reference(counts[ts], keys[ts], r3[ts],
+                                      tracer.tris12, mode, idmask)
+
+            def hold(out, mode=mode, ref=ref, counts=counts, r3=r3,
+                     tracer=tracer, launch=launch):
+                full = launch("full")[ts] if mode == "nowrite" else None
+                return l10.lab10_agreement(out[ts], ref, counts[ts], r3[ts],
+                                           tracer.tris12, mode, full)
+            yield ("lab10", f"{mode}/bounce_{size}",
+                   lambda mode=mode, launch=launch: launch(mode), hold,
+                   int(counts.sum()) * common.CLUSTER * common.TILE,
+                   l10.lab10_bound(counts, mode, tracer.n_clusters)[0])
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
-                    help="a checkout whose L9 and L7 kernels to time")
+                    help="a checkout whose L9, L7, L3 and L10 kernels to "
+                         "time")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -145,7 +202,7 @@ def main(argv=None) -> int:
                 agree = hold(launch())
                 row[f"{side}_hold"] = {k: agree[k] for k in (
                     "ok", "ids_differ", "ties", "ill_conditioned",
-                    "max_t_over_bound") if k in agree}
+                    "max_t_over_bound", "rays_off") if k in agree}
                 if not agree["ok"]:
                     raise RuntimeError(f"{lab} {key}: the {side}'s kernel "
                                        f"breaks the hold: {agree}")

@@ -37,9 +37,21 @@
 //     the unfused version) and combines the workers by smallest t, then
 //     smallest slot, after the step; "nocat" combines after every cluster
 //     (8 per-cluster minima); both return the same t and id.
-//   * L10: K1's own design (csrc/trace_tiles.cu, kExit = false): a block
-//     per tile, its W warps taking the key slots j = w (mod W), a lane per
-//     ray, each warp's best combined by smallest t, then smallest id;
+//   * L10 (redesigned for this card, on L9's plan): a warp per tile (4 a
+//     block), R = 4 rays a lane, 4 workers of 8 lanes, worker w taking the
+//     quads w, w + 4, ... of each cluster; the walk's clusters (the tile's
+//     keys, read 32 at a time and shuffled, or fixord's orders) pass
+//     through the same ring of two 6 KB stages a warp, cluster g + 1
+//     copied while cluster g is tested. Each worker keeps a running best
+//     of its own (FMA body, one compare) over the walk, and the workers
+//     meet by smallest t, then smallest slot (the walk's position x 128 +
+//     the triangle's lane), never by id: fixord repeats clusters. A
+//     cluster whose test met an odd denominator is tested again, from the
+//     staged rows, with __frcp_rn. The tiles are walked in the order the
+//     wrapper gives, most clusters first: a sorted wave's tiles walk 1 to
+//     ~250 clusters, and in index order the card ended on its longest
+//     walks alone (a warp a block instead of 4 ran 2% slower, so it is
+//     not the block's idle warps);
 //   * L11 mxu: per 8-triangle column block and 16-ray row block, the six
 //     products o4 @ [v | -v.v0] (K = 4) and d4 @ [v | -v.v0] with d4's
 //     fourth column 0 (so K = 3 in effect) for v = n, r1, r2, each as
@@ -68,13 +80,14 @@
 // stays correctly rounded: t must differ from the unfused version's only by
 // the FMAs' roundings, so that the tie-aware hold can bound it; a step whose
 // warp met a subnormal denominator or one of at least 2^126 is redone with
-// __frcp_rn.
+// __frcp_rn. L10 takes the same body, split and ring (K1, whose walk it
+// strips, takes 63.75 SASS instructions a test).
 //
-// Built with -fmad=false (trace_kernel.NVCC_FLAGS): L8, L10, L11 vpu and
-// L9 loads round exactly like their plain torch versions in
-// lab/kernel_lab*.py (t and ids bit for bit). L9's other modes take the
-// FMA body and are held by kernel_lab9.lab9_agreement, L11 mxu by
-// kernel_lab11.mxu_agreement.
+// Built with -fmad=false (trace_kernel.NVCC_FLAGS): L8, L11 vpu and L9
+// loads round exactly like their plain torch versions in
+// lab/kernel_lab*.py (t and ids bit for bit). L9's other modes and L10
+// take the FMA body and are held by kernel_lab9.lab9_agreement and
+// kernel_lab10.lab10_agreement, L11 mxu by kernel_lab11.mxu_agreement.
 
 #include <cuda_runtime.h>
 
@@ -91,7 +104,8 @@ constexpr int kStep = 8;       // clusters per step
 constexpr int kGroup = 32;     // tiles per group
 constexpr int kHeads = 128;    // key-head lanes per tile
 constexpr int kWarpsPerBlock = 4;  // L9 and L11: tiles per block
-constexpr int kRays9 = 4;      // L9: rays a lane (R), workers a warp
+constexpr int kRays9 = 4;      // L9, L10: rays a lane (R), workers a warp
+constexpr int kTiles10 = 4;    // L10: tiles (warps) a block
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 // L11 mxu: a staged row of 128 floats takes 136, so that the four rows a
@@ -141,11 +155,9 @@ __device__ __forceinline__ bool bw_hit(const Ray& r, float nx, float ny,
 }
 
 // The ray against the 128 triangles staged in buf (ids id0 + lane), in
-// lane order. kRunning: each hit must beat the running best (bt, bi),
-// which it replaces (strict <). Otherwise a hit must beat bound, the best
-// from before the step, and replaces the candidate (ct, ci) when closer
-// than it: the first smallest, as an argmin over the step's lanes.
-template <bool kRunning>
+// lane order: a hit must beat bound, the best from before the step, and
+// replaces the candidate (ct, ci) when closer than it: the first
+// smallest, as an argmin over the step's lanes.
 __device__ __forceinline__ void test_cluster(const float4* buf, int id0,
                                              const Ray& r, float bound,
                                              float& ct, int& ci) {
@@ -161,7 +173,7 @@ __device__ __forceinline__ void test_cluster(const float4* buf, int id0,
     float tt;
 #define K1_LAB_TEST(c, k)                                                  \
   if (bw_hit(r, nx.c, ny.c, nz.c, nd.c, r1x.c, r1y.c, r1z.c, r1d.c, r2x.c, \
-             r2y.c, r2z.c, r2d.c, kRunning ? ct : bound, tt) &&            \
+             r2y.c, r2z.c, r2d.c, bound, tt) &&                            \
       tt < ct) {                                                           \
     ct = tt;                                                               \
     ci = id + k;                                                           \
@@ -256,7 +268,7 @@ __device__ __forceinline__ void bw_step(float4* buf, const float* tris,
     const int c = __shfl_sync(kFull, orders, j);
     stage<false>(buf, tris, c, lane);
     __syncwarp();
-    test_cluster<false>(buf, c * kCluster, r, bt, ct, ci);
+    test_cluster(buf, c * kCluster, r, bt, ct, ci);
     __syncwarp();  // every lane is done with buf
   }
   if (ct < bt) {
@@ -454,66 +466,106 @@ lab9_kernel(const int* __restrict__ counts, const int* __restrict__ heads,
 
 enum Lab10Mode { kFull10 = 0, kNoray10 = 1, kFixord10 = 2, kNowrite10 = 3 };
 
-struct Cand {
-  float t;
-  int id;
-};
-
-template <int W, int kMode>
-__global__ void __launch_bounds__(kTile * W, 16 / W)
+// A warp walks a tile of 32 rays of a sorted wave, R rays a lane (as L9:
+// lane l is lane l % (32 / R) of worker l / (32 / R), rays l % (32 / R) +
+// k (32 / R)). The tiles are taken in `order`, longest walk first, so that
+// the longest walks start first and the short ones fill the card's tail.
+// A tile's count clusters, in key order (fixord: g % 8 at walk position
+// g), pass through the ring of two stages: cluster g + 1 is copied while
+// cluster g is tested. Each worker keeps its own running best over the
+// walk from the pre-set best (noray: 1e30 where count > 0), slot = g * 128
+// + the triangle's lane; the workers meet after the walk.
+template <int kMode, int R>
+__global__ void __launch_bounds__(kTiles10 * kTile, 16 / kTiles10)
 lab10_kernel(const int* __restrict__ counts, const int* __restrict__ keys,
              int key_stride, const float* __restrict__ rays8,
-             const float* __restrict__ tris, int n_clusters, int idmask,
+             const float* __restrict__ tris, int n_tiles, int n_clusters,
+             int idmask, const int* __restrict__ order,
              float* __restrict__ out) {
+  constexpr int kLanes = kTile / R;  // lanes a worker
   extern __shared__ float4 smem[];
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
-  const int tile = blockIdx.x;
-  float4* buf = smem + warp * kBuf;
-  Cand* comb = reinterpret_cast<Cand*>(smem + W * kBuf);
-
-  const size_t ray = static_cast<size_t>(tile) * kTile + lane;
-  const float4 a = reinterpret_cast<const float4*>(rays8)[ray * 2];
-  const float4 b = reinterpret_cast<const float4*>(rays8)[ray * 2 + 1];
-  const Ray r = kMode == kNoray10
-                    ? Ray{0.1f, 0.2f, 0.3f, 0.4f, 0.5f, 0.6f, 0.0f}
-                    : Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
-  // the block's pre-set best: min(t_max, 3e38), NaN kept
-  const float pre = b.w > kBig ? kBig : b.w;
+  if (blockIdx.x * kTiles10 + warp >= n_tiles) return;
+  const int tile = order[blockIdx.x * kTiles10 + warp];
+  float4* ring = smem + warp * 2 * kBuf;
+  const int wk = lane / kLanes;
   const int count = counts[tile];
-  float bt = kMode == kNoray10 && count > 0 ? 1e30f : pre;
-  int bi = -1;
-  const int* krow = keys + static_cast<size_t>(tile) * key_stride;
-  const int n_mine = count > warp ? (count - warp + W - 1) / W : 0;
-  int kc = 0;
-  for (int i = 0; i < n_mine; ++i) {
-    const int slot = warp + i * W;
-    int c;
-    if (kMode == kFixord10) {
-      c = slot % kStep;
-    } else {
-      if ((i & 31) == 0 && i + lane < n_mine)
-        kc = min(krow[warp + (i + lane) * W] & idmask, n_clusters - 1);
-      c = __shfl_sync(kFull, kc, i & 31);
-    }
-    stage<false>(buf, tris, c, lane);
-    __syncwarp();
-    test_cluster<true>(buf, c * kCluster, r, bt, bt, bi);
-    __syncwarp();
+  const float4* r4 = reinterpret_cast<const float4*>(rays8);
+  Ray r[R];
+  float pre[R], bt[R];
+  int bs[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const size_t ray = static_cast<size_t>(tile) * kTile + lane % kLanes +
+                       k * kLanes;
+    const float4 a = r4[ray * 2];
+    const float4 b = r4[ray * 2 + 1];
+    r[k] = kMode == kNoray10 ? Ray{0.1f, 0.2f, 0.3f, 0.4f, 0.5f, 0.6f, 0.0f}
+                             : Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
+    pre[k] = b.w > kBig ? kBig : b.w;  // min(t_max, 3e38), NaN kept
+    bt[k] = kMode == kNoray10 && count > 0 ? 1e30f : pre[k];
+    bs[k] = -1;
   }
-  comb[warp * kTile + lane] = Cand{bt, bi};
-  __syncthreads();
-  if (warp != 0) return;
-  for (int v = 1; v < W; ++v) {
-    const Cand e = comb[v * kTile + lane];
-    if (e.t < bt || (e.t == bt && e.id < bi)) {
-      bt = e.t;
-      bi = e.id;
+  const int* krow = keys + static_cast<size_t>(tile) * key_stride;
+  // the cluster at walk position g, asked for g = 0, 1, ... in turn: the
+  // keys a warp-load of 32 at a time, shuffled
+  int kc = 0;
+  auto cluster = [&](int g) {
+    if (kMode == kFixord10) return g % kStep;
+    if ((g & 31) == 0)
+      kc = g + lane < count ? min(krow[g + lane] & idmask, n_clusters - 1)
+                            : 0;
+    return __shfl_sync(kFull, kc, g & 31);
+  };
+  if (count > 0) stage_async(ring, tris, cluster(0), lane);
+  for (int g = 0; g < count; ++g) {
+    if (g + 1 < count) {
+      stage_async(ring + ((g + 1) & 1) * kBuf, tris, cluster(g + 1), lane);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncwarp();  // cluster g's rows are in for every lane
+    const float4* buf = ring + (g & 1) * kBuf;
+    float st[R];
+    int ss[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      st[k] = bt[k];
+      ss[k] = bs[k];
+    }
+    bool odd = false;  // a den outside rcp_in_range's range
+    test_quads<R, false>(buf, g * kCluster, wk, r, bt, bs, odd);
+    if (__any_sync(kFull, odd)) {  // the cluster again with __frcp_rn
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        bt[k] = st[k];
+        bs[k] = ss[k];
+      }
+      test_quads<R, true>(buf, g * kCluster, wk, r, bt, bs, odd);
+    }
+    __syncwarp();  // every lane is done with buf
+  }
+  int id[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    workers_best(bt[k], bs[k], kLanes);
+    const int g = bs[k] / kCluster;
+    id[k] = bs[k] < 0 ? -1
+                      : (kMode == kFixord10
+                             ? g % kStep
+                             : min(krow[g] & idmask, n_clusters - 1)) *
+                                kCluster +
+                            bs[k] % kCluster;
   }
   float2* o2 = reinterpret_cast<float2*>(out);
   if (kMode != kNowrite10) {
-    o2[ray] = make_float2(bt, __int_as_float(bi));
+    if (wk != 0) return;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      o2[static_cast<size_t>(tile) * kTile + lane + k * kLanes] =
+          make_float2(bt[k], __int_as_float(id[k]));
     return;
   }
   // nowrite: every tile keeps its pre-set (t_max, -1); tile 0 of each
@@ -524,14 +576,20 @@ lab10_kernel(const int* __restrict__ counts, const int* __restrict__ keys,
   const unsigned act = __ballot_sync(
       kFull, counts[static_cast<size_t>(group) * kGroup + lane] > 0);
   const int last = act ? 31 - __clz(act) : -1;
-  if (gi == 0 && last > 0) {
-    out[ray * 2 + 1] = __int_as_float(-1);  // the last active tile writes t
-    return;
+  if (wk != 0) return;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int rr = lane + k * kLanes;  // the ray's lane in the tile
+    const size_t ray = static_cast<size_t>(tile) * kTile + rr;
+    if (gi == 0 && last > 0) {
+      out[ray * 2 + 1] = __int_as_float(-1);  // the last active tile writes t
+      continue;
+    }
+    o2[ray] = make_float2(gi == 0 ? (last < 0 ? 0.0f : bt[k]) : pre[k],
+                          __int_as_float(-1));
+    if (gi == last && gi > 0)
+      out[(static_cast<size_t>(group) * kGroup * kTile + rr) * 2] = bt[k];
   }
-  o2[ray] = make_float2(gi == 0 ? (last < 0 ? 0.0f : bt) : pre,
-                        __int_as_float(-1));
-  if (gi == last && gi > 0)
-    out[(static_cast<size_t>(group) * kGroup * kTile + lane) * 2] = bt;
 }
 
 // ---------------------------------------------------------------------------
@@ -667,40 +725,6 @@ lab11_mxu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
   }
 }
 
-// Lets kernel take smem bytes of dynamic shared memory.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
-
-template <int W, int M>
-int launch10(const int* counts, const int* keys, int key_stride,
-             const float* rays8, const float* tris, int n_tiles,
-             int n_clusters, int idmask, float* out, cudaStream_t st) {
-  const size_t smem = W * kBuf * sizeof(float4) + W * kTile * sizeof(Cand);
-  const int e = allow_smem(lab10_kernel<W, M>, smem);
-  if (e != 0) return e;
-  lab10_kernel<W, M><<<n_tiles, kTile * W, smem, st>>>(
-      counts, keys, key_stride, rays8, tris, n_clusters, idmask, out);
-  return 0;
-}
-
-template <int M>
-int launch10_w(int warps, const int* counts, const int* keys, int key_stride,
-               const float* rays8, const float* tris, int n_tiles,
-               int n_clusters, int idmask, float* out, cudaStream_t st) {
-  if (warps == 4)
-    return launch10<4, M>(counts, keys, key_stride, rays8, tris, n_tiles,
-                          n_clusters, idmask, out, st);
-  if (warps == 8)
-    return launch10<8, M>(counts, keys, key_stride, rays8, tris, n_tiles,
-                          n_clusters, idmask, out, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 // lab 8, 9, 10 or 11 in one of its modes (the order of lab_kernel.MODES):
@@ -708,8 +732,10 @@ int launch10_w(int warps, const int* counts, const int* keys, int key_stride,
 //      (n_tiles, 32, 3), d3, mm2 (n_tiles, 32, 2); n_tiles a multiple of 32;
 //   9: the same and tris (C, 12, 1, 128);
 //  10: counts, keys (n_tiles, key_stride) ascending cluster ids, rays =
-//      rays8 (n_tiles, 32, 8), tris (C, 12, 1, 128), idmask, warps (4 or
-//      8); n_tiles a multiple of 32;
+//      rays8 (n_tiles, 32, 8), tris (C, 12, 1, 128), idmask, order
+//      (n_tiles,) i32, a permutation of the tiles (the order to walk them
+//      in); n_tiles a multiple of 32 (warps, the W of L10's earlier design,
+//      is read by no kernel here);
 //  11: counts = steps (n_tiles,), rays = rays8, tris (C, 12, 1, 128) for
 //      mode 0 (vpu) or (C, 3, 4, 128) for mode 1 (mxu).
 // out is (n_tiles, 32, 2) f32. Returns the CUDA error of the launch (0 on
@@ -719,7 +745,8 @@ extern "C" int k1_lab_launch(int lab, int mode, const int* counts,
                              const float* rays, const float* d3,
                              const float* mm2, const float* tris,
                              int n_tiles, int n_clusters, int idmask,
-                             int warps, float* out, void* stream) {
+                             int warps, float* out, void* stream,
+                             const int* order) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
   const int blocks4 = (n_tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -749,12 +776,13 @@ extern "C" int k1_lab_launch(int lab, int mode, const int* counts,
     K1_LAB9(4)
 #undef K1_LAB9
 #define K1_LAB10(M)                                                         \
-  case 100 + M: {                                                           \
-    const int e = launch10_w<M>(warps, counts, keys, key_stride, rays, tris, \
-                                n_tiles, n_clusters, idmask, out, st);      \
-    if (e != 0) return e;                                                   \
-    break;                                                                  \
-  }
+  case 100 + M:                                                             \
+    lab10_kernel<M, kRays9>                                                 \
+        <<<(n_tiles + kTiles10 - 1) / kTiles10, kTiles10 * kTile,           \
+           kTiles10 * 2 * kBuf * sizeof(float4), st>>>(                     \
+            counts, keys, key_stride, rays, tris, n_tiles, n_clusters,      \
+            idmask, order, out);                                            \
+    break;
     K1_LAB10(0)
     K1_LAB10(1)
     K1_LAB10(2)

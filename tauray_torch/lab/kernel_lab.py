@@ -30,8 +30,12 @@ L1 takes the script's 8 ray columns stacked, (8, n_tiles * 128)
 id (R, 1) i32. On the script's meta the exit never fires (its entries are
 cluster ids below 636, far below the bits of any t > 0), so k4 and k5
 equal k3 bit for bit there; it fires where the tnear entries are set high.
-On the card: csrc/tile_lab.cu (one block of 8 warps a tile or a group,
-each step's rows staged one step ahead with cp.async).
+On the card: csrc/tile_lab.cu (L1, L2: one block of 8 warps a tile or a
+group, each step's rows staged one step ahead with cp.async; L3,
+redesigned: one block a tile whatever G is, 4 rays a lane, 8 warps over a
+step's quads, each step's rows staged one step ahead, the FMA body). L3's kernel so rounds
+otherwise than its plain version, and is held to it by lab3_agreement
+(common.tie_aware_hold; the exit's steps per tile by walked_steps).
 
     python -m tauray_torch.lab.kernel_lab [k0 k1 k2 k3 k4 k5 k5<G>]
                                           [--device=cpu]
@@ -53,7 +57,8 @@ import torch
 from ..ops.trace_kernel import _mt_test
 from .bounds import staged_bytes, tile_bound
 from .common import (BIG, CLUSTER, CPAD, KB_L1, ROW_L1, TILE_L1, card,
-                     lab1_inputs, parse_args, timed_run)
+                     lab1_inputs, mt_fp64, parse_args, tie_aware_hold,
+                     timed_run)
 from .lab_kernel import launch_tile, on_card
 
 BK = KB_L1 * CLUSTER     # triangles a step
@@ -117,8 +122,10 @@ def lab2(counts: torch.Tensor, meta: torch.Tensor, rays: torch.Tensor,
 
 def lab3(counts: torch.Tensor, meta: torch.Tensor, rays: torch.Tensor,
          tris9: torch.Tensor, group: int = 8) -> torch.Tensor:
-    """L3 (k5): rays (n_tiles, 128, 8) f32 rows, group tiles a block.
-    Returns (n_tiles, 128, 2) f32: t, then the id's int32 bits."""
+    """L3 (k5): rays (n_tiles, 128, 8) f32 rows; group, the script's G
+    (tiles a TPU grid step), divides n_tiles (the card walks one tile a
+    block whatever it is). Returns (n_tiles, 128, 2) f32: t, then the id's
+    int32 bits."""
     if not on_card(rays):
         return lab3_reference(counts, meta, rays, tris9)
     return launch_tile("lab3", "k5", counts, meta, rays, tris9, group)
@@ -225,6 +232,75 @@ def lab3_reference(counts, meta, rays, tris9, stats=None):
     """Plain torch version of lab3 (kernel_lab.py:433-561)."""
     bt, bi = walk_reference(counts, meta, rays, tris9, True, stats)
     return torch.stack([bt, bi.view(torch.float32)], -1)
+
+
+def lab3_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays, tris9,
+                   steps=None) -> dict:
+    """The hold of L3's kernel output against its plain version (both
+    (n_tiles, 128, 2)) on their inputs: common.tie_aware_hold, each ray's
+    winner (its id names the cluster and the lane) analysed in FP64 by
+    common.mt_fp64. steps, when given, is (the kernel's, the plain
+    version's) walked_steps: a tile whose two differ is held only where
+    rounding may have decided it, that is where the hold's ids differ at a
+    tie or a turned verdict, or where a ray's t on the side that stopped
+    first lies within 2 b_t of the exit's bound after those steps (the
+    tnear entry meta[1,024 + min(8 s, 1,023)] read as a float). Adds
+    steps_differ and steps_off (the tiles so held and not)."""
+    n_tiles = rays.shape[0]
+    C = tris9.shape[0]
+    rows = tris9.reshape(C, 9, CLUSTER)
+    r8 = rays.reshape(-1, 8)
+
+    def analyse(ray, ids):
+        return mt_fp64(rows[(ids // CLUSTER).long(), :,
+                            (ids % CLUSTER).long()], r8[ray, 0:3],
+                       r8[ray, 3:6], r8[ray, 6])
+
+    def flat(x):
+        return (x[..., 0].reshape(-1),
+                x[..., 1].contiguous().view(torch.int32).reshape(-1))
+    (t_k, id_k), (t_p, id_p) = flat(out), flat(ref)
+    res = tie_aware_hold(t_k, id_k, t_p, id_p, _start(r8[:, 7]), analyse)
+    if steps is None:
+        return res
+    s_k, s_p = (torch.as_tensor(x, device=rays.device).long()
+                for x in steps)
+    differ = torch.nonzero(s_k != s_p).squeeze(1)
+    explained = (id_k != id_p).reshape(n_tiles, TILE_L1).any(1)
+    m2 = meta.reshape(n_tiles, ROW_L1)
+    off = 0
+    for tile in differ.tolist():
+        if explained[tile]:
+            continue
+        s = int(min(s_k[tile], s_p[tile]))
+        t, ids = (t_k, id_k) if s_k[tile] < s_p[tile] else (t_p, id_p)
+        rays_t = torch.arange(tile * TILE_L1, (tile + 1) * TILE_L1,
+                              device=rays.device)
+        hit = rays_t[ids[rays_t] >= 0]
+        near = False
+        if s > 0 and hit.numel():
+            bound = m2[tile, CPAD + min(KB_L1 * s, CPAD - 1)].view(
+                torch.float32).double()
+            f = analyse(hit, ids[hit])
+            near = bool(((t[hit].double() - bound).abs() <=
+                         2 * f["b_t"]).any())
+        off += not near
+    res.update(steps_differ=int(differ.numel()), steps_off=off,
+               ok=res["ok"] and off == 0)
+    return res
+
+
+def walked_steps(fn, counts: torch.Tensor) -> torch.Tensor:
+    """Per tile, the fewest steps s whose output, fn(min(counts, 8 s)),
+    equals fn(counts)'s bit for bit ((n_tiles,) int64): the steps the walk
+    needed, the exit's among them. fn(counts) returns L3's (n_tiles, 128,
+    2) block."""
+    full = fn(counts).view(torch.int32)
+    n = _steps(counts)
+    for s in range(int(n.max()) - 1 if n.numel() else -1, -1, -1):
+        part = fn(counts.clamp(max=s * KB_L1)).view(torch.int32)
+        n = torch.where((part == full).flatten(1).all(1), s, n)
+    return n
 
 
 def tile_inputs(device, tiles=None):

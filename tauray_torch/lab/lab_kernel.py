@@ -76,10 +76,12 @@ def launch(lab: str, mode, counts: torch.Tensor,
            d3: Optional[torch.Tensor] = None,
            mm2: Optional[torch.Tensor] = None,
            tris: Optional[torch.Tensor] = None, idmask: int = 0,
-           warps: int = 0) -> torch.Tensor:
+           warps: int = 0,
+           order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launches lab's kernel in mode on checked CUDA tensors (see
-    k1_lab_launch for what each lab reads) and counts the launch. Returns
-    out (n_tiles, 32, 2) f32: t, then the id's int32 bits."""
+    k1_lab_launch for what each lab reads; warps is an older L10's W, and
+    an older library reads no order) and counts the launch. Returns out
+    (n_tiles, 32, 2) f32: t, then the id's int32 bits."""
     dev = rays.device
     lib = trace_kernel.build_all()["k1_lab"]
     n_tiles = counts.shape[0]
@@ -91,7 +93,8 @@ def launch(lab: str, mode, counts: torch.Tensor,
         int(lab[3:]), MODES[lab].index(mode), ptr(counts), ptr(keys),
         0 if keys is None else keys.shape[1], ptr(rays), ptr(d3), ptr(mm2),
         ptr(tris), n_tiles, 0 if tris is None else tris.shape[0], idmask,
-        warps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        warps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        ptr(order))
     if err != 0:
         raise RuntimeError(f"{lab} {mode} launch failed: CUDA error {err}")
     LAUNCHES[lab] += 1

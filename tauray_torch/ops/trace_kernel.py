@@ -75,7 +75,7 @@ _ARGTYPES = {
     "trace_tiles_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _P, _P, _P, _P],
     "k1_lab_launch": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _P, _P],
+                      _P, _P, _P],
     "brick_lab_launch": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "tile_lab_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "mxu_lab_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _P],

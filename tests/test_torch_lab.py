@@ -455,6 +455,200 @@ def test_lab10_full_is_k1(small_wave):
     assert bool((tid.reshape(-1, 32)[3] >= 0).any())
 
 
+# The redesigned kernel (csrc/k1_lab.cu lab10_kernel): a warp a tile, R rays
+# a lane, each cluster's quads split over R workers with running bests of
+# their own, combined by (t, slot) after the walk
+
+def _dup_lab10(seed=13, n_tiles=96):
+    """The duplicate scene (_dup_scene) as L10 takes it: counts, keys
+    (n_tiles, C) i32, rays8 (n_tiles, 32, 8), tris12 and the id mask.
+    Every tile with a cluster walks cluster 0 first and cluster 1 (its
+    copy) second, then an ascending random draw of the others; counts run
+    0-12 (fixord then repeats its orders 0-7), every 7th tile has none,
+    group 0's last four have none and group 2 none at all."""
+    (v0, e1, e2), _, (o3, d3, mm2) = _dup_scene(seed, n_tiles=n_tiles)
+    C = v0.shape[0] // common.CLUSTER
+    tris12 = np.ascontiguousarray(np.swapaxes(
+        _bw_rows(v0, e1, e2).reshape(C, common.CLUSTER, 12), 1, 2)[
+            :, :, None, :])
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 13, n_tiles).astype(np.int32)
+    counts[::7] = 0
+    counts[28:32] = 0
+    counts[64:] = 0
+    keys = np.full((n_tiles, C), 0x7FFFFFFF, np.int32)
+    for i, n in enumerate(counts):
+        rest = np.sort(rng.choice(np.arange(2, C), max(n - 2, 0), False))
+        keys[i, :n] = np.concatenate([[0, 1], rest])[:n]
+    rays8 = np.concatenate([o3, d3, mm2], -1)
+    return tuple(map(_t, (counts, keys, rays8, tris12))) + (31,)
+
+
+def workers_lab10(counts, keys, rays8, tris12, mode, idmask, R):
+    """A plain torch model of lab10_kernel's work split (unfused body):
+    lane l of worker l // (32 / R) holds rays l % (32 / R) + k (32 / R);
+    worker w takes the quads q = w (mod R) of each cluster of the walk and
+    keeps its own running best (the first smallest hit, strict <) from the
+    ray's start; the workers' bests meet by smallest t, then smallest slot
+    (walk position x 128 + lane), after the walk. Returns what lab10
+    returns."""
+    lanes = 32 // R
+    ray_of = (torch.arange(lanes)[:, None] + lanes * torch.arange(R)).T
+    assert sorted(ray_of.reshape(-1).tolist()) == list(range(32))
+    n_tiles, C = counts.shape[0], tris12.shape[0]
+    rows = tris12.reshape(C, 12, common.CLUSTER)
+    worker = torch.arange(common.CLUSTER) // 4 % R
+    rays = kernel_lab10._rays(rays8, mode)
+    start = kernel_lab10._start(counts, rays8, mode)
+    ct = start[..., None].repeat(1, 1, R)
+    cs = torch.full((n_tiles, 32, R), -1, dtype=torch.int64)
+    inf = torch.tensor(float("inf"))
+    for j in range(int(counts.max())):
+        sel = torch.nonzero(counts > j).squeeze(1)
+        c = torch.full_like(sel, j % 8) if mode == "fixord" else \
+            (keys[sel, j] & idmask).clamp(max=C - 1).long()
+        r = rays[sel]
+        hit, tt = kernel_lab9._hit([rows[c][:, None, i] for i in range(12)],
+                                   r[..., 0:3], r[..., 3:6], r[..., 6],
+                                   torch.full(r.shape[:2], inf))
+        for w in range(R):
+            ct_w = ct[sel, :, w]
+            mine = hit & (worker == w) & (tt < ct_w[..., None])
+            t_w, arg = torch.where(mine, tt, inf).min(dim=2)
+            closer = t_w < ct_w
+            ct[sel, :, w] = torch.where(closer, t_w, ct_w)
+            cs[sel, :, w] = torch.where(closer, j * 128 + arg, cs[sel, :, w])
+    t, slot = _first_min(ct, torch.where(cs >= 0, cs, 1 << 30))
+    got = slot < (1 << 30)
+    g = torch.where(got, slot, 0) // 128
+    cl = g % 8 if mode == "fixord" else \
+        (torch.gather(keys.long(), 1, g.reshape(n_tiles, -1)).reshape(
+            g.shape) & idmask).clamp(max=C - 1)
+    ids = torch.where(got, cl * 128 + slot % 128, -1).int()
+    out = torch.stack([t, ids.view(torch.float32)], -1)
+    if mode == "nowrite":
+        full = workers_lab10(counts, keys, rays8, tris12, "full", idmask, R)
+        return kernel_lab10.nowrite_of(full, counts, rays8)
+    return out
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["full", "noray", "fixord", "nowrite"])
+def test_lab10_worker_split_matches_reference(mode, R):
+    """The model of the card's R-worker split and (t, slot) combine equals
+    lab10_reference bit for bit on exact duplicate triangles within a quad,
+    across workers and across clusters of the walk, fixord's repeated
+    clusters, tiles of no cluster (a group's last ones, a whole group), NaN
+    rays and rays with t_max < t_min."""
+    counts, keys, rays8, tris12, idmask = _dup_lab10()
+    want = kernel_lab10.lab10_reference(counts, keys, rays8, tris12, mode,
+                                        idmask)
+    got = workers_lab10(counts, keys, rays8, tris12, mode, idmask, R)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if mode in ("full", "fixord"):
+        ids = want[..., 1].view(torch.int32)
+        # the duplicates win: cluster 0's quads 0 and 1
+        assert int(((ids >= 0) & (ids < 256) & (ids % 128 < 8)).sum()) >= 20
+
+
+def test_lab10_walk_order_and_spread():
+    """The card's kernel walks the tiles most clusters first, ties in
+    index order (walk_order, a stable sort, a permutation); tile_spread
+    reads the counts and the idle share of the card's blocks of 4 tiles in
+    either order."""
+    counts = torch.tensor([3, 0, 7, 3, 7, 1, 0, 2], dtype=torch.int32)
+    order = kernel_lab10.walk_order(counts)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [2, 4, 0, 3, 7, 5, 1, 6]
+    sp = kernel_lab10.tile_spread(counts)
+    assert (sp["min"], sp["max"], sp["mean"]) == (0, 7, 23 / 8)
+    assert sp["block_idle_share"] == pytest.approx(1 - 23 / 56)
+    assert sp["block_idle_share_walk_order"] == pytest.approx(1 - 23 / 36)
+
+
+def _lab10_fma(monkeypatch, *args):
+    """lab10_reference with the card's FMA body (common.bw_test_fma)."""
+    monkeypatch.setattr(kernel_lab9, "_bw_test", common.bw_test_fma)
+    try:
+        return kernel_lab10.lab10_reference(*args)
+    finally:
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("mode", ["full", "noray", "fixord", "nowrite"])
+def test_lab10_agreement_holds_the_fma_body(monkeypatch, small_wave, mode):
+    """The FMA body's results (emulated in FP64) meet lab10_agreement
+    against the plain version on the small scene's sorted wave and on the
+    duplicate scene, with t off by at most 1/2 of its bound (nowrite: bit
+    for bit to what the FMA body's full computes)."""
+    tracer, (counts, keys, r3, idmask) = small_wave
+    cases = [(counts, keys, r3, tracer.tris12, idmask), _dup_lab10(14)]
+    for counts, keys, r3, tris12, idmask in cases:
+        args = (counts, keys, r3, tris12, mode, idmask)
+        ref = kernel_lab10.lab10_reference(*args)
+        fma = _lab10_fma(monkeypatch, *args)
+        full = _lab10_fma(monkeypatch, *args[:4], "full", idmask)
+        agree = kernel_lab10.lab10_agreement(fma, ref, counts, r3, tris12,
+                                             mode, full=full)
+        if mode == "nowrite":
+            assert agree["ok"], agree
+            continue
+        assert agree["rays_off"] == 0 and agree["ill_conditioned"] <= 1 \
+            and agree["max_t_over_bound"] <= 0.5, agree
+        if mode == "full":
+            assert int((ref[..., 1].view(torch.int32) >= 0).sum()) > 50
+
+
+def test_lab10_agreement_rules():
+    """lab10_agreement accepts a t one ulp off and a tie swap (a winner's
+    copy in cluster 1), and refuses a wrong id and a t off by more than its
+    bound; nowrite refuses a t that its full did not compute."""
+    counts, keys, r3, tris12, idmask = _dup_lab10()
+    ref = kernel_lab10.lab10_reference(counts, keys, r3, tris12, "full",
+                                       idmask)
+
+    def hold(out, mode="full", want=ref, full=None):
+        return kernel_lab10.lab10_agreement(out, want, counts, r3, tris12,
+                                            mode, full=full)
+    assert hold(ref)["ok"]
+    flat = ref.reshape(-1, 2)
+    ids = flat[:, 1].view(torch.int32)
+    dup = int(torch.nonzero((ids >= 0) & (ids < 128)).reshape(-1)[0])
+    hit = int(torch.nonzero((ids >= 0) & (flat[:, 0] > 0.5)).reshape(-1)[0])
+
+    def moved(i, t=None, id_=None, x=flat):
+        out = x.clone()
+        if t is not None:
+            out[i, 0] = t
+        if id_ is not None:
+            out[i, 1] = torch.tensor([id_], dtype=torch.int32).view(
+                torch.float32)
+        return out.reshape(ref.shape)
+    a = hold(moved(hit, t=float(np.nextafter(np.float32(flat[hit, 0]),
+                                             np.float32(np.inf)))))
+    assert a["ok"] and a["t_bits_differ"] == 1
+    a = hold(moved(dup, id_=int(ids[dup]) + 128))
+    assert a["ok"] and a["ties"] == 1 and a["ill_conditioned"] == 0
+    a = hold(moved(hit, id_=(int(ids[hit]) + 37) % (128 * 24)))
+    assert not a["ok"] and a["rays_off"] == 1
+    c, lane = int(ids[hit]) // 128, int(ids[hit]) % 128
+    f = common.bw_fp64(tris12[c, :, 0, lane][None], r3.reshape(-1, 8)[
+        [hit], 0:3], r3.reshape(-1, 8)[[hit], 3:6], r3.reshape(-1, 8)[
+            [hit], 6])
+    a = hold(moved(hit, t=float(flat[hit, 0] + 4 * f["b_t"][0])))
+    assert not a["ok"] and a["rays_off"] == 1 and a["max_t_over_bound"] > 1
+    nowrite = kernel_lab10.lab10_reference(counts, keys, r3, tris12,
+                                           "nowrite", idmask)
+    assert hold(nowrite, "nowrite", nowrite, ref)["ok"]
+    nw = nowrite.reshape(-1, 2)
+    for ray in (6, 32 * 40 + 3):        # tile 0's t, a pre-set t
+        assert float(nw[ray, 0]) != 0.125
+        a = hold(moved(ray, t=0.125, x=nw), "nowrite", nowrite, ref)
+        assert not a["ok"] and a["rays_off"] == 1
+    with pytest.raises(ValueError, match="full output"):
+        hold(nowrite, "nowrite", nowrite)
+
+
 # ---------------------------------------------------------------------------
 # L11
 # ---------------------------------------------------------------------------

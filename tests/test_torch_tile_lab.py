@@ -405,6 +405,214 @@ def test_exit_fires_in_the_script_alike(monkeypatch, exit_mode):
 
 
 # ---------------------------------------------------------------------------
+# L3's redesigned kernel (csrc/tile_lab.cu lab3_kernel): a block a tile, R
+# = 4 rays a lane (a warp holds the tile), W warps over each step's quads,
+# their bests combined by (t, slot) after every step and the exit voted on
+# the combined best; the FMA body, held tie-aware
+# ---------------------------------------------------------------------------
+
+def _dup_lab3(seed=31, n_tiles=8, crafted=False):
+    """tests/test_torch_lab.py's duplicate scene as L3 takes it: meta
+    (n_tiles x 3,072,) naming cluster 0 at slot 0 and at the next step's
+    first slot (8), cluster 1 (cluster 0's copy) at slot 1 and random
+    clusters elsewhere, its tnear third random cluster ids (the script's:
+    the exit never fires) or, crafted, 0x7f000000; rays (n_tiles, 128, 8)
+    with NaN rays and rays with t_max < t_min; tris9 (C, 9, 1, 128)."""
+    from test_torch_lab import _dup_scene
+    (v0, e1, e2), _, (o3, d3, mm2) = _dup_scene(seed, n_tiles=4 * n_tiles)
+    C = v0.shape[0] // 128
+    tris9 = np.swapaxes(np.concatenate([v0, e1, e2], -1).reshape(C, 128, 9),
+                        1, 2)[:, :, None, :]
+    meta = np.random.default_rng(seed).integers(
+        0, C, (n_tiles, common.ROW_L1)).astype(np.int32)
+    meta[:, 0], meta[:, 1], meta[:, 8] = 0, 1, 0
+    if crafted:
+        meta[:, common.CPAD:2 * common.CPAD] = 0x7F000000
+    rays = np.concatenate([o3, d3, mm2], -1).reshape(n_tiles, 128, 8)
+    return tuple(map(_t, (meta.reshape(-1), rays, tris9)))
+
+
+def workers_lab3(counts, meta, rays, tris9, W, R=4):
+    """A plain torch model of lab3_kernel's work split (unfused body): lane
+    l of a warp holds rays l + 32 k, k < R (R = 4: the tile); warp w takes
+    the quads q = w (mod W) of each step's 256 and keeps the first smallest
+    hit (strict <) below the tile's best from before the step; after the
+    step the warps' bests meet by smallest t, then smallest slot, and the
+    tile stops once every ray's combined best t bits are <= the tnear entry
+    meta[1,024 + min(8 (s + 1), 1,023)]. Returns what lab3 returns."""
+    from test_torch_lab import _first_min
+    ray_of = torch.arange(32)[:, None] + 32 * torch.arange(R)
+    assert sorted(ray_of.reshape(-1).tolist()) == list(range(32 * R))
+    n_tiles, C = rays.shape[0], tris9.shape[0]
+    rows = tris9.reshape(C, 9, 128)
+    m2 = meta.reshape(n_tiles, common.ROW_L1)
+    bk = common.KB_L1 * 128
+    worker = torch.arange(bk) // 4 % W
+    bt = torch.where(rays[..., 7] > common.BIG, common.BIG, rays[..., 7])
+    bs = torch.full((n_tiles, 128), -1, dtype=torch.int64)
+    steps = (counts.long() + 7) // 8
+    walking = steps > 0
+    inf = torch.tensor(float("inf"))
+    s = 0
+    while True:
+        act = torch.nonzero(walking & (steps > s)).squeeze(1)
+        if act.numel() == 0:
+            break
+        k = (s * 8 + torch.arange(8)).clamp(max=common.CPAD - 1)
+        orders = m2[act][:, k].clamp(0, C - 1).long()
+        tri = rows[orders].permute(0, 2, 1, 3).reshape(-1, 9, 1, bk)
+        ray = rays[act]
+        a, tt, uu, vv = kernel_lab._mt_test(
+            [tri[:, i] for i in range(9)], *(ray[..., q, None]
+                                             for q in range(6)))
+        slot_ok = (s * 8 + torch.arange(bk) // 128)[None] < \
+            counts.long()[act, None]
+        b = bt[act]
+        hit = (a != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
+            (tt >= ray[..., 6, None]) & (tt < b[..., None]) & \
+            slot_ok[:, None, :]
+        per_w = [torch.where(hit & (worker == w), tt, inf).min(dim=2)
+                 for w in range(W)]
+        t_c, s_c = _first_min(
+            torch.stack([x[0] for x in per_w], -1),
+            torch.stack([torch.where(x[0] < inf, s * bk + x[1], 1 << 30)
+                         for x in per_w], -1))
+        closer = t_c < b
+        bt[act] = torch.where(closer, t_c, b)
+        bs[act] = torch.where(closer, s_c, bs[act])
+        nk = m2[act, common.CPAD + min((s + 1) * 8, common.CPAD - 1)]
+        walking[act] = ~(bt[act].view(torch.int32) <= nk[:, None]).all(1)
+        s += 1
+    got = bs >= 0
+    g = torch.where(got, bs, 0) // 128
+    cl = torch.gather(m2.long(), 1, g.clamp(max=common.CPAD - 1)).clamp(
+        0, C - 1)
+    ids = torch.where(got, cl * 128 + bs % 128, -1).int()
+    return torch.stack([bt, ids.view(torch.float32)], -1)
+
+
+@pytest.mark.parametrize("W", [1, 2, 8])
+def test_lab3_worker_split_matches_reference(W):
+    """The model of the card's W-worker split, its (t, slot) combine after
+    each step and its exit on the combined best equals lab3_reference bit
+    for bit: exact duplicate triangles within a quad, across workers,
+    within a step and across steps, tiles of count 0 and uneven counts, NaN
+    rays and rays with t_max < t_min, on the script's kind of meta and on
+    the crafted one whose tnear third is 0x7f000000; and on the script's
+    own first tiles."""
+    counts = torch.tensor([0, 3, 8, 9, 17, 24, 40, 64], dtype=torch.int32)
+    cases = [_dup_lab3(), _dup_lab3(crafted=True)]
+    cols, tris9, meta = _l1_inputs()
+    cases.append((_t(meta), _t(_rows(cols)), _t(tris9)))
+    for meta, rays, tris9 in cases:
+        c = counts.repeat(rays.shape[0] // 8)
+        want = kernel_lab.lab3_reference(c, meta, rays, tris9)
+        got = workers_lab3(c, meta, rays, tris9, W)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ids = kernel_lab.lab3_reference(c[:8], *_dup_lab3())[..., 1].view(
+        torch.int32)
+    # the duplicates win: cluster 0's quads 0 and 1
+    assert int(((ids >= 0) & (ids < 256) & (ids % 128 < 8)).sum()) >= 20
+
+
+def _lab3_fma(monkeypatch, *args):
+    """lab3_reference with the card's FMA body (common.mt_test_fma)."""
+    monkeypatch.setattr(kernel_lab, "_mt_test", common.mt_test_fma)
+    try:
+        return kernel_lab.lab3_reference(*args)
+    finally:
+        monkeypatch.undo()
+
+
+def test_lab3_agreement_holds_the_fma_body(monkeypatch):
+    """The FMA body's results (emulated in FP64) meet lab3_agreement
+    against the plain version on the script's first 16 tiles and on the
+    duplicate scene, with t off by at most 1/2 of its bound; on the
+    crafted meta with the steps each tile walked (walked_steps) held too,
+    one a tile that hits in its first step."""
+    cols, tris9, meta = _l1_inputs()
+    cases = [(_t(meta), _t(_rows(cols)), _t(tris9), None),
+             _dup_lab3() + (None,),
+             (_t(_crafted(meta)), _t(_rows(cols)), _t(tris9), 1)]
+    for meta, rays, tris9, walked in cases:
+        counts = torch.full((rays.shape[0],), 64, dtype=torch.int32)
+        ref = kernel_lab.lab3_reference(counts, meta, rays, tris9)
+        fma = _lab3_fma(monkeypatch, counts, meta, rays, tris9)
+        steps = None
+        if walked is not None:
+            steps = [kernel_lab.walked_steps(
+                lambda c: fn(c, meta, rays, tris9), counts) for fn in (
+                    lambda *a: _lab3_fma(monkeypatch, *a),
+                    kernel_lab.lab3_reference)]
+            assert bool((steps[1] <= walked).all())
+            assert int((steps[1] == walked).sum()) > rays.shape[0] // 2
+        agree = kernel_lab.lab3_agreement(fma, ref, meta, rays, tris9, steps)
+        assert agree["rays_off"] == 0 and agree["ill_conditioned"] <= 1 \
+            and agree["max_t_over_bound"] <= 0.5, agree
+        assert agree.get("steps_off", 0) == 0, agree
+        assert int((ref[..., 1].view(torch.int32) >= 0).sum()) > 100
+
+
+def test_lab3_agreement_rules():
+    """lab3_agreement accepts a t one ulp off and a tie swap (a winner's
+    copy in cluster 1), and refuses a wrong id, a t off by more than its
+    bound and, on the crafted meta, a tile that walked one step more where
+    rounding did not decide it (no tie and no t near the exit's bound),
+    but not where a tie did."""
+    counts = torch.full((8,), 16, dtype=torch.int32)
+    meta, rays, tris9 = _dup_lab3()
+    ref = kernel_lab.lab3_reference(counts, meta, rays, tris9)
+
+    def hold(out, want=ref, meta=meta, steps=None):
+        return kernel_lab.lab3_agreement(out, want, meta, rays, tris9, steps)
+    assert hold(ref)["ok"]
+    flat = ref.reshape(-1, 2)
+    ids = flat[:, 1].view(torch.int32)
+    dup = int(torch.nonzero((ids >= 0) & (ids < 128)).reshape(-1)[0])
+    hit = int(torch.nonzero((ids >= 0) & (flat[:, 0] > 0.5)).reshape(-1)[0])
+
+    def moved(i, t=None, id_=None, x=flat):
+        out = x.clone()
+        if t is not None:
+            out[i, 0] = t
+        if id_ is not None:
+            out[i, 1] = torch.tensor([id_], dtype=torch.int32).view(
+                torch.float32)
+        return out.reshape(ref.shape)
+    a = hold(moved(hit, t=float(np.nextafter(np.float32(flat[hit, 0]),
+                                             np.float32(np.inf)))))
+    assert a["ok"] and a["t_bits_differ"] == 1
+    a = hold(moved(dup, id_=int(ids[dup]) + 128))
+    assert a["ok"] and a["ties"] == 1 and a["ill_conditioned"] == 0
+    a = hold(moved(hit, id_=(int(ids[hit]) + 37) % (128 * 24)))
+    assert not a["ok"] and a["rays_off"] == 1
+    c, lane = int(ids[hit]) // 128, int(ids[hit]) % 128
+    r8 = rays.reshape(-1, 8)
+    f = common.mt_fp64(tris9[c, :, 0, lane][None], r8[[hit], 0:3],
+                       r8[[hit], 3:6], r8[[hit], 6])
+    a = hold(moved(hit, t=float(flat[hit, 0] + 4 * f["b_t"][0])))
+    assert not a["ok"] and a["rays_off"] == 1 and a["max_t_over_bound"] > 1
+    # the exit: every tile stops after its first step
+    cmeta, _, _ = _dup_lab3(crafted=True)
+    cref = kernel_lab.lab3_reference(counts, cmeta, rays, tris9)
+    walked = kernel_lab.walked_steps(lambda n: kernel_lab.lab3_reference(
+        n, cmeta, rays, tris9), counts)
+    assert walked.tolist() == [1] * 8
+    more = walked.clone()
+    more[2] += 1
+    a = hold(cref, cref, cmeta, (more, walked))
+    assert not a["ok"] and a["steps_differ"] == 1 and a["steps_off"] == 1
+    cflat = cref.reshape(-1, 2)
+    cids = cflat[:, 1].view(torch.int32)
+    tie = int(torch.nonzero((cids >= 0) & (cids < 128)).reshape(-1)[0])
+    more = walked.clone()
+    more[tie // 128] += 1
+    a = hold(moved(tie, id_=int(cids[tie]) + 128, x=cflat), cref, cmeta,
+             (more, walked))
+    assert a["ok"] and a["steps_differ"] == 1 and a["steps_off"] == 0
+
+
+# ---------------------------------------------------------------------------
 # L12 against the script
 # ---------------------------------------------------------------------------
 
