@@ -12,10 +12,10 @@ non-zero:
      lab (csrc/mxu_lab.cu; one nvcc per source, started together) and print
      what ptxas reports, and the SASS of each K1-K5 and brick_lab
      instance's inner test loop (cuobjdump) and of the redesigned labs'
-     L9, L7, L10 and L3 (app/sass.lab_test_loops: instructions per test);
-     any spill or shared load narrower than 16 bytes in a test loop of
-     trace_tiles fails, as does a spill in an instance of L9's, L7's,
-     L10's or L3's kernel;
+     L9, L7, L10 and L1 k3, L2 and L3 (app/sass.lab_test_loops:
+     instructions per test); any spill or shared load narrower than 16
+     bytes in a test loop of trace_tiles fails, as does a spill in an
+     instance of L9's, L7's, L10's or L1-L3's kernel;
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
@@ -212,20 +212,22 @@ non-zero:
      and csrc/mxu_lab.cu, built in phase 2) through kernel_lab.run and
      mxu_lab.run at the scripts' sizes, the launches counted over that run
      alone: L1 k0 and k1 at 0 and 1 steps, k2 and k3 at 0, 1, 2, 4 and 8,
-     L2 (k4, 8 tiles a block) and L3 (k5 at G 8 and 32) at the same steps,
-     L12 mt and plucker; each timed (median and min of 5 CUDA-event runs)
-     with its bound and held to its plain version bit for bit (L3, whose
-     kernel takes the FMA body, by kernel_lab.lab3_agreement; plucker by
-     mxu_lab.plucker_agreement: t within 1e-5 of max(1, |t|), ids equal or
-     at a tie, as L11; or, on at most 1e-4 of the rays, where the two
-     sides' verdicts on one winner's test differ and FP64 puts that test
-     within rounding of turning, with t within its bound of the FP64 t of
-     the kernel's triangle; each such ray printed with its margin); k4
-     equal to k3 at each step count on the script's meta, k5 held to k3
-     by lab3_agreement, and on a meta whose tnear third is 0x7f000000 their
-     exit firing after one step (fewer hits than k3), held the same way,
-     k5's steps walked per tile (kernel_lab.walked_steps) held to the
-     plain version's; the intercept and slope of ms over steps of k2-k5.
+     L2 (k4) and L3 (k5 at G 8 and 32) at the same steps, L12 mt and
+     plucker; each timed (median and min of 5 CUDA-event runs of one call;
+     L1-L3 also back to back, 5 windows of 20 calls) with its bound and
+     held to its plain version: L1 k0-k2 and L12 mt bit for bit; k3, k4
+     and k5 (one template, the FMA body) by kernel_lab.lab3_agreement;
+     plucker by mxu_lab.plucker_agreement (t within 1e-5 of max(1, |t|),
+     ids equal or at a tie, as L11; or, on at most 1e-4 of the rays, where
+     the two sides' verdicts on one winner's test differ and FP64 puts
+     that test within rounding of turning, with t within its bound of the
+     FP64 t of the kernel's triangle; each such ray printed with its
+     margin); k4 and k5 equal to k3 bit for bit at each step count on the
+     script's meta, and on a meta whose tnear third is 0x7f000000 their
+     exit firing after one step (fewer hits than k3), held the same way
+     with the steps walked per tile (kernel_lab.walked_steps) held to the
+     plain version's; k3, k4 and k5 again on odd denominators; the
+     intercept and slope over steps of k2-k5 of ms and of ms back to back.
 The last lines are the card, the kernel table (each K row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
 the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
@@ -2318,16 +2320,18 @@ def tile_phase(dev):
     """Phase 22: L1-L3 through kernel_lab.run(dev) at the script's size
     (k0 and k1 at 0 and 1 steps; k2, k3, k4, k5 at G 8 and 32 at 0, 1, 2,
     4 and 8) and L12 through mxu_lab.run(dev), each timed (median and min
-    of 5 CUDA-event runs); the launches counted over that run alone. Then
-    every L1-L2 configuration and L12 mt held to its plain version bit for
-    bit, L3 (FMA body) by kernel_lab.lab3_agreement, plucker by
-    mxu_lab.plucker_agreement; k4 equal to k3 bit for bit at each step
-    count on the script's meta, k5 held to k3 by lab3_agreement; on a meta
-    whose tnear third is 0x7f000000 their exit fires (one step a tile,
-    fewer hits than k3), held the same way, k5's steps walked per tile
-    (kernel_lab.walked_steps) held to the plain version's. Prints the
-    intercept and slope of ms over steps of k2-k5. Returns the kernels
-    line's rows."""
+    of 5 CUDA-event runs of one call, and of 5 windows of 20 calls back to
+    back); the launches counted over that run alone. Then L1 k0-k2 and L12
+    mt held to their plain versions bit for bit; k3, k4 and k5 (one
+    template, the FMA body) by kernel_lab.lab3_agreement, plucker by
+    mxu_lab.plucker_agreement; k4 and k5 equal to k3 bit for bit at each
+    step count on the script's meta (the exit never fires there and the
+    three share the body); on a meta whose tnear third is 0x7f000000 the
+    exit of k4 and k5 fires (one step a tile, fewer hits than k3), held the
+    same way with the steps walked per tile (kernel_lab.walked_steps) held
+    to the plain version's; k3, k4 and k5 again on odd denominators.
+    Prints the intercept and slope of ms, and of the ms back to back, over
+    steps of k2-k5. Returns the kernels line's rows."""
     import torch
     from tauray_torch.lab import kernel_lab as kl
     from tauray_torch.lab import lab_kernel
@@ -2360,13 +2364,12 @@ def tile_phase(dev):
                             f"version")
         return ms, float((t - t_r).abs().max())
 
-    def hold3(tag, out, ref, meta, steps=None, rays=None):
-        """lab3_agreement of L3's out against ref (plain, or k3's kernel
-        out as L3's block) on rays (inp's by default): the agreement,
-        without its list of turned rays where it is empty."""
-        agree = kl.lab3_agreement(out, ref, meta,
-                                  inp["rows"] if rays is None else rays,
-                                  inp["tris9"], steps)
+    def hold3(tag, name, out, ref, data, steps=None):
+        """lab3_agreement of name's out against ref (as name's kernel
+        returns it) on data's meta and rows: the agreement, without its
+        list of turned rays where it is empty."""
+        agree = kl.lab3_agreement(out, ref, data["meta"], data["rows"],
+                                  data["tris9"], steps, name)
         if not agree["ok"]:
             failures.append(f"{tag}: {agree}")
         if not agree["held"]:
@@ -2380,38 +2383,37 @@ def tile_phase(dev):
         lab = lab_of.get(c.name, "lab1")
         key = f"{c.name} G={c.group} steps={c.steps}"
         agree = {}
-        if c.name == "k5":           # the FMA body: tie-aware
+        if c.name in ("k3", "k4", "k5"):     # the FMA body: tie-aware
             ref, ms = timed(lambda: kl.call_reference(c, inp, r["counts"]))
-            agree = hold3(f"{lab} {key}", r["out"], ref, inp["meta"])
+            agree = hold3(f"{lab} {key}", c.name, r["out"], ref, inp)
             err = agree["max_abs_t"]
         else:
             ms, err = hold(f"{lab} {key}", c.name, r["out"],
                            lambda: kl.call_reference(c, inp, r["counts"]))
-        e = dict(ms=r["ms"], min_ms=r["min_ms"], us_per_tile=r["us_per_tile"],
+        e = dict(ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
+                 ms_back_to_back=r["ms_back_to_back"],
+                 min_ms_back_to_back=r["min_ms_back_to_back"],
+                 max_ms_back_to_back=r["max_ms_back_to_back"],
+                 us_per_tile=r["us_per_tile"],
                  gtests_s=r["gtests_s"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], plain_ms=ms, max_abs_err=err,
-                 blocks=n_tiles if c.name == "k5" else n_tiles // c.group,
-                 staged_bytes=r["staged_bytes"], **agree)
+                 blocks=n_tiles, staged_bytes=r["staged_bytes"], **agree)
         e.pop("rays", None)
-        t3, i3 = k3[c.steps]
-        if c.name == "k4":
+        if c.name in ("k4", "k5"):   # one body: bit for bit to k3
+            t3, i3 = k3[c.steps]
             t, i = kl.flat(c.name, r["out"])
             e["equals_k3"] = bool(torch.equal(i, i3) and torch.equal(
                 t.view(torch.int32), t3.view(torch.int32)))
             if not e["equals_k3"]:
                 failures.append(f"{lab} {key}: departs from k3")
-        elif c.name == "k5":
-            as_l3 = torch.stack([t3.view(n_tiles, -1),
-                                 i3.view(n_tiles, -1).view(torch.float32)],
-                                -1)
-            e["held_to_k3"] = hold3(f"{lab} {key} against k3", r["out"],
-                                    as_l3, inp["meta"])["ok"]
         configs.setdefault(lab, {})[key] = e
         print(f"phase 22 {lab} {key} " + json.dumps(e), flush=True)
-    for (name, group), (icpt, slope) in kl.step_fit(res).items():
-        if name not in ("k0", "k1"):
-            print(f"phase 22 fit {name} G={group} " + json.dumps(dict(
-                intercept_ms=icpt, slope_ms_a_step=slope)), flush=True)
+    for key in ("ms", "ms_back_to_back"):
+        for (name, group), (icpt, slope) in kl.step_fit(res, key).items():
+            if name not in ("k0", "k1"):
+                print(f"phase 22 fit {key} {name} G={group} " + json.dumps(
+                    dict(intercept_ms=icpt, slope_ms_a_step=slope)),
+                    flush=True)
     # the exit where it fires: the tnear third of every row 0x7f000000
     meta = inp["meta"].view(n_tiles, ROW_L1).clone()
     meta[:, CPAD:2 * CPAD] = 0x7F000000
@@ -2424,25 +2426,20 @@ def tile_phase(dev):
         lab = lab_of[name]
         t = time_cuda(lambda: kl.call(c, crafted, counts))
         out = kl.call(c, crafted, counts)
-        stats, agree = {}, {}
-        if name == "k5":             # and the steps each tile walked
-            ref, ms = timed(lambda: kl.call_reference(c, crafted, counts,
-                                                      stats))
-            walked = [kl.walked_steps(lambda n: fn(c, crafted, n), counts)
-                      for fn in (kl.call, kl.call_reference)]
-            agree = hold3(f"{lab} {name} G={group} exit", out, ref, meta,
-                          walked)
-            agree.pop("rays")
-            agree["walked_steps_kernel"] = int(walked[0].sum())
-            agree["walked_steps_plain"] = int(walked[1].sum())
-            err = agree["max_abs_t"]
-        else:
-            ms, err = hold(f"{lab} {name} G={group} exit", name, out,
-                           lambda: kl.call_reference(c, crafted, counts,
-                                                     stats))
+        stats = {}
+        # and the steps each tile walked
+        ref, ms = timed(lambda: kl.call_reference(c, crafted, counts,
+                                                  stats))
+        walked = [kl.walked_steps(lambda n: fn(c, crafted, n), counts)
+                  for fn in (kl.call, kl.call_reference)]
+        agree = hold3(f"{lab} {name} G={group} exit", name, out, ref,
+                      crafted, walked)
+        agree.pop("rays")
+        agree["walked_steps_kernel"] = int(walked[0].sum())
+        agree["walked_steps_plain"] = int(walked[1].sum())
         hits = int((kl.flat(name, out)[1] >= 0).sum())
         e = dict(ms=t["ms"], min_ms=t["min_ms"], plain_ms=ms,
-                 max_abs_err=err, tile_steps=stats["steps"],
+                 max_abs_err=agree["max_abs_t"], tile_steps=stats["steps"],
                  tile_steps_k3=n_tiles * 8, hits=hits, hits_k3=hits3,
                  **agree)
         e["bound_ms"], e["bound_by"] = tile_bound(name, 8, n_tiles,
@@ -2454,18 +2451,21 @@ def tile_phase(dev):
               flush=True)
     if lab_kernel.LAUNCHES["lab2"] < 1 or lab_kernel.LAUNCHES["lab3"] < 2:
         failures.append("the exit runs never launched")
-    # L3's redo of a warp's share with __frcp_rn: k5 at 8 steps, every 13th
-    # direction scaled by 1e-39, every 17th NaN
+    # the redo of a warp's share with __frcp_rn: k3, k4 and k5 at 8 steps,
+    # every 13th direction scaled by 1e-39, every 17th NaN
     rows = inp["rows"].clone()
     rows.view(-1, 8)[::13, 3:6] *= 1e-39
     rows.view(-1, 8)[::17, 3:6] = float("nan")
-    odd_inp = dict(inp, rows=rows)
-    c = kl.TileConfig("k5", 8, 8, "")
-    odd = hold3("lab3 k5 odd denominators", kl.call(c, odd_inp, counts),
-                kl.call_reference(c, odd_inp, counts), inp["meta"],
-                rays=rows)
-    print("phase 22 lab3 k5 G=8 steps=8 odd denominators " + json.dumps(odd),
-          flush=True)
+    odd_inp = dict(inp, rows=rows,
+                   cols=rows.view(-1, 8).t().contiguous(),
+                   planes=rows.transpose(1, 2).contiguous())
+    for name, lab in (("k3", "lab1"), ("k4", "lab2"), ("k5", "lab3")):
+        c = kl.TileConfig(name, 1 if name == "k3" else 8, 8, "")
+        odd = hold3(f"{lab} {name} odd denominators", name,
+                    kl.call(c, odd_inp, counts),
+                    kl.call_reference(c, odd_inp, counts), odd_inp)
+        print(f"phase 22 {lab} {name} G={c.group} steps=8 odd denominators "
+              + json.dumps(odd), flush=True)
     for r in lres:
         tris = linp["tris9" if r["mode"] == "mt" else "tris24"]
 
@@ -2505,8 +2505,10 @@ def tile_phase(dev):
             # no single PyTorch call computes any lab's function
             "library_ms": None, "configuration": TILE_HEADLINE[lab],
             "configurations": {k: {f: e[f] for f in (
-                "ms", "plain_ms", "bound_ms", "bound_by")}
-                for k, e in cs.items()}}
+                "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by")
+                if f in e} for k, e in cs.items()}}
+        if lab != "lab12":
+            row["ms_back_to_back"] = head["ms_back_to_back"]
         rows.append(row)
     return rows
 
@@ -2543,8 +2545,9 @@ def main() -> int:
             trace_kernel.BUILD_INFO["brick_lab"]["path"])).items()):
         print(f"phase 2 sass brick_lab {inst}: " + json.dumps(st),
               flush=True)
-    # the redesigned labs' kernels (L9, L7, L10, L3): SASS a test, and no
-    # spill
+    # the redesigned labs' kernels (L9, L7, L10, L1-L3): SASS a test, and
+    # no spill (L1-L3: the six instances of tile_walk_kernel, three with a
+    # test)
     from tauray_torch.app import sass as sass_mod
     lab_sass, spilled = {}, {}
     for lib in ("k1_lab", "brick_lab", "tile_lab"):
@@ -2552,11 +2555,12 @@ def main() -> int:
         lab_sass.update(sass_mod.lab_test_loops(str(info["path"])))
         spilled.update(sass_mod.spills(
             str(info["log"]),
-            r"lab9_kernel|lab7_kernel|lab10_kernel|lab3_kernel"))
+            r"lab9_kernel|lab7_kernel|lab10_kernel|tile_walk_kernel"))
     for inst, st in sorted(lab_sass.items()):
         print(f"phase 2 sass {inst}: " + json.dumps(st), flush=True)
     print("phase 2 spills " + json.dumps(spilled), flush=True)
-    if len(lab_sass) != 12 or len(spilled) != 12 or any(spilled.values()):
+    if len(lab_sass) != 14 or len(spilled) != 17 or any(spilled.values()) \
+            or not {"lab1 k3", "lab2", "lab3"} <= set(lab_sass):
         raise RuntimeError(f"the redesigned labs' instances: "
                            f"{sorted(lab_sass)}, spills {spilled}")
     if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
@@ -2847,9 +2851,12 @@ def main() -> int:
     kernels["kernels"][0]["launches_quilt_5x9"] = l_k1_quilt
     kernels["kernels"][1]["launches_raster_524k_1_frame"] = l_k2_raster
     for r in lab_rows:       # the redesigned labs' SASS a test
-        if r["name"] == "lab3":
+        if r["name"] in ("lab2", "lab3"):
             r["sass_instructions_per_test"] = \
-                lab_sass["lab3"]["instructions_per_test"]
+                lab_sass[r["name"]]["instructions_per_test"]
+        elif r["name"] == "lab1":
+            r["sass_instructions_per_test"] = \
+                lab_sass["lab1 k3"]["instructions_per_test"]
         elif r["name"] in ("lab7", "lab9", "lab10"):
             r["sass_instructions_per_test"] = {
                 k.split()[1]: v["instructions_per_test"]

@@ -1,7 +1,7 @@
-"""Times the four labs redesigned with FMA bodies, L9 and L10
-(csrc/k1_lab.cu lab9_kernel, lab10_kernel), L7 (csrc/brick_lab.cu
-lab7_kernel) and L3 (csrc/tile_lab.cu lab3_kernel), against an older
-checkout's kernels on the same inputs, in turns, on one CUDA card.
+"""Times the labs redesigned for this card, L9 and L10 (csrc/k1_lab.cu
+lab9_kernel, lab10_kernel), L7 (csrc/brick_lab.cu lab7_kernel) and L1-L3
+(csrc/tile_lab.cu tile_walk_kernel), against an older checkout's kernels
+on the same inputs, in turns, on one CUDA card.
 
     python -m tauray_torch.app.lab_bench --parent DIR [--reps N]
 
@@ -16,13 +16,15 @@ once a wave outside the timing, which an older L10 does not read). Every
 configuration of the four labs' mains at the scripts' sizes (L9: 2^20
 rays on proc://sponza?tris=262144's table, 5 modes at 8, 16 and 32
 clusters a tile; L7: 32,768 tiles of 32, mt and bw at (KB, steps) (8, 6),
-(8, 4), (4, 8); L3: k5 at G 8 and 32, 0, 1, 2, 4 and 8 steps over the
-script's 512 tiles; L10: its 4 modes on the sorted bounce waves of 2^18
-and 2^20 rays) is timed with CUDA events
-(median of --reps after a warm-up) in the order parent, this tree, this
-tree, parent. Both sides are held to the plain versions first
-(kernel_lab9.lab9_agreement and kernel_lab5.lab7_agreement on the first
-1,024 tiles, L9 loads bit for bit; kernel_lab.lab3_agreement on every
+(8, 4), (4, 8); L1: k0 and k1 at 0 and 1 steps, k2 and k3 at 0, 1, 2, 4
+and 8, L2: k4 and L3: k5 at G 8 and 32 at 0, 1, 2, 4 and 8 steps, over
+the script's 512 tiles; L10: its 4 modes on the sorted bounce waves of
+2^18 and 2^20 rays) is timed with CUDA events (median of --reps single
+calls after a warm-up; L1-L3 also back to back, common.time_back_to_back)
+in the order parent, this tree, this tree, parent. Both sides are held to
+the plain versions first (kernel_lab9.lab9_agreement and
+kernel_lab5.lab7_agreement on the first 1,024 tiles, L9 loads bit for
+bit; L1 k0-k2 bit for bit and k3-k5 by kernel_lab.lab3_agreement on every
 tile; kernel_lab10.lab10_agreement on 1,024 tiles from the wave's middle,
 nowrite against the same side's full). It prints, one JSON object a line:
 the card's name and power limit, each library's test loops
@@ -51,6 +53,8 @@ from tauray_torch.ops import trace_kernel as tk
 
 LIBS = ("k1_lab", "brick_lab", "tile_lab")
 SLICE = 1024  # tiles of each hold
+TILE_LAB = {"k0": "lab1", "k1": "lab1", "k2": "lab1", "k3": "lab1",
+            "k4": "lab2", "k5": "lab3"}
 
 
 def build_parent(root: str):
@@ -124,17 +128,24 @@ def configs(dev):
     del tables, tabs
     inp = l3.tile_inputs(dev)
     n_tiles = inp["n_tiles"]
-    for cfg in l3.configs(("k5", "k532")):
+    for cfg in l3.configs(("k0", "k1", "k2", "k3", "k4", "k5", "k532")):
         counts = l3.counts_of(n_tiles, cfg.steps, dev)
         ref = l3.call_reference(cfg, inp, counts)
 
-        def hold(out, ref=ref):
+        def hold(out, ref=ref, name=cfg.name):
+            if name in ("k0", "k1", "k2"):
+                (t, i), (t_p, i_p) = l3.flat(name, out), l3.flat(name, ref)
+                return dict(ok=torch.equal(t.view(torch.int32),
+                                           t_p.view(torch.int32)) and
+                            torch.equal(i, i_p))
             return l3.lab3_agreement(out, ref, inp["meta"], inp["rows"],
-                                     inp["tris9"])
-        yield ("lab3", f"k5 G={cfg.group} steps={cfg.steps}",
+                                     inp["tris9"], name=name)
+        tests = n_tiles * common.TILE_L1 * cfg.steps * l3.BK \
+            if cfg.name in ("k3", "k4", "k5") else 0
+        yield (TILE_LAB[cfg.name], f"{cfg.name} G={cfg.group} "
+               f"steps={cfg.steps}",
                lambda cfg=cfg, counts=counts: l3.call(cfg, inp, counts),
-               hold, n_tiles * common.TILE_L1 * cfg.steps * l3.BK,
-               tile_bound("k5", cfg.steps, n_tiles)[0])
+               hold, tests, tile_bound(cfg.name, cfg.steps, n_tiles)[0])
     from tauray_torch.app.kernel_waves import kernel_waves
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for size in l10.SIZES:
@@ -170,8 +181,8 @@ def configs(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
-                    help="a checkout whose L9, L7, L3 and L10 kernels to "
-                         "time")
+                    help="a checkout whose L9, L7, L1-L3 and L10 kernels "
+                         "to time")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -207,14 +218,20 @@ def main(argv=None) -> int:
                     raise RuntimeError(f"{lab} {key}: the {side}'s kernel "
                                        f"breaks the hold: {agree}")
             runs = {"parent_ms": [], "ms": []}
+            b2b = {"parent_ms_back_to_back": [], "ms_back_to_back": []}
             for side in ("parent_ms", "ms", "ms", "parent_ms"):
                 use(theirs if side == "parent_ms" else mine)
                 runs[side].append(common.time_cuda(launch, args.reps)["ms"])
+                if lab in ("lab1", "lab2", "lab3"):
+                    b2b[f"{side}_back_to_back"].append(
+                        common.time_back_to_back(
+                            launch, args.reps)["ms_back_to_back"])
             for side, ms in runs.items():
                 row[side] = ms
                 best = min(ms)
                 row[side.replace("ms", "gtests_s")] = tests / (best * 1e6)
                 row[side.replace("ms", "share_of_bound")] = bound_ms / best
+            row.update({k: v for k, v in b2b.items() if v})
             emit(**row)
     finally:
         use(mine)

@@ -19,19 +19,24 @@ _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 # the read-only path (a table read in place)
 _ROW_LOAD = re.compile(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b")
 # lab9_kernel<kMode, R>, lab7_kernel<kBody, R>, lab10_kernel<kMode, R>
-# and lab3_kernel<R>; in older checkouts, lab9_kernel<kMode> (R = 1), L7
-# as brick_kernel<false, true, kBody, kFixed> (R = 1), lab10_kernel<W,
-# kMode> (W = 4 or 8 warps a tile, R = 1) and L3 as tile_lab_kernel<kK4,
-# kRowsOf> (R = 1)
+# and L1-L3's tile_walk_kernel<kMode, kLayout, R>; in older checkouts,
+# lab9_kernel<kMode> (R = 1), L7 as brick_kernel<false, true, kBody,
+# kFixed> (R = 1), lab10_kernel<W, kMode> (W = 4 or 8 warps a tile, R =
+# 1), L3 as lab3_kernel<R> and L1-L3 as tile_lab_kernel<kMode, kLayout>
+# (R = 1)
 _LAB9 = re.compile(r"lab9_kernelILi(\d)E(?:Li(\d+)E)?E")
 _LAB7 = re.compile(r"lab7_kernelILi(\d)ELi(\d+)EE")
 _LAB7_OLD = re.compile(r"brick_kernelILb0ELb1ELi(\d)ELi0EE")
 _LAB10 = re.compile(r"lab10_kernelILi(\d)ELi(\d)EE")
+_TILE = re.compile(r"tile_walk_kernelILi(\d)ELi(\d)ELi(\d+)EE")
 _LAB3 = re.compile(r"lab3_kernelILi(\d)EE")
-_LAB3_OLD = re.compile(r"tile_lab_kernelILi4ELi2EE")
+_TILE_OLD = re.compile(r"tile_lab_kernelILi(\d)ELi(\d)EE")
 LAB9_MODES = ("full", "exit", "loads", "math", "nocat")
 LAB10_MODES = ("full", "noray", "fixord", "nowrite")
 BODIES = {0: "mt", 2: "bw"}
+# the instances of L1-L3 with a test, by (kMode, kLayout): k3 in columns,
+# the exit in planes (L2) and in rows (L3); k0-k2 have no test loop
+TILE_INSTANCES = {(3, 0): "lab1 k3", (4, 1): "lab2", (4, 2): "lab3"}
 
 
 def cuobjdump() -> str:
@@ -99,15 +104,16 @@ def row_loop(chunk: str) -> List[str]:
 
 def lab_test_loops(lib_path: str) -> Dict[str, dict]:
     """{instance: its test loop}: L9's lab9_kernel and L10's lab10_kernel
-    per mode, L7's per body and L3's (the redesigned kernels or older
-    ones; an older L10 per mode and W) in the library at lib_path: the
+    per mode, L7's per body and the tile walks of L1 k3, L2 and L3 (the
+    redesigned kernels or older ones; an older L10 per mode and W) in the
+    library at lib_path: the
     loop's instructions, its 16-byte row loads, R (rays a lane), the tests
     one pass makes (4 triangles a load of each of the rows, 12 or 9, times
     R; none for L9 loads, which has no test) and instructions per test."""
     out = {}
     for name, chunk in functions(lib_path).items():
-        m9, m7, m7o, m10, m3, m3o = (p.search(name) for p in (
-            _LAB9, _LAB7, _LAB7_OLD, _LAB10, _LAB3, _LAB3_OLD))
+        m9, m7, m7o, m10, mt, m3, mto = (p.search(name) for p in (
+            _LAB9, _LAB7, _LAB7_OLD, _LAB10, _TILE, _LAB3, _TILE_OLD))
         if m9:
             inst = f"lab9 {LAB9_MODES[int(m9.group(1))]}"
             rays, nf, test = int(m9.group(2) or 1), 12, m9.group(1) != "2"
@@ -124,9 +130,14 @@ def lab_test_loops(lib_path: str) -> Dict[str, dict]:
             else:
                 inst, rays = f"lab10 {LAB10_MODES[a]}", b
             nf, test = 12, True
-        elif m3 or m3o:
-            inst, rays = "lab3", int(m3.group(1)) if m3 else 1
-            nf, test = 9, True
+        elif m3:
+            inst, rays, nf, test = "lab3", int(m3.group(1)), 9, True
+        elif mt or mto:
+            m = mt or mto
+            inst = TILE_INSTANCES.get((int(m.group(1)), int(m.group(2))))
+            if inst is None:
+                continue
+            rays, nf, test = int(mt.group(3)) if mt else 1, 9, True
         else:
             continue
         body = row_loop(chunk)

@@ -20,29 +20,35 @@ tile. Modes (the script's kernels):
       + the triangle's lane in it;
   k4  (L2) k3 plus the tile's exit after each step: it stops once every
       ray's best t, as int32 bits, is <= the unclipped meta entry 1,024 +
-      min(8 (s + 1), 1,023) of its row; 8 tiles a block in turn, rays as
+      min(8 (s + 1), 1,023) of its row; 8 tiles a TPU grid step, rays as
       planes (n_tiles, 8, 128), out (n_tiles, 2, 128);
   k5  (L3) k4 with rays as rows (n_tiles, 128, 8), out (n_tiles, 128, 2)
-      and G tiles a block (k5 G = 8, k5<G> any G dividing 512).
+      and G tiles a grid step (k5 G = 8, k5<G> any G dividing 512).
 
 L1 takes the script's 8 ray columns stacked, (8, n_tiles * 128)
 [ox, oy, oz, dx, dy, dz, t_min, t_max], and returns t (R, 1) f32 and the
 id (R, 1) i32. On the script's meta the exit never fires (its entries are
 cluster ids below 636, far below the bits of any t > 0), so k4 and k5
 equal k3 bit for bit there; it fires where the tnear entries are set high.
-On the card: csrc/tile_lab.cu (L1, L2: one block of 8 warps a tile or a
-group, each step's rows staged one step ahead with cp.async; L3,
-redesigned: one block a tile whatever G is, 4 rays a lane, 8 warps over a
-step's quads, each step's rows staged one step ahead, the FMA body). L3's kernel so rounds
-otherwise than its plain version, and is held to it by lab3_agreement
-(common.tie_aware_hold; the exit's steps per tile by walked_steps).
+On the card: csrc/tile_lab.cu, one template for k0-k5 (one block of 8
+warps a tile whatever G is, 4 rays a lane, the meta row copied into shared
+memory, each step's rows staged one step ahead, 8 warps over a step's
+quads with the FMA body; k3's warps combine once after the walk, k4's and
+k5's after every step). k3-k5 so round otherwise than their plain
+versions and are held to them by lab3_agreement (common.tie_aware_hold;
+the exit's steps per tile by walked_steps); k0-k2 bit for bit. On the
+card run also times each configuration back to back
+(common.time_back_to_back): the launch's host path is then out of the
+window, which matters where a kernel is shorter than it.
 
     python -m tauray_torch.lab.kernel_lab [k0 k1 k2 k3 k4 k5 k5<G>]
                                           [--device=cpu]
 
 prints, after the card's name and power limit, the script's line per
 configuration (label, steps, ms, us a tile) with G tests/s, the bound and
-the bytes staged, then the intercept and slope of ms over steps of k2-k5. The default runs
+the bytes staged (on the card also the ms back to back), then the
+intercept and slope of ms over steps of k2-k5 (and of the ms back to
+back). The default runs
 are the script's, k0 k1 k2 k3 k4: k0 and k1 at 0 and 1 steps, the others
 at 0, 1, 2, 4 and 8."""
 
@@ -58,7 +64,7 @@ from ..ops.trace_kernel import _mt_test
 from .bounds import staged_bytes, tile_bound
 from .common import (BIG, CLUSTER, CPAD, KB_L1, ROW_L1, TILE_L1, card,
                      lab1_inputs, mt_fp64, parse_args, tie_aware_hold,
-                     timed_run)
+                     time_back_to_back, timed_run)
 from .lab_kernel import launch_tile, on_card
 
 BK = KB_L1 * CLUSTER     # triangles a step
@@ -113,8 +119,8 @@ def lab1(counts: torch.Tensor, meta: torch.Tensor, rays: torch.Tensor,
 
 def lab2(counts: torch.Tensor, meta: torch.Tensor, rays: torch.Tensor,
          tris9: torch.Tensor) -> torch.Tensor:
-    """L2 (k4): rays (n_tiles, 8, 128) f32 planes, 8 tiles a block.
-    Returns (n_tiles, 2, 128) f32: t, then the id's int32 bits."""
+    """L2 (k4): rays (n_tiles, 8, 128) f32 planes (the script's 8 tiles a
+    grid step; the card walks one tile a block). Returns (n_tiles, 2, 128) f32: t, then the id's int32 bits."""
     if not on_card(rays):
         return lab2_reference(counts, meta, rays, tris9)
     return launch_tile("lab2", "k4", counts, meta, rays, tris9, G_L2)
@@ -234,10 +240,12 @@ def lab3_reference(counts, meta, rays, tris9, stats=None):
     return torch.stack([bt, bi.view(torch.float32)], -1)
 
 
-def lab3_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays, tris9,
-                   steps=None) -> dict:
-    """The hold of L3's kernel output against its plain version (both
-    (n_tiles, 128, 2)) on their inputs: common.tie_aware_hold, each ray's
+def lab3_agreement(out, ref, meta, rays, tris9, steps=None,
+                   name: str = "k5") -> dict:
+    """The hold of the output of name's kernel (k3, k4 or k5) against its
+    plain version, both as name's wrapper returns them (flat reads them in
+    ray order), on their inputs, rays as tile_inputs' rows (n_tiles, 128,
+    8) whatever name's layout: common.tie_aware_hold, each ray's
     winner (its id names the cluster and the lane) analysed in FP64 by
     common.mt_fp64. steps, when given, is (the kernel's, the plain
     version's) walked_steps: a tile whose two differ is held only where
@@ -256,10 +264,7 @@ def lab3_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays, tris9,
                             (ids % CLUSTER).long()], r8[ray, 0:3],
                        r8[ray, 3:6], r8[ray, 6])
 
-    def flat(x):
-        return (x[..., 0].reshape(-1),
-                x[..., 1].contiguous().view(torch.int32).reshape(-1))
-    (t_k, id_k), (t_p, id_p) = flat(out), flat(ref)
+    (t_k, id_k), (t_p, id_p) = flat(name, out), flat(name, ref)
     res = tie_aware_hold(t_k, id_k, t_p, id_p, _start(r8[:, 7]), analyse)
     if steps is None:
         return res
@@ -293,8 +298,8 @@ def lab3_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays, tris9,
 def walked_steps(fn, counts: torch.Tensor) -> torch.Tensor:
     """Per tile, the fewest steps s whose output, fn(min(counts, 8 s)),
     equals fn(counts)'s bit for bit ((n_tiles,) int64): the steps the walk
-    needed, the exit's among them. fn(counts) returns L3's (n_tiles, 128,
-    2) block."""
+    needed, the exit's among them. fn(counts) returns L2's (n_tiles, 2,
+    128) or L3's (n_tiles, 128, 2) block."""
     full = fn(counts).view(torch.int32)
     n = _steps(counts)
     for s in range(int(n.max()) - 1 if n.numel() else -1, -1, -1):
@@ -365,15 +370,21 @@ def counts_of(n_tiles: int, steps: int, device) -> torch.Tensor:
 
 def run(device, names: Sequence[str] = NAMES, reps: int = 5, tiles=None):
     """The runs of main for names at the script's size (or its first
-    `tiles` tiles), each timed (common.timed_run): (inputs, [one dict per
-    run: cfg, ms, min_ms, us_per_tile, gtests_s (k3-k5's tests a second),
-    bound_ms, bound_by, staged_bytes, counts, out])."""
+    `tiles` tiles), each timed (common.timed_run) and, on the card, back
+    to back (common.time_back_to_back): (inputs, [one dict per run: cfg,
+    ms, min_ms, max_ms, ms_back_to_back (None on the CPU) with its min and
+    max, us_per_tile, gtests_s (k3-k5's tests a second), bound_ms,
+    bound_by, staged_bytes, counts, out])."""
     inp = tile_inputs(device, tiles)
     n_tiles = inp["n_tiles"]
     res = []
     for cfg in configs(names):
         counts = counts_of(n_tiles, cfg.steps, device)
         out, t = timed_run(lambda: call(cfg, inp, counts), device, reps)
+        t.update(time_back_to_back(lambda: call(cfg, inp, counts), reps)
+                 if device.type == "cuda" else
+                 dict(ms_back_to_back=None, min_ms_back_to_back=None,
+                      max_ms_back_to_back=None))
         tests = n_tiles * TILE_L1 * cfg.steps * BK \
             if cfg.name not in ("k0", "k1", "k2") else 0
         b_ms, b_by = tile_bound(cfg.name, cfg.steps, n_tiles)
@@ -386,13 +397,15 @@ def run(device, names: Sequence[str] = NAMES, reps: int = 5, tiles=None):
     return inp, res
 
 
-def step_fit(res):
+def step_fit(res, key: str = "ms"):
     """{(kernel, group): (intercept ms, slope ms a step)}: the least-squares
-    line of ms over steps of each kernel run at two or more step counts."""
+    line of res's key (ms, or ms_back_to_back) over steps of each kernel
+    run at two or more step counts (runs without that reading left out)."""
     by = {}
     for r in res:
         c = r["cfg"]
-        by.setdefault((c.name, c.group), []).append((c.steps, r["ms"]))
+        if r[key] is not None:
+            by.setdefault((c.name, c.group), []).append((c.steps, r[key]))
     out = {}
     for key, pts in by.items():
         if len({s for s, _ in pts}) >= 2:
@@ -414,14 +427,21 @@ def main(argv=None) -> int:
         c = r["cfg"]
         staged = f", {r['staged_bytes'] / 1e6:.0f} MB staged" \
             if r["staged_bytes"] else ""
+        b2b = f", {r['ms_back_to_back']:.4f} ms back to back" \
+            if r["ms_back_to_back"] is not None else ""
         print(f"{c.head}steps={c.steps}: {r['ms']:7.2f} {unit} "
               f"({r['us_per_tile']:5.2f} us/tile, {r['gtests_s']:6.1f} G "
               f"tests/s; bound {r['bound_ms']:.4f} ms, {r['bound_by']}"
-              f"{staged})", flush=True)
+              f"{staged}{b2b})", flush=True)
+    b2b_fit = step_fit(res, "ms_back_to_back")
     for (name, group), (icpt, slope) in step_fit(res).items():
         if name not in ("k0", "k1"):
-            print(f"{name} G={group}: {icpt:.4f} {unit} + {slope:.4f} a step",
-                  flush=True)
+            b2b = ""
+            if (name, group) in b2b_fit:
+                b_icpt, b_slope = b2b_fit[name, group]
+                b2b = f"; back to back {b_icpt:.4f} ms + {b_slope:.4f}"
+            print(f"{name} G={group}: {icpt:.4f} {unit} + {slope:.4f} a step"
+                  f"{b2b}", flush=True)
     return 0
 
 

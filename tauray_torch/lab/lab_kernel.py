@@ -155,8 +155,9 @@ def check_tile(lab: str, mode: str, counts: torch.Tensor,
     i32, meta (n_tiles x 3,072,) i32, tris (C, 9, 1, 128) f32 and
     rays f32 in the lab's layout, L1 (8, n_tiles * 128) columns, L2
     (n_tiles, 8, 128) planes, L3 (n_tiles, 128, 8) rows, on one device,
-    contiguous and aligned; group (tiles a block, in turn) dividing n_tiles,
-    1 for L1. Returns n_tiles."""
+    contiguous and aligned; group (the script's tiles a TPU grid step;
+    the card walks one tile a block whatever it is) dividing n_tiles, 1
+    for L1. Returns n_tiles."""
     if (lab, mode) not in _TILE_KERNEL:
         raise ValueError(f"{lab}: no mode {mode}")
     dev = rays.device

@@ -794,16 +794,23 @@ def test_tile_lab_matches_plain_version(cuda, lab):
     """Each L1-L3 kernel (csrc/tile_lab.cu) on the first 64 tiles of
     scripts/kernel_lab.py's inputs, at 0, 1, 3 and 8 steps and on uneven
     counts (slots past a tile's count skipped), against its plain version
-    on the same card inputs: t and id bits equal (-fmad=false), k5 (its
-    kernel takes the FMA body) by kernel_lab.lab3_agreement; k4 and k5
-    (at G 8 and 32) also where the exit fires (the tnear third of each row
-    0x7f000000), walking one step a tile (k5: the steps walked per tile,
-    kernel_lab.walked_steps, held too); each launch counted."""
+    on the same card inputs: k0-k2 t and id bits equal (-fmad=false); k3,
+    k4 and k5 (one template, the FMA body) by kernel_lab.lab3_agreement,
+    also at 8 steps on odd denominators (every 13th direction scaled by
+    1e-39, every 17th NaN: a warp's share redone with __frcp_rn); k4 and
+    k5 (at G 8 and 32) also where the exit fires (the tnear third of each
+    row 0x7f000000), walking one step a tile, the steps walked per tile
+    (kernel_lab.walked_steps) held too; each launch counted."""
     from tauray_torch.lab import common, kernel_lab, lab_kernel
     inp = kernel_lab.tile_inputs(cuda, tiles=64)
     meta = inp["meta"].view(64, common.ROW_L1).clone()
     meta[:, common.CPAD:2 * common.CPAD] = 0x7F000000
     crafted = dict(inp, meta=meta.view(-1))
+    rows = inp["rows"].clone()
+    rows.view(-1, 8)[::13, 3:6] *= 1e-39
+    rows.view(-1, 8)[::17, 3:6] = float("nan")
+    odd = dict(inp, rows=rows, cols=rows.view(-1, 8).t().contiguous(),
+               planes=rows.transpose(1, 2).contiguous())
     cfgs = {"lab1": [kernel_lab.TileConfig(k, 1, 0, "")
                      for k in ("k0", "k1", "k2", "k3")],
             "lab2": [kernel_lab.TileConfig("k4", 8, 0, "")],
@@ -816,6 +823,8 @@ def test_tile_lab_matches_plain_version(cuda, lab):
         runs = [(inp, kernel_lab.counts_of(64, s, cuda))
                 for s in (0, 1, 3, 8)]
         runs.append((inp, uneven))
+        if cfg.name in ("k3", "k4", "k5"):
+            runs.append((odd, kernel_lab.counts_of(64, 8, cuda)))
         if lab != "lab1":
             runs.append((crafted, kernel_lab.counts_of(64, 8, cuda)))
         for data, counts in runs:
@@ -825,7 +834,7 @@ def test_tile_lab_matches_plain_version(cuda, lab):
             n += 1
             if data is crafted:
                 assert stats["steps"] == 64
-            if cfg.name == "k5":
+            if cfg.name in ("k3", "k4", "k5"):
                 walked = None
                 if data is crafted:
                     walked = [kernel_lab.walked_steps(
@@ -834,7 +843,7 @@ def test_tile_lab_matches_plain_version(cuda, lab):
                     n += 1 + (int(counts.max()) + 7) // 8
                 agree = kernel_lab.lab3_agreement(out, ref, data["meta"],
                                                   data["rows"], data["tris9"],
-                                                  walked)
+                                                  walked, cfg.name)
                 assert agree["ok"], (cfg, counts, agree)
                 continue
             got, want = kernel_lab.flat(cfg.name, out), \

@@ -29,7 +29,16 @@ With the tnear third of each row set to 0x7f000000 they stop after the
 first step, in both. The scripts' mains also run with pallas_call
 replaced by a recorder: their seeded inputs equal common.lab1_inputs and
 common.lab12_inputs (sha256 digests) and their tests a ray give
-bounds.CONFIGS."""
+bounds.CONFIGS.
+
+The card's one template for k0-k5 (csrc/tile_lab.cu tile_walk_kernel) is
+modelled here: its W-warp splits (k4, k5: a (t, slot) combine after every
+step and the exit on the combined best; k3: each warp's own best and one
+combine after the walk) equal the plain versions bit for bit; its
+addressing of the three layouts reads tile_inputs' arrays and writes in
+flat's order; its FMA body (common.mt_test_fma) meets
+kernel_lab.lab3_agreement for k3, k4 and k5, and makes the three equal bit
+for bit where the exit never fires."""
 
 import ast
 import contextlib
@@ -405,7 +414,7 @@ def test_exit_fires_in_the_script_alike(monkeypatch, exit_mode):
 
 
 # ---------------------------------------------------------------------------
-# L3's redesigned kernel (csrc/tile_lab.cu lab3_kernel): a block a tile, R
+# L3's walk on the card (csrc/tile_lab.cu tile_walk_kernel): a block a tile, R
 # = 4 rays a lane (a warp holds the tile), W warps over each step's quads,
 # their bests combined by (t, slot) after every step and the exit voted on
 # the combined best; the FMA body, held tie-aware
@@ -432,15 +441,21 @@ def _dup_lab3(seed=31, n_tiles=8, crafted=False):
     return tuple(map(_t, (meta.reshape(-1), rays, tris9)))
 
 
-def workers_lab3(counts, meta, rays, tris9, W, R=4):
-    """A plain torch model of lab3_kernel's work split (unfused body): lane
-    l of a warp holds rays l + 32 k, k < R (R = 4: the tile); warp w takes
-    the quads q = w (mod W) of each step's 256 and keeps the first smallest
-    hit (strict <) below the tile's best from before the step; after the
-    step the warps' bests meet by smallest t, then smallest slot, and the
-    tile stops once every ray's combined best t bits are <= the tnear entry
-    meta[1,024 + min(8 (s + 1), 1,023)]. Returns what lab3 returns."""
+def workers_lab3(counts, meta, rays, tris9, W, R=4, exit=True, test=None):
+    """A plain torch model of tile_walk_kernel's work split: lane l of a
+    warp holds rays l + 32 k, k < R (R = 4: the tile); warp w takes the
+    quads q = w (mod W) of each step's 256 and keeps the first smallest
+    hit (strict <) below the best its candidates start from. With exit
+    (k4, k5) that is the tile's best from before the step: after the step
+    the warps' bests meet by smallest t, then smallest slot, and the tile
+    stops once every ray's combined best t bits are <= the tnear entry
+    meta[1,024 + min(8 (s + 1), 1,023)]. Without it (k3) each warp keeps
+    its own running best over the whole walk and the warps' bests meet
+    once, after it. test is the body, (a, t, u, v) as
+    trace_kernel._mt_test gives them (the unfused body, the default) or
+    common.mt_test_fma (the card's). Returns what lab3 returns."""
     from test_torch_lab import _first_min
+    test = test or kernel_lab._mt_test
     ray_of = torch.arange(32)[:, None] + 32 * torch.arange(R)
     assert sorted(ray_of.reshape(-1).tolist()) == list(range(32 * R))
     n_tiles, C = rays.shape[0], tris9.shape[0]
@@ -448,8 +463,11 @@ def workers_lab3(counts, meta, rays, tris9, W, R=4):
     m2 = meta.reshape(n_tiles, common.ROW_L1)
     bk = common.KB_L1 * 128
     worker = torch.arange(bk) // 4 % W
-    bt = torch.where(rays[..., 7] > common.BIG, common.BIG, rays[..., 7])
+    start = torch.where(rays[..., 7] > common.BIG, common.BIG, rays[..., 7])
+    bt = start.clone()
     bs = torch.full((n_tiles, 128), -1, dtype=torch.int64)
+    wt = start[..., None].repeat(1, 1, W)        # k3: each warp's best
+    ws = torch.full((n_tiles, 128, W), -1, dtype=torch.int64)
     steps = (counts.long() + 7) // 8
     walking = steps > 0
     inf = torch.tensor(float("inf"))
@@ -462,15 +480,25 @@ def workers_lab3(counts, meta, rays, tris9, W, R=4):
         orders = m2[act][:, k].clamp(0, C - 1).long()
         tri = rows[orders].permute(0, 2, 1, 3).reshape(-1, 9, 1, bk)
         ray = rays[act]
-        a, tt, uu, vv = kernel_lab._mt_test(
-            [tri[:, i] for i in range(9)], *(ray[..., q, None]
-                                             for q in range(6)))
+        a, tt, uu, vv = test([tri[:, i] for i in range(9)],
+                             *(ray[..., q, None] for q in range(6)))
         slot_ok = (s * 8 + torch.arange(bk) // 128)[None] < \
             counts.long()[act, None]
+        base = (a != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
+            (tt >= ray[..., 6, None]) & slot_ok[:, None, :]
+        if not exit:
+            for w in range(W):
+                b = wt[act, :, w]
+                hit = base & (worker == w) & (tt < b[..., None])
+                t_w, arg = torch.where(hit, tt, inf).min(dim=2)
+                closer = t_w < b
+                wt[act, :, w] = torch.where(closer, t_w, b)
+                ws[act, :, w] = torch.where(closer, s * bk + arg,
+                                            ws[act, :, w])
+            s += 1
+            continue
         b = bt[act]
-        hit = (a != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
-            (tt >= ray[..., 6, None]) & (tt < b[..., None]) & \
-            slot_ok[:, None, :]
+        hit = base & (tt < b[..., None])
         per_w = [torch.where(hit & (worker == w), tt, inf).min(dim=2)
                  for w in range(W)]
         t_c, s_c = _first_min(
@@ -483,6 +511,12 @@ def workers_lab3(counts, meta, rays, tris9, W, R=4):
         nk = m2[act, common.CPAD + min((s + 1) * 8, common.CPAD - 1)]
         walking[act] = ~(bt[act].view(torch.int32) <= nk[:, None]).all(1)
         s += 1
+    if not exit:    # the one combine, after the walk
+        t_c, s_c = _first_min(torch.where(ws >= 0, wt, inf),
+                              torch.where(ws >= 0, ws, 1 << 30))
+        got = t_c < start
+        bt = torch.where(got, t_c, start)
+        bs = torch.where(got, s_c, -1)
     got = bs >= 0
     g = torch.where(got, bs, 0) // 128
     cl = torch.gather(m2.long(), 1, g.clamp(max=common.CPAD - 1)).clamp(
@@ -608,6 +642,261 @@ def test_lab3_agreement_rules():
     more = walked.clone()
     more[tie // 128] += 1
     a = hold(moved(tie, id_=int(cids[tie]) + 128, x=cflat), cref, cmeta,
+             (more, walked))
+    assert a["ok"] and a["steps_differ"] == 1 and a["steps_off"] == 0
+
+
+# ---------------------------------------------------------------------------
+# L1 and L2 on L3's template (csrc/tile_lab.cu tile_walk_kernel): one block
+# a tile in every mode, R = 4 rays a lane, the FMA body; k3 with no exit
+# combines its warps' bests once, after the walk; the layout decides only
+# where a ray is read and its t and id written
+# ---------------------------------------------------------------------------
+
+def _cols(rows):
+    return rows.reshape(-1, 8).t().contiguous()
+
+
+def _data(meta, rows, tris9):
+    """What tile_inputs returns, from rows (n_tiles, 128, 8)."""
+    return dict(meta=meta, rows=rows, tris9=tris9, cols=_cols(rows),
+                planes=rows.transpose(1, 2).contiguous(),
+                n_tiles=rows.shape[0])
+
+
+def _cfg(name):
+    return kernel_lab.TileConfig(name, {"k3": 1, "k4": 8, "k5": 8}[name], 0,
+                                 "")
+
+
+def _fma_call(monkeypatch, name, data, counts):
+    """name's plain version with the card's FMA body (common.mt_test_fma),
+    as name's wrapper returns it."""
+    monkeypatch.setattr(kernel_lab, "_mt_test", common.mt_test_fma)
+    try:
+        return kernel_lab.call_reference(_cfg(name), data, counts)
+    finally:
+        monkeypatch.undo()
+
+
+def _script_tiles():
+    cols, tris9, meta = _l1_inputs()
+    return _t(meta), _t(_rows(cols)), _t(tris9)
+
+
+@pytest.mark.parametrize("W", [1, 2, 8])
+def test_k3_worker_split_matches_reference(W):
+    """The model of k3's split, each of W warps keeping its own best over
+    the whole walk and one (t, slot) combine after it, equals
+    lab1_reference(..., "k3") bit for bit: exact duplicate triangles
+    within a quad, across warps, within a step and across steps, tiles of
+    count 0 and uneven counts, NaN rays and rays with t_max < t_min, on the
+    script's kind of meta and on the crafted one (k3 reads no tnear), and
+    on the script's own first tiles."""
+    counts = torch.tensor([0, 3, 8, 9, 17, 24, 40, 64], dtype=torch.int32)
+    for meta, rays, tris9 in (_dup_lab3(), _dup_lab3(crafted=True),
+                              _script_tiles()):
+        c = counts.repeat(rays.shape[0] // 8)
+        t, i = kernel_lab.lab1_reference(c, meta, _cols(rays), tris9, "k3")
+        got = workers_lab3(c, meta, rays, tris9, W, exit=False)
+        assert torch.equal(got[..., 0].reshape(-1, 1).view(torch.int32),
+                           t.view(torch.int32))
+        assert torch.equal(got[..., 1].reshape(-1, 1).view(torch.int32), i)
+        assert int((i >= 0).sum()) > 100
+
+
+def _ray_index(layout, n_tiles, tile, lane, k, f):
+    """Where tile_walk_kernel reads field f of the ray lane + 32 k of tile
+    (load_ray): columns (8, n_rays), planes (n_tiles, 8, 128), rows
+    (n_tiles, 128, 8), as flat indices."""
+    r = lane + 32 * k
+    ray = tile * 128 + r
+    if layout == "columns":
+        return f * n_tiles * 128 + ray
+    if layout == "planes":
+        return (tile * 8 + f) * 128 + r
+    return ray * 8 + f
+
+
+def _out_index(layout, n_tiles, tile, lane, k, c):
+    """Where it writes that ray's t (c = 0) and id bits (c = 1)
+    (store_out): columns (2, n_rays), planes (n_tiles, 2, 128), rows
+    (n_tiles, 128, 2)."""
+    r = lane + 32 * k
+    ray = tile * 128 + r
+    if layout == "columns":
+        return c * n_tiles * 128 + ray
+    if layout == "planes":
+        return (tile * 2 + c) * 128 + r
+    return ray * 2 + c
+
+
+@pytest.mark.parametrize("layout,name", [("columns", "k3"),
+                                         ("planes", "k4"), ("rows", "k5")])
+def test_tile_walk_addressing(layout, name):
+    """The kernel's addressing at R = 4 reads each field of each ray of
+    tile_inputs' array of the layout exactly once, at the ray lane + 32 k,
+    a warp's 32 lanes on 128 contiguous bytes of a field in columns and
+    planes; its writes fill the layout's output exactly once, in the order
+    flat reads back (ray order)."""
+    inp = kernel_lab.tile_inputs(torch.device("cpu"), tiles=4)
+    n = inp["n_tiles"]
+    arr = inp[{"columns": "cols", "planes": "planes", "rows": "rows"}[
+        layout]].reshape(-1).numpy()
+    tile, lane, k, f = np.ix_(range(n), range(32), range(4), range(8))
+    idx = _ray_index(layout, n, tile, lane, k, f)
+    assert sorted(idx.reshape(-1).tolist()) == list(range(arr.size))
+    rows = inp["rows"].numpy()
+    want = rows[tile, lane + 32 * k, f]
+    np.testing.assert_array_equal(arr[idx].view(np.int32),
+                                  want.view(np.int32))
+    if layout != "rows":
+        assert (np.diff(idx, axis=1) == 1).all()
+    tile, lane, k, c = np.ix_(range(n), range(32), range(4), range(2))
+    at = _out_index(layout, n, tile, lane, k, c)
+    size = n * 128 * 2
+    assert sorted(at.reshape(-1).tolist()) == list(range(size))
+    ray = (tile * 128 + lane + 32 * k) * np.ones_like(c)
+    out = np.empty(size, np.float32)
+    out[at] = np.where(c == 0, ray.astype(np.float32),
+                       (ray + 1000).astype(np.int32).view(np.float32))
+    shape = {"columns": (2, n * 128), "planes": (n, 2, 128),
+             "rows": (n, 128, 2)}[layout]
+    out = torch.from_numpy(out).view(shape)
+    if layout == "columns":     # as lab1 returns it
+        out = (out[0].view(-1, 1), out[1].view(torch.int32).view(-1, 1))
+    t, i = kernel_lab.flat(name, out)
+    assert torch.equal(t, torch.arange(n * 128, dtype=torch.float32))
+    assert torch.equal(i, torch.arange(n * 128, dtype=torch.int32) + 1000)
+
+
+@pytest.mark.parametrize("name", ["k3", "k4", "k5"])
+def test_tile_agreement_holds_the_fma_body(monkeypatch, name):
+    """k3 (columns, (R, 1) outputs), k4 (planes) and k5 (rows) with the
+    card's FMA body (emulated in FP64) meet lab3_agreement against their
+    plain versions on the script's first 16 tiles and on the duplicate
+    scene, t within 1/2 of its bound; k4 and k5 also on the crafted meta,
+    with the steps each tile walked (walked_steps) held, one a tile that
+    hits in its first step."""
+    cases = [_script_tiles() + (None,), _dup_lab3() + (None,)]
+    if name != "k3":
+        meta, rows, tris9 = _script_tiles()
+        cases.append((_t(_crafted(meta.numpy())), rows, tris9, 1))
+    for meta, rays, tris9, walked in cases:
+        data = _data(meta, rays, tris9)
+        counts = torch.full((rays.shape[0],), 64, dtype=torch.int32)
+        ref = kernel_lab.call_reference(_cfg(name), data, counts)
+        fma = _fma_call(monkeypatch, name, data, counts)
+        steps = None
+        if walked is not None:
+            steps = [kernel_lab.walked_steps(fn, counts) for fn in (
+                lambda c: _fma_call(monkeypatch, name, data, c),
+                lambda c: kernel_lab.call_reference(_cfg(name), data, c))]
+            assert bool((steps[1] <= walked).all())
+            assert int((steps[1] == walked).sum()) > rays.shape[0] // 2
+        agree = kernel_lab.lab3_agreement(fma, ref, meta, rays, tris9, steps,
+                                          name)
+        assert agree["rays_off"] == 0 and agree["ill_conditioned"] <= 1 \
+            and agree["max_t_over_bound"] <= 0.5, agree
+        assert agree.get("steps_off", 0) == 0, agree
+        assert int((kernel_lab.flat(name, ref)[1] >= 0).sum()) > 100
+
+
+def test_k3_k4_k5_equal_under_the_fma_body(monkeypatch):
+    """Under the FMA body k3, k4 and k5 equal one another bit for bit
+    where the exit never fires (the script's meta, the duplicate scene's):
+    the body's t and its odd flag depend on the ray and the triangle only,
+    not on the best a candidate is compared with, so a per-step combine
+    (k4, k5) and one final combine (k3) pick the same (t, slot). The
+    models of the two splits with the FMA body give the same bits."""
+    counts = torch.tensor([0, 3, 8, 9, 17, 24, 40, 64], dtype=torch.int32)
+    for meta, rays, tris9 in (_script_tiles(), _dup_lab3()):
+        data = _data(meta, rays, tris9)
+        for c in (torch.full((rays.shape[0],), 64, dtype=torch.int32),
+                  counts.repeat(rays.shape[0] // 8)):
+            outs = [kernel_lab.flat(n, _fma_call(monkeypatch, n, data, c))
+                    for n in ("k3", "k4", "k5")]
+            for t, i in outs[1:]:
+                assert torch.equal(t.view(torch.int32),
+                                   outs[0][0].view(torch.int32))
+                assert torch.equal(i, outs[0][1])
+            for exit in (False, True):
+                got = workers_lab3(c, meta, rays, tris9, 8, exit=exit,
+                                   test=common.mt_test_fma)
+                assert torch.equal(got[..., 0].reshape(-1).view(torch.int32),
+                                   outs[0][0].view(torch.int32))
+                assert torch.equal(got[..., 1].reshape(-1).view(torch.int32),
+                                   outs[0][1])
+
+
+def _as(name, t, i, n_tiles):
+    """Flat t (R,) f32 and ids (R,) i32 as name's wrapper returns them."""
+    if name == "k3":
+        return t.view(-1, 1), i.view(-1, 1)
+    idf = i.view(torch.float32)
+    if name == "k4":
+        return torch.stack([t.view(n_tiles, 128), idf.view(n_tiles, 128)], 1)
+    return torch.stack([t.view(n_tiles, 128), idf.view(n_tiles, 128)], -1)
+
+
+@pytest.mark.parametrize("name", ["k3", "k4"])
+def test_tile_agreement_rules(name):
+    """lab3_agreement holds L1's k3 and L2's k4 by L3's rules: it accepts
+    a t one ulp off and a tie swap (a winner's copy in cluster 1), and
+    refuses a wrong id and a t off by more than its bound; for k4, on the
+    crafted meta, a tile that walked one step more where rounding did not
+    decide it fails, but not where a tie did."""
+    counts = torch.full((8,), 16, dtype=torch.int32)
+    meta, rays, tris9 = _dup_lab3()
+    data = _data(meta, rays, tris9)
+    ref = kernel_lab.call_reference(_cfg(name), data, counts)
+
+    def hold(out, want=ref, meta=meta, steps=None):
+        return kernel_lab.lab3_agreement(out, want, meta, rays, tris9, steps,
+                                         name)
+    assert hold(ref)["ok"]
+    t0, i0 = kernel_lab.flat(name, ref)
+    dup = int(torch.nonzero((i0 >= 0) & (i0 < 128)).reshape(-1)[0])
+    hit = int(torch.nonzero((i0 >= 0) & (t0 > 0.5)).reshape(-1)[0])
+
+    def moved(ray, t=None, id_=None, base=(t0, i0)):
+        tm, im = base[0].clone(), base[1].clone()
+        if t is not None:
+            tm[ray] = t
+        if id_ is not None:
+            im[ray] = id_
+        return _as(name, tm, im, 8)
+    a = hold(moved(hit, t=float(np.nextafter(np.float32(t0[hit]),
+                                             np.float32(np.inf)))))
+    assert a["ok"] and a["t_bits_differ"] == 1
+    a = hold(moved(dup, id_=int(i0[dup]) + 128))
+    assert a["ok"] and a["ties"] == 1 and a["ill_conditioned"] == 0
+    a = hold(moved(hit, id_=(int(i0[hit]) + 37) % (128 * 24)))
+    assert not a["ok"] and a["rays_off"] == 1
+    c, lane = int(i0[hit]) // 128, int(i0[hit]) % 128
+    r8 = rays.reshape(-1, 8)
+    f = common.mt_fp64(tris9[c, :, 0, lane][None], r8[[hit], 0:3],
+                       r8[[hit], 3:6], r8[[hit], 6])
+    a = hold(moved(hit, t=float(t0[hit] + 4 * f["b_t"][0])))
+    assert not a["ok"] and a["rays_off"] == 1 and a["max_t_over_bound"] > 1
+    if name == "k3":
+        return
+    # k4's exit: every tile stops after its first step
+    cmeta, _, _ = _dup_lab3(crafted=True)
+    cdata = dict(data, meta=cmeta)
+    cref = kernel_lab.call_reference(_cfg(name), cdata, counts)
+    walked = kernel_lab.walked_steps(lambda n: kernel_lab.call_reference(
+        _cfg(name), cdata, n), counts)
+    assert walked.tolist() == [1] * 8
+    more = walked.clone()
+    more[2] += 1
+    a = hold(cref, cref, cmeta, (more, walked))
+    assert not a["ok"] and a["steps_differ"] == 1 and a["steps_off"] == 1
+    ct, ci = kernel_lab.flat(name, cref)
+    tie = int(torch.nonzero((ci >= 0) & (ci < 128)).reshape(-1)[0])
+    more = walked.clone()
+    more[tie // 128] += 1
+    a = hold(moved(tie, id_=int(ci[tie]) + 128, base=(ct, ci)), cref, cmeta,
              (more, walked))
     assert a["ok"] and a["steps_differ"] == 1 and a["steps_off"] == 0
 
@@ -964,6 +1253,85 @@ def test_kernel_lab_entry_point_prints_the_scripts_lines(monkeypatch,
     assert lines[12].startswith("k4 G=8: ") and " a step" in lines[12]
     with pytest.raises(ValueError, match="no kernel k9"):
         kernel_lab.main(["--device=cpu", "k9"])
+
+
+def test_step_fit_reads_either_window():
+    """step_fit fits ms by default and, given the key, the ms back to back,
+    leaving out the runs without that reading (the CPU's)."""
+    res = [dict(cfg=kernel_lab.TileConfig("k3", 1, n, ""), ms=1.0 + 2 * n,
+                ms_back_to_back=0.5 + n) for n in (0, 1, 2, 4, 8)]
+    res.append(dict(cfg=kernel_lab.TileConfig("k2", 1, 0, ""), ms=1.0,
+                    ms_back_to_back=None))
+    res.append(dict(cfg=kernel_lab.TileConfig("k2", 1, 1, ""), ms=2.0,
+                    ms_back_to_back=None))
+    fit = kernel_lab.step_fit(res)
+    assert set(fit) == {("k3", 1), ("k2", 1)}
+    assert fit["k3", 1] == pytest.approx((1.0, 2.0))
+    b2b = kernel_lab.step_fit(res, "ms_back_to_back")
+    assert set(b2b) == {("k3", 1)}
+    assert b2b["k3", 1] == pytest.approx((0.5, 1.0))
+
+
+def test_kernel_lab_entry_point_prints_the_back_to_back_reading(
+        monkeypatch, capsys):
+    """Where run reports the ms back to back (the card), each line gives
+    it beside the single call's ms, and each fit line its fit too."""
+    run = kernel_lab.run
+
+    def with_b2b(dev, names):
+        inp, res = run(dev, names, reps=1, tiles=8)
+        for r in res:
+            r["ms_back_to_back"] = r["ms"] / 2
+        return inp, res
+    monkeypatch.setattr(kernel_lab, "run", with_b2b)
+    assert kernel_lab.main(["--device=cpu", "k1", "k4"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2 + 5 + 1
+    assert all(" ms back to back)" in ln for ln in lines[:7])
+    assert lines[7].startswith("k4 G=8: ") and \
+        "; back to back " in lines[7]
+
+
+_SASS_LOOP = (
+    ".L_x_1:\n" + "".join(
+        f"        /*{16 * i:04x}*/   LDS.128 R{4 * i}, [R2+0x{i:x}] ;\n"
+        for i in range(9)) +
+    "        /*0090*/   FFMA R3, R3, R3, R3 ;\n"
+    "        /*00a0*/   @P0 BRA `(.L_x_1) ;\n")
+
+
+@pytest.mark.parametrize("names,want", [
+    ({"tile_walk_kernelILi3ELi0ELi4EE": "lab1 k3",
+      "tile_walk_kernelILi4ELi1ELi4EE": "lab2",
+      "tile_walk_kernelILi4ELi2ELi4EE": "lab3",
+      "tile_walk_kernelILi2ELi0ELi4EE": None}, 4),
+    ({"tile_lab_kernelILi3ELi0EE": "lab1 k3",
+      "tile_lab_kernelILi4ELi1EE": "lab2", "lab3_kernelILi4EE": "lab3",
+      "tile_lab_kernelILi1ELi0EE": None}, None),
+    ({"tile_lab_kernelILi3ELi0EE": "lab1 k3",
+      "tile_lab_kernelILi4ELi1EE": "lab2",
+      "tile_lab_kernelILi4ELi2EE": "lab3"}, 1)],
+    ids=["this tree", "one slice older", "two slices older"])
+def test_lab_test_loops_names_the_tile_walks(monkeypatch, names, want):
+    """app/sass.lab_test_loops names L1-L3's instances with a test (L1 k3,
+    L2, L3) in this tree's template and in an older checkout's kernels,
+    with their rays a lane (R, or 1 for tile_lab_kernel) and instructions
+    per test (a loop of 9 row loads serves 4 triangles x R rays); k0-k2
+    have no test loop and no entry."""
+    from tauray_torch.app import sass
+    monkeypatch.setattr(sass, "functions", lambda path: {
+        f"_ZN12_GLOBAL__N_1{len(n)}{n}EvPKiS2_PKfS4_iiPf": _SASS_LOOP
+        for n in names})
+    loops = sass.lab_test_loops("lib.so")
+    assert set(loops) == {v for v in names.values() if v}
+    for name, inst in names.items():
+        if inst is None:
+            continue
+        rays = want or (4 if name.startswith("lab3_kernel") else 1)
+        st = loops[inst]
+        assert st["rays_a_lane"] == rays and st["loads128"] == 9
+        assert st["tests"] == 4 * rays
+        assert st["instructions_per_test"] == pytest.approx(11 / (4 * rays))
 
 
 def test_mxu_lab_entry_point_prints_the_scripts_lines(monkeypatch, capsys):
