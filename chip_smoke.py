@@ -2329,15 +2329,16 @@ def tile_phase(dev):
     three share the body); on a meta whose tnear third is 0x7f000000 the
     exit of k4 and k5 fires (one step a tile, fewer hits than k3), held the
     same way with the steps walked per tile (kernel_lab.walked_steps) held
-    to the plain version's; k3, k4 and k5 again on odd denominators.
-    Prints the intercept and slope of ms, and of the ms back to back, over
+    to the plain version's, each timed both ways too; k3, k4 and k5 again
+    on odd denominators. Prints the intercept and slope of ms, and of the ms back to back, over
     steps of k2-k5. Returns the kernels line's rows."""
     import torch
     from tauray_torch.lab import kernel_lab as kl
     from tauray_torch.lab import lab_kernel
     from tauray_torch.lab import mxu_lab as ml
     from tauray_torch.lab.bounds import tile_bound
-    from tauray_torch.lab.common import CPAD, ROW_L1, time_cuda
+    from tauray_torch.lab.common import (CPAD, ROW_L1, time_back_to_back,
+                                         time_cuda)
     t0 = time.perf_counter()
     lab_kernel.reset_launch_counts()
     inp, res = kl.run(dev, ("k0", "k1", "k2", "k3", "k4", "k5", "k532"))
@@ -2425,6 +2426,7 @@ def tile_phase(dev):
         c = kl.TileConfig(name, group, 8, "")
         lab = lab_of[name]
         t = time_cuda(lambda: kl.call(c, crafted, counts))
+        t.update(time_back_to_back(lambda: kl.call(c, crafted, counts)))
         out = kl.call(c, crafted, counts)
         stats = {}
         # and the steps each tile walked
@@ -2438,7 +2440,7 @@ def tile_phase(dev):
         agree["walked_steps_kernel"] = int(walked[0].sum())
         agree["walked_steps_plain"] = int(walked[1].sum())
         hits = int((kl.flat(name, out)[1] >= 0).sum())
-        e = dict(ms=t["ms"], min_ms=t["min_ms"], plain_ms=ms,
+        e = dict(**t, plain_ms=ms,
                  max_abs_err=agree["max_abs_t"], tile_steps=stats["steps"],
                  tile_steps_k3=n_tiles * 8, hits=hits, hits_k3=hits3,
                  **agree)

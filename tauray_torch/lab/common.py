@@ -303,9 +303,11 @@ def time_back_to_back(fn: Callable[[], object], reps: int = 5,
                       n: int = 20) -> Dict[str, float]:
     """fn's ms a call enqueued back to back: one pair of CUDA events around
     n calls, the time over n, after one warm-up call; the median, min and
-    max over reps such windows. Where fn's kernel is shorter than its host
-    path, the card runs the kernels one after the other and the host path
-    stays out of the reading, which time_cuda's single call holds."""
+    max over reps such windows. Where fn's kernel runs longer than its
+    host path, the launches queue on the card and the host path stays out
+    of the reading, which time_cuda's single call holds; where it runs
+    shorter, the card waits on the host and the reading is the host
+    path's rate."""
     fn()
     ms = []
     for _ in range(reps):

@@ -38,8 +38,8 @@ k5's after every step). k3-k5 so round otherwise than their plain
 versions and are held to them by lab3_agreement (common.tie_aware_hold;
 the exit's steps per tile by walked_steps); k0-k2 bit for bit. On the
 card run also times each configuration back to back
-(common.time_back_to_back): the launch's host path is then out of the
-window, which matters where a kernel is shorter than it.
+(common.time_back_to_back), which leaves the wrapper's host path out of
+the reading where the kernel runs longer than it.
 
     python -m tauray_torch.lab.kernel_lab [k0 k1 k2 k3 k4 k5 k5<G>]
                                           [--device=cpu]
@@ -120,7 +120,8 @@ def lab1(counts: torch.Tensor, meta: torch.Tensor, rays: torch.Tensor,
 def lab2(counts: torch.Tensor, meta: torch.Tensor, rays: torch.Tensor,
          tris9: torch.Tensor) -> torch.Tensor:
     """L2 (k4): rays (n_tiles, 8, 128) f32 planes (the script's 8 tiles a
-    grid step; the card walks one tile a block). Returns (n_tiles, 2, 128) f32: t, then the id's int32 bits."""
+    grid step; the card walks one tile a block). Returns (n_tiles, 2,
+    128) f32: t, then the id's int32 bits."""
     if not on_card(rays):
         return lab2_reference(counts, meta, rays, tris9)
     return launch_tile("lab2", "k4", counts, meta, rays, tris9, G_L2)
@@ -382,9 +383,9 @@ def run(device, names: Sequence[str] = NAMES, reps: int = 5, tiles=None):
         counts = counts_of(n_tiles, cfg.steps, device)
         out, t = timed_run(lambda: call(cfg, inp, counts), device, reps)
         t.update(time_back_to_back(lambda: call(cfg, inp, counts), reps)
-                 if device.type == "cuda" else
-                 dict(ms_back_to_back=None, min_ms_back_to_back=None,
-                      max_ms_back_to_back=None))
+                 if device.type == "cuda" else dict.fromkeys((
+                     "ms_back_to_back", "min_ms_back_to_back",
+                     "max_ms_back_to_back")))
         tests = n_tiles * TILE_L1 * cfg.steps * BK \
             if cfg.name not in ("k0", "k1", "k2") else 0
         b_ms, b_by = tile_bound(cfg.name, cfg.steps, n_tiles)
