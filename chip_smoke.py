@@ -10,12 +10,13 @@ non-zero:
      K1-K5), the K1 labs (csrc/k1_lab.cu), the brick labs
      (csrc/brick_lab.cu), the tile labs (csrc/tile_lab.cu) and the Plücker
      lab (csrc/mxu_lab.cu; one nvcc per source, started together) and print
-     what ptxas reports, and the SASS of each K1-K5 and brick_lab
-     instance's inner test loop (cuobjdump) and of the redesigned labs'
-     L9, L7, L10 and L1 k3, L2 and L3 (app/sass.lab_test_loops:
-     instructions per test); any spill or shared load narrower than 16
-     bytes in a test loop of trace_tiles fails, as does a spill in an
-     instance of L9's, L7's, L10's or L1-L3's kernel;
+     what ptxas reports, and the SASS of each K1-K5 and L4 instance's
+     inner test loop (cuobjdump) and of the redesigned labs' L9, L5-L7
+     (each instance of the walk, L6's per variant and TILE), L10 and L1
+     k3, L2 and L3 (app/sass.lab_test_loops: instructions per test); any
+     spill or shared load narrower than 16 bytes in a test loop of
+     trace_tiles fails, as does a spill in an instance of L9's, L5-L7's,
+     L10's or L1-L3's kernel, or more than 128 registers in L5-L7's;
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
@@ -199,14 +200,19 @@ non-zero:
      in phase 2, which prints each instance's SASS instructions per test)
      through their entry points' run() at the scripts' sizes, every
      configuration of each main timed (median and min of 5 CUDA-event
-     runs) with its bound, the launches counted over that run alone: L4
-     (k6, k7, k6f, k7f at KB 4, 8, 16), L5 (TILE 8, 16, 32 x KB 1, 2, 4,
-     8), L6 (5 variants x 3 shapes), L7 (mt and bw x 3); each held to its
-     plain version bit for bit, L7 (FMA bodies) on 1,024 tiles of each by
-     kernel_lab5.lab7_agreement (phase 20's rule) and again with
-     subnormal and NaN denominators; mtfast's rays with t < 0 counted, and
-     L6 while / while2 on a meta where the exit fires, held the same way
-     and walking fewer steps than fixed;
+     runs of one call, and of 5 windows of 20 calls back to back) with its
+     bound, the launches counted over that run alone: L4 (k6, k7, k6f, k7f
+     at KB 4, 8, 16), L5 (TILE 8, 16, 32 x KB 1, 2, 4, 8), L6 (5 variants
+     x 3 shapes), L7 (mt and bw x 3); each held to its plain version: L4
+     bit for bit, L5-L7 (one walk, the FMA bodies) by
+     brick.brick_agreement (phase 20's rule; L5 and L6 on all 65,536
+     rays, L7 on 1,024 tiles of each), and again with subnormal and NaN
+     denominators (L5 at TILE 32 KB 1 and TILE 8 KB 1, L6's five variants
+     at its headline shape, L7 at KB 8 steps 6); mtfast's rays with t < 0
+     counted, and L6 while / while2 on a meta where the exit fires, held
+     the same way with the steps walked per tile (brick.walked_steps) held
+     to the plain version's, and walking fewer steps and hitting less than
+     fixed;
   22. the 128-ray tile labs and the Plücker lab (tauray_torch/lab, the
      counterparts of scripts/kernel_lab.py and mxu_lab.py; csrc/tile_lab.cu
      and csrc/mxu_lab.cu, built in phase 2) through kernel_lab.run and
@@ -2122,18 +2128,17 @@ BRICK_SITES = {"lab4": "scripts/kernel_lab2.py:234",
 BRICK_HEADLINE = {"lab4": ("mt", 32, 4, 13), "lab5": ("mt", 32, 1, 52),
                   "lab6": ("fixed", 32, 8, 6), "lab7": ("mt", 32, 8, 6)}
 # brick_kernel<kStaged, kBody, kVariant>'s mangled template arguments
+# (L4's instances; L5-L7 run brick_walk_kernel, app/sass.lab_test_loops)
 _BRICK_TARGS = re.compile(r"brick_kernelILb([01])ELi(\d)ELi(\d)E")
-_BRICK_INSTANCES = {(1, 0, 0): "lab4 mt", (1, 1, 0): "lab4 mtfast",
-                    (0, 0, 0): "lab5, lab6 fixed/slot", (0, 0, 1): "lab6 cid",
-                    (0, 0, 2): "lab6 while", (0, 0, 3): "lab6 while2"}
+_BRICK_INSTANCES = {(1, 0, 0): "lab4 mt", (1, 1, 0): "lab4 mtfast"}
 
 
 def brick_sass(lib_path: str):
     """{instance: its test loop's statistics}: of the innermost loops of
-    each brick_kernel instance (L4-L6), the one with the most 16-byte row
-    loads (LDS.128 from the staged buffer, LDG.128 in place), its
-    instructions, the tests a pass makes (4 a load of each of the 9 rows)
-    and the instructions per test."""
+    each brick_kernel instance (L4), the one with the most 16-byte row
+    loads (LDS.128 from the staged buffer), its instructions, the tests a
+    pass makes (4 a load of each of the 9 rows) and the instructions per
+    test."""
     from tauray_torch.app import sass as sass_mod
     out = {}
     for name, chunk in sass_mod.functions(lib_path).items():
@@ -2152,13 +2157,15 @@ def brick_sass(lib_path: str):
 
 def brick_phase(dev):
     """Phase 21: L4-L7 through their entry points' run() at the scripts'
-    sizes, every configuration of each main timed; the launches counted
-    over that run alone. Then each configuration held to its plain version
-    on the same inputs, bit for bit (L7 on LAB_SLICE_TILES tiles of each),
-    and L6's while / while2 on a meta where the exit fires (every 8th entry
-    0x7f000000, at the headline's inputs), held the same way and walking
-    fewer steps and hitting less than fixed. Returns the kernels line's
-    rows."""
+    sizes, every configuration of each main timed (one call, and back to
+    back); the launches counted over that run alone. Then each
+    configuration held to its plain version on the same inputs: L4 bit for
+    bit, L5-L7 by brick.brick_agreement (L7 on LAB_SLICE_TILES tiles of
+    each); L5-L7 again on odd denominators; and L6's while / while2 on a
+    meta where the exit fires (every 8th entry 0x7f000000, at the
+    headline's inputs), held the same way with their steps walked per
+    tile, and walking fewer steps and hitting less than fixed. Returns the
+    kernels line's rows."""
     import torch
     from tauray_torch.lab import brick, lab_kernel
     from tauray_torch.lab import kernel_lab2 as l4
@@ -2179,16 +2186,24 @@ def brick_phase(dev):
         raise RuntimeError(f"phase 21: a lab never launched: {launches}")
     failures, configs = [], {}
 
-    def hold(tag, out, plain):
-        """(plain ms, max |t - t_plain|): plain() against the kernel's
-        out, t and id bits alike."""
+    def hold(tag, cfg, out, plain, meta, rays, tris, steps=None):
+        """(plain ms, max |t - t_plain|, the hold's record): plain()
+        against the kernel's out on their inputs, L4 t and id bits alike,
+        L5-L7 by brick_agreement (with steps: both sides' walked
+        steps)."""
         ref, ms = timed(plain)
-        off = int((out.view(torch.int32) != ref.view(torch.int32)).any(
-            -1).sum())
-        if off:
-            failures.append(f"{tag}: {off} rays depart from the plain "
-                            f"version")
-        return ms, float((out[..., 0] - ref[..., 0]).abs().max())
+        if cfg.lab == "lab4":
+            off = int((out.view(torch.int32) != ref.view(torch.int32)).any(
+                -1).sum())
+            if off:
+                failures.append(f"{tag}: {off} rays depart from the plain "
+                                f"version")
+            return ms, float((out[..., 0] - ref[..., 0]).abs().max()), {}
+        agree = brick.brick_agreement(cfg.lab, cfg.mode, out, ref, meta,
+                                      rays, tris, steps, cfg.kb)
+        if not agree["ok"]:
+            failures.append(f"{tag}: {agree}")
+        return ms, agree["max_abs_t"], agree
 
     for lab, rs in res.items():
         for r in rs:
@@ -2201,18 +2216,11 @@ def brick_phase(dev):
                 return brick.walk_reference(
                     c.lab, c.mode, r["meta"][:n * ROW], r["rays"][:n],
                     r["tris"], c.kb, c.steps)
-            agree = {}
-            if lab == "lab7":        # the FMA bodies: tie-aware
-                ref, ms = timed(plain)
-                agree = l7.lab7_agreement(r["out"][:n], ref,
-                                          r["meta"][:n * ROW], r["rays"][:n],
-                                          r["tris"], c.mode)
-                err = agree["max_abs_t"]
-                if not agree["ok"]:
-                    failures.append(f"{lab} {key}: {agree}")
-            else:
-                ms, err = hold(f"{lab} {key}", r["out"][:n], plain)
+            ms, err, agree = hold(f"{lab} {key}", c, r["out"][:n], plain,
+                                  r["meta"][:n * ROW], r["rays"][:n],
+                                  r["tris"])
             e = dict(ms=r["ms"], min_ms=r["min_ms"],
+                     ms_back_to_back=r["ms_back_to_back"],
                      us_per_tile=r["us_per_tile"], gtests_s=r["gtests_s"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      plain_ms=ms, plain_rays=n * c.tile, max_abs_err=err,
@@ -2223,50 +2231,67 @@ def brick_phase(dev):
                 BRICK_HEADLINE[lab]
             configs.setdefault(lab, {})[key] = e
             print(f"phase 21 {lab} {key} " + json.dumps(e), flush=True)
-    # L7's redo of a step with __frcp_rn: every 13th direction scaled by
-    # 1e-39 (a subnormal den), every 17th NaN
-    for r in res["lab7"]:
-        c = r["cfg"]
-        if (c.kb, c.steps) != (8, 6):
-            continue
-        n = LAB_SLICE_TILES
-        rays = r["rays"][:n].clone()
-        rays.view(-1, 8)[::13, 3:6] *= 1e-39
-        rays.view(-1, 8)[::17, 3:6] = float("nan")
-        args = (r["meta"][:n * ROW], rays, r["tris"], c.mode, c.kb, c.steps)
-        odd = l7.lab7_agreement(l7.lab7(*args), l7.lab7_reference(*args),
-                                *args[:4])
-        print(f"phase 21 lab7 {c.mode} odd denominators " + json.dumps(odd),
-              flush=True)
-        if not odd["ok"]:
-            failures.append(f"lab7 {c.mode} odd denominators: {odd}")
+    # the walk's redo of a step with __frcp_rn: every 13th direction scaled
+    # by 1e-39 (a subnormal den), every 17th NaN
+    odd_runs = {"lab5": (("mt", 32, 1, 52), ("mt", 8, 1, 14)),
+                "lab6": tuple((v, 32, 8, 6) for v in (
+                    "fixed", "slot", "cid", "while", "while2")),
+                "lab7": (("mt", 32, 8, 6), ("bw", 32, 8, 6))}
+    for lab, shapes in odd_runs.items():
+        for r in res[lab]:
+            c = r["cfg"]
+            if (c.mode, c.tile, c.kb, c.steps) not in shapes:
+                continue
+            n = min(c.n_tiles, LAB_SLICE_TILES) if lab == "lab7" else \
+                c.n_tiles
+            rays = r["rays"][:n].clone()
+            rays.view(-1, 8)[::13, 3:6] *= 1e-39
+            rays.view(-1, 8)[::17, 3:6] = float("nan")
+            args = (lab, c.mode, r["meta"][:n * ROW], rays, r["tris"], c.kb,
+                    c.steps)
+            odd = brick.brick_agreement(*args[:2], brick.brick(*args),
+                                        brick.walk_reference(*args),
+                                        *args[2:5])
+            tag = f"{lab} {c.label.strip()} steps={c.steps} odd denominators"
+            print(f"phase 21 {tag} " + json.dumps(odd), flush=True)
+            if not odd["ok"]:
+                failures.append(f"{tag}: {odd}")
     # L6's exit where it fires, on the headline's inputs
-    head = next(r for r in res["lab6"] if (
+    r = next(r for r in res["lab6"] if (
         r["cfg"].mode, r["cfg"].tile, r["cfg"].kb, r["cfg"].steps) ==
         BRICK_HEADLINE["lab6"])
-    meta = head["meta"].clone()
+    meta = r["meta"].clone()
     meta[::8] = 0x7F000000
     lab_kernel.reset_launch_counts()
+    fixed = brick.walk_reference("lab6", "fixed", meta, r["rays"], r["tris"],
+                                 r["cfg"].kb, r["cfg"].steps)
     for v in ("while", "while2"):
-        c = head["cfg"]._replace(mode=v)
+        c = r["cfg"]._replace(mode=v)
 
-        def walk():
-            return brick.brick("lab6", v, meta, head["rays"], head["tris"],
-                               c.kb, c.steps)
+        def walk(steps=c.steps):
+            return brick.brick("lab6", v, meta, r["rays"], r["tris"], c.kb,
+                               steps)
+
+        def walk_plain(steps=c.steps, stats=None):
+            return brick.walk_reference("lab6", v, meta, r["rays"],
+                                        r["tris"], c.kb, steps, stats)
         t = time_cuda(walk)
         out = walk()
+        walked = [brick.walked_steps(f, c.steps) for f in (walk, walk_plain)]
         stats = {}
-        ms, err = hold(f"lab6 {v} exit", out, lambda: brick.walk_reference(
-            "lab6", v, meta, head["rays"], head["tris"], c.kb, c.steps,
-            stats))
-        fixed = brick.walk_reference("lab6", "fixed", meta, head["rays"],
-                                     head["tris"], c.kb, c.steps)
+        ms, err, agree = hold(f"lab6 {v} exit", c, out,
+                              lambda: walk_plain(stats=stats), meta,
+                              r["rays"], r["tris"], walked)
         e = dict(ms=t["ms"], min_ms=t["min_ms"], plain_ms=ms,
                  max_abs_err=err, tile_steps=stats["steps"],
+                 tile_steps_needed=int(walked[0].sum()),
+                 tile_steps_needed_plain=int(walked[1].sum()),
                  tile_steps_fixed=c.n_tiles * c.steps,
-                 hits=brick.hits(out, c), hits_fixed=brick.hits(fixed, c))
+                 hits=brick.hits(out, c), hits_fixed=brick.hits(fixed, c),
+                 **agree)
         e["bound_ms"], e["bound_by"] = brick_bound(c, stats["steps"])
         if not (e["tile_steps"] < e["tile_steps_fixed"] and
+                e["tile_steps_needed"] < e["tile_steps_fixed"] and
                 e["hits"] < e["hits_fixed"]):
             failures.append(f"lab6 {v}: the exit did not fire: {e}")
         configs["lab6"][f"{v} exit fires"] = e
@@ -2289,11 +2314,12 @@ def brick_phase(dev):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             # no single PyTorch call computes any lab's function
             "library_ms": None,
+            "ms_back_to_back": head["ms_back_to_back"],
             "configuration": next(k for k, e in cs.items()
                                   if e.get("headline")),
             "configurations": {k: {f: e[f] for f in (
-                "ms", "plain_ms", "bound_ms", "bound_by")}
-                for k, e in cs.items()}})
+                "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by")
+                if f in e} for k, e in cs.items()}})
     return rows
 
 
@@ -2557,14 +2583,25 @@ def main() -> int:
         lab_sass.update(sass_mod.lab_test_loops(str(info["path"])))
         spilled.update(sass_mod.spills(
             str(info["log"]),
-            r"lab9_kernel|lab7_kernel|lab10_kernel|tile_walk_kernel"))
+            r"lab9_kernel|brick_walk_kernel|lab10_kernel|tile_walk_kernel"))
+    walk_regs = sass_mod.registers(
+        str(trace_kernel.BUILD_INFO["brick_lab"]["log"]), r"brick_walk_kernel")
     for inst, st in sorted(lab_sass.items()):
         print(f"phase 2 sass {inst}: " + json.dumps(st), flush=True)
     print("phase 2 spills " + json.dumps(spilled), flush=True)
-    if len(lab_sass) != 14 or len(spilled) != 17 or any(spilled.values()) \
-            or not {"lab1 k3", "lab2", "lab3"} <= set(lab_sass):
+    print("phase 2 registers brick_walk_kernel " + json.dumps(walk_regs),
+          flush=True)
+    # L9 5 modes, L10 4, L1-L3 3 with a test; the walk: L7 2, L6 4 x 3
+    # tiles; spills: L9 5, L10 4, the tile walk 6, the brick walk 14
+    walk_insts = {f"lab6 {v} TILE={t}" for v in sass_mod.VARIANTS
+                  for t in (8, 16, 32)} | {"lab7 mt", "lab7 bw"}
+    if len(lab_sass) != 26 or len(spilled) != 29 or any(spilled.values()) \
+            or not {"lab1 k3", "lab2", "lab3"} | walk_insts <= \
+            set(lab_sass) or len(walk_regs) != 14 or \
+            max(walk_regs.values()) > 128:
         raise RuntimeError(f"the redesigned labs' instances: "
-                           f"{sorted(lab_sass)}, spills {spilled}")
+                           f"{sorted(lab_sass)}, spills {spilled}, "
+                           f"registers {walk_regs}")
     if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
         raise RuntimeError("not every instance of trace_tiles has a test "
                            "loop of 16-byte shared loads only")
@@ -2864,6 +2901,11 @@ def main() -> int:
                 k.split()[1]: v["instructions_per_test"]
                 for k, v in lab_sass.items()
                 if k.split()[0] == r["name"]}
+        elif r["name"] in ("lab5", "lab6"):     # L5 runs L6 fixed's
+            lead = "lab6 fixed " if r["name"] == "lab5" else "lab6 "
+            r["sass_instructions_per_test"] = {
+                k[len(lead):]: v["instructions_per_test"]
+                for k, v in lab_sass.items() if k.startswith(lead)}
     kernels["kernels"] += lab_rows
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

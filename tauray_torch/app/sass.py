@@ -18,15 +18,19 @@ _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 # a 16-byte row load: from shared memory (a staged cluster) or through
 # the read-only path (a table read in place)
 _ROW_LOAD = re.compile(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b")
-# lab9_kernel<kMode, R>, lab7_kernel<kBody, R>, lab10_kernel<kMode, R>
-# and L1-L3's tile_walk_kernel<kMode, kLayout, R>; in older checkouts,
-# lab9_kernel<kMode> (R = 1), L7 as brick_kernel<false, true, kBody,
-# kFixed> (R = 1), lab10_kernel<W, kMode> (W = 4 or 8 warps a tile, R =
-# 1), L3 as lab3_kernel<R> and L1-L3 as tile_lab_kernel<kMode, kLayout>
-# (R = 1)
+# lab9_kernel<kMode, R>, L5-L7's brick_walk_kernel<kLab, kBody, kVariant,
+# kTile, R>, lab10_kernel<kMode, R> and L1-L3's tile_walk_kernel<kMode,
+# kLayout, R>; in older checkouts, lab9_kernel<kMode> (R = 1), L7 as
+# lab7_kernel<kBody, R> or brick_kernel<false, true, kBody, kFixed> (R =
+# 1), L5 and L6 as brick_kernel<false, kMT, kVariant> (R = 1, every
+# TILE), lab10_kernel<W, kMode> (W = 4 or 8 warps a tile, R = 1), L3 as
+# lab3_kernel<R> and L1-L3 as tile_lab_kernel<kMode, kLayout> (R = 1)
 _LAB9 = re.compile(r"lab9_kernelILi(\d)E(?:Li(\d+)E)?E")
+_WALK = re.compile(r"brick_walk_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d+)"
+                   r"ELi(\d+)EE")
 _LAB7 = re.compile(r"lab7_kernelILi(\d)ELi(\d+)EE")
 _LAB7_OLD = re.compile(r"brick_kernelILb0ELb1ELi(\d)ELi0EE")
+_LAB6_OLD = re.compile(r"brick_kernelILb0ELi0ELi(\d)EE")
 _LAB10 = re.compile(r"lab10_kernelILi(\d)ELi(\d)EE")
 _TILE = re.compile(r"tile_walk_kernelILi(\d)ELi(\d)ELi(\d+)EE")
 _LAB3 = re.compile(r"lab3_kernelILi(\d)EE")
@@ -34,6 +38,8 @@ _TILE_OLD = re.compile(r"tile_lab_kernelILi(\d)ELi(\d)EE")
 LAB9_MODES = ("full", "exit", "loads", "math", "nocat")
 LAB10_MODES = ("full", "noray", "fixord", "nowrite")
 BODIES = {0: "mt", 2: "bw"}
+# L6's variants by kVariant (L5 and L6 slot run fixed's instance)
+VARIANTS = ("fixed", "cid", "while", "while2")
 # the instances of L1-L3 with a test, by (kMode, kLayout): k3 in columns,
 # the exit in planes (L2) and in rows (L3); k0-k2 have no test loop
 TILE_INSTANCES = {(3, 0): "lab1 k3", (4, 1): "lab2", (4, 2): "lab3"}
@@ -104,19 +110,30 @@ def row_loop(chunk: str) -> List[str]:
 
 def lab_test_loops(lib_path: str) -> Dict[str, dict]:
     """{instance: its test loop}: L9's lab9_kernel and L10's lab10_kernel
-    per mode, L7's per body and the tile walks of L1 k3, L2 and L3 (the
-    redesigned kernels or older ones; an older L10 per mode and W) in the
-    library at lib_path: the
-    loop's instructions, its 16-byte row loads, R (rays a lane), the tests
-    one pass makes (4 triangles a load of each of the rows, 12 or 9, times
-    R; none for L9 loads, which has no test) and instructions per test."""
+    per mode, L7's per body, L6's per variant and TILE ("lab6 fixed
+    TILE=32", the instance L5 runs too; an older checkout's per variant,
+    every TILE) and the tile walks of L1 k3, L2 and L3 (the redesigned
+    kernels or older ones; an older L10 per mode and W) in the library at
+    lib_path: the loop's instructions, its 16-byte row loads, R (rays a
+    lane), the tests one pass makes (4 triangles a load of each of the
+    rows, 12 or 9, times R; none for L9 loads, which has no test) and
+    instructions per test."""
     out = {}
     for name, chunk in functions(lib_path).items():
-        m9, m7, m7o, m10, mt, m3, mto = (p.search(name) for p in (
-            _LAB9, _LAB7, _LAB7_OLD, _LAB10, _TILE, _LAB3, _TILE_OLD))
+        m9, mw, m7, m7o, m6o, m10, mt, m3, mto = (p.search(name) for p in (
+            _LAB9, _WALK, _LAB7, _LAB7_OLD, _LAB6_OLD, _LAB10, _TILE, _LAB3,
+            _TILE_OLD))
         if m9:
             inst = f"lab9 {LAB9_MODES[int(m9.group(1))]}"
             rays, nf, test = int(m9.group(2) or 1), 12, m9.group(1) != "2"
+        elif mw:
+            lab, body, variant, tile, rays = map(int, mw.groups())
+            inst = f"lab7 {BODIES[body]}" if lab == 7 else \
+                f"lab6 {VARIANTS[variant]} TILE={tile}"
+            nf, test = (12 if body == 2 else 9), True
+        elif m6o:
+            inst, rays = f"lab6 {VARIANTS[int(m6o.group(1))]}", 1
+            nf, test = 9, True
         elif m7 or m7o:
             m = m7 or m7o
             body = BODIES[int(m.group(1))]
@@ -163,5 +180,21 @@ def spills(log: str, pattern: str) -> Dict[str, int]:
                       ln)
         if m and fn and re.search(pattern, fn):
             out[fn] = int(m.group(1)) + int(m.group(2))
+            fn = None
+    return out
+
+
+def registers(log: str, pattern: str) -> Dict[str, int]:
+    """{function: the registers a thread} from ptxas -v's log for the
+    functions whose names match pattern."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn and re.search(pattern, fn):
+            out[fn] = int(m.group(1))
             fn = None
     return out

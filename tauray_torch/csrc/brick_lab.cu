@@ -18,61 +18,80 @@
 // them), not their TPU schedules: no group of 32 tiles a grid step, no
 // meta copy into SMEM.
 //
-// L4-L6 (brick_kernel): one block of 8 warps walks one tile. Each of a
-// tile's rays takes P = 32 / TILE lanes of each warp (TILE 8, 16 or 32),
-// so that no lane idles at TILE < 32; its 8P workers split every step's
-// KB * 128 triangles, 4 at a time (float4 rows), worker q taking the
-// quads q, q + 8P, ... in order.
-//   * Möller-Trumbore keeps a running best per worker (strict <, so the
-//     first smallest in slot order) across every step. A step's candidate
-//     beats the best from before the step exactly when it beats the
-//     running best, so the walk's result is the smallest t, then the
-//     smallest slot, over all its tests: the workers' bests are combined
-//     once, after the last step (shuffles over the P lanes, shared memory
-//     over the warps). cid resolves the winning slot's cluster from meta
-//     then.
-//   * while / while2 combine the workers' t after each (odd) step and
-//     vote on the exit with __syncthreads_and: the TPU's all-reduce and
-//     scalar branch, the machinery whose cost L6 measures.
-//   * mtfast tests every triangle of a step against the best from before
-//     it, and its keys meet in one int32 minimum over the tile's workers
-//     each step, so the faults kept from the script (t < 0 where a < 0;
-//     lane bit 10 lost at KB = 16) come out as the script has them.
-//   * L4 stages the next step's KB x 9 rows (4.5 KB a cluster) into a
-//     shared double buffer with cp.async 16-byte copies while the step
-//     tests the other (KB 16: 144 KB, one block an SM); L5 and L6 read the
-//     rows in place through the read-only path (the table, 2.9 MB, stays
-//     in the 50 MB L2). Both read 16-byte rows that the P lanes of a ray
-//     share as broadcasts.
-// L7 (lab7_kernel, redesigned for this card): a warp walks a tile of 32 rays,
-// 4 tiles a block, R = 4 rays a lane: 4 workers of 8 lanes (lane l holds rays
-// l % 8 + 8k, k < 4), worker w taking the quads w, w + 4, ... of each step, so
-// each 16-byte row load (read in place from L2, the 4 workers on 4
-// neighbouring quads) serves 4 triangles x 4 rays, and the loop and address
-// steps 16 tests. The workers keep running bests from t = 3e38 (the candidate
-// to beat is the running best: one compare) and meet by smallest t, then
-// smallest slot, after the last step. Before that L7 ran as brick_kernel (one
-// block of 8 warps a tile, a lane a ray). The results are the scripts' raw
-// (n_tiles, TILE, 2) f32 blocks: t, then the id's int32 bits (L7: float(id)).
+// L4 (brick_kernel, PR 12's design): one block of 8 warps walks one tile.
+// Each of a tile's rays takes P = 32 / TILE lanes of each warp (TILE 8, 16
+// or 32); its 8P workers split every step's KB * 128 triangles, 4 at a
+// time (float4 rows), worker q taking the quads q, q + 8P, ... in order.
+// The next step's KB x 9 rows (4.5 KB a cluster) are staged into a shared
+// double buffer with cp.async 16-byte copies while the step tests the other
+// (KB 16: 144 KB, one block an SM). mt keeps a running best per worker,
+// combined once after the last step (shuffles over the P lanes, shared
+// memory over the warps); mtfast tests every triangle of a step against
+// the best from before it, and its keys meet in one int32 minimum over the
+// tile's workers each step, so the faults kept from the script (t < 0
+// where a < 0; lane bit 10 lost at KB = 16) come out as the script has
+// them. Built unfused (-fmad=false, IEEE divisions): t and ids compare bit
+// for bit with the plain version. Only L4 instantiates it; its unstaged
+// path and its variants were L5's and L6's until they moved to the walk
+// below.
+//
+// L5, L6 and L7 (brick_walk_kernel<kLab, kBody, kVariant, kTile, R>, one
+// in-place walk; L7 redesigned in PR 14, L5 and L6 on its design since
+// PR 17; L5 runs L6 fixed's instance, as it computes its function):
+//   * A warp walks a tile, 4 tiles a block. Lane l is lane l % (TILE / R)
+//     of worker l / (TILE / R) and holds the R rays l % (TILE / R) + k TILE
+//     / R, k < R: TILE 32 gives 4 workers of 8 lanes, TILE 16 8 of 4,
+//     TILE 8 16 of 2. Each step, worker w takes the quads w, w + 32 R /
+//     TILE, ... of the step's KB clusters, rows read in place through the
+//     read-only path (the table, 2.9 MB, stays in the 50 MB L2; the
+//     workers of a load read neighbouring quads), so each 16-byte row load
+//     serves 4 triangles x R rays, and the loop and address steps 4R
+//     tests.
+//   * mt_hit_fma (lab_common.cuh), with rcp_in_range's fast path and a
+//     step redone with __frcp_rn where the warp met a subnormal
+//     denominator or one of at least 2^126.
+//   * Each worker keeps a running best from L5 / L6's start, min(t_max,
+//     3e38) with a NaN kept (L7: 3e38), and id -1: a candidate beats it
+//     with one compare, tt < ct. A step's candidate beats the best from
+//     before the step whenever it beats the running best, and each worker
+//     visits its slots in ascending order, so the workers' bests, met by
+//     smallest t, then smallest slot, after the last step, are the walk's
+//     first smallest (t, slot).
+//   * The meta entries of step s + 1 (lane j < KB reads slot j's) are read
+//     while step s tests; each quad takes its cluster from them with a
+//     shuffle.
+//   * while / while2: after every step (after odd steps), each ray's best
+//     t is met over its workers by shuffles (a minimum), and the warp
+//     votes with __all_sync whether every ray's t bits are <= the
+//     unclipped meta entry min((s + 1) KB, 1,023): no shared memory and no
+//     barrier. On the script's meta the exit never fires (every entry is a
+//     cluster id below 636), as on the TPU.
+//   * The id is the winning slot, s KB 128 + the triangle's lane in the
+//     step, as int32 bits (-1: none); cid resolves it after the combine to
+//     the slot's clipped cluster x 128 + lane; L7 writes float(slot), 0 on
+//     a miss.
+//   * R by TILE (kRays8, kRays16, 4 at TILE 32; L7 takes TILE 32 only):
+//     chosen by measurement, app/lab_bench.py against builds with the
+//     other R (PERF.md, PR 17).
+// The results are the scripts' raw (n_tiles, TILE, 2) f32 blocks: t, then
+// the id's int32 bits (L7: float(id)).
 //
 // What bounds it on the card: the FP32 instruction rate (46 operations a
-// Möller-Trumbore test, 49 deferred-division, 32 Baldwin-Weber); the bytes are
-// the rays and a few meta entries a tile. L7's test loop took 79.25 (mt) and
-// 65.75 (bw) SASS instructions a test before the redesign (unfused, one ray a
-// lane, __frcp_rn's range test and branch in every test) and 46.06 (mt) and
-// 32.25 (bw) after it (phase 2 of chip_smoke.py): the FMA bodies (bw_hit_fma,
-// mt_hit_fma: 17 and 31 FP32 instructions, not 31 and 45), 16 tests a load,
-// loop and address step, and __frcp_rn's in-range fast path alone. R = 4, not
-// 2: 3-4% faster on the H100 at 128 registers, no spill (app/lab_bench.py
-// against an R = 2 build). The reciprocal stays correctly rounded, so that t
-// differs from the unfused version's only by the FMAs' roundings, which the
-// tie-aware hold bounds; a step whose warp met a subnormal denominator or one
-// of at least 2^126 is redone with __frcp_rn.
+// Möller-Trumbore test, 49 deferred-division, 32 Baldwin-Weber); the bytes
+// are the rays and a few meta entries a tile. PR 12's loop took 79.25 SASS
+// instructions a Möller-Trumbore test (unfused, one ray a lane, __frcp_rn's
+// range test and branch in every test, a block barrier a step in while
+// and while2); the walk takes about 46 (mt) and 32 (bw) (phase 2 of
+// chip_smoke.py): the FMA bodies (bw_hit_fma, mt_hit_fma: 17 and 31 FP32
+// instructions, not 31 and 45), 4R tests a load, loop and address step,
+// and __frcp_rn's in-range fast path alone. The reciprocal stays
+// correctly rounded, so that t differs from the unfused version's only by
+// the FMAs' roundings, which the tie-aware hold bounds
+// (lab/brick.py brick_agreement).
 //
-// Built with -fmad=false (trace_kernel.NVCC_FLAGS), and every 1/a and t_n
-// / |a| an IEEE division, so L4-L6 round like their plain torch versions
-// in lab/brick.py: t and ids compare bit for bit. L7 takes the FMA bodies
-// and is held by kernel_lab5.lab7_agreement.
+// Built with -fmad=false (trace_kernel.NVCC_FLAGS): L4's arithmetic rounds
+// like its plain torch version in lab/brick.py. The walk's FMAs are written
+// out (__fmaf_rn).
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -84,14 +103,16 @@ namespace {
 constexpr int kCluster = 128;          // triangles per cluster
 constexpr int kQuads = kCluster / 4;   // float4 of a cluster row
 constexpr int kRow = 1024;             // meta entries of a tile
-constexpr int kWarps = 8;              // warps of a block (one tile)
+constexpr int kWarps = 8;              // L4: warps of a block (one tile)
 constexpr int kThreads = kWarps * 32;
 // shared memory of the combines: a float and an int per warp and lane
 constexpr int kCombFloat4 = 2 * kWarps * 32 / 4;
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTiles7 = 4;             // L7: tiles (warps) a block
-constexpr int kRays7 = 4;              // L7: rays a lane (R), workers a warp
+constexpr int kTilesBlock = 4;         // the walk: tiles (warps) a block
+// the walk's R, rays a lane, at TILE 8 and 16 (4 at TILE 32)
+constexpr int kRays8 = 4;
+constexpr int kRays16 = 4;
 
 enum Body { kMT = 0, kMTFast = 1, kBW = 2 };
 enum Variant { kFixed = 0, kCid = 1, kWhile = 2, kWhile2 = 3 };
@@ -317,19 +338,19 @@ brick_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
   reinterpret_cast<float2*>(out)[ray] = make_float2(bt, __int_as_float(bi));
 }
 
-// One step of L7's walk for worker wk: its quads of the step's kb
-// clusters (lane j < kb of orders names slot j's), rows read in place,
-// each triangle against the lane's R rays (FMA body), a hit closer than
-// ct[k] taking (ct[k], cs[k]). odd: see bw_hit_fma.
-template <int kBody, int R, bool kExact>
-__device__ __forceinline__ void lab7_step(const float4* t4, int orders,
+// One step of the walk for worker wk: its quads (wk, wk + workers, ...) of
+// the step's kb clusters (lane j < kb of orders names slot j's), rows read
+// in place, each triangle against the lane's R rays (FMA body), a hit
+// closer than ct[k] taking (ct[k], cs[k]). odd: see rcp_in_range.
+template <int kBody, int R, int kWorkers, bool kExact>
+__device__ __forceinline__ void walk_step(const float4* t4, int orders,
                                           int kb, int s, int wk,
                                           const Ray (&r)[R], float (&ct)[R],
                                           int (&cs)[R], bool& odd) {
   constexpr int NF = kBody == kBW ? 12 : 9;
   const int slot0 = s * kb * kCluster;
 #pragma unroll 1
-  for (int quad = wk; quad < kb * kQuads; quad += R) {
+  for (int quad = wk; quad < kb * kQuads; quad += kWorkers) {
     const int c = __shfl_sync(kFull, orders, quad / kQuads);
     const float4* b = t4 + static_cast<size_t>(c) * NF * kQuads +
                       quad % kQuads;
@@ -359,24 +380,23 @@ __device__ __forceinline__ void lab7_step(const float4* t4, int orders,
   }
 }
 
-// L7: a warp walks a tile of 32 rays, 4 tiles a block, R rays a lane:
-// lane l is lane l % (32 / R) of worker l / (32 / R) and holds rays l %
-// (32 / R) + k (32 / R), k < R. Each step, worker w takes the quads w, w +
-// R, ... of the step's kb clusters, rows read in place (the R workers of
-// a load read R neighbouring quads, 16R bytes), each triangle against the
-// lane's R rays (FMA body). The workers keep running bests from t = 3e38
-// (the candidate to beat is the running best: one compare) and combine by
-// smallest t, then smallest slot, after the last step; the id is the
-// slot, written as a float (0 on a miss).
-template <int kBody, int R>
-__global__ void __launch_bounds__(kTiles7 * 32)
-lab7_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
-            const float* __restrict__ tris, int n_tiles, int n_clusters,
-            int kb, int steps, float* __restrict__ out) {
-  constexpr int kLanes = 32 / R;  // lanes a worker
+// L5, L6 (kLab 6) and L7 (kLab 7): a warp walks a tile of kTile rays, R
+// rays a lane (see the head of this file).
+template <int kLab, int kBody, int kVariant, int kTile, int R>
+__global__ void __launch_bounds__(kTilesBlock * 32)
+brick_walk_kernel(const int* __restrict__ meta,
+                  const float* __restrict__ rays,
+                  const float* __restrict__ tris, int n_tiles,
+                  int n_clusters, int kb, int steps,
+                  float* __restrict__ out) {
+  constexpr int kLanes = kTile / R;       // lanes a worker
+  constexpr int kWorkers = 32 / kLanes;   // workers a warp
+  static_assert(kLanes * R == kTile && kLanes * kWorkers == 32,
+                "R rays a lane and whole workers");
+  constexpr bool kL7 = kLab == 7;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int tile = blockIdx.x * kTiles7 + warp;
+  const int tile = blockIdx.x * kTilesBlock + warp;
   if (tile >= n_tiles) return;
   const int wk = lane / kLanes;
   const int* mrow = meta + static_cast<size_t>(tile) * kRow;
@@ -387,18 +407,20 @@ lab7_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
   int cs[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const size_t ray = static_cast<size_t>(tile) * 32 + lane % kLanes +
+    const size_t ray = static_cast<size_t>(tile) * kTile + lane % kLanes +
                        k * kLanes;
     const float4 ra = r4[ray * 2];
     const float4 rb = r4[ray * 2 + 1];
     r[k] = Ray{ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z};
-    ct[k] = kBig;
+    ct[k] = kL7 ? kBig : rb.w > kBig ? kBig : rb.w;  // a NaN t_max kept
     cs[k] = -1;
   }
+  // lane j < kb: the meta entry of the next step's slot j, read a step
+  // ahead
+  int m_next = lane < kb && steps > 0 ? mrow[lane] : 0;
   for (int s = 0; s < steps; ++s) {
-    // lane j < kb: the cluster of the step's slot j
-    const int orders =
-        lane < kb ? order_of<true>(mrow[s * kb + lane], n_clusters) : 0;
+    const int orders = order_of<kL7>(m_next, n_clusters);
+    if (lane < kb && s + 1 < steps) m_next = mrow[(s + 1) * kb + lane];
     float st[R];
     int ss[R];
 #pragma unroll
@@ -407,24 +429,49 @@ lab7_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
       ss[k] = cs[k];
     }
     bool odd = false;  // a den outside rcp_in_range's range
-    lab7_step<kBody, R, false>(t4, orders, kb, s, wk, r, ct, cs, odd);
+    walk_step<kBody, R, kWorkers, false>(t4, orders, kb, s, wk, r, ct, cs,
+                                         odd);
     if (__any_sync(kFull, odd)) {  // the step again with __frcp_rn
 #pragma unroll
       for (int k = 0; k < R; ++k) {
         ct[k] = st[k];
         cs[k] = ss[k];
       }
-      lab7_step<kBody, R, true>(t4, orders, kb, s, wk, r, ct, cs, odd);
+      walk_step<kBody, R, kWorkers, true>(t4, orders, kb, s, wk, r, ct, cs,
+                                          odd);
+    }
+    if (kVariant == kWhile || (kVariant == kWhile2 && (s & 1))) {
+      // the tile stops once every ray's best t bits are <= the unclipped
+      // meta entry of the next step's first slot
+      const int nxt = mrow[min((s + 1) * kb, kRow - 1)];
+      bool done = true;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        float m = ct[k];
+        for (int o = kLanes; o < 32; o <<= 1) {
+          const float u = __shfl_xor_sync(kFull, m, o);
+          m = u < m ? u : m;
+        }
+        done &= __float_as_int(m) <= nxt;
+      }
+      if (__all_sync(kFull, done)) break;
     }
   }
 #pragma unroll
   for (int k = 0; k < R; ++k) workers_best(ct[k], cs[k], kLanes);
   if (wk != 0) return;
 #pragma unroll
-  for (int k = 0; k < R; ++k)
-    reinterpret_cast<float2*>(out)[static_cast<size_t>(tile) * 32 + lane +
-                                   k * kLanes] =
-        make_float2(ct[k], static_cast<float>(cs[k] < 0 ? 0 : cs[k]));
+  for (int k = 0; k < R; ++k) {
+    int id = cs[k];
+    if (kVariant == kCid && id >= 0)
+      id = order_of<false>(mrow[id / kCluster], n_clusters) * kCluster +
+           id % kCluster;
+    const float idf = kL7 ? static_cast<float>(id < 0 ? 0 : id)
+                          : __int_as_float(id);
+    reinterpret_cast<float2*>(out)[static_cast<size_t>(tile) * kTile +
+                                   lane + k * kLanes] =
+        make_float2(ct[k], idf);
+  }
 }
 
 template <bool kStaged, int kBody, int kVariant>
@@ -445,15 +492,32 @@ int launch(const int* meta, const float* rays, const float* tris,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kBody>
-int launch7(const int* meta, const float* rays, const float* tris,
-            int n_tiles, int tile_rays, int n_clusters, int kb, int steps,
-            float* out, cudaStream_t st) {
-  if (tile_rays != 32) return static_cast<int>(cudaErrorInvalidValue);
-  lab7_kernel<kBody, kRays7>
-      <<<(n_tiles + kTiles7 - 1) / kTiles7, kTiles7 * 32, 0, st>>>(
-          meta, rays, tris, n_tiles, n_clusters, kb, steps, out);
+template <int kLab, int kBody, int kVariant, int kTile, int R>
+int launch_walk(const int* meta, const float* rays, const float* tris,
+                int n_tiles, int n_clusters, int kb, int steps, float* out,
+                cudaStream_t st) {
+  brick_walk_kernel<kLab, kBody, kVariant, kTile, R>
+      <<<(n_tiles + kTilesBlock - 1) / kTilesBlock, kTilesBlock * 32, 0,
+         st>>>(meta, rays, tris, n_tiles, n_clusters, kb, steps, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the walk at tile_rays 8, 16 or 32 (L7: 32 only)
+template <int kLab, int kBody, int kVariant>
+int launch_walk(const int* meta, const float* rays, const float* tris,
+                int n_tiles, int tile_rays, int n_clusters, int kb,
+                int steps, float* out, cudaStream_t st) {
+  if constexpr (kLab != 7) {
+    if (tile_rays == 8)
+      return launch_walk<kLab, kBody, kVariant, 8, kRays8>(
+          meta, rays, tris, n_tiles, n_clusters, kb, steps, out, st);
+    if (tile_rays == 16)
+      return launch_walk<kLab, kBody, kVariant, 16, kRays16>(
+          meta, rays, tris, n_tiles, n_clusters, kb, steps, out, st);
+  }
+  if (tile_rays != 32) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_walk<kLab, kBody, kVariant, 32, 4>(
+      meta, rays, tris, n_tiles, n_clusters, kb, steps, out, st);
 }
 
 }  // namespace
@@ -483,17 +547,17 @@ extern "C" int brick_lab_launch(int lab, int mode, const int* meta,
     case 50:  // L5 computes L6 fixed's function
     case 60:
     case 61:  // slot: fixed's ids are the order slots
-      return launch<false, kMT, kFixed>(BRICK_ARGS);
+      return launch_walk<6, kMT, kFixed>(BRICK_ARGS);
     case 62:
-      return launch<false, kMT, kCid>(BRICK_ARGS);
+      return launch_walk<6, kMT, kCid>(BRICK_ARGS);
     case 63:
-      return launch<false, kMT, kWhile>(BRICK_ARGS);
+      return launch_walk<6, kMT, kWhile>(BRICK_ARGS);
     case 64:
-      return launch<false, kMT, kWhile2>(BRICK_ARGS);
+      return launch_walk<6, kMT, kWhile2>(BRICK_ARGS);
     case 70:
-      return launch7<kMT>(BRICK_ARGS);
+      return launch_walk<7, kMT, kFixed>(BRICK_ARGS);
     case 71:
-      return launch7<kBW>(BRICK_ARGS);
+      return launch_walk<7, kBW, kFixed>(BRICK_ARGS);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

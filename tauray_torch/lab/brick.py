@@ -27,7 +27,12 @@ lane % 128). Per lab and mode:
                holds float(id).
 
 Otherwise t starts at min(t_max, 3e38) and the id at -1. The output is
-(n_tiles, tile, 2) f32: t, then the id's int32 bits (L7: float(id))."""
+(n_tiles, tile, 2) f32: t, then the id's int32 bits (L7: float(id)).
+
+On the card L4 takes the unfused bodies and compares bit for bit with the
+plain version; L5-L7 take their FMA counterparts (csrc/brick_lab.cu
+brick_walk_kernel) and are held by brick_agreement
+(common.tie_aware_hold)."""
 
 from __future__ import annotations
 
@@ -35,8 +40,9 @@ import torch
 
 from ..ops.trace_kernel import _bw_test, _mt_test
 from .bounds import brick_bound
-from .common import BIG, CLUSTER, ROW, BrickConfig, card, parse_args, \
-    timed_run
+from .common import (BIG, CLUSTER, ROW, BrickConfig, bw_fp64, card,
+                     mt_fp64, parse_args, steps_hold, tie_aware_hold,
+                     time_back_to_back, timed_run)
 from .lab_kernel import MODES, launch_brick, on_card
 
 # elements of each (tiles, tile, KB * 128) temporary of the plain version:
@@ -154,12 +160,77 @@ def walk_reference(lab: str, mode, meta: torch.Tensor, rays: torch.Tensor,
     return torch.stack([bt, ids], -1)
 
 
+def brick_agreement(lab: str, mode, out: torch.Tensor, ref: torch.Tensor,
+                    meta, rays, tris, steps=None, kb: int = 0) -> dict:
+    """The tie-aware hold of lab's kernel output in mode against its plain
+    version (both raw (n_tiles, tile, 2) blocks) on their inputs:
+    common.tie_aware_hold, each ray's winner analysed in FP64
+    (common.bw_fp64 or mt_fp64). The id is the int32 bits, -1 on a miss,
+    and t starts at min(t_max, 3e38) (a NaN kept); the triangle is lane id
+    % 128 of the cluster of meta slot id // 128, clipped to [0, C), but for
+    cid, whose id is the cluster x 128 + lane itself. L7's id is float(id)
+    and a miss keeps t = 3e38 (its id 0 is then no slot), its cluster the
+    entry & 1023, at most C - 1. steps, when given, is (the kernel's, the
+    plain version's) walked_steps, held by common.steps_hold; the exit's
+    bound after s steps is the meta entry min(kb s, 1,023) read as a
+    float."""
+    n_tiles, tile = rays.shape[:2]
+    C, nf = tris.shape[:2]
+    rows = tris.reshape(C, nf, CLUSTER)
+    m2 = meta.reshape(n_tiles, ROW)
+    r8 = rays.reshape(-1, 8)
+    test = bw_fp64 if mode == "bw" else mt_fp64
+
+    def analyse(ray, ids):
+        if mode == "cid":
+            c = (ids // CLUSTER).clamp(0, C - 1)
+        else:
+            m = m2[ray // tile, ids // CLUSTER]
+            c = (m & 1023).clamp(max=C - 1) if lab == "lab7" else \
+                m.clamp(0, C - 1)
+        return test(rows[c.long(), :, (ids % CLUSTER).long()], r8[ray, 0:3],
+                    r8[ray, 3:6], r8[ray, 6])
+
+    def flat(x):
+        t = x[..., 0].reshape(-1)
+        if lab == "lab7":
+            return t, torch.where(t < BIG, x[..., 1].reshape(-1).int(), -1)
+        return t, x[..., 1].contiguous().view(torch.int32).reshape(-1)
+    if lab == "lab7":
+        t_start = torch.full_like(r8[:, 0], BIG)
+    else:
+        t_start = torch.where(r8[:, 7] > BIG, BIG, r8[:, 7])  # NaN kept
+    (t_k, id_k), (t_p, id_p) = flat(out), flat(ref)
+    res = tie_aware_hold(t_k, id_k, t_p, id_p, t_start, analyse)
+    if steps is None:
+        return res
+
+    def bound(tile_, s):
+        return m2[tile_, min(kb * s, ROW - 1)].view(torch.float32).double()
+    return steps_hold(res, steps, t_k, id_k, t_p, id_p, tile, bound,
+                      analyse)
+
+
+def walked_steps(fn, steps: int) -> torch.Tensor:
+    """Per tile, the fewest steps s whose output, fn(s), equals fn(steps)'s
+    bit for bit ((n_tiles,) int64): the steps the walk needed, the exit's
+    among them. fn(s) returns a brick lab's raw block for s steps."""
+    full = fn(steps).view(torch.int32)
+    n = torch.full((full.shape[0],), steps, dtype=torch.long,
+                   device=full.device)
+    for s in range(steps - 1, -1, -1):
+        part = fn(s).view(torch.int32)
+        n = torch.where((part == full).flatten(1).all(1), s, n)
+    return n
+
+
 def run_configs(device, tables, draws, reps: int, tiles=None):
-    """Each configuration that draws yields, timed (common.timed_run) on
-    its inputs at the script's size (or its first `tiles` tiles):
-    [one dict per configuration: cfg, ms, min_ms, us_per_tile, gtests_s
-    (the tests the script counts, a second), bound_ms, bound_by, out,
-    meta, rays, tris]."""
+    """Each configuration that draws yields, timed (common.timed_run; on
+    the card also common.time_back_to_back) on its inputs at the script's
+    size (or its first `tiles` tiles): [one dict per configuration: cfg,
+    ms, min_ms, max_ms, ms_back_to_back (None on the CPU) with its min and
+    max, us_per_tile, gtests_s (the tests the script counts, a second),
+    bound_ms, bound_by, out, meta, rays, tris]."""
     tabs = {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
     res = []
     for cfg, meta, rays in draws:
@@ -169,8 +240,13 @@ def run_configs(device, tables, draws, reps: int, tiles=None):
         meta = torch.from_numpy(meta).to(device)
         rays = torch.from_numpy(rays).to(device)
         tris = tabs["tris12" if cfg.mode == "bw" else "tris9"]
-        out, t = timed_run(lambda: brick(cfg.lab, cfg.mode, meta, rays, tris,
-                                         cfg.kb, cfg.steps), device, reps)
+        def call():
+            return brick(cfg.lab, cfg.mode, meta, rays, tris, cfg.kb,
+                         cfg.steps)
+        out, t = timed_run(call, device, reps)
+        t.update(time_back_to_back(call, reps) if device.type == "cuda"
+                 else dict.fromkeys(("ms_back_to_back", "min_ms_back_to_back",
+                                     "max_ms_back_to_back")))
         tests = cfg.n_tiles * cfg.tile * cfg.steps * cfg.kb * CLUSTER
         b_ms, b_by = brick_bound(cfg)
         res.append(dict(cfg=cfg, **t, us_per_tile=t["ms"] * 1e3 / cfg.n_tiles,
@@ -191,16 +267,19 @@ def hits(out: torch.Tensor, cfg: BrickConfig) -> int:
 def entry_point(argv, doc: str, run, width: int = 0) -> int:
     """A brick lab's main: run(device) on --device (the card; cpu: the
     plain versions), then the script's line per configuration (its label
-    padded to width, steps, ms, us a tile, G tests/s) with the bound,
-    after the card's name and power limit."""
+    padded to width, steps, ms, us a tile, G tests/s) with the bound and,
+    on the card, the ms back to back, after the card's name and power
+    limit."""
     dev = parse_args(argv, doc)
     unit = "ms" if dev.type == "cuda" else "host ms (cpu plain)"
     if dev.type == "cuda":
         print(card(), flush=True)
     for r in run(dev):
         c = r["cfg"]
+        b2b = f", {r['ms_back_to_back']:.4f} ms back to back" \
+            if r["ms_back_to_back"] is not None else ""
         print(f"{c.label:{width}s} steps={c.steps}: {r['ms']:7.2f} {unit} "
               f"({r['us_per_tile']:5.2f} us/tile, {r['gtests_s']:6.1f} G "
-              f"tests/s; bound {r['bound_ms']:.4f} ms, {r['bound_by']})",
-              flush=True)
+              f"tests/s; bound {r['bound_ms']:.4f} ms, {r['bound_by']}"
+              f"{b2b})", flush=True)
     return 0

@@ -603,3 +603,39 @@ def tie_aware_hold(t_k, id_k, t_p, id_p, t_start, analyse,
                 max_abs_t=float(diff_t.max()) if n else 0.0,
                 max_t_over_bound=worst, rays_off=int(off.sum()),
                 ok=not bool(off.any()) and n_turn <= ill_share * n)
+
+
+def steps_hold(res: dict, steps, t_k, id_k, t_p, id_p, tile_rays: int,
+               bound, analyse) -> dict:
+    """tie_aware_hold's result res, extended by the steps each side's walk
+    needed per tile (steps: the kernel's and the plain version's, (n_tiles,)
+    each, as walked_steps gives them) where an exit may stop a tile. A tile
+    whose two differ is held only where rounding may have decided it: where
+    the hold's ids differ on one of its rays (a tie or a turned verdict), or
+    where a ray's t on the side that stopped first lies within 2 b_t of the
+    exit's bound after those s steps (bound(tile, s), a float). t and ids
+    are tie_aware_hold's flat (n,) inputs, tiles of tile_rays rays; analyse
+    as it takes it. Adds steps_differ and steps_off (the tiles so held and
+    not)."""
+    s_k, s_p = (torch.as_tensor(x, device=t_k.device).long()
+                for x in steps)
+    differ = torch.nonzero(s_k != s_p).squeeze(1)
+    explained = (id_k != id_p).reshape(-1, tile_rays).any(1)
+    off = 0
+    for tile in differ.tolist():
+        if explained[tile]:
+            continue
+        s = int(min(s_k[tile], s_p[tile]))
+        t, ids = (t_k, id_k) if s_k[tile] < s_p[tile] else (t_p, id_p)
+        rays_t = torch.arange(tile * tile_rays, (tile + 1) * tile_rays,
+                              device=t_k.device)
+        hit = rays_t[ids[rays_t] >= 0]
+        near = False
+        if s > 0 and hit.numel():
+            f = analyse(hit, ids[hit])
+            near = bool(((t[hit].double() - bound(tile, s)).abs() <=
+                         2 * f["b_t"]).any())
+        off += not near
+    res.update(steps_differ=int(differ.numel()), steps_off=off,
+               ok=res["ok"] and off == 0)
+    return res

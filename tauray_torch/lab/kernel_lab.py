@@ -63,8 +63,8 @@ import torch
 from ..ops.trace_kernel import _mt_test
 from .bounds import staged_bytes, tile_bound
 from .common import (BIG, CLUSTER, CPAD, KB_L1, ROW_L1, TILE_L1, card,
-                     lab1_inputs, mt_fp64, parse_args, tie_aware_hold,
-                     time_back_to_back, timed_run)
+                     lab1_inputs, mt_fp64, parse_args, steps_hold,
+                     tie_aware_hold, time_back_to_back, timed_run)
 from .lab_kernel import launch_tile, on_card
 
 BK = KB_L1 * CLUSTER     # triangles a step
@@ -249,12 +249,9 @@ def lab3_agreement(out, ref, meta, rays, tris9, steps=None,
     8) whatever name's layout: common.tie_aware_hold, each ray's
     winner (its id names the cluster and the lane) analysed in FP64 by
     common.mt_fp64. steps, when given, is (the kernel's, the plain
-    version's) walked_steps: a tile whose two differ is held only where
-    rounding may have decided it, that is where the hold's ids differ at a
-    tie or a turned verdict, or where a ray's t on the side that stopped
-    first lies within 2 b_t of the exit's bound after those steps (the
-    tnear entry meta[1,024 + min(8 s, 1,023)] read as a float). Adds
-    steps_differ and steps_off (the tiles so held and not)."""
+    version's) walked_steps, held by common.steps_hold; the exit's bound
+    after s steps is the tnear entry meta[1,024 + min(8 s, 1,023)] read as
+    a float."""
     n_tiles = rays.shape[0]
     C = tris9.shape[0]
     rows = tris9.reshape(C, 9, CLUSTER)
@@ -269,31 +266,13 @@ def lab3_agreement(out, ref, meta, rays, tris9, steps=None,
     res = tie_aware_hold(t_k, id_k, t_p, id_p, _start(r8[:, 7]), analyse)
     if steps is None:
         return res
-    s_k, s_p = (torch.as_tensor(x, device=rays.device).long()
-                for x in steps)
-    differ = torch.nonzero(s_k != s_p).squeeze(1)
-    explained = (id_k != id_p).reshape(n_tiles, TILE_L1).any(1)
     m2 = meta.reshape(n_tiles, ROW_L1)
-    off = 0
-    for tile in differ.tolist():
-        if explained[tile]:
-            continue
-        s = int(min(s_k[tile], s_p[tile]))
-        t, ids = (t_k, id_k) if s_k[tile] < s_p[tile] else (t_p, id_p)
-        rays_t = torch.arange(tile * TILE_L1, (tile + 1) * TILE_L1,
-                              device=rays.device)
-        hit = rays_t[ids[rays_t] >= 0]
-        near = False
-        if s > 0 and hit.numel():
-            bound = m2[tile, CPAD + min(KB_L1 * s, CPAD - 1)].view(
-                torch.float32).double()
-            f = analyse(hit, ids[hit])
-            near = bool(((t[hit].double() - bound).abs() <=
-                         2 * f["b_t"]).any())
-        off += not near
-    res.update(steps_differ=int(differ.numel()), steps_off=off,
-               ok=res["ok"] and off == 0)
-    return res
+
+    def bound(tile, s):
+        return m2[tile, CPAD + min(KB_L1 * s, CPAD - 1)].view(
+            torch.float32).double()
+    return steps_hold(res, steps, t_k, id_k, t_p, id_p, TILE_L1, bound,
+                      analyse)
 
 
 def walked_steps(fn, counts: torch.Tensor) -> torch.Tensor:

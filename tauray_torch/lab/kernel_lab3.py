@@ -5,8 +5,10 @@ max(target // KB, 1) for targets 14, 26 and 52.
 
 On the TPU the table (2.9 MB) is copied into VMEM once and indexed there;
 on the card its rows are read in place through the read-only path, since
-the table stays in the 50 MB L2 (csrc/brick_lab.cu). Its function is L4
-mt's (lab/brick.py).
+the table stays in the 50 MB L2 (csrc/brick_lab.cu brick_walk_kernel, L6
+fixed's instance). Its function is L4 mt's (lab/brick.py). The plain
+version takes the unfused body, the card's kernel its FMA counterpart, so
+the kernel is held to the plain version by brick.brick_agreement.
 
     python -m tauray_torch.lab.kernel_lab3 [--device=cpu]
 

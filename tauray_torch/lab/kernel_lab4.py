@@ -13,8 +13,10 @@ variant at (TILE, KB, steps) = (32, 8, 6), (32, 16, 3) and (16, 8, 3) over
 
 On the script's inputs the exit never fires: a meta entry is a cluster id
 (< 636), below the bits of every t in (0, 1), so while and while2 equal
-fixed (ROADMAP Queue 3). On the card the exit is a vote of the tile's
-threads (__syncthreads_and) after the step (csrc/brick_lab.cu).
+fixed (ROADMAP Queue 3). On the card a warp walks a tile and the exit is
+its vote (__all_sync) after the step (csrc/brick_lab.cu
+brick_walk_kernel); the kernel takes the FMA body and is held to the plain
+version by brick.brick_agreement.
 
     python -m tauray_torch.lab.kernel_lab4 [--device=cpu]
 

@@ -7,8 +7,8 @@ t starts at 3e38 (t_max is not read) and the id at 0; the id column holds
 float(id), not its bits.
 
 The plain version takes the unfused bodies; the card's kernel (csrc/
-brick_lab.cu lab7_kernel) their FMA counterparts, so it is held to the
-plain version by lab7_agreement (common.tie_aware_hold).
+brick_lab.cu brick_walk_kernel) their FMA counterparts, so it is held to
+the plain version by lab7_agreement (brick.brick_agreement).
 
     python -m tauray_torch.lab.kernel_lab5 [--device=cpu]
 
@@ -21,9 +21,9 @@ import sys
 
 import torch
 
-from .brick import brick, entry_point, run_configs, walk_reference
-from .common import (BIG, CLUSTER, ROW, bw_fp64, lab7_inputs, mt_fp64,
-                     tie_aware_hold)
+from .brick import (brick, brick_agreement, entry_point, run_configs,
+                    walk_reference)
+from .common import lab7_inputs
 
 
 def lab7(meta: torch.Tensor, rays: torch.Tensor, tris: torch.Tensor,
@@ -44,27 +44,8 @@ def lab7_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays, tris,
                    body: str) -> dict:
     """The tie-aware hold of body's kernel output against its plain
     version (both (n_tiles, 32, 2): t, float(id)) on their inputs:
-    common.tie_aware_hold, a ray's winner, the order slot its id names,
-    analysed in FP64 (common.bw_fp64 or mt_fp64). A ray that hit nothing
-    keeps t = 3e38 (its id 0 is then no slot)."""
-    n_tiles = rays.shape[0]
-    C, nf = tris.shape[:2]
-    rows = tris.reshape(C, nf, CLUSTER)
-    m2 = meta.reshape(n_tiles, ROW)
-    r8 = rays.reshape(-1, 8)
-    test = bw_fp64 if body == "bw" else mt_fp64
-
-    def analyse(ray, ids):
-        c = (m2[ray // rays.shape[1], ids // CLUSTER] & 1023).clamp(
-            max=C - 1).long()
-        return test(rows[c, :, (ids % CLUSTER).long()], r8[ray, 0:3],
-                    r8[ray, 3:6], r8[ray, 6])
-
-    def flat(x):
-        t = x[..., 0].reshape(-1)
-        return t, torch.where(t < BIG, x[..., 1].reshape(-1).int(), -1)
-    t_start = torch.full_like(r8[:, 0], BIG)
-    return tie_aware_hold(*flat(out), *flat(ref), t_start, analyse)
+    brick.brick_agreement's for lab7."""
+    return brick_agreement("lab7", body, out, ref, meta, rays, tris)
 
 
 def run(device, reps: int = 5, tiles=None):

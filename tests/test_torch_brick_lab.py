@@ -345,41 +345,72 @@ def _dup_lab7(seed=21, n_tiles=16, kb=4, steps=3):
     return tris, _t(meta.reshape(-1)), _t(rays), kb, steps
 
 
-def workers_lab7(meta, rays, tris, body, kb, steps, R):
-    """A plain torch model of lab7_kernel's work split (unfused bodies):
-    worker w takes the quads q = w (mod R) of each step's kb clusters and
-    keeps the first smallest hit (strict <) of all its slots from t = 3e38;
-    the workers' bests meet by smallest t, then smallest slot, after the
-    last step. Returns what lab7 returns."""
+def workers_brick(lab, mode, meta, rays, tris, kb, steps, R, stats=None):
+    """A plain torch model of brick_walk_kernel's work split (unfused
+    bodies) at TILE = rays.shape[1] rays a tile and R rays a lane: worker w
+    of the 32 R / TILE takes the quads q = w (mod 32 R / TILE) of each
+    step's kb clusters and keeps the first smallest hit (strict <) of all
+    its slots from the start (min(t_max, 3e38), a NaN kept; L7 3e38);
+    while / while2 after every step / odd step meet each ray's t over its
+    workers (a minimum) and stop the tile once every ray's t bits are <=
+    the unclipped meta entry min((s + 1) kb, 1,023); the workers' bests
+    meet by smallest t, then smallest slot, after the walk, and cid
+    resolves the winning slot's cluster then. Returns what brick returns;
+    `stats` (a dict), when given, receives the steps the tiles walked."""
     from test_torch_lab import _first_min
-    n_tiles, C = rays.shape[0], tris.shape[0]
+    n_tiles, tile = rays.shape[:2]
+    C = tris.shape[0]
     rows = tris.reshape(C, tris.shape[1], common.CLUSTER)
     m2 = meta.reshape(n_tiles, common.ROW)
     bk = kb * common.CLUSTER
-    worker = torch.arange(bk) // 4 % R
-    test = brick._bw_test if body == "bw" else brick._mt_test
+    W = 32 * R // tile
+    worker = torch.arange(bk) // 4 % W
+    test = brick._bw_test if mode == "bw" else brick._mt_test
     inf = torch.tensor(float("inf"))
-    ct = torch.full((n_tiles, 32, R), float("inf"))
-    cs = torch.full((n_tiles, 32, R), 1 << 30)
+    tmax = rays[..., 7]
+    start = torch.full_like(tmax, common.BIG) if lab == "lab7" else \
+        torch.where(tmax > common.BIG, common.BIG, tmax)
+    ct = start[..., None].repeat(1, 1, W)
+    cs = torch.full((n_tiles, tile, W), -1)
     o = [rays[..., k, None] for k in range(3)]
     d = [rays[..., 3 + k, None] for k in range(3)]
     tmin = rays[..., 6, None]
+    vote = {"while": 1, "while2": 2}.get(mode)
+    walking = torch.ones(n_tiles, dtype=torch.bool)
+    walked = 0
     for s in range(steps):
-        orders = (m2[:, s * kb:(s + 1) * kb] & 1023).clamp(max=C - 1).long()
+        walked += int(walking.sum())
+        ent = m2[:, s * kb:(s + 1) * kb]
+        orders = ((ent & 1023).clamp(max=C - 1) if lab == "lab7" else
+                  ent.clamp(0, C - 1)).long()
         tri = rows[orders].permute(0, 2, 1, 3).reshape(n_tiles, -1, 1, bk)
         a, tt, uu, vv = test([tri[:, i] for i in range(tri.shape[1])], *o,
                              *d)
         hit = (a != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
-            (tt >= tmin) & (tt < common.BIG)
-        for w in range(R):
+            (tt >= tmin)
+        for w in range(W):
             t_w, arg = torch.where(hit & (worker == w), tt, inf).min(dim=2)
-            closer = t_w < ct[..., w]
+            closer = (t_w < ct[..., w]) & walking[:, None]
             ct[..., w] = torch.where(closer, t_w, ct[..., w])
             cs[..., w] = torch.where(closer, s * bk + arg, cs[..., w])
-    t, slot = _first_min(ct, cs)
-    hit = t < inf
-    return torch.stack([torch.where(hit, t, common.BIG),
-                        torch.where(hit, slot, 0).float()], -1)
+        if vote and s % vote == vote - 1:
+            best = ct.min(-1).values.view(torch.int32)
+            nxt = m2[:, min((s + 1) * kb, common.ROW - 1)]
+            walking &= ~(best <= nxt[:, None]).all(1)
+    if stats is not None:
+        stats["steps"] = walked
+    t, slot = _first_min(torch.where(cs >= 0, ct, inf),
+                         torch.where(cs >= 0, cs, 1 << 30))
+    won = slot < (1 << 30)
+    if mode == "cid":
+        c = torch.gather(m2, 1, torch.where(won, slot, 0) // common.CLUSTER)
+        slot = c.clamp(0, C - 1) * common.CLUSTER + slot % common.CLUSTER
+    if lab == "lab7":
+        return torch.stack([torch.where(won, t, common.BIG),
+                            torch.where(won, slot, 0).float()], -1)
+    ids = torch.where(won, slot, -1).int()
+    return torch.stack([torch.where(won, t, start), ids.view(torch.float32)],
+                       -1)
 
 
 @pytest.mark.parametrize("R", [1, 2, 4])
@@ -398,21 +429,26 @@ def test_lab7_worker_split_matches_reference(body, R):
                   _t(r), cfg.kb, cfg.steps))
     for tr, me, ra, kb_, st in cases:
         want = kernel_lab5.lab7_reference(me, ra, tr, body, kb_, st)
-        got = workers_lab7(me, ra, tr, body, kb_, st, R)
+        got = workers_brick("lab7", body, me, ra, tr, kb_, st, R)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     hits = want[..., 0] < common.BIG
     assert int(hits.sum()) > 100
 
 
-def _lab7_fma(monkeypatch, *args):
-    """lab7_reference with the card's FMA bodies (common.bw_test_fma,
+def _fma_walk(monkeypatch, lab, mode, *args, stats=None):
+    """walk_reference with the card's FMA bodies (common.bw_test_fma,
     mt_test_fma)."""
     monkeypatch.setattr(brick, "_bw_test", common.bw_test_fma)
     monkeypatch.setattr(brick, "_mt_test", common.mt_test_fma)
     try:
-        return kernel_lab5.lab7_reference(*args)
+        return brick.walk_reference(lab, mode, *args, stats=stats)
     finally:
         monkeypatch.undo()
+
+
+def _lab7_fma(monkeypatch, meta, rays, tris, body, kb, steps):
+    """lab7_reference with the card's FMA bodies."""
+    return _fma_walk(monkeypatch, "lab7", body, meta, rays, tris, kb, steps)
 
 
 @pytest.mark.parametrize("body", ["mt", "bw"])
@@ -491,6 +527,213 @@ def test_lab7_takes_32_ray_tiles_only():
         lab_kernel.check_brick("lab7", "mt", _t(meta[:16 * common.ROW]),
                                _t(rays[:32].reshape(-1, 16, 8)[:32]),
                                _t(tables["tris9"]), 8, 6)
+
+
+# ---------------------------------------------------------------------------
+# L5's and L6's walk on L7's design (csrc/brick_lab.cu brick_walk_kernel):
+# a warp a tile, R rays a lane at every TILE, running bests from
+# min(t_max, 3e38), one (t, slot) combine after the walk, the exit a warp
+# vote on each ray's t met over its workers; the FMA body, held tie-aware
+# by brick.brick_agreement
+# ---------------------------------------------------------------------------
+
+WALK_MODES = [("lab5", "mt"), ("lab6", "fixed"), ("lab6", "slot"),
+              ("lab6", "cid"), ("lab6", "while"), ("lab6", "while2")]
+
+
+def _dup_brick(tile, seed=21):
+    """The duplicate scene of _dup_lab7 for L5 and L6 at tile rays a
+    tile: tris9, meta naming cluster 0 at slot 0 and at the next step's
+    first slot and cluster 1 (cluster 0's copy) at slot 1 in every tile,
+    and the rays, those with t_max < t_min kept so (t_min 5, t_max 1) and
+    every 61st with a NaN t_max besides the NaN origins: (tris9, meta,
+    rays, kb, steps)."""
+    tris, _, rays, kb, steps = _dup_lab7(seed)
+    rays = rays.clone()
+    rays.view(-1, 8)[11::61, 7] = float("nan")
+    rays = rays.reshape(-1, tile, 8)
+    C = tris["mt"].shape[0]
+    meta = np.random.default_rng(seed).integers(
+        0, C, (rays.shape[0], common.ROW)).astype(np.int32)
+    meta[:, 0], meta[:, 1], meta[:, kb] = 0, 1, 0
+    return tris["mt"], _t(meta.reshape(-1)), rays, kb, steps
+
+
+def _walk_cases(tile, n=16):
+    """(meta, rays, tris9, kb, steps) on which the walk is held at tile
+    rays a tile: the duplicate scene, and the first n tiles of the
+    script's inputs (L6's (32, 8, 6) and (16, 8, 3), L5's (8, 2, 7)), each
+    also with the crafted meta where the exit fires."""
+    tris, meta, rays, kb, steps = _dup_brick(tile)
+    cases = [(meta, rays, tris, kb, steps),
+             (_t(_crafted(meta.numpy())), rays, tris, kb, steps)]
+    src = "lab5" if tile == 8 else "lab6"
+    cfg = next(c for c in CONFIGS[src] if c.tile == tile and
+               c.kb == (2 if tile == 8 else 8))
+    tables, m, r = _inputs(src, tile)
+    m, r, tris = m[:n * common.ROW], _t(r[:n]), _t(tables["tris9"])
+    cases += [(_t(mm), r, tris, cfg.kb, cfg.steps)
+              for mm in (m, _crafted(m))]
+    return cases
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("lab,mode", WALK_MODES)
+def test_walk_split_matches_reference(lab, mode, tile, R):
+    """The model of the card's split at TILE 8, 16 and 32 and R = 1, 2, 4
+    (32 R / TILE workers) equals walk_reference bit for bit, steps walked
+    included, on exact duplicate triangles within a quad, across workers,
+    within a step and across steps, on NaN rays and rays with t_max < t_min
+    or a NaN t_max, and on the script's first tiles, each with the crafted
+    meta too: while and while2 stop early there and nowhere else."""
+    fired = False
+    for meta, rays, tris, kb, steps in _walk_cases(tile):
+        st_p, st_m = {}, {}
+        want = brick.walk_reference(lab, mode, meta, rays, tris, kb, steps,
+                                    st_p)
+        got = workers_brick(lab, mode, meta, rays, tris, kb, steps, R, st_m)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert st_m == st_p
+        fired |= st_p["steps"] < rays.shape[0] * steps
+        assert brick.hits(want, _config("lab6", "fixed", 32, 8)) > 50
+    assert fired == mode.startswith("while")
+
+
+@pytest.mark.parametrize("lab,mode,tile,kb", [
+    ("lab5", "mt", 8, 1), ("lab5", "mt", 32, 1), ("lab6", "cid", 16, 8),
+    ("lab6", "while", 32, 8), ("lab6", "while2", 32, 8)])
+def test_brick_agreement_holds_the_fma_body(monkeypatch, lab, mode, tile,
+                                            kb):
+    """Every ray of the FMA body's results (emulated in FP64) meets a rule
+    of brick_agreement against the plain version, with t off by at most
+    1/2 of its bound, on the script's first tiles (256; 64 at TILE 32 KB 1)
+    and on the duplicate scene; while and while2 on the crafted meta (both
+    inputs), where the FMA walk needs the plain version's steps per tile
+    (walked_steps) and fewer than fixed."""
+    cfg = _config(lab, mode, tile, kb)
+    tables, meta, rays = _inputs(lab, tile)
+    n = 64 if cfg.steps > 26 else 256
+    meta = meta[:n * common.ROW]
+    if mode.startswith("while"):
+        meta = _crafted(meta)
+    tris, dmeta, drays, dkb, dsteps = _dup_brick(tile)
+    if mode.startswith("while"):
+        dmeta = _t(_crafted(dmeta.numpy()))
+    cases = [(_t(meta), _t(rays[:n]), _t(tables["tris9"]), cfg.kb,
+              cfg.steps), (dmeta, drays, tris, dkb, dsteps)]
+    for meta, rays, tris, kb_, steps in cases:
+        args = (meta, rays, tris, kb_, steps)
+        ref = brick.walk_reference(lab, mode, *args)
+        fma = _fma_walk(monkeypatch, lab, mode, *args)
+        walked = None
+        if mode.startswith("while"):
+            walked = [brick.walked_steps(lambda s, f=f: f(
+                meta, rays, tris, kb_, s), steps) for f in (
+                partial(_fma_walk, monkeypatch, lab, mode),
+                partial(brick.walk_reference, lab, mode))]
+        agree = brick.brick_agreement(lab, mode, fma, ref, meta, rays, tris,
+                                      walked, kb_)
+        assert agree["rays_off"] == 0 and agree["ill_conditioned"] <= 1 and \
+            agree["max_t_over_bound"] <= 0.5 and agree["ok"], agree
+        if walked is not None:
+            assert agree["steps_differ"] == 0
+            assert int(walked[0].sum()) < rays.shape[0] * steps
+
+
+@pytest.mark.parametrize("mode", ["fixed", "cid"])
+def test_brick_agreement_rules(mode):
+    """brick_agreement accepts a t one ulp off and a tie swap (a winner's
+    copy one quad over, or in cluster 1, cluster 0's copy), and refuses a
+    wrong slot or cluster id, a t off by more than its bound, and a tile
+    whose walked steps differ away from the exit's bound."""
+    tris, meta, rays, kb, steps = _dup_brick(32)
+    ref = brick.walk_reference("lab6", mode, meta, rays, tris, kb, steps)
+
+    def hold(out, walked=None):
+        return brick.brick_agreement("lab6", mode, out, ref, meta, rays,
+                                     tris, walked, kb)
+    assert hold(ref)["ok"]
+    flat = ref.reshape(-1, 2)
+    t, ids = flat[:, 0], flat[:, 1].view(torch.int32)
+    hit = ids >= 0
+    # a winner in cluster 0's quad 0 at slot 0 (its copy: quad 1, then
+    # cluster 1), and one far from any copy
+    dup = int(torch.nonzero(hit & (ids < 4)).reshape(-1)[0])
+    far = int(torch.nonzero(hit & (t > 0.5) & (ids >= 256)).reshape(-1)[0])
+
+    def moved(i, t_=None, id_=None):
+        out = flat.clone()
+        if t_ is not None:
+            out[i, 0] = t_
+        if id_ is not None:
+            out[i, 1] = torch.tensor([id_], dtype=torch.int32).view(
+                torch.float32)[0]
+        return out.reshape(ref.shape)
+    a = hold(moved(far, t_=float(np.nextafter(np.float32(t[far]),
+                                              np.float32(np.inf)))))
+    assert a["ok"] and a["t_bits_differ"] == 1
+    a = hold(moved(dup, id_=int(ids[dup]) + 4))
+    assert a["ok"] and a["ties"] == 1 and a["ill_conditioned"] == 0
+    a = hold(moved(dup, id_=int(ids[dup]) + 128))
+    assert a["ok"] and a["ties"] == 1
+    a = hold(moved(far, id_=int(ids[far]) + 37))
+    assert not a["ok"] and a["rays_off"] == 1
+    a = hold(moved(far, id_=-1))
+    assert not a["ok"] and a["rays_off"] == 1
+    f = brick.brick_agreement("lab6", mode, ref, ref, meta, rays, tris)
+    r8 = rays.reshape(-1, 8)
+    c = int(ids[far]) // 128 if mode == "cid" else int(
+        meta.reshape(-1, common.ROW)[far // 32, int(ids[far]) // 128])
+    b = common.mt_fp64(tris[c, :, 0, int(ids[far]) % 128][None],
+                       r8[[far], 0:3], r8[[far], 3:6], r8[[far], 6])
+    a = hold(moved(far, t_=float(t[far] + 4 * b["b_t"][0])))
+    assert f["ok"] and not a["ok"] and a["max_t_over_bound"] > 1
+    n = rays.shape[0]
+    same = torch.full((n,), steps)
+    assert hold(ref, (same, same))["steps_differ"] == 0
+    fewer = same.clone()
+    fewer[far // 32] = 1
+    a = hold(ref, (fewer, same))
+    assert not a["ok"] and a["steps_differ"] == 1 and a["steps_off"] == 1
+
+
+@pytest.mark.parametrize("names", [
+    {"brick_walk_kernelILi6ELi0ELi0ELi32ELi4EE": ("lab6 fixed TILE=32", 4,
+                                                  9),
+     "brick_walk_kernelILi6ELi0ELi1ELi8ELi2EE": ("lab6 cid TILE=8", 2, 9),
+     "brick_walk_kernelILi6ELi0ELi3ELi16ELi4EE": ("lab6 while2 TILE=16", 4,
+                                                  9),
+     "brick_walk_kernelILi7ELi2ELi0ELi32ELi4EE": ("lab7 bw", 4, 12),
+     "brick_kernelILb1ELi1ELi0EE": None},
+    {"brick_kernelILb0ELi0ELi0EE": ("lab6 fixed", 1, 9),
+     "brick_kernelILb0ELi0ELi2EE": ("lab6 while", 1, 9),
+     "lab7_kernelILi0ELi4EE": ("lab7 mt", 4, 9),
+     "brick_kernelILb1ELi0ELi0EE": None}],
+    ids=["this tree", "one slice older"])
+def test_lab_test_loops_names_the_brick_walks(monkeypatch, names):
+    """app/sass.lab_test_loops names L5-L7's instances of the walk (L6's
+    per variant and TILE, L5 being fixed's) and an older checkout's
+    brick_kernel (per variant, R = 1) and lab7_kernel, with their rays a
+    lane and instructions per test (9 row loads a pass: 4 R tests of
+    Möller-Trumbore, 3 R of Baldwin-Weber); L4's staged brick_kernel has no
+    entry."""
+    from test_torch_tile_lab import _SASS_LOOP
+    from tauray_torch.app import sass
+    monkeypatch.setattr(sass, "functions", lambda path: {
+        f"_ZN12_GLOBAL__N_1{len(n)}{n}EvPKiPKfS4_iiiiPf": _SASS_LOOP
+        for n in names})
+    loops = sass.lab_test_loops("lib.so")
+    assert set(loops) == {v[0] for v in names.values() if v}
+    for want in names.values():
+        if want is None:
+            continue
+        inst, rays, nf = want
+        st = loops[inst]
+        assert st["rays_a_lane"] == rays and st["loads128"] == 9
+        assert st["tests"] == pytest.approx(4 * rays * 9 / nf)
+        assert st["instructions_per_test"] == pytest.approx(
+            11 / (4 * rays * 9 / nf))
 
 
 # ---------------------------------------------------------------------------

@@ -703,15 +703,16 @@ def test_k1_lab_matches_plain_version(cuda, lab):
 @pytest.mark.parametrize("lab", ["lab4", "lab5", "lab6", "lab7"])
 def test_brick_lab_matches_plain_version(cuda, lab):
     """Every configuration of each brick lab's script main (csrc/
-    brick_lab.cu; L4 with k8 and k8f too) on the first 64 tiles of its
-    inputs against its plain version on the same card inputs: t and id bits
-    equal (-fmad=false); L7 (its kernel takes the FMA bodies) by
-    kernel_lab5.lab7_agreement on the first 1,024 tiles, as chip_smoke
-    holds it (its share of 1e-4 of the rays for a verdict that rounding
-    decides admits none on 2,048 rays); L6's while and while2 also where
-    the exit fires (every 8th meta entry 0x7f000000); each launch
+    brick_lab.cu) against its plain version on the same card inputs: L4
+    (with k8 and k8f too) on the first 64 tiles, t and id bits equal
+    (-fmad=false); L5-L7 (one walk, the FMA bodies) by
+    brick.brick_agreement, as chip_smoke holds them, L5 and L6 on all
+    65,536 rays, L7 on the first 1,024 tiles (the share of 1e-4 of the
+    rays for a verdict that rounding decides admits none on 2,048 rays);
+    L6's while and while2 also where the exit fires (every 8th meta entry
+    0x7f000000), their steps walked per tile held too; each launch
     counted."""
-    from tauray_torch.lab import brick, common, kernel_lab5, lab_kernel
+    from tauray_torch.lab import brick, common, lab_kernel
     tables, draws = {
         "lab4": lambda: common.lab4_inputs(
             ("k8", "k6", "k7", "k8f", "k6f", "k7f")),
@@ -720,41 +721,49 @@ def test_brick_lab_matches_plain_version(cuda, lab):
     tabs = {k: torch.from_numpy(v).to(cuda) for k, v in tables.items()}
     before = lab_kernel.LAUNCHES[lab]
     n = 0
-    tiles = 1024 if lab == "lab7" else 64
+    tiles = {"lab4": 64, "lab7": 1024}.get(lab)
     for cfg, meta, rays in draws:
-        meta = meta[:tiles * common.ROW]
+        tiles_ = tiles or cfg.n_tiles
+        meta = meta[:tiles_ * common.ROW]
         metas = [meta]
         if cfg.mode.startswith("while"):
             crafted = meta.copy()
             crafted[::8] = 0x7F000000
             metas.append(crafted)
-        r = torch.from_numpy(rays[:tiles]).to(cuda)
+        r = torch.from_numpy(rays[:tiles_]).to(cuda)
         tris = tabs["tris12" if cfg.mode == "bw" else "tris9"]
-        for m in metas:
+        for i, m in enumerate(metas):
             m = torch.from_numpy(m).to(cuda)
             args = (cfg.lab, cfg.mode, m, r, tris, cfg.kb, cfg.steps)
             got = brick.brick(*args)
             want = brick.walk_reference(*args)
             n += 1
-            if lab == "lab7":
-                agree = kernel_lab5.lab7_agreement(got, want, m, r, tris,
-                                                   cfg.mode)
-                assert agree["ok"], (cfg.label, agree)
-            else:
+            if lab == "lab4":
                 assert torch.equal(got.view(torch.int32),
                                    want.view(torch.int32)), cfg.label
+                continue
+            walked = None
+            if i:       # the exit fires: the steps each tile needed
+                walked = [brick.walked_steps(
+                    lambda s, f=f: f(*args[:5], cfg.kb, s), cfg.steps)
+                    for f in (brick.brick, brick.walk_reference)]
+                n += cfg.steps + 1
+                assert int(walked[0].sum()) < tiles_ * cfg.steps
+            agree = brick.brick_agreement(cfg.lab, cfg.mode, got, want, m, r,
+                                          tris, walked, cfg.kb)
+            assert agree["ok"], (cfg.label, agree)
     torch.cuda.synchronize()
     assert lab_kernel.LAUNCHES[lab] - before == n
 
 
 def test_fma_labs_redo_steps_with_odd_denominators(cuda):
-    """L9 full and L7 mt / bw on rays whose denominator leaves the
+    """L9 full, L7 mt / bw, L5 and L6 on rays whose denominator leaves the
     in-range reciprocal's range: directions scaled by 1e-39 (a subnormal
     den, where the kernels redo the step with __frcp_rn, here every step
     of every tile), NaN directions and axis-aligned ones against the
     Sponza table's axis-aligned walls (den NaN or exactly 0, a miss
     without a redo): held to the plain versions by the tie-aware rules."""
-    from tauray_torch.lab import common, kernel_lab5, kernel_lab9
+    from tauray_torch.lab import brick, common, kernel_lab5, kernel_lab9
     tracer = common.scene_tracer(cuda, "proc://sponza?tris=8192")
     o3, d3, mm2, heads = (torch.from_numpy(x).to(cuda) for x in
                           common.lab9_inputs(tracer.n_clusters, 4096,
@@ -787,6 +796,23 @@ def test_fma_labs_redo_steps_with_odd_denominators(cuda):
             got, kernel_lab5.lab7_reference(*args), meta, rays, tris,
             cfg.mode)
         assert agree["ok"], (cfg.label, agree)
+    for lab, inputs, picks in (
+            ("lab5", common.lab5_inputs, {("mt", 8, 1), ("mt", 32, 8)}),
+            ("lab6", common.lab6_inputs, {("cid", 32, 8), ("while", 16, 8)})):
+        tables, draws = inputs()
+        tris = torch.from_numpy(tables["tris9"]).to(cuda)
+        for cfg, meta, rays in draws:
+            if (cfg.mode, cfg.tile, cfg.kb) not in picks:
+                continue
+            meta = torch.from_numpy(meta).to(cuda)
+            rays = torch.from_numpy(rays).to(cuda).clone()
+            rays.view(-1, 8)[::13, 3:6] *= 1e-39
+            rays.view(-1, 8)[::17, 3:6] = float("nan")
+            args = (lab, cfg.mode, meta, rays, tris, cfg.kb, cfg.steps)
+            agree = brick.brick_agreement(
+                lab, cfg.mode, brick.brick(*args),
+                brick.walk_reference(*args), meta, rays, tris)
+            assert agree["ok"], (cfg.label, agree)
 
 
 @pytest.mark.parametrize("lab", ["lab1", "lab2", "lab3"])
