@@ -141,7 +141,9 @@ def _brick(dev, lab):
                                            ref.view(torch.int32)))
             return brick.brick_agreement(lab, cfg.mode, out[:n], ref, m, r,
                                          tris)
-        yield (lab, f"{cfg.label.strip()} steps={cfg.steps}",
+        key = f"{cfg.mode} KB={cfg.kb}" if lab == "lab7" else \
+            cfg.label.strip()
+        yield (lab, f"{key} steps={cfg.steps}",
                lambda meta=meta, rays=rays, tris=tris, cfg=cfg: brick.brick(
                    lab, cfg.mode, meta, rays, tris, cfg.kb, cfg.steps),
                hold, cfg.n_tiles * cfg.tile * cfg.steps * cfg.kb *

@@ -18,7 +18,7 @@
 // them), not their TPU schedules: no group of 32 tiles a grid step, no
 // meta copy into SMEM.
 //
-// L4 (brick_kernel, PR 12's design): one block of 8 warps walks one tile.
+// L4 (brick_kernel, the first design): one block of 8 warps walks one tile.
 // Each of a tile's rays takes P = 32 / TILE lanes of each warp (TILE 8, 16
 // or 32); its 8P workers split every step's KB * 128 triangles, 4 at a
 // time (float4 rows), worker q taking the quads q, q + 8P, ... in order.
@@ -36,8 +36,8 @@
 // below.
 //
 // L5, L6 and L7 (brick_walk_kernel<kLab, kBody, kVariant, kTile, R>, one
-// in-place walk; L7 redesigned in PR 14, L5 and L6 on its design since
-// PR 17; L5 runs L6 fixed's instance, as it computes its function):
+// in-place walk, L7's redesign for this card extended to L5 and L6; L5
+// runs L6 fixed's instance, as it computes its function):
 //   * A warp walks a tile, 4 tiles a block. Lane l is lane l % (TILE / R)
 //     of worker l / (TILE / R) and holds the R rays l % (TILE / R) + k TILE
 //     / R, k < R: TILE 32 gives 4 workers of 8 lanes, TILE 16 8 of 4,
@@ -70,24 +70,29 @@
 //     step, as int32 bits (-1: none); cid resolves it after the combine to
 //     the slot's clipped cluster x 128 + lane; L7 writes float(slot), 0 on
 //     a miss.
-//   * R by TILE (kRays8, kRays16, 4 at TILE 32; L7 takes TILE 32 only):
-//     chosen by measurement, app/lab_bench.py against builds with the
-//     other R (PERF.md, PR 17).
+//   * R by TILE (kRays8, kRays16, 4 at TILE 32; L7 takes TILE 32 only),
+//     chosen by measurement (app/lab_bench.py against builds with the
+//     other R, back to back, NVIDIA H100 80GB HBM3 at 700 W): R = 4 at
+//     every TILE. At TILE 32 it ran 3-4% ahead of R = 2 (L7's walk); at
+//     TILE 16 2.5-3.4% ahead of R = 2 and 0.9-1.3% ahead of R = 8; at
+//     TILE 8 within 0.5% of R = 2 and 2.3-3.2% ahead of R = 8 (the 16
+//     workers' per-step work, a meta read, the snapshot and the vote, does
+//     not show).
 // The results are the scripts' raw (n_tiles, TILE, 2) f32 blocks: t, then
 // the id's int32 bits (L7: float(id)).
 //
 // What bounds it on the card: the FP32 instruction rate (46 operations a
 // Möller-Trumbore test, 49 deferred-division, 32 Baldwin-Weber); the bytes
-// are the rays and a few meta entries a tile. PR 12's loop took 79.25 SASS
-// instructions a Möller-Trumbore test (unfused, one ray a lane, __frcp_rn's
-// range test and branch in every test, a block barrier a step in while
-// and while2); the walk takes about 46 (mt) and 32 (bw) (phase 2 of
-// chip_smoke.py): the FMA bodies (bw_hit_fma, mt_hit_fma: 17 and 31 FP32
-// instructions, not 31 and 45), 4R tests a load, loop and address step,
-// and __frcp_rn's in-range fast path alone. The reciprocal stays
+// are the rays and a few meta entries a tile. The first design's loop took
+// 79.25 SASS instructions a Möller-Trumbore test (unfused, one ray a lane,
+// __frcp_rn's range test and branch in every test, a block barrier a step
+// in while and while2); the walk takes about 46 (mt) and 32 (bw) (phase 2
+// of chip_smoke.py): the FMA bodies (bw_hit_fma, mt_hit_fma: 17 and 31
+// FP32 instructions, not 31 and 45), 4R tests a load, loop and address
+// step, and __frcp_rn's in-range fast path alone. The reciprocal stays
 // correctly rounded, so that t differs from the unfused version's only by
-// the FMAs' roundings, which the tie-aware hold bounds
-// (lab/brick.py brick_agreement).
+// the FMAs' roundings, which the tie-aware hold bounds (lab/brick.py
+// brick_agreement).
 //
 // Built with -fmad=false (trace_kernel.NVCC_FLAGS): L4's arithmetic rounds
 // like its plain torch version in lab/brick.py. The walk's FMAs are written

@@ -240,6 +240,7 @@ def run_configs(device, tables, draws, reps: int, tiles=None):
         meta = torch.from_numpy(meta).to(device)
         rays = torch.from_numpy(rays).to(device)
         tris = tabs["tris12" if cfg.mode == "bw" else "tris9"]
+
         def call():
             return brick(cfg.lab, cfg.mode, meta, rays, tris, cfg.kb,
                          cfg.steps)

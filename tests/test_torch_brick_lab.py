@@ -20,6 +20,11 @@ key as t sees it, since an FMA can move t across a quantum: 1,024, or
 fault 3, and a crossing then moves the key by two quanta; 2 rays of 512 at
 TILE 8).
 
+The card's walk of L5-L7 (csrc/brick_lab.cu brick_walk_kernel) is held
+here through a plain model of its work split (workers_brick), equal to the
+plain version bit for bit under the unfused body, and through
+brick.brick_agreement, the tie-aware hold that its FMA body meets.
+
 The faults of the scripts that the port keeps (ROADMAP Queue 3) each have
 a test: mtfast's t < 0 for back-facing hits, its lane bit 10 lost at
 KB = 16, and L6's exit that never fires on the script's own meta. The
@@ -316,9 +321,9 @@ def test_hold_flags_a_wrong_id():
 
 
 # ---------------------------------------------------------------------------
-# L7's redesigned kernel (csrc/brick_lab.cu lab7_kernel): R rays a lane,
-# each step's quads split over R workers, their bests combined by (t,
-# slot) after the last step; the FMA bodies, held tie-aware
+# L7 on the card's walk (csrc/brick_lab.cu brick_walk_kernel): R rays a
+# lane, each step's quads split over R workers, their bests combined by
+# (t, slot) after the last step; the FMA bodies, held tie-aware
 # ---------------------------------------------------------------------------
 
 def _dup_lab7(seed=21, n_tiles=16, kb=4, steps=3):
