@@ -10,13 +10,15 @@ non-zero:
      K1-K5), the K1 labs (csrc/k1_lab.cu), the brick labs
      (csrc/brick_lab.cu), the tile labs (csrc/tile_lab.cu) and the Plücker
      lab (csrc/mxu_lab.cu; one nvcc per source, started together) and print
-     what ptxas reports, and the SASS of each K1-K5 and L4 instance's
-     inner test loop (cuobjdump) and of the redesigned labs' L9, L5-L7
-     (each instance of the walk, L6's per variant and TILE), L10 and L1
-     k3, L2 and L3 (app/sass.lab_test_loops: instructions per test); any
-     spill or shared load narrower than 16 bytes in a test loop of
-     trace_tiles fails, as does a spill in an instance of L9's, L5-L7's,
-     L10's or L1-L3's kernel, or more than 128 registers in L5-L7's;
+     what ptxas reports, and the SASS of each K1-K5 instance's inner
+     test loop (cuobjdump) and of the redesigned labs' L9, L4-L7 (each
+     instance of the walk, L4's per body and TILE, L6's per variant and
+     TILE), L10, L11 vpu and mxu and L1 k3, L2 and L3
+     (app/sass.lab_test_loops: instructions per test) and the registers
+     of the walk and of L11's kernels; any spill or shared load narrower
+     than 16 bytes in a test loop of trace_tiles fails, as does a spill in
+     an instance of L9's, L4-L7's, L10's, L11's or L1-L3's kernel, or more
+     than 128 registers in L4-L7's;
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
@@ -180,7 +182,9 @@ non-zero:
      steps a tile), L10 (phase 3's sorted 2^18- and 2^20-ray bounce
      waves, 4 modes), L11 (4,096 tiles x 8 steps, vpu and mxu); then each
      mode held to its plain version on the same inputs, bit for bit (L9
-     and L10 on 32,768 rays of each input), L11 mxu tie-aware (t within
+     and L10 on 32,768 rays of each input), L11 vpu (FMA body) by
+     kernel_lab11.vpu_agreement (the rules of L9's below), L11 mxu
+     tie-aware (t within
      1e-5 of max(1, |t|), or on at most 1e-4 of the rays, ill-conditioned,
      within the TF32 split's error bound of t in FP64; a differing id only
      at a tie; kernel_lab11.mxu_agreement), L9's modes with a test (FMA
@@ -203,13 +207,18 @@ non-zero:
      runs of one call, and of 5 windows of 20 calls back to back) with its
      bound, the launches counted over that run alone: L4 (k6, k7, k6f, k7f
      at KB 4, 8, 16), L5 (TILE 8, 16, 32 x KB 1, 2, 4, 8), L6 (5 variants
-     x 3 shapes), L7 (mt and bw x 3); each held to its plain version: L4
-     bit for bit, L5-L7 (one walk, the FMA bodies) by
-     brick.brick_agreement (phase 20's rule; L5 and L6 on all 65,536
-     rays, L7 on 1,024 tiles of each), and again with subnormal and NaN
-     denominators (L5 at TILE 32 KB 1 and TILE 8 KB 1, L6's five variants
-     at its headline shape, L7 at KB 8 steps 6); mtfast's rays with t < 0
-     counted, and L6 while / while2 on a meta where the exit fires, held
+     x 3 shapes), L7 (mt and bw x 3); each held to its plain version (one
+     walk, the FMA bodies): L4 mt, L5-L7 by brick.brick_agreement (phase
+     20's rule; L4-L6 on all 65,536 rays, L7 on 1,024 tiles of each), L4
+     mtfast by brick.mtfast_agreement (t's bits within a key quantum, two
+     where both keys carry bit 10, the sign of t equal on every ray, ids
+     equal but on at most 1e-4 of the rays where FP64 puts a winner's test
+     or the keys' order within rounding of turning), and again with
+     subnormal and NaN denominators (L4 mt and mtfast at k7 KB 4, L5 at
+     TILE 32 KB 1 and TILE 8 KB 1, L6's five variants at its headline
+     shape, L7 at KB 8 steps 6); mtfast's rays with t < 0 counted beside
+     the plain version's, and L6 while / while2 on a meta where the exit
+     fires, held
      the same way with the steps walked per tile (brick.walked_steps) held
      to the plain version's, and walking fewer steps and hitting less than
      fixed;
@@ -2078,9 +2087,13 @@ def lab_phase(dev, tracer, bounce):
         def plain():
             return l11.lab11_reference(in11["steps"], in11["rays"], tris,
                                        r["mode"])
-        extra = {}
-        if r["mode"] == "vpu":
-            ms, err = hold("lab11 vpu", r["out"], plain)
+        if r["mode"] == "vpu":     # the FMA body: tie-aware
+            ref, ms = timed(plain)
+            extra = l11.vpu_agreement(r["out"], ref, in11["rays"],
+                                      in11["tris12"])
+            err = extra["max_abs_t"]
+            if not extra["ok"]:
+                failures.append(f"lab11 vpu: {extra}")
         else:
             ref, ms = timed(plain)
             extra = l11.mxu_agreement(r["out"], ref, in11["rays"],
@@ -2127,41 +2140,14 @@ BRICK_SITES = {"lab4": "scripts/kernel_lab2.py:234",
 # top of each lab's kernels-line row: bounds.CONFIGS's
 BRICK_HEADLINE = {"lab4": ("mt", 32, 4, 13), "lab5": ("mt", 32, 1, 52),
                   "lab6": ("fixed", 32, 8, 6), "lab7": ("mt", 32, 8, 6)}
-# brick_kernel<kStaged, kBody, kVariant>'s mangled template arguments
-# (L4's instances; L5-L7 run brick_walk_kernel, app/sass.lab_test_loops)
-_BRICK_TARGS = re.compile(r"brick_kernelILb([01])ELi(\d)ELi(\d)E")
-_BRICK_INSTANCES = {(1, 0, 0): "lab4 mt", (1, 1, 0): "lab4 mtfast"}
-
-
-def brick_sass(lib_path: str):
-    """{instance: its test loop's statistics}: of the innermost loops of
-    each brick_kernel instance (L4), the one with the most 16-byte row
-    loads (LDS.128 from the staged buffer), its instructions, the tests a
-    pass makes (4 a load of each of the 9 rows) and the instructions per
-    test."""
-    from tauray_torch.app import sass as sass_mod
-    out = {}
-    for name, chunk in sass_mod.functions(lib_path).items():
-        targs = _BRICK_TARGS.search(name)
-        if targs is None:
-            continue
-        best = sass_mod.row_loop(chunk)
-        wide = sum(bool(re.match(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b", o))
-                   for o in best)
-        tests = 4 * wide / 9
-        out[_BRICK_INSTANCES[tuple(int(g) for g in targs.groups())]] = dict(
-            loop_instructions=len(best), loads128=wide, tests=tests,
-            instructions_per_test=len(best) / tests if tests else None)
-    return out
-
-
 def brick_phase(dev):
     """Phase 21: L4-L7 through their entry points' run() at the scripts'
     sizes, every configuration of each main timed (one call, and back to
     back); the launches counted over that run alone. Then each
-    configuration held to its plain version on the same inputs: L4 bit for
-    bit, L5-L7 by brick.brick_agreement (L7 on LAB_SLICE_TILES tiles of
-    each); L5-L7 again on odd denominators; and L6's while / while2 on a
+    configuration held to its plain version on the same inputs by
+    brick.agreement (L4 mtfast by mtfast_agreement; L4 mt and L5-L7 by
+    brick_agreement, L7 on LAB_SLICE_TILES tiles of each); L4 at k7 KB 4
+    and L5-L7 again on odd denominators; and L6's while / while2 on a
     meta where the exit fires (every 8th entry 0x7f000000, at the
     headline's inputs), held the same way with their steps walked per
     tile, and walking fewer steps and hitting less than fixed. Returns the
@@ -2188,22 +2174,15 @@ def brick_phase(dev):
 
     def hold(tag, cfg, out, plain, meta, rays, tris, steps=None):
         """(plain ms, max |t - t_plain|, the hold's record): plain()
-        against the kernel's out on their inputs, L4 t and id bits alike,
-        L5-L7 by brick_agreement (with steps: both sides' walked
-        steps)."""
+        against the kernel's out on their inputs, by brick.agreement (L4
+        mtfast by mtfast_agreement, the others by brick_agreement; with
+        steps: both sides' walked steps)."""
         ref, ms = timed(plain)
-        if cfg.lab == "lab4":
-            off = int((out.view(torch.int32) != ref.view(torch.int32)).any(
-                -1).sum())
-            if off:
-                failures.append(f"{tag}: {off} rays depart from the plain "
-                                f"version")
-            return ms, float((out[..., 0] - ref[..., 0]).abs().max()), {}
-        agree = brick.brick_agreement(cfg.lab, cfg.mode, out, ref, meta,
-                                      rays, tris, steps, cfg.kb)
+        agree = brick.agreement(cfg.lab, cfg.mode, out, ref, meta, rays,
+                                tris, cfg.kb, steps)
         if not agree["ok"]:
             failures.append(f"{tag}: {agree}")
-        return ms, agree["max_abs_t"], agree
+        return ms, float((out[..., 0] - ref[..., 0]).abs().max()), agree
 
     for lab, rs in res.items():
         for r in rs:
@@ -2225,15 +2204,16 @@ def brick_phase(dev):
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      plain_ms=ms, plain_rays=n * c.tile, max_abs_err=err,
                      hits=brick.hits(r["out"], c), **agree)
-            if c.mode == "mtfast":
-                e["t_negative"] = int((r["out"][..., 0] < 0).sum())
+            if c.mode == "mtfast":     # the kernel's, the plain version's
+                e["t_negative"], e["t_negative_plain"] = agree["t_negative"]
             e["headline"] = (c.mode, c.tile, c.kb, c.steps) == \
                 BRICK_HEADLINE[lab]
             configs.setdefault(lab, {})[key] = e
             print(f"phase 21 {lab} {key} " + json.dumps(e), flush=True)
-    # the walk's redo of a step with __frcp_rn: every 13th direction scaled
-    # by 1e-39 (a subnormal den), every 17th NaN
-    odd_runs = {"lab5": (("mt", 32, 1, 52), ("mt", 8, 1, 14)),
+    # the walk's redo of a step (L4: a cluster) with __frcp_rn: every 13th
+    # direction scaled by 1e-39 (a subnormal den), every 17th NaN
+    odd_runs = {"lab4": (("mt", 32, 4, 13), ("mtfast", 32, 4, 13)),
+                "lab5": (("mt", 32, 1, 52), ("mt", 8, 1, 14)),
                 "lab6": tuple((v, 32, 8, 6) for v in (
                     "fixed", "slot", "cid", "while", "while2")),
                 "lab7": (("mt", 32, 8, 6), ("bw", 32, 8, 6))}
@@ -2249,9 +2229,9 @@ def brick_phase(dev):
             rays.view(-1, 8)[::17, 3:6] = float("nan")
             args = (lab, c.mode, r["meta"][:n * ROW], rays, r["tris"], c.kb,
                     c.steps)
-            odd = brick.brick_agreement(*args[:2], brick.brick(*args),
-                                        brick.walk_reference(*args),
-                                        *args[2:5])
+            odd = brick.agreement(*args[:2], brick.brick(*args),
+                                  brick.walk_reference(*args), *args[2:5],
+                                  c.kb)
             tag = f"{lab} {c.label.strip()} steps={c.steps} odd denominators"
             print(f"phase 21 {tag} " + json.dumps(odd), flush=True)
             if not odd["ok"]:
@@ -2569,39 +2549,40 @@ def main() -> int:
             sass.update(sass_loops(str(info["path"])))
     for fn, st in sorted(sass.items()):
         print(f"phase 2 sass {fn}: " + json.dumps(st), flush=True)
-    for inst, st in sorted(brick_sass(str(
-            trace_kernel.BUILD_INFO["brick_lab"]["path"])).items()):
-        print(f"phase 2 sass brick_lab {inst}: " + json.dumps(st),
-              flush=True)
-    # the redesigned labs' kernels (L9, L7, L10, L1-L3): SASS a test, and
-    # no spill (L1-L3: the six instances of tile_walk_kernel, three with a
-    # test)
+    # the redesigned labs' kernels (L9, L4-L7, L10, L11, L1-L3): SASS a
+    # test, and no spill (L1-L3: the six instances of tile_walk_kernel,
+    # three with a test)
     from tauray_torch.app import sass as sass_mod
     lab_sass, spilled = {}, {}
     for lib in ("k1_lab", "brick_lab", "tile_lab"):
         info = trace_kernel.BUILD_INFO[lib]
         lab_sass.update(sass_mod.lab_test_loops(str(info["path"])))
         spilled.update(sass_mod.spills(
-            str(info["log"]),
-            r"lab9_kernel|brick_walk_kernel|lab10_kernel|tile_walk_kernel"))
+            str(info["log"]), r"lab9_kernel|brick_walk_kernel|lab10_kernel|"
+                              r"lab11_|tile_walk_kernel"))
     walk_regs = sass_mod.registers(
         str(trace_kernel.BUILD_INFO["brick_lab"]["log"]), r"brick_walk_kernel")
+    l11_regs = sass_mod.registers(
+        str(trace_kernel.BUILD_INFO["k1_lab"]["log"]), r"lab11_")
     for inst, st in sorted(lab_sass.items()):
         print(f"phase 2 sass {inst}: " + json.dumps(st), flush=True)
     print("phase 2 spills " + json.dumps(spilled), flush=True)
     print("phase 2 registers brick_walk_kernel " + json.dumps(walk_regs),
           flush=True)
-    # L9 5 modes, L10 4, L1-L3 3 with a test; the walk: L7 2, L6 4 x 3
-    # tiles; spills: L9 5, L10 4, the tile walk 6, the brick walk 14
+    print("phase 2 registers lab11 " + json.dumps(l11_regs), flush=True)
+    # L9 5 modes, L10 4, L11 2, L1-L3 3 with a test; the walk: L4 2 x 3
+    # tiles, L7 2, L6 4 x 3 tiles; spills: L9 5, L10 4, L11 2, the tile walk
+    # 6, the brick walk 20
     walk_insts = {f"lab6 {v} TILE={t}" for v in sass_mod.VARIANTS
-                  for t in (8, 16, 32)} | {"lab7 mt", "lab7 bw"}
-    if len(lab_sass) != 26 or len(spilled) != 29 or any(spilled.values()) \
-            or not {"lab1 k3", "lab2", "lab3"} | walk_insts <= \
-            set(lab_sass) or len(walk_regs) != 14 or \
-            max(walk_regs.values()) > 128:
+                  for t in (8, 16, 32)} | {"lab7 mt", "lab7 bw"} | {
+        f"lab4 {b} TILE={t}" for b in ("mt", "mtfast") for t in (8, 16, 32)}
+    if len(lab_sass) != 34 or len(spilled) != 37 or any(spilled.values()) \
+            or not {"lab1 k3", "lab2", "lab3", "lab11 vpu", "lab11 mxu"} | \
+            walk_insts <= set(lab_sass) or len(walk_regs) != 20 or \
+            max(walk_regs.values()) > 128 or len(l11_regs) != 2:
         raise RuntimeError(f"the redesigned labs' instances: "
                            f"{sorted(lab_sass)}, spills {spilled}, "
-                           f"registers {walk_regs}")
+                           f"registers {walk_regs}, {l11_regs}")
     if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
         raise RuntimeError("not every instance of trace_tiles has a test "
                            "loop of 16-byte shared loads only")

@@ -1,42 +1,46 @@
-"""Times the labs redesigned for this card, L9 and L10 (csrc/k1_lab.cu
-lab9_kernel, lab10_kernel), L5-L7 (csrc/brick_lab.cu brick_walk_kernel) and
-L1-L3 (csrc/tile_lab.cu tile_walk_kernel), and L4 (brick_lab.cu
-brick_kernel), against an older checkout's kernels on the same inputs, in
-turns, on one CUDA card.
+"""Times the labs redesigned for this card, L9, L10 and L11 (csrc/k1_lab.cu
+lab9_kernel, lab10_kernel, lab11_vpu_kernel, lab11_mxu_kernel), L4-L7
+(csrc/brick_lab.cu brick_walk_kernel) and L1-L3 (csrc/tile_lab.cu
+tile_walk_kernel), against an older checkout's kernels on the same inputs,
+in turns, on one CUDA card.
 
     python -m tauray_torch.app.lab_bench --parent DIR [--reps N]
         [--labs lab4,lab5,...]
 
 DIR is a checkout of the repo (an unpacked `git archive` of an older
-commit in a git-ignored directory). Its csrc/k1_lab.cu, brick_lab.cu and
-tile_lab.cu (those that --labs needs; default every lab) are built with
-this tree's nvcc flags (ops/trace_kernel.NVCC_FLAGS) into
-DIR/tauray_torch/_build/; their C interfaces are this tree's, so this
-tree's wrappers launch either library (L10 is launched with K1's W,
-trace_kernel.bw_warps, which an older L10 reads and this tree's ignores,
-and with kernel_lab10.walk_order, computed once a wave outside the timing,
-which an older L10 does not read). Every configuration of the labs' mains
-at the scripts' sizes (L9: 2^20 rays on proc://sponza?tris=262144's
-table, 5 modes at 8, 16 and 32 clusters a tile; L4: k6, k7, k6f, k7f at KB
-4, 8, 16; L5: TILE 8, 16, 32 x KB 1, 2, 4, 8; L6: 5 variants at (TILE, KB)
-(32, 8), (32, 16), (16, 8), each over 65,536 rays; L7: 32,768 tiles of
-32, mt and bw at (KB, steps) (8, 6), (8, 4), (4, 8); L1: k0 and k1 at 0
-and 1 steps, k2 and k3 at 0, 1, 2, 4 and 8, L2: k4 and L3: k5 at G 8 and
-32 at 0, 1, 2, 4 and 8 steps, over the script's 512 tiles; L10: its 4
-modes on the sorted bounce waves of 2^18 and 2^20 rays) is timed with
-CUDA events (median of --reps single calls after a warm-up; L1-L7 also
-back to back, common.time_back_to_back) in the order parent, this tree,
-this tree, parent. Both sides are held to the plain versions first
-(kernel_lab9.lab9_agreement; L4 bit for bit; L5 and L6 by
-brick.brick_agreement on every ray, or bit for bit for a parent whose
+commit in a git-ignored directory, or a copy of this tree built another
+way). Its csrc/k1_lab.cu, brick_lab.cu and tile_lab.cu (those that --labs
+needs; default every lab) are built with this tree's nvcc flags
+(ops/trace_kernel.NVCC_FLAGS) into DIR/tauray_torch/_build/; their C
+interfaces are this tree's, so this tree's wrappers launch either library
+(L10 is launched with K1's W, trace_kernel.bw_warps, which an older L10
+reads and this tree's ignores, and with kernel_lab10.walk_order, computed
+once a wave outside the timing, which an older L10 does not read). Every
+configuration of the labs' mains at the scripts' sizes (L9: 2^20 rays on
+proc://sponza?tris=262144's table, 5 modes at 8, 16 and 32 clusters a
+tile; L4: k6, k7, k6f, k7f at KB 4, 8, 16; L5: TILE 8, 16, 32 x KB 1, 2,
+4, 8; L6: 5 variants at (TILE, KB) (32, 8), (32, 16), (16, 8), each over
+65,536 rays; L7: 32,768 tiles of 32, mt and bw at (KB, steps) (8, 6), (8,
+4), (4, 8); L1: k0 and k1 at 0 and 1 steps, k2 and k3 at 0, 1, 2, 4 and
+8, L2: k4 and L3: k5 at G 8 and 32 at 0, 1, 2, 4 and 8 steps, over the
+script's 512 tiles; L10: its 4 modes on the sorted bounce waves of 2^18
+and 2^20 rays; L11: vpu and mxu over 4,096 tiles x 8 steps) is timed with
+CUDA events (median of --reps single calls after a warm-up; L1-L7 and L11
+also back to back, common.time_back_to_back) in the order parent, this
+tree, this tree, parent. Both sides are held to the plain versions first
+(kernel_lab9.lab9_agreement; L4 by brick.agreement on every ray, mtfast
+by mtfast_agreement, which an unfused parent meets bit for bit; L5 and L6
+by brick.brick_agreement on every ray, or bit for bit for a parent whose
 brick_lab has no brick_walk_kernel (an unfused kernel); L7 by
 brick.brick_agreement on the first 1,024 tiles; L9 loads bit for bit; L1
 k0-k2 bit for bit and k3-k5 by kernel_lab.lab3_agreement on every tile;
 kernel_lab10.lab10_agreement on 1,024 tiles from the wave's middle,
-nowrite against the same side's full). It prints, one JSON object a line:
-the card's name and power limit, each library's test loops
-(app/sass.lab_test_loops: instructions per test), then per configuration
-the two sides' times, Gtests/s and share of the bound."""
+nowrite against the same side's full; L11 vpu by
+kernel_lab11.vpu_agreement, mxu by kernel_lab11.mxu_agreement, on every
+ray). It prints, one JSON object a line: the card's name and power limit,
+each library's test loops (app/sass.lab_test_loops: instructions per
+test), then per configuration the two sides' times, Gtests/s and share of
+the bound."""
 
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from tauray_torch.lab import brick, common, lab_kernel
 from tauray_torch.lab import kernel_lab as l3
 from tauray_torch.lab import kernel_lab9 as l9
 from tauray_torch.lab import kernel_lab10 as l10
+from tauray_torch.lab import kernel_lab11 as l11
 from tauray_torch.lab.bounds import brick_bound, tile_bound
 from tauray_torch.ops import trace_kernel as tk
 
@@ -61,7 +66,8 @@ LIBS = ("k1_lab", "brick_lab", "tile_lab")
 # each lab's library, in the order configs times them
 LAB_LIB = {"lab9": "k1_lab", "lab4": "brick_lab", "lab5": "brick_lab",
            "lab6": "brick_lab", "lab7": "brick_lab", "lab1": "tile_lab",
-           "lab2": "tile_lab", "lab3": "tile_lab", "lab10": "k1_lab"}
+           "lab2": "tile_lab", "lab3": "tile_lab", "lab10": "k1_lab",
+           "lab11": "k1_lab"}
 SLICE = 1024  # tiles of each hold
 TILE_LAB = {"k0": "lab1", "k1": "lab1", "k2": "lab1", "k3": "lab1",
             "k4": "lab2", "k5": "lab3"}
@@ -119,9 +125,9 @@ def _lab9(dev):
 
 
 def _brick(dev, lab):
-    """L4-L7's configurations: L4 held bit for bit, L5 and L6 on every ray
-    by brick_agreement (bit for bit where exact), L7 on its first SLICE
-    tiles by brick_agreement."""
+    """L4-L7's configurations: L4 held by brick.agreement, L5 and L6 on
+    every ray by brick_agreement (bit for bit where exact), L7 on its first
+    SLICE tiles by brick_agreement."""
     tables, draws = {"lab4": common.lab4_inputs, "lab5": common.lab5_inputs,
                      "lab6": common.lab6_inputs,
                      "lab7": common.lab7_inputs}[lab]()
@@ -136,11 +142,11 @@ def _brick(dev, lab):
                                    cfg.steps)
 
         def hold(out, exact, m=m, r=r, tris=tris, ref=ref, cfg=cfg, n=n):
-            if lab == "lab4" or (exact and lab != "lab7"):
+            if exact and lab in ("lab5", "lab6"):
                 return dict(ok=torch.equal(out.view(torch.int32),
                                            ref.view(torch.int32)))
-            return brick.brick_agreement(lab, cfg.mode, out[:n], ref, m, r,
-                                         tris)
+            return brick.agreement(lab, cfg.mode, out[:n], ref, m, r, tris,
+                                   cfg.kb)
         key = f"{cfg.mode} KB={cfg.kb}" if lab == "lab7" else \
             cfg.label.strip()
         yield (lab, f"{key} steps={cfg.steps}",
@@ -208,6 +214,25 @@ def _lab10(dev):
                    l10.lab10_bound(counts, mode, tracer.n_clusters)[0])
 
 
+def _lab11(dev):
+    steps, rays, tris12, m = (torch.from_numpy(x).to(dev)
+                              for x in common.lab11_inputs())
+    n_tiles, n_steps = steps.shape[0], int(steps[0])
+    for mode, tris in (("vpu", tris12), ("mxu", m)):
+        ref = l11.lab11_reference(steps, rays, tris, mode)
+
+        def hold(out, exact, mode=mode, ref=ref):
+            if mode == "vpu":
+                return l11.vpu_agreement(out, ref, rays, tris12)
+            return l11.mxu_agreement(out, ref, rays, m)
+        yield ("lab11", mode,
+               lambda mode=mode, tris=tris: l11.lab11(steps, rays, tris,
+                                                      mode),
+               hold, n_tiles * n_steps * common.KBV * common.CLUSTER *
+               common.TILE,
+               l11.lab11_bound(n_tiles, n_steps, tris.shape[0], mode)[0])
+
+
 def configs(dev, labs=tuple(LAB_LIB)):
     """(lab, key, launch(), hold(out, exact) -> dict, tests, bound ms) of
     every configuration the mains of labs run, in LAB_LIB's order; exact
@@ -221,6 +246,8 @@ def configs(dev, labs=tuple(LAB_LIB)):
         yield from _tile(dev, labs)
     if "lab10" in labs:
         yield from _lab10(dev)
+    if "lab11" in labs:
+        yield from _lab11(dev)
 
 
 def main(argv=None) -> int:

@@ -18,39 +18,23 @@
 // them), not their TPU schedules: no group of 32 tiles a grid step, no
 // meta copy into SMEM.
 //
-// L4 (brick_kernel, the first design): one block of 8 warps walks one tile.
-// Each of a tile's rays takes P = 32 / TILE lanes of each warp (TILE 8, 16
-// or 32); its 8P workers split every step's KB * 128 triangles, 4 at a
-// time (float4 rows), worker q taking the quads q, q + 8P, ... in order.
-// The next step's KB x 9 rows (4.5 KB a cluster) are staged into a shared
-// double buffer with cp.async 16-byte copies while the step tests the other
-// (KB 16: 144 KB, one block an SM). mt keeps a running best per worker,
-// combined once after the last step (shuffles over the P lanes, shared
-// memory over the warps); mtfast tests every triangle of a step against
-// the best from before it, and its keys meet in one int32 minimum over the
-// tile's workers each step, so the faults kept from the script (t < 0
-// where a < 0; lane bit 10 lost at KB = 16) come out as the script has
-// them. Built unfused (-fmad=false, IEEE divisions): t and ids compare bit
-// for bit with the plain version. Only L4 instantiates it; its unstaged
-// path and its variants were L5's and L6's until they moved to the walk
-// below.
-//
-// L5, L6 and L7 (brick_walk_kernel<kLab, kBody, kVariant, kTile, R>, one
-// in-place walk, L7's redesign for this card extended to L5 and L6; L5
-// runs L6 fixed's instance, as it computes its function):
+// L4-L7 (brick_walk_kernel<kLab, kBody, kVariant, kTile, R>, one walk,
+// L7's redesign for this card extended to L5 and L6, then to L4; L5 runs
+// L6 fixed's instance, as it computes its function):
 //   * A warp walks a tile, 4 tiles a block. Lane l is lane l % (TILE / R)
 //     of worker l / (TILE / R) and holds the R rays l % (TILE / R) + k TILE
 //     / R, k < R: TILE 32 gives 4 workers of 8 lanes, TILE 16 8 of 4,
 //     TILE 8 16 of 2. Each step, worker w takes the quads w, w + 32 R /
-//     TILE, ... of the step's KB clusters, rows read in place through the
-//     read-only path (the table, 2.9 MB, stays in the 50 MB L2; the
-//     workers of a load read neighbouring quads), so each 16-byte row load
-//     serves 4 triangles x R rays, and the loop and address steps 4R
-//     tests.
+//     TILE, ... of the step's KB clusters (the same quads w, w + 32 R /
+//     TILE, ... of each cluster), so each 16-byte row load serves 4
+//     triangles x R rays, and the loop and address steps 4R tests. L5-L7
+//     read the rows in place through the read-only path (the table, 2.9
+//     MB, stays in the 50 MB L2; the workers of a load read neighbouring
+//     quads).
 //   * mt_hit_fma (lab_common.cuh), with rcp_in_range's fast path and a
 //     step redone with __frcp_rn where the warp met a subnormal
 //     denominator or one of at least 2^126.
-//   * Each worker keeps a running best from L5 / L6's start, min(t_max,
+//   * Each worker keeps a running best from L4-L6's start, min(t_max,
 //     3e38) with a NaN kept (L7: 3e38), and id -1: a candidate beats it
 //     with one compare, tt < ct. A step's candidate beats the best from
 //     before the step whenever it beats the running best, and each worker
@@ -78,24 +62,50 @@
 //     TILE 8 within 0.5% of R = 2 and 2.3-3.2% ahead of R = 8 (the 16
 //     workers' per-step work, a meta read, the snapshot and the vote, does
 //     not show).
+// L4 (kLab 4, kStaged; the lab's question is whether staging bricks pays,
+// so its clusters pass through shared memory):
+//   * The tile's clusters, walk position g = s KB + j (step s, slot j),
+//     pass one at a time through a ring of cluster slots of the warp's
+//     own, whatever KB is: one tris9 cluster is 9 x 512 = 4,608 contiguous
+//     bytes of the (C, 9, 1, 128) table. kL4Staging (below) chooses how,
+//     by measurement: kBulk, three slots a warp (13.5 KB; 54 KB a block, 4
+//     blocks or 16 warps an SM at 128 registers), each filled by one 1-D
+//     bulk copy (cp.async.bulk, the TMA path) that lane 0 issues two
+//     clusters ahead and that completes on the slot's mbarrier, on whose
+//     phase the warp waits; kCpAsync, L10's two-stage ring of 16-byte
+//     cp.async copies (9 a lane) one cluster ahead; kInPlace, no ring, the
+//     rows read in place as L5 reads them. KB decides only where a step
+//     ends (mtfast's update) and the slots' numbering, s KB 128 + j 128 +
+//     lane.
+//   * mt: mt_hit_fma and the running bests above, each cluster redone
+//     from its slot with __frcp_rn where the warp met an odd denominator;
+//     the bests combined by (t, slot) after the walk.
+//   * mtfast: mtfast_key_fma, the script's key (t bits & ~1023) | lane of
+//     every triangle of a step against the ray's best from before the
+//     step (t = t_n / |a|, an IEEE division on a hit only), each worker's
+//     smallest over its share, met over the workers by shuffles after the
+//     step's last cluster (no shared memory, no barrier); cand <
+//     bits(best) then takes (cand & ~1023, s KB 128 + (cand & 1023)). The
+//     script's faults stay: t < 0 for a hit with a < 0, and lane bit 10
+//     lost at KB = 16.
 // The results are the scripts' raw (n_tiles, TILE, 2) f32 blocks: t, then
 // the id's int32 bits (L7: float(id)).
 //
 // What bounds it on the card: the FP32 instruction rate (46 operations a
 // Möller-Trumbore test, 49 deferred-division, 32 Baldwin-Weber); the bytes
-// are the rays and a few meta entries a tile. The first design's loop took
-// 79.25 SASS instructions a Möller-Trumbore test (unfused, one ray a lane,
-// __frcp_rn's range test and branch in every test, a block barrier a step
-// in while and while2); the walk takes about 46 (mt) and 32 (bw) (phase 2
+// are the rays and a few meta entries a tile. The first designs' loops took
+// 79.25-85.25 SASS instructions a Möller-Trumbore test (unfused, one ray a
+// lane, __frcp_rn's range test and branch in every test, a block barrier a
+// step in while and while2, L4's 8-warp staging loop and mtfast's
+// shared-memory minimum); the walk takes about 46 (mt) and 32 (bw) (phase 2
 // of chip_smoke.py): the FMA bodies (bw_hit_fma, mt_hit_fma: 17 and 31
 // FP32 instructions, not 31 and 45), 4R tests a load, loop and address
 // step, and __frcp_rn's in-range fast path alone. The reciprocal stays
 // correctly rounded, so that t differs from the unfused version's only by
-// the FMAs' roundings, which the tie-aware hold bounds (lab/brick.py
-// brick_agreement).
+// the FMAs' roundings, which the tie-aware holds bound (lab/brick.py
+// brick_agreement; mtfast_agreement for mtfast's truncated keys).
 //
-// Built with -fmad=false (trace_kernel.NVCC_FLAGS): L4's arithmetic rounds
-// like its plain torch version in lab/brick.py. The walk's FMAs are written
+// Built with -fmad=false (trace_kernel.NVCC_FLAGS): the FMAs are written
 // out (__fmaf_rn).
 
 #include <climits>
@@ -108,10 +118,6 @@ namespace {
 constexpr int kCluster = 128;          // triangles per cluster
 constexpr int kQuads = kCluster / 4;   // float4 of a cluster row
 constexpr int kRow = 1024;             // meta entries of a tile
-constexpr int kWarps = 8;              // L4: warps of a block (one tile)
-constexpr int kThreads = kWarps * 32;
-// shared memory of the combines: a float and an int per warp and lane
-constexpr int kCombFloat4 = 2 * kWarps * 32 / 4;
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTilesBlock = 4;         // the walk: tiles (warps) a block
@@ -122,64 +128,105 @@ constexpr int kRays16 = 4;
 enum Body { kMT = 0, kMTFast = 1, kBW = 2 };
 enum Variant { kFixed = 0, kCid = 1, kWhile = 2, kWhile2 = 3 };
 
+// L4's staging of a tile's clusters, chosen by measurement (see the head
+// of this file): a ring of kSlots cluster slots a warp filled by bulk
+// copies (kBulk) or by cp.async copies (kCpAsync), or none (kInPlace)
+enum Staging { kInPlace = 0, kBulk = 1, kCpAsync = 2 };
+constexpr int kL4Staging = kBulk;
+constexpr int kSlots = kL4Staging == kBulk ? 3 : kL4Staging == kCpAsync ? 2
+                                                                         : 0;
+constexpr int kBrick = 9 * kQuads;     // float4 of a tris9 cluster, 4,608 B
+// L4's shared memory a block: the warps' rings, then their mbarriers
+constexpr size_t kL4Smem =
+    kTilesBlock * kSlots * (kBrick * sizeof(float4) +
+                            (kL4Staging == kBulk ? 8 : 0));
+
+// ---------------------------------------------------------------------------
+// L4's ring: 1-D bulk copies (the TMA path, no tensor map) completing on an
+// mbarrier in shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier expecting one arrival a phase (lane 0's expect_tx); made
+// visible to the copy engine before any copy names it.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Copies bytes from global src into shared dst as one bulk copy whose
+// completion ends bar's phase. The fence orders the warp's earlier reads of
+// dst (the slot's last cluster) before the copy's writes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits until bar's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // kernel_lab2.py mtfast_body's key of one triangle, (t bits & ~1023) |
-// lane, against best, the tile's best t from before the step; t = t_n /
-// |a| on a hit (negative where a < 0, as the script has it), 3e38 on a
+// lane, against best, the ray's best t from before the step, its products
+// as mt_hit_fma forms them: t = t_n / |a| on a hit (an IEEE division, taken
+// on a hit only; negative where a < 0, as the script has it), 3e38 on a
 // miss.
-__device__ __forceinline__ int mtfast_key(const Ray& r, const float (&w)[9],
-                                          float best, int lane) {
+__device__ __forceinline__ int mtfast_key_fma(const Ray& r,
+                                              const float (&w)[9],
+                                              float best, int lane) {
   const float v0x = w[0], v0y = w[1], v0z = w[2];
   const float e1x = w[3], e1y = w[4], e1z = w[5];
   const float e2x = w[6], e2y = w[7], e2z = w[8];
-  const float hx = r.dy * e2z - r.dz * e2y;
-  const float hy = r.dz * e2x - r.dx * e2z;
-  const float hz = r.dx * e2y - r.dy * e2x;
-  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float hx = __fmaf_rn(r.dy, e2z, -(r.dz * e2y));
+  const float hy = __fmaf_rn(r.dz, e2x, -(r.dx * e2z));
+  const float hz = __fmaf_rn(r.dx, e2y, -(r.dy * e2x));
+  const float a = __fmaf_rn(e1z, hz, __fmaf_rn(e1y, hy, e1x * hx));
   const float sx = r.ox - v0x;
   const float sy = r.oy - v0y;
   const float sz = r.oz - v0z;
-  const float u_n = sx * hx + sy * hy + sz * hz;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float v_n = r.dx * qx + r.dy * qy + r.dz * qz;
-  const float t_n = e2x * qx + e2y * qy + e2z * qz;
+  const float u_n = __fmaf_rn(sz, hz, __fmaf_rn(sy, hy, sx * hx));
+  const float qx = __fmaf_rn(sy, e1z, -(sz * e1y));
+  const float qy = __fmaf_rn(sz, e1x, -(sx * e1z));
+  const float qz = __fmaf_rn(sx, e1y, -(sy * e1x));
+  const float v_n = __fmaf_rn(r.dz, qz, __fmaf_rn(r.dy, qy, r.dx * qx));
+  const float t_n = __fmaf_rn(e2z, qz, __fmaf_rn(e2y, qy, e2x * qx));
   const float sa = a < 0.0f ? -1.0f : 1.0f;
   const float na = a * sa;
   const float nu = u_n * sa;
   const float nv = v_n * sa;
   const float nt = t_n * sa;
-  const bool hit = nu >= 0.0f && nv >= 0.0f && nu + nv <= na &&
-                   nt >= r.tmin * na && nt < best * na && na > 0.0f;
-  const float tt = hit ? t_n / (na == 0.0f ? 1.0f : a * sa) : kBig;
+  float tt = kBig;
+  if (nu >= 0.0f && nv >= 0.0f && nu + nv <= na && nt >= r.tmin * na &&
+      nt < best * na && na > 0.0f)
+    tt = __fdiv_rn(t_n, na);
   return (__float_as_int(tt) & ~1023) | lane;
-}
-
-// The smallest of v over the P lanes of a ray (aligned groups of P).
-__device__ __forceinline__ int lanes_min(int v, int P) {
-  for (int o = 1; o < P; o <<= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float lanes_min(float v, int P) {
-  for (int o = 1; o < P; o <<= 1) {
-    const float u = __shfl_xor_sync(kFull, v, o);
-    v = u < v ? u : v;
-  }
-  return v;
-}
-
-// (t, slot) with the smaller t, then the smaller slot, over the P lanes of
-// a ray.
-__device__ __forceinline__ void lanes_best(float& t, int& slot, int P) {
-  for (int o = 1; o < P; o <<= 1) {
-    const float ut = __shfl_xor_sync(kFull, t, o);
-    const int us = __shfl_xor_sync(kFull, slot, o);
-    if (ut < t || (ut == t && us < slot)) {
-      t = ut;
-      slot = us;
-    }
-  }
 }
 
 // The cluster of a meta entry: clipped to the table (L7: entry & 1023, at
@@ -188,159 +235,6 @@ template <bool kLab7>
 __device__ __forceinline__ int order_of(int m, int n_clusters) {
   return kLab7 ? min(m & 1023, n_clusters - 1)
                : max(0, min(m, n_clusters - 1));
-}
-
-// One tile of tile_rays rays a block: steps steps of kb clusters (see the
-// head of this file). kStaged: L4's shared double buffer, otherwise rows
-// read in place.
-template <bool kStaged, int kBody, int kVariant>
-__global__ void __launch_bounds__(kThreads)
-brick_kernel(const int* __restrict__ meta, const float* __restrict__ rays,
-             const float* __restrict__ tris, int tile_rays, int n_clusters,
-             int kb, int steps, float* __restrict__ out) {
-  constexpr int NF = 9;
-  extern __shared__ float4 smem[];
-  float* tcomb = reinterpret_cast<float*>(smem);
-  int* icomb = reinterpret_cast<int*>(smem) + kWarps * 32;
-  float4* stage_buf = smem + kCombFloat4;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int P = 32 / tile_rays;      // lanes a ray
-  const int r = lane / P;
-  const int q = warp * P + lane % P;  // this thread's worker
-  const int Q = kWarps * P;
-  const int tile = blockIdx.x;
-  const int* mrow = meta + static_cast<size_t>(tile) * kRow;
-  const float4* t4 = reinterpret_cast<const float4*>(tris);
-  const size_t ray = static_cast<size_t>(tile) * tile_rays + r;
-  const float4 ra = reinterpret_cast<const float4*>(rays)[ray * 2];
-  const float4 rb = reinterpret_cast<const float4*>(rays)[ray * 2 + 1];
-  const Ray R{ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z};
-  // mtfast: the tile's best t and id; otherwise this worker's running
-  // best t and its slot (-1: none)
-  float bt = rb.w > kBig ? kBig : rb.w;  // NaN kept
-  int bi = -1;
-  const int bk = kb * kCluster;
-  const int nq = kb * kQuads;        // quads a step
-  const int per_buf = NF * nq;       // float4 of a staged step
-
-  // L4: step s's clusters into buffer s & 1, one 16-byte copy a thread
-  // at a time, neighbouring threads on neighbouring addresses
-  auto stage = [&](int s) {
-    float4* dst = stage_buf + (s & 1) * per_buf;
-    for (int e = threadIdx.x; e < per_buf; e += kThreads) {
-      const int j = e / (NF * kQuads);
-      const int row = e / kQuads % NF;
-      const int qc = e % kQuads;
-      const int c = order_of<false>(mrow[s * kb + j], n_clusters);
-      cp_async16(dst + row * nq + j * kQuads + qc,
-                 t4 + (static_cast<size_t>(c) * NF + row) * kQuads + qc);
-    }
-    cp_async_commit();
-  };
-
-  if (kStaged && steps > 0) stage(0);
-  for (int s = 0; s < steps; ++s) {
-    int orders = 0;  // lane j < kb: the cluster of the step's slot j
-    if (kStaged) {
-      if (s + 1 < steps) {
-        stage(s + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();  // step s's rows are in for every thread
-    } else if (lane < kb) {
-      orders = order_of<false>(mrow[s * kb + lane], n_clusters);
-    }
-    int kmin = INT_MAX;
-    for (int quad = q; quad < nq; quad += Q) {
-      const float4* b;
-      int stride;
-      if (kStaged) {
-        b = stage_buf + (s & 1) * per_buf + quad;
-        stride = nq;
-      } else {
-        const int c = __shfl_sync(kFull, orders, quad / kQuads);
-        b = t4 + static_cast<size_t>(c) * NF * kQuads + quad % kQuads;
-        stride = kQuads;
-      }
-      float4 v[NF];
-#pragma unroll
-      for (int j = 0; j < NF; ++j) v[j] = kStaged ? b[j * stride]
-                                                  : __ldg(b + j * stride);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float w[NF];
-#pragma unroll
-        for (int j = 0; j < NF; ++j) w[j] = comp(v[j], c);
-        const int id = 4 * quad + c;  // the triangle's lane in the step
-        if constexpr (kBody == kMTFast) {
-          kmin = min(kmin, mtfast_key(R, w, bt, id));
-        } else {
-          float tt;
-          if (mt_hit(R, w, bt, tt)) {
-            bt = tt;
-            bi = s * bk + id;
-          }
-        }
-      }
-    }
-    if (kBody == kMTFast) {
-      kmin = lanes_min(kmin, P);
-      if (lane % P == 0) icomb[warp * 32 + r] = kmin;
-    }
-    // every thread is done with buffer s & 1 (staged again at step s + 2)
-    // and with the combines of step s - 1; this step's are written
-    if (kStaged) __syncthreads();
-    if (kBody == kMTFast) {
-      int cand = icomb[r];
-      for (int w = 1; w < kWarps; ++w) cand = min(cand, icomb[w * 32 + r]);
-      if (cand < __float_as_int(bt)) {
-        bt = __int_as_float(cand & ~1023);
-        bi = s * bk + (cand & 1023);
-      }
-    }
-    if (kVariant == kWhile || (kVariant == kWhile2 && (s & 1))) {
-      // the tile stops once every ray's best t bits are <= the unclipped
-      // meta entry of the next step's first slot
-      const float m = lanes_min(bt, P);
-      if (lane % P == 0) tcomb[warp * 32 + r] = m;
-      __syncthreads();
-      float mr = tcomb[r];
-      for (int w = 1; w < kWarps; ++w) {
-        const float u = tcomb[w * 32 + r];
-        mr = u < mr ? u : mr;
-      }
-      const int nxt = mrow[min((s + 1) * kb, kRow - 1)];
-      if (__syncthreads_and(__float_as_int(mr) <= nxt)) break;
-    }
-  }
-  if (kBody != kMTFast) {
-    // the workers' bests: smallest t, then smallest slot
-    lanes_best(bt, bi, P);
-    if (lane % P == 0) {
-      tcomb[warp * 32 + r] = bt;
-      icomb[warp * 32 + r] = bi;
-    }
-    __syncthreads();
-    if (warp != 0) return;
-    for (int w = 1; w < kWarps; ++w) {
-      const float ut = tcomb[w * 32 + r];
-      const int us = icomb[w * 32 + r];
-      if (ut < bt || (ut == bt && us < bi)) {
-        bt = ut;
-        bi = us;
-      }
-    }
-    if (kVariant == kCid && bi >= 0)
-      bi = order_of<false>(mrow[bi / kCluster], n_clusters) * kCluster +
-           bi % kCluster;
-  } else if (warp != 0) {
-    return;
-  }
-  if (lane % P != 0) return;
-  reinterpret_cast<float2*>(out)[ray] = make_float2(bt, __int_as_float(bi));
 }
 
 // One step of the walk for worker wk: its quads (wk, wk + workers, ...) of
@@ -385,8 +279,159 @@ __device__ __forceinline__ void walk_step(const float4* t4, int orders,
   }
 }
 
-// L5, L6 (kLab 6) and L7 (kLab 7): a warp walks a tile of kTile rays, R
-// rays a lane (see the head of this file).
+// L4: worker wk's quads (wk, wk + kWorkers, ...) of one cluster's rows b
+// (a ring slot, or the table's in place), each triangle against the lane's
+// R rays. mt: a hit closer than ct[k] takes (ct[k], cs[k]) with slot0 + its
+// lane in the cluster (odd: see rcp_in_range); mtfast: kmin[k] keeps the
+// smallest key against ct[k], the best from before the step, its lane
+// slot0 + the triangle's lane in the cluster.
+template <int kBody, int R, int kWorkers, bool kExact, bool kShared>
+__device__ __forceinline__ void brick_cluster(const float4* b, int slot0,
+                                              int wk, const Ray (&r)[R],
+                                              float (&ct)[R], int (&cs)[R],
+                                              int (&kmin)[R], bool& odd) {
+#pragma unroll 1
+  for (int quad = wk; quad < kQuads; quad += kWorkers) {
+    float4 v[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      if constexpr (kShared)
+        v[j] = b[j * kQuads + quad];
+      else
+        v[j] = __ldg(b + j * kQuads + quad);
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float w[9];
+#pragma unroll
+      for (int j = 0; j < 9; ++j) w[j] = comp(v[j], cc);
+      const int slot = slot0 + 4 * quad + cc;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if constexpr (kBody == kMTFast) {
+          kmin[k] = min(kmin[k], mtfast_key_fma(r[k], w, ct[k], slot));
+        } else {
+          float tt;
+          if (mt_hit_fma<kExact>(r[k], w, ct[k], tt, odd)) {
+            ct[k] = tt;
+            cs[k] = slot;
+          }
+        }
+      }
+    }
+  }
+}
+
+// L4's walk for the lane's R rays (see the head of this file): the steps'
+// kb clusters one at a time, walk position g = s kb + j, through the
+// warp's ring of kSlots slots (ring, its mbarriers bar) or in place.
+template <int kBody, int R, int kLanes>
+__device__ __forceinline__ void l4_walk(const int* mrow, const float4* t4,
+                                        int n_clusters, int kb, int steps,
+                                        int lane, float4* ring,
+                                        unsigned long long* bar,
+                                        const Ray (&r)[R], float (&ct)[R],
+                                        int (&cs)[R]) {
+  constexpr int kWorkers = 32 / kLanes;
+  constexpr bool kStaged = kL4Staging != kInPlace;
+  constexpr int kRing = kStaged ? kSlots : 1;
+  constexpr int kAhead = kRing - 1;  // clusters in flight
+  const int wk = lane / kLanes;
+  const int n = steps * kb;  // clusters of the walk
+  // lane l: the cluster at walk position (p & ~31) + l, for cluster(p)
+  // asked with p = 0, 1, ... in turn by every lane
+  int kc = 0;
+  auto cluster = [&](int p) {
+    if ((p & 31) == 0)
+      kc = p + lane < n ? order_of<false>(mrow[p + lane], n_clusters) : 0;
+    return __shfl_sync(kFull, kc, p & 31);
+  };
+  auto issue = [&](int p) {  // walk position p's rows into slot p % kRing
+    const int c = cluster(p);
+    float4* dst = ring + p % kRing * kBrick;
+    const float4* src = t4 + static_cast<size_t>(c) * kBrick;
+    if constexpr (kL4Staging == kBulk) {
+      if (lane == 0) bulk_load(dst, src, kBrick * sizeof(float4),
+                               bar + p % kRing);
+    } else {
+      cp_async_rows<9, kQuads>(dst, src, lane);
+    }
+  };
+  if constexpr (kStaged) {
+    if (kL4Staging == kBulk && lane == 0) {
+      for (int i = 0; i < kRing; ++i) mbar_init(bar + i);
+    }
+    __syncwarp();
+    for (int p = 0; p < kAhead && p < n; ++p) issue(p);
+  }
+  int kmin[R];
+  bool odd = false;  // mt: a den outside rcp_in_range's range
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) kmin[k] = INT_MAX;
+    for (int j = 0; j < kb; ++j) {
+      const int g = s * kb + j;
+      const float4* b;
+      if constexpr (kStaged) {
+        if (g + kAhead < n) issue(g + kAhead);
+        if constexpr (kL4Staging == kBulk) {
+          mbar_wait(bar + g % kRing, (g / kRing) & 1);
+        } else {
+          if (g + kAhead < n)
+            cp_async_wait<1>();
+          else
+            cp_async_wait<0>();
+          __syncwarp();  // cluster g's rows are in for every lane
+        }
+        b = ring + g % kRing * kBrick;
+      } else {
+        b = t4 + static_cast<size_t>(cluster(g)) * kBrick;
+      }
+      if constexpr (kBody == kMTFast) {
+        brick_cluster<kMTFast, R, kWorkers, false, kStaged>(
+            b, j * kCluster, wk, r, ct, cs, kmin, odd);
+      } else {
+        float st[R];
+        int ss[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          st[k] = ct[k];
+          ss[k] = cs[k];
+        }
+        odd = false;
+        brick_cluster<kMT, R, kWorkers, false, kStaged>(
+            b, g * kCluster, wk, r, ct, cs, kmin, odd);
+        if (__any_sync(kFull, odd)) {  // the cluster again with __frcp_rn
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            ct[k] = st[k];
+            cs[k] = ss[k];
+          }
+          brick_cluster<kMT, R, kWorkers, true, kStaged>(
+              b, g * kCluster, wk, r, ct, cs, kmin, odd);
+        }
+      }
+      if constexpr (kStaged) __syncwarp();  // every lane is done with b
+    }
+    if constexpr (kBody == kMTFast) {
+      // the step's smallest key of each ray, met over its workers
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        int m = kmin[k];
+        for (int o = kLanes; o < 32; o <<= 1)
+          m = min(m, __shfl_xor_sync(kFull, m, o));
+        if (m < __float_as_int(ct[k])) {
+          ct[k] = __int_as_float(m & ~1023);
+          cs[k] = s * kb * kCluster + (m & 1023);
+        }
+      }
+    }
+  }
+}
+
+// L4 (kLab 4), L5, L6 (kLab 6) and L7 (kLab 7): a warp walks a tile of
+// kTile rays, R rays a lane (see the head of this file); L4's rings (kL4Smem
+// bytes of dynamic shared memory) come first in smem, then their mbarriers.
 template <int kLab, int kBody, int kVariant, int kTile, int R>
 __global__ void __launch_bounds__(kTilesBlock * 32)
 brick_walk_kernel(const int* __restrict__ meta,
@@ -420,50 +465,63 @@ brick_walk_kernel(const int* __restrict__ meta,
     ct[k] = kL7 ? kBig : rb.w > kBig ? kBig : rb.w;  // a NaN t_max kept
     cs[k] = -1;
   }
-  // lane j < kb: the meta entry of the next step's slot j, read a step
-  // ahead
-  int m_next = lane < kb && steps > 0 ? mrow[lane] : 0;
-  for (int s = 0; s < steps; ++s) {
-    const int orders = order_of<kL7>(m_next, n_clusters);
-    if (lane < kb && s + 1 < steps) m_next = mrow[(s + 1) * kb + lane];
-    float st[R];
-    int ss[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      st[k] = ct[k];
-      ss[k] = cs[k];
-    }
-    bool odd = false;  // a den outside rcp_in_range's range
-    walk_step<kBody, R, kWorkers, false>(t4, orders, kb, s, wk, r, ct, cs,
-                                         odd);
-    if (__any_sync(kFull, odd)) {  // the step again with __frcp_rn
+  if constexpr (kLab == 4) {
+    extern __shared__ float4 smem[];
+    l4_walk<kBody, R, kLanes>(
+        mrow, t4, n_clusters, kb, steps, lane,
+        smem + warp * kSlots * kBrick,
+        reinterpret_cast<unsigned long long*>(smem +
+                                              kTilesBlock * kSlots * kBrick) +
+            warp * kSlots,
+        r, ct, cs);
+  } else {
+    // lane j < kb: the meta entry of the next step's slot j, read a step
+    // ahead
+    int m_next = lane < kb && steps > 0 ? mrow[lane] : 0;
+    for (int s = 0; s < steps; ++s) {
+      const int orders = order_of<kL7>(m_next, n_clusters);
+      if (lane < kb && s + 1 < steps) m_next = mrow[(s + 1) * kb + lane];
+      float st[R];
+      int ss[R];
 #pragma unroll
       for (int k = 0; k < R; ++k) {
-        ct[k] = st[k];
-        cs[k] = ss[k];
+        st[k] = ct[k];
+        ss[k] = cs[k];
       }
-      walk_step<kBody, R, kWorkers, true>(t4, orders, kb, s, wk, r, ct, cs,
-                                          odd);
-    }
-    if (kVariant == kWhile || (kVariant == kWhile2 && (s & 1))) {
-      // the tile stops once every ray's best t bits are <= the unclipped
-      // meta entry of the next step's first slot
-      const int nxt = mrow[min((s + 1) * kb, kRow - 1)];
-      bool done = true;
+      bool odd = false;  // a den outside rcp_in_range's range
+      walk_step<kBody, R, kWorkers, false>(t4, orders, kb, s, wk, r, ct, cs,
+                                           odd);
+      if (__any_sync(kFull, odd)) {  // the step again with __frcp_rn
 #pragma unroll
-      for (int k = 0; k < R; ++k) {
-        float m = ct[k];
-        for (int o = kLanes; o < 32; o <<= 1) {
-          const float u = __shfl_xor_sync(kFull, m, o);
-          m = u < m ? u : m;
+        for (int k = 0; k < R; ++k) {
+          ct[k] = st[k];
+          cs[k] = ss[k];
         }
-        done &= __float_as_int(m) <= nxt;
+        walk_step<kBody, R, kWorkers, true>(t4, orders, kb, s, wk, r, ct, cs,
+                                            odd);
       }
-      if (__all_sync(kFull, done)) break;
+      if (kVariant == kWhile || (kVariant == kWhile2 && (s & 1))) {
+        // the tile stops once every ray's best t bits are <= the unclipped
+        // meta entry of the next step's first slot
+        const int nxt = mrow[min((s + 1) * kb, kRow - 1)];
+        bool done = true;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          float m = ct[k];
+          for (int o = kLanes; o < 32; o <<= 1) {
+            const float u = __shfl_xor_sync(kFull, m, o);
+            m = u < m ? u : m;
+          }
+          done &= __float_as_int(m) <= nxt;
+        }
+        if (__all_sync(kFull, done)) break;
+      }
     }
   }
+  if constexpr (kBody != kMTFast) {  // mtfast's workers hold one best
 #pragma unroll
-  for (int k = 0; k < R; ++k) workers_best(ct[k], cs[k], kLanes);
+    for (int k = 0; k < R; ++k) workers_best(ct[k], cs[k], kLanes);
+  }
   if (wk != 0) return;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
@@ -479,31 +537,20 @@ brick_walk_kernel(const int* __restrict__ meta,
   }
 }
 
-template <bool kStaged, int kBody, int kVariant>
-int launch(const int* meta, const float* rays, const float* tris,
-           int n_tiles, int tile_rays, int n_clusters, int kb, int steps,
-           float* out, cudaStream_t st) {
-  const size_t smem =
-      (kCombFloat4 + (kStaged ? 2 * 9 * kb * kQuads : 0)) * sizeof(float4);
-  auto kernel = brick_kernel<kStaged, kBody, kVariant>;
+template <int kLab, int kBody, int kVariant, int kTile, int R>
+int launch_walk(const int* meta, const float* rays, const float* tris,
+                int n_tiles, int n_clusters, int kb, int steps, float* out,
+                cudaStream_t st) {
+  auto kernel = brick_walk_kernel<kLab, kBody, kVariant, kTile, R>;
+  const size_t smem = kLab == 4 ? kL4Smem : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<n_tiles, kThreads, smem, st>>>(meta, rays, tris, tile_rays,
-                                          n_clusters, kb, steps, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kLab, int kBody, int kVariant, int kTile, int R>
-int launch_walk(const int* meta, const float* rays, const float* tris,
-                int n_tiles, int n_clusters, int kb, int steps, float* out,
-                cudaStream_t st) {
-  brick_walk_kernel<kLab, kBody, kVariant, kTile, R>
-      <<<(n_tiles + kTilesBlock - 1) / kTilesBlock, kTilesBlock * 32, 0,
-         st>>>(meta, rays, tris, n_tiles, n_clusters, kb, steps, out);
+  kernel<<<(n_tiles + kTilesBlock - 1) / kTilesBlock, kTilesBlock * 32, smem,
+           st>>>(meta, rays, tris, n_tiles, n_clusters, kb, steps, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,9 +593,9 @@ extern "C" int brick_lab_launch(int lab, int mode, const int* meta,
                    steps, out, st
   switch (lab * 10 + mode) {
     case 40:
-      return launch<true, kMT, kFixed>(BRICK_ARGS);
+      return launch_walk<4, kMT, kFixed>(BRICK_ARGS);
     case 41:
-      return launch<true, kMTFast, kFixed>(BRICK_ARGS);
+      return launch_walk<4, kMTFast, kFixed>(BRICK_ARGS);
     case 50:  // L5 computes L6 fixed's function
     case 60:
     case 61:  // slot: fixed's ids are the order slots

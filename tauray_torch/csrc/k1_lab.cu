@@ -20,11 +20,12 @@
 //     tile, a lane per ray; mode 2 copies the block's own group of heads
 //     (32 x 128 i32, 16 KB) into shared memory with cp.async and waits
 //     (no prefetch of the next group: a block has no next group);
-//   * L11: a warp per tile (4 a block), a lane per ray; each cluster's
-//     6 KB of rows staged in the warp's shared buffer with cp.async
-//     16-byte copies and waited for, then read as 16-byte broadcasts, 4
-//     triangles at a time, as K1 does (vpu: the step L9 took before its
-//     redesign, unchanged);
+//   * L11 vpu (redesigned for this card, on L9's plan): a warp per tile (4
+//     a block), R = 4 rays a lane, 4 workers of 8 lanes, worker w taking the
+//     quads w, w + 4, ... of each cluster (test_quads, the FMA body); the
+//     walk's clusters pass through L9's ring of two 6 KB stages a warp
+//     (stage_async); running bests from 3e38, combined by (t, slot) after
+//     the walk (lab11_vpu_kernel);
 //   * L9 (redesigned for this card): a warp per tile (4 a block), R = 4 rays a
 //     lane. The warp's 32 lanes are 4 workers of 8 lanes over the tile's
 //     32 rays (lane l holds rays l % 8 + 8k, k < 4) and worker w takes the
@@ -52,14 +53,20 @@
 //     ~250 clusters, and in index order the card ended on its longest
 //     walks alone (a warp a block instead of 4 ran 2% slower, so it is
 //     not the block's idle warps);
-//   * L11 mxu: per 8-triangle column block and 16-ray row block, the six
-//     products o4 @ [v | -v.v0] (K = 4) and d4 @ [v | -v.v0] with d4's
-//     fourth column 0 (so K = 3 in effect) for v = n, r1, r2, each as
-//     mma.sync.aligned.m16n8k4 in TF32 split in two (x = hi + lo): lo.hi
-//     + hi.lo + hi.hi, which brings each product near FP32 accuracy; the
-//     epilogue (division, the hit test, the per-ray minimum) runs on the
-//     CUDA cores, each lane holding 4 rays x 2 triangles of a block, then
-//     the 4 lanes of a row group reduce with shuffles.
+//   * L11 mxu (redesigned for this card): per 8-triangle column block and
+//     16-ray row block, the six products o4 @ [v | -v.v0] (K = 4) and d4 @
+//     [v | -v.v0] with d4's fourth column 0 (so K = 3 in effect) for v = n,
+//     r1, r2, each as mma.sync.aligned.m16n8k4 in TF32 split in two (x =
+//     hi + lo): lo.hi + hi.lo + hi.hi, which brings each product near FP32
+//     accuracy (m16n8k8 over [o4 | d4] was measured against it: kMxuK);
+//     each lane splits the B values it reads once a cluster (48: no two
+//     lanes read the same), from a two-stage ring of padded stages that
+//     copies cluster j + 1 while cluster j is tested; the epilogue runs on
+//     the CUDA cores in FMAs (t = -(n.o - n.v0) rcp(n.d), u, v), with
+//     rcp_in_range and a cluster redone with __frcp_rn where the warp met
+//     an odd denominator, each hit held against the lane's running best by
+//     one compare; each lane holds 4 rays x 2 triangles of a block, and the
+//     4 lanes of a row group meet by (t, position) after the walk.
 // The results are the scripts' raw (n_tiles, 32, 2) f32 blocks: t, then
 // the slot id's int32 bits (-1 on a miss; t is then the starting best,
 // min(t_max, 3e38), not +inf).
@@ -83,11 +90,11 @@
 // __frcp_rn. L10 takes the same body, split and ring (K1, whose walk it
 // strips, takes 63.75 SASS instructions a test).
 //
-// Built with -fmad=false (trace_kernel.NVCC_FLAGS): L8, L11 vpu and L9
-// loads round exactly like their plain torch versions in
-// lab/kernel_lab*.py (t and ids bit for bit). L9's other modes and L10
-// take the FMA body and are held by kernel_lab9.lab9_agreement and
-// kernel_lab10.lab10_agreement, L11 mxu by kernel_lab11.mxu_agreement.
+// Built with -fmad=false (trace_kernel.NVCC_FLAGS): L8 and L9 loads round
+// exactly like their plain torch versions in lab/kernel_lab*.py (t and ids
+// bit for bit). L9's other modes, L10 and L11 vpu take the FMA body and are
+// held by kernel_lab9.lab9_agreement, kernel_lab10.lab10_agreement and
+// kernel_lab11.vpu_agreement, L11 mxu by kernel_lab11.mxu_agreement.
 
 #include <cuda_runtime.h>
 
@@ -111,79 +118,13 @@ constexpr unsigned kFull = 0xffffffffu;
 // L11 mxu: a staged row of 128 floats takes 136, so that the four rows a
 // B fragment reads (k = 0..3) fall on different banks
 constexpr int kPadRow = 34;    // float4 per padded row
+// L11 mxu's mma shape, m16n8k4 or m16n8k8 (lab11_mxu_kernel), chosen by
+// measurement
+constexpr int kMxuK = 4;
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copies cluster c's 12 x 512 bytes into buf (12 16-byte copies a lane,
-// neighbouring lanes on neighbouring addresses; padded rows of kPadRow
-// float4 with kPad) and waits for this lane's copies.
-template <bool kPad>
-__device__ __forceinline__ void stage(float4* buf, const float* tris, int c,
-                                      int lane) {
-  const float4* src = reinterpret_cast<const float4*>(
-      tris + static_cast<size_t>(c) * kRows * kCluster);
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    float4* dst = kPad ? buf + j * kPadRow + lane : buf + j * kTile + lane;
-    cp_async16(dst, src + j * kTile + lane);
-  }
-  cp_async_wait_all();
-}
-
-// One Baldwin-Weber test in the order of pallas_trace.py:1108-1117 (and
-// of trace_kernel._bw_test): whether it hits closer than bound, with its
-// t in tt.
-__device__ __forceinline__ bool bw_hit(const Ray& r, float nx, float ny,
-                                       float nz, float nd, float r1x,
-                                       float r1y, float r1z, float r1d,
-                                       float r2x, float r2y, float r2z,
-                                       float r2d, float bound, float& tt) {
-  const float den = nx * r.dx + ny * r.dy + nz * r.dz;
-  const float num = nd - (nx * r.ox + ny * r.oy + nz * r.oz);
-  const float f = den != 0.0f ? 1.0f / den : 0.0f;
-  tt = num * f;
-  const float px = r.ox + tt * r.dx;
-  const float py = r.oy + tt * r.dy;
-  const float pz = r.oz + tt * r.dz;
-  const float uu = r1x * px + r1y * py + r1z * pz - r1d;
-  const float vv = r2x * px + r2y * py + r2z * pz - r2d;
-  return den != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-         tt >= r.tmin && tt < bound;
-}
-
-// The ray against the 128 triangles staged in buf (ids id0 + lane), in
-// lane order: a hit must beat bound, the best from before the step, and
-// replaces the candidate (ct, ci) when closer than it: the first
-// smallest, as an argmin over the step's lanes.
-__device__ __forceinline__ void test_cluster(const float4* buf, int id0,
-                                             const Ray& r, float bound,
-                                             float& ct, int& ci) {
-  for (int q = 0; q < kQuads; ++q) {
-    const float4* b = buf + q;
-    const float4 nx = b[0 * kQuads], ny = b[1 * kQuads];
-    const float4 nz = b[2 * kQuads], nd = b[3 * kQuads];
-    const float4 r1x = b[4 * kQuads], r1y = b[5 * kQuads];
-    const float4 r1z = b[6 * kQuads], r1d = b[7 * kQuads];
-    const float4 r2x = b[8 * kQuads], r2y = b[9 * kQuads];
-    const float4 r2z = b[10 * kQuads], r2d = b[11 * kQuads];
-    const int id = id0 + 4 * q;
-    float tt;
-#define K1_LAB_TEST(c, k)                                                  \
-  if (bw_hit(r, nx.c, ny.c, nz.c, nd.c, r1x.c, r1y.c, r1z.c, r1d.c, r2x.c, \
-             r2y.c, r2z.c, r2d.c, bound, tt) &&                            \
-      tt < ct) {                                                           \
-    ct = tt;                                                               \
-    ci = id + k;                                                           \
-  }
-    K1_LAB_TEST(x, 0)
-    K1_LAB_TEST(y, 1)
-    K1_LAB_TEST(z, 2)
-    K1_LAB_TEST(w, 3)
-#undef K1_LAB_TEST
-  }
 }
 
 // The smaller of a and b with a NaN kept (jnp.minimum / torch.minimum).
@@ -252,47 +193,23 @@ lab8_kernel(const int* __restrict__ counts, const int* __restrict__ heads,
 }
 
 // ---------------------------------------------------------------------------
-// L11 vpu's step (and L9's before its redesign): 8 clusters, each staged and
-// waited for, then tested by every lane against its one ray
-// ---------------------------------------------------------------------------
-
-// One step over the 8 clusters lane j < 8 of `orders` names: each hit
-// must beat bt, the best from before the step, and the first smallest
-// replaces it (the concatenated block's argmin).
-__device__ __forceinline__ void bw_step(float4* buf, const float* tris,
-                                        int orders, int lane, const Ray& r,
-                                        float& bt, int& bi) {
-  float ct = kBig;
-  int ci = -1;
-  for (int j = 0; j < kStep; ++j) {
-    const int c = __shfl_sync(kFull, orders, j);
-    stage<false>(buf, tris, c, lane);
-    __syncwarp();
-    test_cluster(buf, c * kCluster, r, bt, ct, ci);
-    __syncwarp();  // every lane is done with buf
-  }
-  if (ct < bt) {
-    bt = ct;
-    bi = ci;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // L9: one Baldwin-Weber step bisected, redesigned for this card
 // ---------------------------------------------------------------------------
 
 enum Lab9Mode { kFull9 = 0, kExit9 = 1, kLoads9 = 2, kMath9 = 3, kNocat9 = 4 };
 
 // Issues the copy of cluster c's 12 x 512 bytes into buf as one cp.async
-// group of 12 16-byte copies a lane, and does not wait for it.
+// group of 12 16-byte copies a lane (a row every kStride float4 of buf:
+// L11 mxu's padded rows take kPadRow), and does not wait for it.
+template <int kStride = kQuads>
 __device__ __forceinline__ void stage_async(float4* buf, const float* tris,
                                             int c, int lane) {
-  const float4* src = reinterpret_cast<const float4*>(
-      tris + static_cast<size_t>(c) * kRows * kCluster);
-#pragma unroll
-  for (int j = 0; j < kRows; ++j)
-    cp_async16(buf + j * kQuads + lane, src + j * kQuads + lane);
-  cp_async_commit();
+  cp_async_rows<kRows, kStride>(
+      buf,
+      reinterpret_cast<const float4*>(tris +
+                                      static_cast<size_t>(c) * kRows *
+                                          kCluster),
+      lane);
 }
 
 // Worker wk's share of a cluster's rows (staged, or the table's in place:
@@ -596,33 +513,186 @@ lab10_kernel(const int* __restrict__ counts, const int* __restrict__ keys,
 // L11: the Baldwin-Weber test as FP32 vector work or as matrix products
 // ---------------------------------------------------------------------------
 
+// L11 vpu, on L9's plan: a warp walks a tile of 32 rays, R rays a lane
+// (lane l is lane l % (32 / R) of worker l / (32 / R), rays l % (32 / R) +
+// k (32 / R)). The walk's clusters, position g = 8i + j (step i, slot j)
+// naming cluster (g + tile) mod C, pass through the ring of two stages:
+// cluster g + 1 is copied while cluster g is tested. Each worker keeps a
+// running best from 3e38 (FMA body, one compare), slot g * 128 + the
+// triangle's lane; a cluster whose test met an odd denominator is tested
+// again, from its stage, with __frcp_rn; the workers meet by smallest t,
+// then smallest slot, after the walk, and only then is the slot mapped to
+// cluster x 128 + lane.
+template <int R>
 __global__ void __launch_bounds__(kWarpsPerBlock * kTile)
 lab11_vpu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
                  const float* __restrict__ tris, int n_tiles, int n_clusters,
                  float* __restrict__ out) {
+  constexpr int kLanes = kTile / R;  // lanes a worker
   extern __shared__ float4 smem[];
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
   const int tile = blockIdx.x * kWarpsPerBlock + warp;
   if (tile >= n_tiles) return;
-  float4* buf = smem + warp * kBuf;
-  const size_t ray = static_cast<size_t>(tile) * kTile + lane;
-  const float4 a = reinterpret_cast<const float4*>(rays)[ray * 2];
-  const float4 b = reinterpret_cast<const float4*>(rays)[ray * 2 + 1];
-  const Ray r{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
-  float bt = kBig;
-  int bi = -1;
-  const int n = steps[tile];
-  for (int i = 0; i < n; ++i) {
-    const int orders = (i * kStep + lane + tile) % n_clusters;
-    bw_step(buf, tris, orders, lane, r, bt, bi);
+  float4* ring = smem + warp * 2 * kBuf;
+  const int wk = lane / kLanes;
+  const float4* r4 = reinterpret_cast<const float4*>(rays);
+  Ray r[R];
+  float bt[R];
+  int bs[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const size_t ray = static_cast<size_t>(tile) * kTile + lane % kLanes +
+                       k * kLanes;
+    const float4 a = r4[ray * 2];
+    const float4 b = r4[ray * 2 + 1];
+    r[k] = Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
+    bt[k] = kBig;
+    bs[k] = -1;
   }
-  reinterpret_cast<float2*>(out)[ray] = make_float2(bt, __int_as_float(bi));
+  const int n = steps[tile] * kStep;  // clusters of the walk
+  if (n > 0) stage_async(ring, tris, tile % n_clusters, lane);
+  for (int g = 0; g < n; ++g) {
+    if (g + 1 < n) {
+      stage_async(ring + ((g + 1) & 1) * kBuf, tris,
+                  (g + 1 + tile) % n_clusters, lane);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();  // cluster g's rows are in for every lane
+    const float4* buf = ring + (g & 1) * kBuf;
+    float st[R];
+    int ss[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      st[k] = bt[k];
+      ss[k] = bs[k];
+    }
+    bool odd = false;  // a den outside rcp_in_range's range
+    test_quads<R, false>(buf, g * kCluster, wk, r, bt, bs, odd);
+    if (__any_sync(kFull, odd)) {  // the cluster again with __frcp_rn
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        bt[k] = st[k];
+        bs[k] = ss[k];
+      }
+      test_quads<R, true>(buf, g * kCluster, wk, r, bt, bs, odd);
+    }
+    __syncwarp();  // every lane is done with buf
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) workers_best(bt[k], bs[k], kLanes);
+  if (wk != 0) return;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int id = bs[k] < 0 ? -1
+                             : (bs[k] / kCluster + tile) % n_clusters *
+                                       kCluster +
+                                   bs[k] % kCluster;
+    reinterpret_cast<float2*>(out)[static_cast<size_t>(tile) * kTile + lane +
+                                   k * kLanes] =
+        make_float2(bt[k], __int_as_float(id));
+  }
+}
+
+// d += a (16 x 8, row) . b (8 x 8, col), TF32 in, FP32 accumulate
+__device__ __forceinline__ void mma_tf32_k8(float (&d)[4], unsigned a0,
+                                            unsigned a1, unsigned a2,
+                                            unsigned a3, unsigned b0,
+                                            unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// L11 mxu's product of 16 rays (A rows: o4 = [o | 1] from ao0 / ao1 and
+// d4 = [d | 0] from ad0 / ad1, rays g and g + 8 of the block) with one
+// type's B column b (the lane's row k of [v | -v.v0], triangle g), in TF32
+// split in two (lo.hi + hi.lo + hi.hi): o4 . b (kDir false) or d4 . b
+// (kDir true). kK 4: m16n8k4 over o4 or d4; kK 8: m16n8k8 over [o4 | d4]
+// with b in B's upper half ([b | 0], o4 . b) or its lower ([0 | b], d4 . b).
+template <int kK, bool kDir>
+__device__ __forceinline__ void mxu_product(float (&d)[4], const Split& ao0,
+                                            const Split& ao1,
+                                            const Split& ad0,
+                                            const Split& ad1,
+                                            const Split& b) {
+  d[0] = d[1] = d[2] = d[3] = 0.0f;
+  if constexpr (kK == 4) {
+    mma_3xtf32_acc(d, kDir ? ad0 : ao0, kDir ? ad1 : ao1, b);
+  } else {
+    const unsigned z = 0u;
+    mma_tf32_k8(d, ao0.lo, ao1.lo, ad0.lo, ad1.lo, kDir ? z : b.hi,
+                kDir ? b.hi : z);
+    mma_tf32_k8(d, ao0.hi, ao1.hi, ad0.hi, ad1.hi, kDir ? z : b.lo,
+                kDir ? b.lo : z);
+    mma_tf32_k8(d, ao0.hi, ao1.hi, ad0.hi, ad1.hi, kDir ? z : b.hi,
+                kDir ? b.hi : z);
+  }
+}
+
+// L11 mxu: one staged cluster (fbuf, padded rows) against the lane's 4
+// rays, its 16 blocks of 8 triangles in order; the epilogue in FMAs with
+// rcp_in_range (odd: see it), a hit taking (ct[m], cp[m]) with its walk
+// position pos0 + the triangle's lane when closer than ct[m].
+template <int kK, bool kExact>
+__device__ __forceinline__ void mxu_cluster(const float* fbuf, int pos0,
+                                            int g, int k,
+                                            const Split (&ao)[4],
+                                            const Split (&ad)[4],
+                                            const float (&tmin)[4],
+                                            float (&ct)[4], int (&cp)[4],
+                                            bool& odd) {
+#pragma unroll 1
+  for (int nb = 0; nb < kCluster / 8; ++nb) {
+    // B fragment of type v: row k, column (triangle) nb * 8 + g
+    Split bv[3];
+#pragma unroll
+    for (int v = 0; v < 3; ++v)
+      bv[v] = split(fbuf[(v * 4 + k) * kPadRow * 4 + nb * 8 + g]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rays 16h + (g, g + 8)
+      const Split &o0 = ao[2 * h], &o1 = ao[2 * h + 1];
+      const Split &d0 = ad[2 * h], &d1 = ad[2 * h + 1];
+      float on[4], or1[4], or2[4], dn[4], dr1[4], dr2[4];
+      mxu_product<kK, false>(on, o0, o1, d0, d1, bv[0]);
+      mxu_product<kK, false>(or1, o0, o1, d0, d1, bv[1]);
+      mxu_product<kK, false>(or2, o0, o1, d0, d1, bv[2]);
+      mxu_product<kK, true>(dn, o0, o1, d0, d1, bv[0]);
+      mxu_product<kK, true>(dr1, o0, o1, d0, d1, bv[1]);
+      mxu_product<kK, true>(dr2, o0, o1, d0, d1, bv[2]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // element e: ray 16h + g + 8 (e / 2), triangle nb*8 + 2k + e%2
+        const int m = 2 * h + e / 2;
+        const float tt = -on[e] * rcp_rn<kExact>(dn[e], odd);
+        const float uu = __fmaf_rn(tt, dr1[e], or1[e]);
+        const float vv = __fmaf_rn(tt, dr2[e], or2[e]);
+        if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt >= tmin[m] &&
+            tt < ct[m]) {
+          ct[m] = tt;
+          cp[m] = pos0 + nb * 8 + 2 * k + e % 2;
+        }
+      }
+    }
+  }
 }
 
 // One warp per tile. Lane l is row group g = l / 4 and column k = l % 4 of
 // the mma fragments: it holds rays g, g + 8, g + 16, g + 24 (m = 0..3) of
 // the A operands and, of each 8-triangle block, triangles 2k and 2k + 1.
+// The walk's clusters (position w = 8i + j: cluster (w + tile) mod C) pass
+// through a ring of two padded 6.4 KB stages a warp, cluster w + 1 copied
+// while cluster w is tested; each lane keeps a running best from 3e38 per
+// ray, position w * 128 + the triangle's lane, a cluster redone with
+// __frcp_rn where the warp met an odd denominator; after the walk the 4
+// lanes of a row group meet by smallest t, then smallest position, and
+// the position is mapped to cluster x 128 + lane. kK: the mma shape
+// (mxu_product), chosen by measurement (kMxuK).
+template <int kK>
 __global__ void __launch_bounds__(kWarpsPerBlock * kTile)
 lab11_mxu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
                  const float* __restrict__ tris, int n_tiles, int n_clusters,
@@ -632,96 +702,83 @@ lab11_mxu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
   const int lane = threadIdx.x % kTile;
   const int tile = blockIdx.x * kWarpsPerBlock + warp;
   if (tile >= n_tiles) return;
-  float4* buf = smem + warp * kRows * kPadRow;
-  const float* fbuf = reinterpret_cast<const float*>(buf);
+  constexpr int kStage = kRows * kPadRow;  // float4 of a padded stage
+  float4* ring = smem + warp * 2 * kStage;
   const int g = lane / 4;
   const int k = lane % 4;
   const float* trow = rays + static_cast<size_t>(tile) * kTile * 8;
   // A fragments: o4 = [o | 1] and d4 = [d | 0], row m * 8 + g, column k
   Split ao[4], ad[4];
-  float tmin[4], bt[4], ct[4];
-  int bi[4], cp[4];
+  float tmin[4], ct[4];
+  int cp[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     const float* rr = trow + (m * 8 + g) * 8;
     ao[m] = split(k < 3 ? rr[k] : 1.0f);
     ad[m] = split(k < 3 ? rr[3 + k] : 0.0f);
     tmin[m] = rr[6];
-    bt[m] = kBig;
-    bi[m] = -1;
+    ct[m] = kBig;
+    cp[m] = -1;
   }
-  const int n = steps[tile];
-  for (int i = 0; i < n; ++i) {
+  const int n = steps[tile] * kStep;  // clusters of the walk
+  if (n > 0) stage_async<kPadRow>(ring, tris, tile % n_clusters, lane);
+  for (int w = 0; w < n; ++w) {
+    if (w + 1 < n) {
+      stage_async<kPadRow>(ring + ((w + 1) & 1) * kStage, tris,
+                           (w + 1 + tile) % n_clusters, lane);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();  // cluster w's rows are in for every lane
+    const float* fbuf = reinterpret_cast<const float*>(ring + (w & 1) *
+                                                                  kStage);
+    float st[4];
+    int sp[4];
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
-      ct[m] = kBig;
-      cp[m] = 0x7fffffff;
+      st[m] = ct[m];
+      sp[m] = cp[m];
     }
-    for (int j = 0; j < kStep; ++j) {
-      const int c = (i * kStep + j + tile) % n_clusters;
-      stage<true>(buf, tris, c, lane);
-      __syncwarp();
-      for (int nb = 0; nb < kCluster / 8; ++nb) {
-        // B fragment of type v: row k, column (triangle) nb * 8 + g
-        Split bv[3];
+    bool odd = false;  // a den outside rcp_in_range's range
+    mxu_cluster<kK, false>(fbuf, w * kCluster, g, k, ao, ad, tmin, ct, cp,
+                           odd);
+    if (__any_sync(kFull, odd)) {  // the cluster again with __frcp_rn
 #pragma unroll
-        for (int v = 0; v < 3; ++v)
-          bv[v] = split(fbuf[(v * 4 + k) * kPadRow * 4 + nb * 8 + g]);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {  // rays 16h + (g, g + 8)
-          float on[4], or1[4], or2[4], dn[4], dr1[4], dr2[4];
-          mma_3xtf32(on, ao[2 * h], ao[2 * h + 1], bv[0]);
-          mma_3xtf32(or1, ao[2 * h], ao[2 * h + 1], bv[1]);
-          mma_3xtf32(or2, ao[2 * h], ao[2 * h + 1], bv[2]);
-          mma_3xtf32(dn, ad[2 * h], ad[2 * h + 1], bv[0]);
-          mma_3xtf32(dr1, ad[2 * h], ad[2 * h + 1], bv[1]);
-          mma_3xtf32(dr2, ad[2 * h], ad[2 * h + 1], bv[2]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            // element e: ray 16h + g + 8 (e / 2), triangle nb*8 + 2k + e%2
-            const int m = 2 * h + e / 2;
-            const float den = dn[e];
-            const float f = den != 0.0f ? 1.0f / den : 0.0f;
-            const float tt = -on[e] * f;
-            const float uu = or1[e] + tt * dr1[e];
-            const float vv = or2[e] + tt * dr2[e];
-            if (den != 0.0f && uu >= 0.0f && vv >= 0.0f &&
-                uu + vv <= 1.0f && tt >= tmin[m] && tt < bt[m] &&
-                tt < ct[m]) {
-              ct[m] = tt;
-              cp[m] = j * kCluster + nb * 8 + 2 * k + e % 2;
-            }
-          }
-        }
+      for (int m = 0; m < 4; ++m) {
+        ct[m] = st[m];
+        cp[m] = sp[m];
       }
-      __syncwarp();  // every lane is done with buf
+      mxu_cluster<kK, true>(fbuf, w * kCluster, g, k, ao, ad, tmin, ct, cp,
+                            odd);
     }
-    // the 4 lanes of a row group hold the same rays: smallest t, then
-    // the first position
+    __syncwarp();  // every lane is done with the stage
+  }
+  // the 4 lanes of a row group hold the same rays: smallest t, then the
+  // first position
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
+  for (int m = 0; m < 4; ++m) {
 #pragma unroll
-      for (int x = 1; x <= 2; x <<= 1) {
-        const float ot = __shfl_xor_sync(kFull, ct[m], x);
-        const int op = __shfl_xor_sync(kFull, cp[m], x);
-        if (ot < ct[m] || (ot == ct[m] && op < cp[m])) {
-          ct[m] = ot;
-          cp[m] = op;
-        }
-      }
-      if (ct[m] < bt[m]) {
-        bt[m] = ct[m];
-        bi[m] = ((i * kStep + cp[m] / kCluster + tile) % n_clusters) *
-                    kCluster + cp[m] % kCluster;
+    for (int x = 1; x <= 2; x <<= 1) {
+      const float ot = __shfl_xor_sync(kFull, ct[m], x);
+      const int op = __shfl_xor_sync(kFull, cp[m], x);
+      if (ot < ct[m] || (ot == ct[m] && op < cp[m])) {
+        ct[m] = ot;
+        cp[m] = op;
       }
     }
   }
   if (k == 0) {
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int m = 0; m < 4; ++m) {
+      const int id = cp[m] < 0 ? -1
+                               : (cp[m] / kCluster + tile) % n_clusters *
+                                         kCluster +
+                                     cp[m] % kCluster;
       reinterpret_cast<float2*>(out)[static_cast<size_t>(tile) * kTile +
                                      m * 8 + g] =
-          make_float2(bt[m], __int_as_float(bi[m]));
+          make_float2(ct[m], __int_as_float(id));
+    }
   }
 }
 
@@ -789,12 +846,17 @@ extern "C" int k1_lab_launch(int lab, int mode, const int* counts,
     K1_LAB10(3)
 #undef K1_LAB10
     case 110:
-      lab11_vpu_kernel<<<blocks4, kWarpsPerBlock * kTile, smem4, st>>>(
-          counts, rays, tris, n_tiles, n_clusters, out);
+      lab11_vpu_kernel<kRays9><<<blocks4, kWarpsPerBlock * kTile,
+                                 2 * smem4, st>>>(counts, rays, tris, n_tiles,
+                                                  n_clusters, out);
       break;
     case 111: {
-      const size_t smem = kWarpsPerBlock * kRows * kPadRow * sizeof(float4);
-      lab11_mxu_kernel<<<blocks4, kWarpsPerBlock * kTile, smem, st>>>(
+      auto kernel = lab11_mxu_kernel<kMxuK>;
+      const int smem = kWarpsPerBlock * 2 * kRows * kPadRow * sizeof(float4);
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      kernel<<<blocks4, kWarpsPerBlock * kTile, smem, st>>>(
           counts, rays, tris, n_tiles, n_clusters, out);
       break;
     }

@@ -29,10 +29,10 @@ lane % 128). Per lab and mode:
 Otherwise t starts at min(t_max, 3e38) and the id at -1. The output is
 (n_tiles, tile, 2) f32: t, then the id's int32 bits (L7: float(id)).
 
-On the card L4 takes the unfused bodies and compares bit for bit with the
-plain version; L5-L7 take their FMA counterparts (csrc/brick_lab.cu
-brick_walk_kernel) and are held by brick_agreement
-(common.tie_aware_hold)."""
+On the card L4-L7 run one walk (csrc/brick_lab.cu brick_walk_kernel) with
+the bodies' FMA forms: L4 mt and L5-L7 are held by brick_agreement
+(common.tie_aware_hold), L4 mtfast by mtfast_agreement, which holds its
+truncated keys to a quantum."""
 
 from __future__ import annotations
 
@@ -40,14 +40,17 @@ import torch
 
 from ..ops.trace_kernel import _bw_test, _mt_test
 from .bounds import brick_bound
-from .common import (BIG, CLUSTER, ROW, BrickConfig, bw_fp64, card,
-                     mt_fp64, parse_args, steps_hold, tie_aware_hold,
+from .common import (BIG, CLUSTER, ILL_SHARE, ROW, BrickConfig, bw_fp64,
+                     card, mt_fp64, parse_args, steps_hold, tie_aware_hold,
                      time_back_to_back, timed_run)
 from .lab_kernel import MODES, launch_brick, on_card
 
 # elements of each (tiles, tile, KB * 128) temporary of the plain version:
 # 64 MB in f32
 _REF_ELEMS = 1 << 24
+# mtfast's key keeps t's int32 bits above the low 10, which hold the lane:
+# one quantum of t is 1,024 in its bits
+QUANTUM = 1024
 
 
 def brick(lab: str, mode, meta: torch.Tensor, rays: torch.Tensor,
@@ -209,6 +212,136 @@ def brick_agreement(lab: str, mode, out: torch.Tensor, ref: torch.Tensor,
         return m2[tile_, min(kb * s, ROW - 1)].view(torch.float32).double()
     return steps_hold(res, steps, t_k, id_k, t_p, id_p, tile, bound,
                       analyse)
+
+
+def _fp64_key_t(rows, o, d, tmin):
+    """mt_fp64 of each ray against one triangle each, with t as mtfast's
+    key takes it, t_n / |a|: negative where a < 0."""
+    f = mt_fp64(rows, o, d, tmin)
+    e1, e2 = rows[:, 3:6].double(), rows[:, 6:9].double()
+    a = (e1 * torch.cross(d.double(), e2, dim=1)).sum(1)
+    f["t"] = torch.where(a < 0, -f["t"], f["t"])
+    return f
+
+
+def mtfast_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays,
+                     tris, kb: int, ill_share: float = ILL_SHARE) -> dict:
+    """The hold of L4 mtfast's kernel output (the FMA form of the
+    deferred-division body) against its plain version (both raw (n_tiles,
+    tile, 2) blocks) on their inputs, ray by ray:
+      * the sign of t equal on every ray (t < 0 for a hit with a < 0);
+      * ids equal: t's int32 bits within one key quantum (QUANTUM), or two
+        where both keys carry bit 10: the FMAs move t across a quantum,
+        and at KB = 16 a lane >= 1,024 sets bit 10, when a crossing moves
+        the key by two (the CPU rule of the script's hold);
+      * ids differ on at most ill_share of the rays, each where FP64 puts
+        the outcome within rounding of turning: a winner whose test rounding
+        decides (common.mt_fp64's margin <= 1), or two winners whose t,
+        t_n / |a| in FP64, lie within a quantum and their rounding bounds
+        of each other (the keys' minimum then turns on a crossing); each
+        side's t must be its winner's FP64 t within its bound and a quantum
+        (the key's truncation, bit 10), or, with no id, its start. A slot
+        at KB = 16 names lane & 1,023 of its step: its winner is that lane
+        or the lane 1,024 on, whichever FP64 puts nearer its t.
+    Returns the rays, the ids that differ, the rays so held (held, each
+    with its winners' margins and FP64 t), t_bits_differ and max_quanta
+    (the largest |bits difference| / QUANTUM) over equal ids, the signs
+    that differ, t_negative (the kernel's, the plain version's), the rays
+    that break every rule (rays_off) and ok."""
+    n_tiles, tile = rays.shape[:2]
+    C = tris.shape[0]
+    rows = tris.reshape(C, tris.shape[1], CLUSTER)
+    m2 = meta.reshape(n_tiles, ROW)
+    r8 = rays.reshape(-1, 8)
+    bk = kb * CLUSTER
+    t_k, t_p = out[..., 0].reshape(-1), ref[..., 0].reshape(-1)
+    id_k, id_p = (x[..., 1].contiguous().view(torch.int32).reshape(-1)
+                  for x in (out, ref))
+    b_k, b_p = (t.view(torch.int32).long() for t in (t_k, t_p))
+    n = t_k.numel()
+    sign_off = torch.signbit(t_k) != torch.signbit(t_p)
+    same = id_k == id_p
+    d = (b_k - b_p).abs()
+    bit10 = ((b_k & 1024) != 0) & ((b_p & 1024) != 0)
+    t_ok = (d <= QUANTUM) | ((d == 2 * QUANTUM) & bit10)
+    off = sign_off | (same & ~t_ok)
+    t_start = torch.where(r8[:, 7] > BIG, BIG, r8[:, 7])  # NaN kept
+    held = []
+    sel = torch.nonzero(~same).squeeze(1)
+    if sel.numel():
+        def winner(ids, t):
+            """FP64's test of the triangle each id names (the nearer of
+            the two a KB = 16 slot can name), keyed as mtfast keys t."""
+            ids = ids.clamp(min=0).long()
+            step, lane = ids // bk, ids % bk
+            best = None
+            for extra in ((0, 1024) if bk > 1024 else (0,)):
+                ln = (lane + extra).clamp(max=bk - 1)
+                m = m2[sel // tile, step * kb + ln // CLUSTER]
+                f = _fp64_key_t(rows[m.clamp(0, C - 1).long(), :,
+                                     ln % CLUSTER], r8[sel, 0:3],
+                                r8[sel, 3:6], r8[sel, 6])
+                if best is None:
+                    best = f
+                    continue
+                nearer = (f["t"] - t.double()).abs() < \
+                    (best["t"] - t.double()).abs()
+                best = {k: torch.where(nearer, f[k], best[k]) for k in f}
+            return best
+        ik, ip = id_k[sel], id_p[sel]
+        tk, tp = t_k[sel], t_p[sel]
+        fk, fp = winner(ik, tk), winner(ip, tp)
+
+        def bits(x):    # of |x|: the key truncates t's magnitude
+            return x.abs().float().view(torch.int32).long()
+
+        def legit(f, ids, t, start):
+            mag = f["t"].abs()
+            lo = bits((mag - f["b_t"]).clamp(min=0)) - QUANTUM
+            hi = bits(mag + f["b_t"]) + QUANTUM
+            inside = (bits(t) >= lo) & (bits(t) <= hi) & (
+                (f["t"] == 0) | (torch.signbit(t) == (f["t"] < 0)))
+            hit = (ids >= 0) & (f["hit"] | (f["margin"] <= 1)) & inside
+            return hit | ((ids < 0) & (t.view(torch.int32) ==
+                                       start.view(torch.int32)))
+        lk = legit(fk, ik, tk, t_start[sel])
+        lp = legit(fp, ip, tp, t_start[sel])
+        turn = ((ik >= 0) & (fk["margin"] <= 1)) | \
+            ((ip >= 0) & (fp["margin"] <= 1))
+        scale = torch.maximum(fk["t"].abs(), fp["t"].abs())
+        quantum = torch.ldexp(torch.ones_like(scale),
+                              torch.frexp(scale).exponent - 14)
+        key_tie = (ik >= 0) & (ip >= 0) & ((fk["t"] - fp["t"]).abs() <=
+                                           quantum + fk["b_t"] + fp["b_t"])
+        ok = lk & lp & (turn | key_tie)
+        off[sel] |= ~ok
+        for i in range(sel.numel()):
+            held.append(dict(ray=int(sel[i]), id_k=int(ik[i]),
+                             id_p=int(ip[i]), t_k=float(tk[i]),
+                             t_p=float(tp[i]), t64_k=float(fk["t"][i]),
+                             t64_p=float(fp["t"][i]),
+                             margin_k=float(fk["margin"][i]),
+                             margin_p=float(fp["margin"][i]),
+                             key_tie=bool(key_tie[i]), ok=bool(ok[i])))
+    n_diff = int(sel.numel())
+    return dict(rays=n, ids_differ=n_diff, held=held,
+                t_bits_differ=int((same & (d != 0)).sum()),
+                max_quanta=float((torch.where(same, d, 0).max() / QUANTUM)
+                                 if n else 0.0),
+                signs_differ=int(sign_off.sum()),
+                t_negative=[int((t_k < 0).sum()), int((t_p < 0).sum())],
+                rays_off=int(off.sum()),
+                ok=not bool(off.any()) and n_diff <= ill_share * n)
+
+
+def agreement(lab: str, mode, out, ref, meta, rays, tris, kb: int,
+              steps=None) -> dict:
+    """The card's hold of lab's walk in mode against its plain version:
+    mtfast_agreement for L4 mtfast, brick_agreement (steps: see it) for
+    every other."""
+    if mode == "mtfast":
+        return mtfast_agreement(out, ref, meta, rays, tris, kb)
+    return brick_agreement(lab, mode, out, ref, meta, rays, tris, steps, kb)
 
 
 def walked_steps(fn, steps: int) -> torch.Tensor:

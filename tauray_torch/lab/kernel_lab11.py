@@ -4,16 +4,18 @@ resident: C = 1,024 clusters of random triangles, 4,096 tiles of 32 random
 rays, 8 steps a tile, step i of tile g testing clusters (8i + j + g) mod C,
 j < 8. Modes:
 
-  vpu  K1's FP32 step over the rows tris12 (C, 12, 1, 128);
+  vpu  K1's FP32 step over the rows tris12 (C, 12, 1, 128); on the card
+       L9's walk and FMA body (csrc/k1_lab.cu lab11_vpu_kernel), held
+       tie-aware to the plain version (vpu_agreement);
   mxu  the same test as six products a step over the table (C, 3, 4, 128)
        [type (n, r1, r2), row (x, y, z, -v.v0), triangle]: o4 = [o | 1]
        times each type (n.o - n.v0, r1.o - r1.v0, r2.o - r2.v0) and d times
        each type's x, y, z rows (n.d, r1.d, r2.d), then t = -(n.o - n.v0) /
        n.d, u = (r1.o - r1.v0) + t r1.d, v likewise. On the card the
        products are mma.sync m16n8k4 in TF32, each operand split in two
-       (hi + lo, three products) to come near FP32; the plain version
-       takes them in FP32, so the two agree by a tolerance, not bit for
-       bit (mxu_agreement).
+       (hi + lo, three products) to come near FP32, and the epilogue takes
+       FMAs; the plain version takes them in FP32, so the two agree by a
+       tolerance, not bit for bit (mxu_agreement).
 
     python -m tauray_torch.lab.kernel_lab11 [--device=cpu]
 
@@ -29,8 +31,8 @@ import torch
 
 from ..ops.trace_kernel import _check
 from .common import (BIG, CLUSTER, FLOPS_BW, ILL_SHARE, KBV, PEAK_FP32,
-                     PEAK_TF32, TILE, bound, card, lab11_inputs, parse_args,
-                     timed_run)
+                     PEAK_TF32, TILE, bound, bw_fp64, card, lab11_inputs,
+                     parse_args, tie_aware_hold, timed_run)
 from .kernel_lab9 import _hit
 from .lab_kernel import MODES, check_tiles, launch, on_card
 
@@ -131,6 +133,29 @@ def lab11_reference(steps, rays, tris, mode: str) -> torch.Tensor:
             bi[sel] = torch.where(
                 closer, (win * CLUSTER + arg % CLUSTER).int(), bi[sel])
     return torch.stack([bt, bi.view(torch.float32)], -1)
+
+
+def vpu_agreement(out: torch.Tensor, ref: torch.Tensor, rays: torch.Tensor,
+                  tris12: torch.Tensor) -> dict:
+    """The tie-aware hold of vpu's kernel output (the FMA body) against its
+    plain version (both (n_tiles, 32, 2)) on their inputs:
+    common.tie_aware_hold, each ray's winner analysed in FP64 by
+    common.bw_fp64, as kernel_lab9.lab9_agreement holds L9; the id is the
+    cluster x 128 + lane, and a ray that hits nothing keeps t = 3e38."""
+    C = tris12.shape[0]
+    rows = tris12.reshape(C, 12, CLUSTER)
+    r8 = rays.reshape(-1, 8)
+
+    def analyse(ray, ids):
+        return bw_fp64(rows[(ids // CLUSTER).long(), :,
+                            (ids % CLUSTER).long()], r8[ray, 0:3],
+                       r8[ray, 3:6], r8[ray, 6])
+
+    def flat(x):
+        return (x[..., 0].reshape(-1),
+                x[..., 1].contiguous().view(torch.int32).reshape(-1))
+    return tie_aware_hold(*flat(out), *flat(ref),
+                          torch.full_like(r8[:, 0], BIG), analyse)
 
 
 def mxu_t_of(rays: torch.Tensor, m: torch.Tensor,

@@ -11,8 +11,10 @@ Bodies (lab/brick.py states them):
           minimum, kept as written: t < 0 for a hit with a < 0, and the
           lane's bit 10 lost at KB = 16 (ROADMAP Queue 3).
 
-On the card the next step's bricks are copied into a shared double buffer
-with cp.async while the step tests the other (csrc/brick_lab.cu).
+On the card a warp walks a tile (csrc/brick_lab.cu brick_walk_kernel, L5's
+walk with the FMA bodies), its clusters staged one at a time into a ring
+of the warp's own in shared memory; mt is held by brick.brick_agreement,
+mtfast by brick.mtfast_agreement.
 
     python -m tauray_torch.lab.kernel_lab2 [--device=cpu]
 

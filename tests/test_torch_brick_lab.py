@@ -703,26 +703,236 @@ def test_brick_agreement_rules(mode):
     assert not a["ok"] and a["steps_differ"] == 1 and a["steps_off"] == 1
 
 
+# ---------------------------------------------------------------------------
+# L4 on the walk (csrc/brick_lab.cu brick_walk_kernel, kLab 4): each
+# cluster staged in the warp's ring, worker w taking the quads w, w + 32 R /
+# TILE, ... of each cluster (the quads of the step it would take in place);
+# mt as L5 (running bests, the (t, slot) combine after the walk), mtfast
+# each worker's smallest key of a step against the best from before it,
+# met over the workers after the step; held by brick_agreement (mt) and
+# brick.mtfast_agreement (mtfast)
+# ---------------------------------------------------------------------------
+
+def workers_mtfast(meta, rays, tris, kb, steps, R):
+    """A plain torch model of L4 mtfast's split on the card (unfused body):
+    worker w of the 32 R / TILE takes the quads q = w (mod 32 R / TILE) of
+    each cluster of a step; each keeps the smallest key (t bits & ~1023) |
+    lane of its share against the ray's best from before the step; the
+    workers' keys meet in a minimum after the step's last cluster, and
+    cand < bits(best) takes (cand & ~1023, step KB 128 + (cand & 1023)).
+    Returns what brick returns."""
+    n_tiles, tile = rays.shape[:2]
+    C = tris.shape[0]
+    rows = tris.reshape(C, 9, common.CLUSTER)
+    m2 = meta.reshape(n_tiles, common.ROW)
+    bk = kb * common.CLUSTER
+    W = 32 * R // tile
+    lane = torch.arange(bk, dtype=torch.int32)
+    worker = lane % common.CLUSTER // 4 % W
+    tmax = rays[..., 7]
+    bt = torch.where(tmax > common.BIG, common.BIG, tmax)
+    bi = torch.full((n_tiles, tile), -1, dtype=torch.int32)
+    o = [rays[..., k, None] for k in range(3)]
+    d = [rays[..., 3 + k, None] for k in range(3)]
+    big = torch.iinfo(torch.int32).max
+    for s in range(steps):
+        orders = m2[:, s * kb:(s + 1) * kb].clamp(0, C - 1).long()
+        tri = rows[orders].permute(0, 2, 1, 3).reshape(n_tiles, 9, 1, bk)
+        keys = brick._mtfast_keys([tri[:, i] for i in range(9)], *o, *d,
+                                  rays[..., 6, None], bt[..., None], lane)
+        per_w = torch.stack([torch.where(worker == w, keys, big).min(-1)
+                             .values for w in range(W)], -1)
+        cand = per_w.min(-1).values
+        closer = cand < bt.view(torch.int32)
+        bt = torch.where(closer, (cand & ~1023).view(torch.float32), bt)
+        bi = torch.where(closer, s * bk + (cand & 1023), bi)
+    return torch.stack([bt, bi.view(torch.float32)], -1)
+
+
+def _l4_cases(tile, kb):
+    """(meta, rays, tris9, steps) of L4 at tile rays a tile and KB kb: the
+    first 16 tiles of the script's inputs at its steps, and the duplicate
+    scene (_dup_brick) at 3 steps."""
+    cfg = _config("lab4", "mt", tile, kb)
+    tables, meta, rays = _inputs("lab4", tile)
+    tris, dmeta, drays, _, _ = _dup_brick(tile)
+    return [(_t(meta[:16 * common.ROW]), _t(rays[:16]), _t(tables["tris9"]),
+             cfg.steps), (dmeta, drays, tris, 3)]
+
+
+@pytest.mark.parametrize("kb", [4, 8, 16])
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("mode", ["mt", "mtfast"])
+def test_lab4_staged_split_matches_reference(mode, tile, kb):
+    """The models of the card's L4 split at R = 4 (workers_brick for mt,
+    its per-worker running bests and (t, slot) combine; workers_mtfast for
+    mtfast, its per-worker key minima met after each step) equal
+    walk_reference bit for bit at TILE 16 and 32 and KB 4, 8 and 16, on
+    the script's first tiles and on the duplicate scene (NaN rays, NaN
+    t_max, t_max < t_min); at KB 16 the models lose lane bit 10 as the
+    script does."""
+    lost = 0
+    for meta, rays, tris, steps in _l4_cases(tile, kb):
+        want = brick.walk_reference("lab4", mode, meta, rays, tris, kb, steps)
+        got = (workers_brick("lab4", "mt", meta, rays, tris, kb, steps, 4)
+               if mode == "mt" else
+               workers_mtfast(meta, rays, tris, kb, steps, 4))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert int((_ids(want) >= 0).sum()) > 50
+        if mode == "mtfast" and kb == 16:
+            mt = brick.walk_reference("lab4", "mt", meta, rays, tris, kb,
+                                      steps)
+            high = (got[..., 0] >= 0) & (_ids(mt) % 2048 >= 1024)
+            lost += int((_ids(got)[high] == _ids(mt)[high] - 1024).sum())
+    if mode == "mtfast" and kb == 16:
+        assert lost > 0
+
+
+def _fma(a, b, c):
+    return common._fma(a, b, c)
+
+
+def _mtfast_keys_fma(rows, ox, oy, oz, dx, dy, dz, tmin, bt, lane):
+    """csrc/brick_lab.cu mtfast_key_fma's arithmetic on the CPU (FMAs
+    emulated in FP64, as common.mt_test_fma), brick._mtfast_keys's
+    signature."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
+    hx = _fma(dy, e2z, -(dz * e2y))
+    hy = _fma(dz, e2x, -(dx * e2z))
+    hz = _fma(dx, e2y, -(dy * e2x))
+    a = _fma(e1z, hz, _fma(e1y, hy, e1x * hx))
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    u_n = _fma(sz, hz, _fma(sy, hy, sx * hx))
+    qx = _fma(sy, e1z, -(sz * e1y))
+    qy = _fma(sz, e1x, -(sx * e1z))
+    qz = _fma(sx, e1y, -(sy * e1x))
+    v_n = _fma(dz, qz, _fma(dy, qy, dx * qx))
+    t_n = _fma(e2z, qz, _fma(e2y, qy, e2x * qx))
+    sa = torch.where(a < 0, -1.0, 1.0)
+    na, nu, nv, nt = a * sa, u_n * sa, v_n * sa, t_n * sa
+    hit = (nu >= 0) & (nv >= 0) & (nu + nv <= na) & (nt >= tmin * na) & \
+        (nt < bt * na) & (na > 0)
+    tt = torch.where(hit, t_n / torch.where(na == 0, 1.0, na), common.BIG)
+    return (tt.view(torch.int32) & ~1023) | lane
+
+
+def _l4_fma(monkeypatch, mode, *args):
+    """walk_reference of L4 with the card's FMA bodies."""
+    monkeypatch.setattr(brick, "_mt_test", common.mt_test_fma)
+    monkeypatch.setattr(brick, "_mtfast_keys", _mtfast_keys_fma)
+    try:
+        return brick.walk_reference("lab4", mode, *args)
+    finally:
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("tile,kb", [(16, 4), (32, 4), (32, 16)])
+@pytest.mark.parametrize("mode", ["mt", "mtfast"])
+def test_lab4_holds_the_fma_bodies(monkeypatch, mode, tile, kb):
+    """The FMA bodies' results (emulated in FP64) meet L4's holds against
+    the plain version, on the script's first 256 tiles and on the
+    duplicate scene: mt by brick_agreement (t within 1/2 of its bound),
+    mtfast by mtfast_agreement (t within a quantum, signs equal)."""
+    cfg = _config("lab4", mode, tile, kb)
+    tables, meta, rays = _inputs("lab4", tile)
+    tris, dmeta, drays, _, _ = _dup_brick(tile)
+    cases = [(_t(meta[:256 * common.ROW]), _t(rays[:256]),
+              _t(tables["tris9"]), cfg.steps), (dmeta, drays, tris, 3)]
+    for meta, rays, tris, steps in cases:
+        args = (meta, rays, tris, kb, steps)
+        ref = brick.walk_reference("lab4", mode, *args)
+        fma = _l4_fma(monkeypatch, mode, *args)
+        if mode == "mt":
+            agree = brick.brick_agreement("lab4", mode, fma, ref, meta, rays,
+                                          tris)
+            assert agree["ok"] and agree["max_t_over_bound"] <= 0.5, agree
+        else:
+            agree = brick.mtfast_agreement(fma, ref, meta, rays, tris, kb,
+                                           ill_share=1e-3)
+            assert agree["ok"] and agree["max_quanta"] <= 1, agree
+            assert agree["t_negative"][0] == agree["t_negative"][1] > 0
+
+
+def test_mtfast_agreement_rules():
+    """mtfast_agreement accepts the plain version against itself and a t
+    one quantum off (a crossing), and flags a wrong id off a tie, a t two
+    quanta off (no bit 10 on either side), a turned sign, and an id
+    moved at more than its share of the rays."""
+    cfg = _config("lab4", "mtfast", 32, 4)
+    tables, meta, rays = _inputs("lab4", 32)
+    meta, rays, tris = _t(meta), _t(rays), _t(tables["tris9"])
+    ref = brick.walk_reference("lab4", "mtfast", meta, rays, tris, cfg.kb,
+                               cfg.steps)
+
+    def hold(out, share=common.ILL_SHARE):
+        return brick.mtfast_agreement(out, ref, meta, rays, tris, cfg.kb,
+                                      share)
+    a = hold(ref)
+    assert a["ok"] and a["ids_differ"] == 0 and a["rays_off"] == 0
+    flat = ref.reshape(-1, 2)
+    bits = flat[:, 0].contiguous().view(torch.int32)
+    ids = flat[:, 1].contiguous().view(torch.int32)
+    hit = torch.nonzero((ids >= 0) & (flat[:, 0] > 0.5) &
+                        (bits & 1024 == 0)).reshape(-1)
+    i, j = int(hit[0]), int(hit[1])
+
+    def moved(ray, dbits=0, id_=None, neg=False):
+        out = flat.clone()
+        b = out[:, 0].contiguous().view(torch.int32)
+        b[ray] += dbits
+        out[:, 0] = b.view(torch.float32)
+        if neg:
+            out[ray, 0] = -out[ray, 0]
+        if id_ is not None:
+            out[ray, 1] = torch.tensor([id_], dtype=torch.int32).view(
+                torch.float32)[0]
+        return out.reshape(ref.shape)
+    for db in (1024, -1024):
+        a = hold(moved(i, db))
+        assert a["ok"] and a["t_bits_differ"] == 1 and a["max_quanta"] == 1
+    a = hold(moved(i, 2048))
+    assert not a["ok"] and a["rays_off"] == 1 and a["max_quanta"] == 2
+    a = hold(moved(i, neg=True))
+    assert not a["ok"] and a["signs_differ"] == 1 and a["rays_off"] == 1
+    a = hold(moved(j, id_=int(ids[j]) + 37))
+    assert not a["ok"] and a["ids_differ"] == 1 and a["rays_off"] == 1
+    assert not a["held"][0]["ok"]
+    # a key tie: the winner's triangle copied one quad over, the copy named
+    tris2 = tris.clone()
+    c = int(meta.reshape(-1, common.ROW)[j // 32, int(ids[j]) // 128])
+    lane = int(ids[j]) % 128
+    tris2[c, :, 0, lane ^ 4] = tris2[c, :, 0, lane]
+    tie = moved(j, id_=int(ids[j]) ^ 4)
+    a = brick.mtfast_agreement(tie, ref, meta, rays, tris2, cfg.kb, 1.0)
+    assert a["ok"] and a["ids_differ"] == 1 and a["held"][0]["key_tie"]
+    a = brick.mtfast_agreement(tie, ref, meta, rays, tris2, cfg.kb)
+    assert not a["ok"] and a["rays_off"] == 0    # 1 of 2,048 rays: > 1e-4
+
+
 @pytest.mark.parametrize("names", [
     {"brick_walk_kernelILi6ELi0ELi0ELi32ELi4EE": ("lab6 fixed TILE=32", 4,
                                                   9),
      "brick_walk_kernelILi6ELi0ELi1ELi8ELi2EE": ("lab6 cid TILE=8", 2, 9),
-     "brick_walk_kernelILi6ELi0ELi3ELi16ELi4EE": ("lab6 while2 TILE=16", 4,
+     "brick_walk_kernelILi7ELi2ELi0ELi32ELi4EE": ("lab7 bw", 4, 12),
+     "brick_walk_kernelILi4ELi0ELi0ELi32ELi4EE": ("lab4 mt TILE=32", 4, 9),
+     "brick_walk_kernelILi4ELi1ELi0ELi16ELi4EE": ("lab4 mtfast TILE=16", 4,
+                                                  9)},
+    {"brick_walk_kernelILi6ELi0ELi3ELi16ELi4EE": ("lab6 while2 TILE=16", 4,
                                                   9),
      "brick_walk_kernelILi7ELi2ELi0ELi32ELi4EE": ("lab7 bw", 4, 12),
-     "brick_kernelILb1ELi1ELi0EE": None},
+     "brick_kernelILb1ELi1ELi0EE": ("lab4 mtfast", 1, 9)},
     {"brick_kernelILb0ELi0ELi0EE": ("lab6 fixed", 1, 9),
      "brick_kernelILb0ELi0ELi2EE": ("lab6 while", 1, 9),
      "lab7_kernelILi0ELi4EE": ("lab7 mt", 4, 9),
-     "brick_kernelILb1ELi0ELi0EE": None}],
-    ids=["this tree", "one slice older"])
+     "brick_kernelILb1ELi0ELi0EE": ("lab4 mt", 1, 9)}],
+    ids=["this tree", "one slice older", "two slices older"])
 def test_lab_test_loops_names_the_brick_walks(monkeypatch, names):
-    """app/sass.lab_test_loops names L5-L7's instances of the walk (L6's
-    per variant and TILE, L5 being fixed's) and an older checkout's
-    brick_kernel (per variant, R = 1) and lab7_kernel, with their rays a
-    lane and instructions per test (9 row loads a pass: 4 R tests of
-    Möller-Trumbore, 3 R of Baldwin-Weber); L4's staged brick_kernel has no
-    entry."""
+    """app/sass.lab_test_loops names L4-L7's instances of the walk (L4's
+    per body and TILE, L6's per variant and TILE, L5 being fixed's) and
+    older checkouts' brick_kernel (L4 staged per body, L5 and L6 per
+    variant, R = 1) and lab7_kernel, with their rays a lane and
+    instructions per test (9 row loads a pass: 4 R tests of
+    Möller-Trumbore, 3 R of Baldwin-Weber)."""
     from test_torch_tile_lab import _SASS_LOOP
     from tauray_torch.app import sass
     monkeypatch.setattr(sass, "functions", lambda path: {

@@ -630,10 +630,11 @@ def test_k1_lab_matches_plain_version(cuda, lab):
     """Every mode of each K1 lab (csrc/k1_lab.cu) at a small size against
     its plain torch version on the same card inputs: t and id bits equal
     (-fmad=false), L11 mxu by kernel_lab11.mxu_agreement, L9's modes with
-    a test and L10's (their kernels take the FMA body) by
-    kernel_lab9.lab9_agreement and kernel_lab10.lab10_agreement (nowrite
-    bit for bit to what the kernel's full computes), L9 loads bit for bit;
-    each launch counted."""
+    a test, L10's and L11 vpu (their kernels take the FMA body) by
+    kernel_lab9.lab9_agreement, kernel_lab10.lab10_agreement (nowrite
+    bit for bit to what the kernel's full computes) and
+    kernel_lab11.vpu_agreement, L9 loads bit for bit; each launch
+    counted."""
     from tauray_torch.app.kernel_waves import kernel_waves, retrace_slice
     from tauray_torch.lab import common, lab_kernel
     from tauray_torch.lab import kernel_lab8, kernel_lab9, kernel_lab10, \
@@ -684,6 +685,12 @@ def test_k1_lab_matches_plain_version(cuda, lab):
         if mode == "mxu":
             agree = kernel_lab11.mxu_agreement(got, want, rays, m)
             assert agree["ok"], agree
+        elif mode == "vpu":
+            # 3,072 rays: ILL_SHARE admits no turned verdict, so at most
+            # one, as the CPU tests of the FMA bodies allow
+            agree = kernel_lab11.vpu_agreement(got, want, rays, tris12)
+            assert agree["ill_conditioned"] <= 1 and \
+                agree["rays_off"] == 0, agree
         elif lab == "lab9" and mode != "loads":
             agree = kernel_lab9.lab9_agreement(got, want, o3, d3, mm2,
                                                tracer.tris12, mode)
@@ -703,10 +710,10 @@ def test_k1_lab_matches_plain_version(cuda, lab):
 @pytest.mark.parametrize("lab", ["lab4", "lab5", "lab6", "lab7"])
 def test_brick_lab_matches_plain_version(cuda, lab):
     """Every configuration of each brick lab's script main (csrc/
-    brick_lab.cu) against its plain version on the same card inputs: L4
-    (with k8 and k8f too) on the first 64 tiles, t and id bits equal
-    (-fmad=false); L5-L7 (one walk, the FMA bodies) by
-    brick.brick_agreement, as chip_smoke holds them, L5 and L6 on all
+    brick_lab.cu) against its plain version on the same card inputs (one
+    walk, the FMA bodies), as chip_smoke holds them (brick.agreement): L4
+    mtfast by brick.mtfast_agreement, L4 mt and L5-L7 by
+    brick.brick_agreement, L4 (with k8 and k8f too), L5 and L6 on all
     65,536 rays, L7 on the first 1,024 tiles (the share of 1e-4 of the
     rays for a verdict that rounding decides admits none on 2,048 rays);
     L6's while and while2 also where the exit fires (every 8th meta entry
@@ -721,7 +728,7 @@ def test_brick_lab_matches_plain_version(cuda, lab):
     tabs = {k: torch.from_numpy(v).to(cuda) for k, v in tables.items()}
     before = lab_kernel.LAUNCHES[lab]
     n = 0
-    tiles = {"lab4": 64, "lab7": 1024}.get(lab)
+    tiles = {"lab7": 1024}.get(lab)
     for cfg, meta, rays in draws:
         tiles_ = tiles or cfg.n_tiles
         meta = meta[:tiles_ * common.ROW]
@@ -738,10 +745,6 @@ def test_brick_lab_matches_plain_version(cuda, lab):
             got = brick.brick(*args)
             want = brick.walk_reference(*args)
             n += 1
-            if lab == "lab4":
-                assert torch.equal(got.view(torch.int32),
-                                   want.view(torch.int32)), cfg.label
-                continue
             walked = None
             if i:       # the exit fires: the steps each tile needed
                 walked = [brick.walked_steps(
@@ -749,21 +752,25 @@ def test_brick_lab_matches_plain_version(cuda, lab):
                     for f in (brick.brick, brick.walk_reference)]
                 n += cfg.steps + 1
                 assert int(walked[0].sum()) < tiles_ * cfg.steps
-            agree = brick.brick_agreement(cfg.lab, cfg.mode, got, want, m, r,
-                                          tris, walked, cfg.kb)
+            agree = brick.agreement(cfg.lab, cfg.mode, got, want, m, r,
+                                    tris, cfg.kb, walked)
             assert agree["ok"], (cfg.label, agree)
     torch.cuda.synchronize()
     assert lab_kernel.LAUNCHES[lab] - before == n
 
 
 def test_fma_labs_redo_steps_with_odd_denominators(cuda):
-    """L9 full, L7 mt / bw, L5 and L6 on rays whose denominator leaves the
-    in-range reciprocal's range: directions scaled by 1e-39 (a subnormal
-    den, where the kernels redo the step with __frcp_rn, here every step
-    of every tile), NaN directions and axis-aligned ones against the
-    Sponza table's axis-aligned walls (den NaN or exactly 0, a miss
-    without a redo): held to the plain versions by the tie-aware rules."""
-    from tauray_torch.lab import brick, common, kernel_lab5, kernel_lab9
+    """L9 full, L7 mt / bw, L4 mt / mtfast, L5, L6 and L11 vpu on rays
+    whose denominator leaves the in-range reciprocal's range: directions
+    scaled by 1e-39 (a subnormal den, where the kernels redo the step, or
+    the cluster, with __frcp_rn, here every one of every tile), NaN
+    directions and axis-aligned ones against axis-aligned triangles (the
+    Sponza table's walls; for L4 and L11 triangles made so in the table:
+    den NaN or exactly 0, a miss without a redo): held to the plain
+    versions by the tie-aware rules (L4 mtfast, which takes no
+    reciprocal, by brick.mtfast_agreement)."""
+    from tauray_torch.lab import brick, common, kernel_lab5, kernel_lab9, \
+        kernel_lab11
     tracer = common.scene_tracer(cuda, "proc://sponza?tris=8192")
     o3, d3, mm2, heads = (torch.from_numpy(x).to(cuda) for x in
                           common.lab9_inputs(tracer.n_clusters, 4096,
@@ -813,6 +820,42 @@ def test_fma_labs_redo_steps_with_odd_denominators(cuda):
                 lab, cfg.mode, brick.brick(*args),
                 brick.walk_reference(*args), meta, rays, tris)
             assert agree["ok"], (cfg.label, agree)
+    # L4 at k7 KB 4: every 5th triangle with e1 and e2 in the xy plane, so
+    # that every 7th ray, along x, meets it with a = 0
+    tables, draws = common.lab4_inputs(("k7", "k7f"))
+    tris = torch.from_numpy(tables["tris9"]).to(cuda).clone()
+    tris[:, 5, 0, ::5] = 0.0
+    tris[:, 8, 0, ::5] = 0.0
+    for cfg, meta, rays in draws:
+        if cfg.kb != 4:
+            continue
+        meta = torch.from_numpy(meta).to(cuda)
+        rays = torch.from_numpy(rays).to(cuda).clone()
+        rays.view(-1, 8)[::7, 3:6] = torch.tensor([1.0, 0.0, 0.0],
+                                                  device=cuda)
+        rays.view(-1, 8)[::13, 3:6] *= 1e-39
+        rays.view(-1, 8)[::17, 3:6] = float("nan")
+        args = ("lab4", cfg.mode, meta, rays, tris, cfg.kb, cfg.steps)
+        agree = brick.agreement(*args[:2], brick.brick(*args),
+                                brick.walk_reference(*args), meta, rays,
+                                tris, cfg.kb)
+        assert agree["ok"], (cfg.label, agree)
+    # L11 vpu: every 5th triangle's normal with x = 0, every 7th ray along
+    # x (den exactly 0 there)
+    steps, rays, tris12, _ = (torch.from_numpy(x).to(cuda) for x in
+                              common.lab11_inputs(C=256, n_tiles=1024,
+                                                  n_steps=4, seed=6))
+    tris12 = tris12.clone()
+    tris12[:, 0, 0, ::5] = 0.0
+    rays = rays.clone()
+    rays.view(-1, 8)[::7, 3:6] = torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    rays.view(-1, 8)[::13, 3:6] *= 1e-39
+    rays.view(-1, 8)[::17, 3:6] = float("nan")
+    args = (steps, rays, tris12, "vpu")
+    agree = kernel_lab11.vpu_agreement(kernel_lab11.lab11(*args),
+                                       kernel_lab11.lab11_reference(*args),
+                                       rays, tris12)
+    assert agree["ok"], agree
 
 
 @pytest.mark.parametrize("lab", ["lab1", "lab2", "lab3"])

@@ -723,6 +723,177 @@ def test_mxu_agreement_flags_departures():
     assert agree["rays_off"] == 1 and agree["ties"] == 1
 
 
+# L11 vpu on the card (csrc/k1_lab.cu lab11_vpu_kernel, L9's plan): R rays a
+# lane, worker w taking the quads w (mod R) of each cluster, running bests
+# from 3e38 over the whole walk (slot g * 128 + lane at walk position g =
+# 8i + j), combined by (t, slot) after the walk; the FMA body, held by
+# kernel_lab11.vpu_agreement
+
+def _dup_lab11(seed=15, C=16, n_tiles=8, n_steps=2):
+    """L11's stream over a table with exact duplicates: cluster 1 copies
+    cluster 0, and in cluster 0 lane 2 copies lane 0 and quad 1 quad 0;
+    half the rays aim at cluster 0's first quads, some are NaN. Returns
+    (steps, rays, tris12) as L11's wrappers take them."""
+    (v0, e1, e2), _, (o3, d3, _) = _dup_scene(seed, n_clusters=C,
+                                               n_tiles=n_tiles)
+    tris12 = np.ascontiguousarray(np.swapaxes(
+        _bw_rows(v0, e1, e2).reshape(C, common.CLUSTER, 12), 1, 2)[
+            :, :, None, :])
+    rays = np.concatenate([o3, d3, np.zeros_like(o3[..., :2])], -1)
+    rays[..., 7] = common.BIG
+    steps = np.full((n_tiles,), n_steps, np.int32)
+    return tuple(map(_t, (steps, rays.astype(np.float32), tris12)))
+
+
+def workers_lab11(steps, rays, tris12, R):
+    """A plain torch model of lab11_vpu_kernel's split (unfused body): lane
+    l of worker l // (32 / R) holds rays l % (32 / R) + k (32 / R); worker
+    w takes the quads q = w (mod R) of each cluster and keeps the first
+    smallest hit (strict <) of its slots over the walk, from 3e38; the
+    workers' bests meet by smallest t, then smallest slot, and the winning
+    slot g * 128 + lane names cluster (g + tile) mod C. Returns what lab11
+    returns."""
+    n_tiles, C = steps.shape[0], tris12.shape[0]
+    rows = tris12.reshape(C, 12, common.CLUSTER)
+    n = int(steps.max()) * common.KBV
+    g = torch.arange(n)
+    clusters = (g[None] + torch.arange(n_tiles)[:, None]) % C   # (T, n)
+    slot = (g[:, None] * common.CLUSTER +
+            torch.arange(common.CLUSTER)[None]).reshape(-1)
+    tri = rows[clusters].permute(0, 2, 1, 3).reshape(n_tiles, 1, 12, -1)
+    bt = torch.full((n_tiles, 32), common.BIG)
+    hit, tt = kernel_lab9._hit([tri[:, :, i] for i in range(12)],
+                               rays[..., 0:3], rays[..., 3:6], rays[..., 6],
+                               bt)
+    walked = slot[None, None] < (steps.long() * common.KBV *
+                                 common.CLUSTER)[:, None, None]
+    worker = slot % common.CLUSTER // 4 % R
+    inf = torch.tensor(float("inf"))
+    per_w = []
+    for w in range(R):
+        t_w, a = torch.where(hit & walked & (worker == w), tt, inf).min(-1)
+        per_w.append((t_w, torch.where(t_w < inf, slot[a], 1 << 30)))
+    t, s_ = _first_min(torch.stack([x[0] for x in per_w], -1),
+                       torch.stack([x[1] for x in per_w], -1))
+    won = s_ < (1 << 30)
+    c = torch.gather(clusters, 1, torch.where(won, s_, 0) // common.CLUSTER)
+    ids = torch.where(won, c * common.CLUSTER + s_ % common.CLUSTER, -1)
+    return torch.stack([torch.where(won, t, common.BIG),
+                        ids.int().view(torch.float32)], -1)
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_lab11_vpu_worker_split_matches_reference(R):
+    """The model of the card's R-worker split over the walk (running bests
+    from 3e38, the (t, slot) combine after the walk, the slot mapped to
+    cluster x 128 + lane only then) equals lab11_reference bit for bit on
+    exact duplicate triangles (within a quad, across workers, across
+    clusters of a step) and NaN rays, and on the script's stream, at
+    uneven steps."""
+    cases = [_dup_lab11(), tuple(map(_t, common.lab11_inputs(
+        seed=7, **L11_SMALL)[:3]))]
+    for steps, rays, tris12 in cases:
+        steps = steps.clone()
+        steps[::3] = 1
+        steps[1] = 0
+        want = kernel_lab11.lab11_reference(steps, rays, tris12, "vpu")
+        got = workers_lab11(steps, rays, tris12, R)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert int((want[..., 1].view(torch.int32) >= 0).sum()) >= 8
+    ids = want[..., 1].view(torch.int32)
+    assert int(((ids >= 0) & (ids < 256)).sum()) >= 1
+
+
+def test_lab11_vpu_agreement_holds_the_fma_body(monkeypatch):
+    """The FMA body's results (emulated in FP64) meet vpu_agreement
+    against the plain version on the script's stream and on the duplicate
+    table, with t off by at most 1/2 of its bound."""
+    cases = [tuple(map(_t, common.lab11_inputs(seed=5, C=32, n_tiles=64,
+                                               n_steps=2)[:3])),
+             _dup_lab11()]
+    for steps, rays, tris12 in cases:
+        ref = kernel_lab11.lab11_reference(steps, rays, tris12, "vpu")
+        monkeypatch.setattr(kernel_lab9, "_bw_test", common.bw_test_fma)
+        try:
+            fma = kernel_lab11.lab11_reference(steps, rays, tris12, "vpu")
+        finally:
+            monkeypatch.undo()
+        agree = kernel_lab11.vpu_agreement(fma, ref, rays, tris12)
+        assert agree["ok"] and agree["max_t_over_bound"] <= 0.5, agree
+
+
+def test_lab11_vpu_agreement_rules():
+    """vpu_agreement accepts a t one ulp off and a tie swap (the winner's
+    copy in cluster 1), and refuses a wrong id, a lost hit and a t off by
+    more than its bound."""
+    steps, rays, tris12 = _dup_lab11()
+    ref = kernel_lab11.lab11_reference(steps, rays, tris12, "vpu")
+
+    def hold(out):
+        return kernel_lab11.vpu_agreement(out, ref, rays, tris12)
+    assert hold(ref)["ok"]
+    flat = ref.reshape(-1, 2)
+    ids = flat[:, 1].view(torch.int32)
+    dup = int(torch.nonzero((ids >= 0) & (ids < 128)).reshape(-1)[0])
+    hit = int(torch.nonzero((ids >= 256) & (flat[:, 0] > 0.5)).reshape(-1)[0])
+
+    def moved(i, t=None, id_=None):
+        out = flat.clone()
+        if t is not None:
+            out[i, 0] = t
+        if id_ is not None:
+            out[i, 1] = torch.tensor([id_], dtype=torch.int32).view(
+                torch.float32)[0]
+        return out.reshape(ref.shape)
+    a = hold(moved(hit, t=float(np.nextafter(np.float32(flat[hit, 0]),
+                                             np.float32(np.inf)))))
+    assert a["ok"] and a["t_bits_differ"] == 1
+    a = hold(moved(dup, id_=int(ids[dup]) + 128))
+    assert a["ok"] and a["ties"] == 1 and a["ill_conditioned"] == 0
+    a = hold(moved(hit, id_=int(ids[hit]) + 37))
+    assert not a["ok"] and a["rays_off"] == 1
+    a = hold(moved(hit, t=common.BIG, id_=-1))
+    assert not a["ok"] and a["rays_off"] == 1
+    c, lane = int(ids[hit]) // 128, int(ids[hit]) % 128
+    r8 = rays.reshape(-1, 8)
+    f = common.bw_fp64(tris12[c, :, 0, lane][None], r8[[hit], 0:3],
+                       r8[[hit], 3:6], r8[[hit], 6])
+    a = hold(moved(hit, t=float(flat[hit, 0] + 4 * f["b_t"][0])))
+    assert not a["ok"] and a["rays_off"] == 1 and a["max_t_over_bound"] > 1
+
+
+def test_lab_test_loops_names_lab11(monkeypatch):
+    """app/sass.lab_test_loops names L11's kernels, this tree's
+    (lab11_vpu_kernel<4>: 4 rays a lane, 12 row loads a pass, 16 tests;
+    lab11_mxu_kernel<4>: its loop's 36 tensor-core products, 8 tests a
+    lane) and an older checkout's (one ray a lane)."""
+    from tauray_torch.app import sass
+    vpu = ".L_x_1:\n" + "".join(
+        f"        /*{16 * i:04x}*/   LDS.128 R{4 * i}, [R2+0x{i:x}] ;\n"
+        for i in range(12)) + \
+        "        /*00c0*/   FFMA R3, R3, R3, R3 ;\n" \
+        "        /*00d0*/   @P0 BRA `(.L_x_1) ;\n"
+    mxu = ".L_x_2:\n" + "".join(
+        f"        /*{16 * i:04x}*/   HMMA.1684.F32.TF32 R{i}, R1, R2, R3 ;"
+        "\n" for i in range(36)) + \
+        "        /*0300*/   FFMA R3, R3, R3, R3 ;\n" \
+        "        /*0310*/   @P0 BRA `(.L_x_2) ;\n"
+    for vname, mname, rays in (("lab11_vpu_kernelILi4EE",
+                                "lab11_mxu_kernelILi4EE", 4),
+                               ("lab11_vpu_kernel", "lab11_mxu_kernel", 1)):
+        monkeypatch.setattr(sass, "functions", lambda path: {
+            f"_ZN12_GLOBAL__N_116{vname}EvPKiPKfS4_iiPf": vpu,
+            f"_ZN12_GLOBAL__N_116{mname}EvPKiPKfS4_iiPf": mxu})
+        loops = sass.lab_test_loops("lib.so")
+        assert set(loops) == {"lab11 vpu", "lab11 mxu"}
+        st = loops["lab11 vpu"]
+        assert st["rays_a_lane"] == rays and st["loads128"] == 12
+        assert st["tests"] == pytest.approx(4 * rays)
+        st = loops["lab11 mxu"]
+        assert st["hmma"] == 36 and st["tests"] == 8
+        assert st["instructions_per_test"] == pytest.approx(38 / 8)
+
+
 # ---------------------------------------------------------------------------
 # Entry points, the build, the wrappers
 # ---------------------------------------------------------------------------
