@@ -19,10 +19,11 @@ _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 # the read-only path (a table read in place)
 _ROW_LOAD = re.compile(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b")
 # lab9_kernel<kMode, R>, L4-L7's brick_walk_kernel<kLab, kBody, kVariant,
-# kTile, R>, lab10_kernel<kMode, R>, lab11_vpu_kernel<R>,
-# lab11_mxu_kernel<kK> and L1-L3's tile_walk_kernel<kMode, kLayout, R>; in
-# older checkouts, L4 as brick_kernel<true, kBody, kFixed> and L11 as
-# lab11_vpu_kernel / lab11_mxu_kernel (one ray a lane), lab9_kernel<kMode>
+# kTile, R>, lab10_kernel<kMode, R>, lab11_vpu_kernel<R>, lab11_mxu_kernel
+# (or lab11_mxu_kernel<kK>, a build with m16n8k8) and L1-L3's
+# tile_walk_kernel<kMode, kLayout, R>; in older checkouts, L4 as
+# brick_kernel<true, kBody, kFixed> and L11 vpu as lab11_vpu_kernel (one
+# ray a lane), lab9_kernel<kMode>
 # (R = 1), L7 as lab7_kernel<kBody, R> or brick_kernel<false, true, kBody,
 # kFixed> (R = 1), L5 and L6 as brick_kernel<false, kMT, kVariant> (R = 1,
 # every TILE), lab10_kernel<W, kMode> (W = 4 or 8 warps a tile, R = 1), L3

@@ -62,21 +62,29 @@
 //     TILE 8 within 0.5% of R = 2 and 2.3-3.2% ahead of R = 8 (the 16
 //     workers' per-step work, a meta read, the snapshot and the vote, does
 //     not show).
-// L4 (kLab 4, kStaged; the lab's question is whether staging bricks pays,
-// so its clusters pass through shared memory):
+// L4 (kLab 4; the lab's question is whether staging bricks pays, so its
+// clusters pass through shared memory):
 //   * The tile's clusters, walk position g = s KB + j (step s, slot j),
-//     pass one at a time through a ring of cluster slots of the warp's
-//     own, whatever KB is: one tris9 cluster is 9 x 512 = 4,608 contiguous
-//     bytes of the (C, 9, 1, 128) table. kL4Staging (below) chooses how,
-//     by measurement: kBulk, three slots a warp (13.5 KB; 54 KB a block, 4
-//     blocks or 16 warps an SM at 128 registers), each filled by one 1-D
-//     bulk copy (cp.async.bulk, the TMA path) that lane 0 issues two
-//     clusters ahead and that completes on the slot's mbarrier, on whose
-//     phase the warp waits; kCpAsync, L10's two-stage ring of 16-byte
-//     cp.async copies (9 a lane) one cluster ahead; kInPlace, no ring, the
-//     rows read in place as L5 reads them. KB decides only where a step
-//     ends (mtfast's update) and the slots' numbering, s KB 128 + j 128 +
-//     lane.
+//     pass one at a time through a ring of two cluster slots of the warp's
+//     own, whatever KB is (L10's ring: 16-byte cp.async copies, 9 a lane,
+//     cluster g + 1 copied while cluster g is tested; one tris9 cluster is
+//     9 x 512 = 4,608 contiguous bytes of the (C, 9, 1, 128) table: 9 KB a
+//     warp, 36 KB a block, 16 warps an SM at 128 registers). KB decides
+//     only where a step ends (mtfast's update) and the slots' numbering,
+//     s KB 128 + j 128 + lane. The ring was chosen by
+//     measurement in turns on the H100 (app/lab_bench.py, back to back,
+//     NVIDIA H100 80GB HBM3 at 700 W) against two other builds of the same
+//     walk: a ring of three slots a warp, each filled by one 1-D bulk copy
+//     (cp.async.bulk, the TMA path) issued by lane 0 two clusters ahead
+//     and completed on the slot's mbarrier, and the rows read in place as
+//     L5 reads them. The three came within 3% of each other at every
+//     configuration: the cp.async ring ran 0.8-2.4% ahead of the bulk
+//     ring on mt and at TILE 16, 0.5-1.3% behind it on mtfast at TILE 32,
+//     0.7% ahead over the 12 configurations together; reads in place ran
+//     0.4-2.0% ahead of the bulk ring at TILE 16 and 0.8-2.8% behind it at
+//     TILE 32. So staging bricks pays a little at TILE 32 and costs a
+//     little at TILE 16: the 2.9 MB table stays in the 50 MB L2, and each
+//     ring keeps the SM its 16 warps.
 //   * mt: mt_hit_fma and the running bests above, each cluster redone
 //     from its slot with __frcp_rn where the warp met an odd denominator;
 //     the bests combined by (t, slot) after the walk.
@@ -97,13 +105,15 @@
 // 79.25-85.25 SASS instructions a Möller-Trumbore test (unfused, one ray a
 // lane, __frcp_rn's range test and branch in every test, a block barrier a
 // step in while and while2, L4's 8-warp staging loop and mtfast's
-// shared-memory minimum); the walk takes about 46 (mt) and 32 (bw) (phase 2
-// of chip_smoke.py): the FMA bodies (bw_hit_fma, mt_hit_fma: 17 and 31
-// FP32 instructions, not 31 and 45), 4R tests a load, loop and address
-// step, and __frcp_rn's in-range fast path alone. The reciprocal stays
-// correctly rounded, so that t differs from the unfused version's only by
-// the FMAs' roundings, which the tie-aware holds bound (lab/brick.py
-// brick_agreement; mtfast_agreement for mtfast's truncated keys).
+// shared-memory minimum); the walk takes about 46 (mt), 64 (mtfast, whose
+// IEEE division stands in the loop though it runs on a hit only) and 32
+// (bw) (phase 2 of chip_smoke.py): the FMA bodies (bw_hit_fma,
+// mt_hit_fma: 17 and 31 FP32 instructions, not 31 and 45), 4R tests a
+// load, loop and address step, and __frcp_rn's in-range fast path alone.
+// The reciprocal stays correctly rounded, so that t differs from the
+// unfused version's only by the FMAs' roundings, which the tie-aware holds
+// bound (lab/brick.py brick_agreement; mtfast_agreement for mtfast's
+// truncated keys).
 //
 // Built with -fmad=false (trace_kernel.NVCC_FLAGS): the FMAs are written
 // out (__fmaf_rn).
@@ -128,70 +138,9 @@ constexpr int kRays16 = 4;
 enum Body { kMT = 0, kMTFast = 1, kBW = 2 };
 enum Variant { kFixed = 0, kCid = 1, kWhile = 2, kWhile2 = 3 };
 
-// L4's staging of a tile's clusters, chosen by measurement (see the head
-// of this file): a ring of kSlots cluster slots a warp filled by bulk
-// copies (kBulk) or by cp.async copies (kCpAsync), or none (kInPlace)
-enum Staging { kInPlace = 0, kBulk = 1, kCpAsync = 2 };
-constexpr int kL4Staging = kBulk;
-constexpr int kSlots = kL4Staging == kBulk ? 3 : kL4Staging == kCpAsync ? 2
-                                                                         : 0;
 constexpr int kBrick = 9 * kQuads;     // float4 of a tris9 cluster, 4,608 B
-// L4's shared memory a block: the warps' rings, then their mbarriers
-constexpr size_t kL4Smem =
-    kTilesBlock * kSlots * (kBrick * sizeof(float4) +
-                            (kL4Staging == kBulk ? 8 : 0));
-
-// ---------------------------------------------------------------------------
-// L4's ring: 1-D bulk copies (the TMA path, no tensor map) completing on an
-// mbarrier in shared memory
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// An mbarrier expecting one arrival a phase (lane 0's expect_tx); made
-// visible to the copy engine before any copy names it.
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Copies bytes from global src into shared dst as one bulk copy whose
-// completion ends bar's phase. The fence orders the warp's earlier reads of
-// dst (the slot's last cluster) before the copy's writes.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Waits until bar's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+// L4's ring: two cluster slots a warp (36 KB of shared memory a block)
+constexpr size_t kL4Smem = kTilesBlock * 2 * kBrick * sizeof(float4);
 
 // kernel_lab2.py mtfast_body's key of one triangle, (t bits & ~1023) |
 // lane, against best, the ray's best t from before the step, its products
@@ -280,12 +229,12 @@ __device__ __forceinline__ void walk_step(const float4* t4, int orders,
 }
 
 // L4: worker wk's quads (wk, wk + kWorkers, ...) of one cluster's rows b
-// (a ring slot, or the table's in place), each triangle against the lane's
-// R rays. mt: a hit closer than ct[k] takes (ct[k], cs[k]) with slot0 + its
-// lane in the cluster (odd: see rcp_in_range); mtfast: kmin[k] keeps the
-// smallest key against ct[k], the best from before the step, its lane
-// slot0 + the triangle's lane in the cluster.
-template <int kBody, int R, int kWorkers, bool kExact, bool kShared>
+// (a ring slot), each triangle against the lane's R rays. mt: a hit closer
+// than ct[k] takes (ct[k], cs[k]) with slot0 + its lane in the cluster
+// (odd: see rcp_in_range); mtfast: kmin[k] keeps the smallest key against
+// ct[k], the best from before the step, its lane slot0 + the triangle's
+// lane in the cluster.
+template <int kBody, int R, int kWorkers, bool kExact>
 __device__ __forceinline__ void brick_cluster(const float4* b, int slot0,
                                               int wk, const Ray (&r)[R],
                                               float (&ct)[R], int (&cs)[R],
@@ -294,12 +243,7 @@ __device__ __forceinline__ void brick_cluster(const float4* b, int slot0,
   for (int quad = wk; quad < kQuads; quad += kWorkers) {
     float4 v[9];
 #pragma unroll
-    for (int j = 0; j < 9; ++j) {
-      if constexpr (kShared)
-        v[j] = b[j * kQuads + quad];
-      else
-        v[j] = __ldg(b + j * kQuads + quad);
-    }
+    for (int j = 0; j < 9; ++j) v[j] = b[j * kQuads + quad];
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       float w[9];
@@ -324,46 +268,28 @@ __device__ __forceinline__ void brick_cluster(const float4* b, int slot0,
 
 // L4's walk for the lane's R rays (see the head of this file): the steps'
 // kb clusters one at a time, walk position g = s kb + j, through the
-// warp's ring of kSlots slots (ring, its mbarriers bar) or in place.
+// warp's ring of two slots: cluster g + 1 is copied while cluster g is
+// tested.
 template <int kBody, int R, int kLanes>
 __device__ __forceinline__ void l4_walk(const int* mrow, const float4* t4,
                                         int n_clusters, int kb, int steps,
                                         int lane, float4* ring,
-                                        unsigned long long* bar,
                                         const Ray (&r)[R], float (&ct)[R],
                                         int (&cs)[R]) {
   constexpr int kWorkers = 32 / kLanes;
-  constexpr bool kStaged = kL4Staging != kInPlace;
-  constexpr int kRing = kStaged ? kSlots : 1;
-  constexpr int kAhead = kRing - 1;  // clusters in flight
   const int wk = lane / kLanes;
   const int n = steps * kb;  // clusters of the walk
-  // lane l: the cluster at walk position (p & ~31) + l, for cluster(p)
+  // lane l: the cluster at walk position (p & ~31) + l, for stage(p)
   // asked with p = 0, 1, ... in turn by every lane
   int kc = 0;
-  auto cluster = [&](int p) {
+  auto stage = [&](int p) {  // walk position p's rows into slot p & 1
     if ((p & 31) == 0)
       kc = p + lane < n ? order_of<false>(mrow[p + lane], n_clusters) : 0;
-    return __shfl_sync(kFull, kc, p & 31);
+    const int c = __shfl_sync(kFull, kc, p & 31);
+    cp_async_rows<9, kQuads>(ring + (p & 1) * kBrick,
+                             t4 + static_cast<size_t>(c) * kBrick, lane);
   };
-  auto issue = [&](int p) {  // walk position p's rows into slot p % kRing
-    const int c = cluster(p);
-    float4* dst = ring + p % kRing * kBrick;
-    const float4* src = t4 + static_cast<size_t>(c) * kBrick;
-    if constexpr (kL4Staging == kBulk) {
-      if (lane == 0) bulk_load(dst, src, kBrick * sizeof(float4),
-                               bar + p % kRing);
-    } else {
-      cp_async_rows<9, kQuads>(dst, src, lane);
-    }
-  };
-  if constexpr (kStaged) {
-    if (kL4Staging == kBulk && lane == 0) {
-      for (int i = 0; i < kRing; ++i) mbar_init(bar + i);
-    }
-    __syncwarp();
-    for (int p = 0; p < kAhead && p < n; ++p) issue(p);
-  }
+  if (n > 0) stage(0);
   int kmin[R];
   bool odd = false;  // mt: a den outside rcp_in_range's range
   for (int s = 0; s < steps; ++s) {
@@ -371,25 +297,17 @@ __device__ __forceinline__ void l4_walk(const int* mrow, const float4* t4,
     for (int k = 0; k < R; ++k) kmin[k] = INT_MAX;
     for (int j = 0; j < kb; ++j) {
       const int g = s * kb + j;
-      const float4* b;
-      if constexpr (kStaged) {
-        if (g + kAhead < n) issue(g + kAhead);
-        if constexpr (kL4Staging == kBulk) {
-          mbar_wait(bar + g % kRing, (g / kRing) & 1);
-        } else {
-          if (g + kAhead < n)
-            cp_async_wait<1>();
-          else
-            cp_async_wait<0>();
-          __syncwarp();  // cluster g's rows are in for every lane
-        }
-        b = ring + g % kRing * kBrick;
+      if (g + 1 < n) {
+        stage(g + 1);
+        cp_async_wait<1>();
       } else {
-        b = t4 + static_cast<size_t>(cluster(g)) * kBrick;
+        cp_async_wait<0>();
       }
+      __syncwarp();  // cluster g's rows are in for every lane
+      const float4* b = ring + (g & 1) * kBrick;
       if constexpr (kBody == kMTFast) {
-        brick_cluster<kMTFast, R, kWorkers, false, kStaged>(
-            b, j * kCluster, wk, r, ct, cs, kmin, odd);
+        brick_cluster<kMTFast, R, kWorkers, false>(b, j * kCluster, wk, r,
+                                                   ct, cs, kmin, odd);
       } else {
         float st[R];
         int ss[R];
@@ -399,19 +317,19 @@ __device__ __forceinline__ void l4_walk(const int* mrow, const float4* t4,
           ss[k] = cs[k];
         }
         odd = false;
-        brick_cluster<kMT, R, kWorkers, false, kStaged>(
-            b, g * kCluster, wk, r, ct, cs, kmin, odd);
+        brick_cluster<kMT, R, kWorkers, false>(b, g * kCluster, wk, r, ct,
+                                               cs, kmin, odd);
         if (__any_sync(kFull, odd)) {  // the cluster again with __frcp_rn
 #pragma unroll
           for (int k = 0; k < R; ++k) {
             ct[k] = st[k];
             cs[k] = ss[k];
           }
-          brick_cluster<kMT, R, kWorkers, true, kStaged>(
-              b, g * kCluster, wk, r, ct, cs, kmin, odd);
+          brick_cluster<kMT, R, kWorkers, true>(b, g * kCluster, wk, r, ct,
+                                                cs, kmin, odd);
         }
       }
-      if constexpr (kStaged) __syncwarp();  // every lane is done with b
+      __syncwarp();  // every lane is done with b
     }
     if constexpr (kBody == kMTFast) {
       // the step's smallest key of each ray, met over its workers
@@ -430,8 +348,8 @@ __device__ __forceinline__ void l4_walk(const int* mrow, const float4* t4,
 }
 
 // L4 (kLab 4), L5, L6 (kLab 6) and L7 (kLab 7): a warp walks a tile of
-// kTile rays, R rays a lane (see the head of this file); L4's rings (kL4Smem
-// bytes of dynamic shared memory) come first in smem, then their mbarriers.
+// kTile rays, R rays a lane (see the head of this file); L4's rings take
+// kL4Smem bytes of dynamic shared memory.
 template <int kLab, int kBody, int kVariant, int kTile, int R>
 __global__ void __launch_bounds__(kTilesBlock * 32)
 brick_walk_kernel(const int* __restrict__ meta,
@@ -467,13 +385,8 @@ brick_walk_kernel(const int* __restrict__ meta,
   }
   if constexpr (kLab == 4) {
     extern __shared__ float4 smem[];
-    l4_walk<kBody, R, kLanes>(
-        mrow, t4, n_clusters, kb, steps, lane,
-        smem + warp * kSlots * kBrick,
-        reinterpret_cast<unsigned long long*>(smem +
-                                              kTilesBlock * kSlots * kBrick) +
-            warp * kSlots,
-        r, ct, cs);
+    l4_walk<kBody, R, kLanes>(mrow, t4, n_clusters, kb, steps, lane,
+                              smem + warp * 2 * kBrick, r, ct, cs);
   } else {
     // lane j < kb: the meta entry of the next step's slot j, read a step
     // ahead
@@ -541,16 +454,10 @@ template <int kLab, int kBody, int kVariant, int kTile, int R>
 int launch_walk(const int* meta, const float* rays, const float* tris,
                 int n_tiles, int n_clusters, int kb, int steps, float* out,
                 cudaStream_t st) {
-  auto kernel = brick_walk_kernel<kLab, kBody, kVariant, kTile, R>;
-  const size_t smem = kLab == 4 ? kL4Smem : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<(n_tiles + kTilesBlock - 1) / kTilesBlock, kTilesBlock * 32, smem,
-           st>>>(meta, rays, tris, n_tiles, n_clusters, kb, steps, out);
+  brick_walk_kernel<kLab, kBody, kVariant, kTile, R>
+      <<<(n_tiles + kTilesBlock - 1) / kTilesBlock, kTilesBlock * 32,
+         kLab == 4 ? kL4Smem : 0, st>>>(meta, rays, tris, n_tiles,
+                                        n_clusters, kb, steps, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,7 +58,9 @@
 //     [v | -v.v0] with d4's fourth column 0 (so K = 3 in effect) for v = n,
 //     r1, r2, each as mma.sync.aligned.m16n8k4 in TF32 split in two (x =
 //     hi + lo): lo.hi + hi.lo + hi.hi, which brings each product near FP32
-//     accuracy (m16n8k8 over [o4 | d4] was measured against it: kMxuK);
+//     accuracy (m16n8k8 over [o4 | d4], the same count of products at
+//     twice the K, ran 1.34x slower in turns on the H100, app/lab_bench.py
+//     against a build of it);
 //     each lane splits the B values it reads once a cluster (48: no two
 //     lanes read the same), from a two-stage ring of padded stages that
 //     copies cluster j + 1 while cluster j is tested; the epilogue runs on
@@ -118,9 +120,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // L11 mxu: a staged row of 128 floats takes 136, so that the four rows a
 // B fragment reads (k = 0..3) fall on different banks
 constexpr int kPadRow = 34;    // float4 per padded row
-// L11 mxu's mma shape, m16n8k4 or m16n8k8 (lab11_mxu_kernel), chosen by
-// measurement
-constexpr int kMxuK = 4;
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -596,49 +595,11 @@ lab11_vpu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
   }
 }
 
-// d += a (16 x 8, row) . b (8 x 8, col), TF32 in, FP32 accumulate
-__device__ __forceinline__ void mma_tf32_k8(float (&d)[4], unsigned a0,
-                                            unsigned a1, unsigned a2,
-                                            unsigned a3, unsigned b0,
-                                            unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// L11 mxu's product of 16 rays (A rows: o4 = [o | 1] from ao0 / ao1 and
-// d4 = [d | 0] from ad0 / ad1, rays g and g + 8 of the block) with one
-// type's B column b (the lane's row k of [v | -v.v0], triangle g), in TF32
-// split in two (lo.hi + hi.lo + hi.hi): o4 . b (kDir false) or d4 . b
-// (kDir true). kK 4: m16n8k4 over o4 or d4; kK 8: m16n8k8 over [o4 | d4]
-// with b in B's upper half ([b | 0], o4 . b) or its lower ([0 | b], d4 . b).
-template <int kK, bool kDir>
-__device__ __forceinline__ void mxu_product(float (&d)[4], const Split& ao0,
-                                            const Split& ao1,
-                                            const Split& ad0,
-                                            const Split& ad1,
-                                            const Split& b) {
-  d[0] = d[1] = d[2] = d[3] = 0.0f;
-  if constexpr (kK == 4) {
-    mma_3xtf32_acc(d, kDir ? ad0 : ao0, kDir ? ad1 : ao1, b);
-  } else {
-    const unsigned z = 0u;
-    mma_tf32_k8(d, ao0.lo, ao1.lo, ad0.lo, ad1.lo, kDir ? z : b.hi,
-                kDir ? b.hi : z);
-    mma_tf32_k8(d, ao0.hi, ao1.hi, ad0.hi, ad1.hi, kDir ? z : b.lo,
-                kDir ? b.lo : z);
-    mma_tf32_k8(d, ao0.hi, ao1.hi, ad0.hi, ad1.hi, kDir ? z : b.hi,
-                kDir ? b.hi : z);
-  }
-}
-
 // L11 mxu: one staged cluster (fbuf, padded rows) against the lane's 4
 // rays, its 16 blocks of 8 triangles in order; the epilogue in FMAs with
 // rcp_in_range (odd: see it), a hit taking (ct[m], cp[m]) with its walk
 // position pos0 + the triangle's lane when closer than ct[m].
-template <int kK, bool kExact>
+template <bool kExact>
 __device__ __forceinline__ void mxu_cluster(const float* fbuf, int pos0,
                                             int g, int k,
                                             const Split (&ao)[4],
@@ -658,12 +619,12 @@ __device__ __forceinline__ void mxu_cluster(const float* fbuf, int pos0,
       const Split &o0 = ao[2 * h], &o1 = ao[2 * h + 1];
       const Split &d0 = ad[2 * h], &d1 = ad[2 * h + 1];
       float on[4], or1[4], or2[4], dn[4], dr1[4], dr2[4];
-      mxu_product<kK, false>(on, o0, o1, d0, d1, bv[0]);
-      mxu_product<kK, false>(or1, o0, o1, d0, d1, bv[1]);
-      mxu_product<kK, false>(or2, o0, o1, d0, d1, bv[2]);
-      mxu_product<kK, true>(dn, o0, o1, d0, d1, bv[0]);
-      mxu_product<kK, true>(dr1, o0, o1, d0, d1, bv[1]);
-      mxu_product<kK, true>(dr2, o0, o1, d0, d1, bv[2]);
+      mma_3xtf32(on, o0, o1, bv[0]);
+      mma_3xtf32(or1, o0, o1, bv[1]);
+      mma_3xtf32(or2, o0, o1, bv[2]);
+      mma_3xtf32(dn, d0, d1, bv[0]);
+      mma_3xtf32(dr1, d0, d1, bv[1]);
+      mma_3xtf32(dr2, d0, d1, bv[2]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // element e: ray 16h + g + 8 (e / 2), triangle nb*8 + 2k + e%2
@@ -690,9 +651,7 @@ __device__ __forceinline__ void mxu_cluster(const float* fbuf, int pos0,
 // ray, position w * 128 + the triangle's lane, a cluster redone with
 // __frcp_rn where the warp met an odd denominator; after the walk the 4
 // lanes of a row group meet by smallest t, then smallest position, and
-// the position is mapped to cluster x 128 + lane. kK: the mma shape
-// (mxu_product), chosen by measurement (kMxuK).
-template <int kK>
+// the position is mapped to cluster x 128 + lane.
 __global__ void __launch_bounds__(kWarpsPerBlock * kTile)
 lab11_mxu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
                  const float* __restrict__ tris, int n_tiles, int n_clusters,
@@ -741,7 +700,7 @@ lab11_mxu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
       sp[m] = cp[m];
     }
     bool odd = false;  // a den outside rcp_in_range's range
-    mxu_cluster<kK, false>(fbuf, w * kCluster, g, k, ao, ad, tmin, ct, cp,
+    mxu_cluster<false>(fbuf, w * kCluster, g, k, ao, ad, tmin, ct, cp,
                            odd);
     if (__any_sync(kFull, odd)) {  // the cluster again with __frcp_rn
 #pragma unroll
@@ -749,7 +708,7 @@ lab11_mxu_kernel(const int* __restrict__ steps, const float* __restrict__ rays,
         ct[m] = st[m];
         cp[m] = sp[m];
       }
-      mxu_cluster<kK, true>(fbuf, w * kCluster, g, k, ao, ad, tmin, ct, cp,
+      mxu_cluster<true>(fbuf, w * kCluster, g, k, ao, ad, tmin, ct, cp,
                             odd);
     }
     __syncwarp();  // every lane is done with the stage
@@ -851,7 +810,7 @@ extern "C" int k1_lab_launch(int lab, int mode, const int* counts,
                                                   n_clusters, out);
       break;
     case 111: {
-      auto kernel = lab11_mxu_kernel<kMxuK>;
+      auto kernel = lab11_mxu_kernel;
       const int smem = kWarpsPerBlock * 2 * kRows * kPadRow * sizeof(float4);
       const cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -233,8 +233,11 @@ def mtfast_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays,
       * ids equal: t's int32 bits within one key quantum (QUANTUM), or two
         where both keys carry bit 10: the FMAs move t across a quantum,
         and at KB = 16 a lane >= 1,024 sets bit 10, when a crossing moves
-        the key by two (the CPU rule of the script's hold);
-      * ids differ on at most ill_share of the rays, each where FP64 puts
+        the key by two (the CPU rule of the script's hold); further apart
+        only on an ill-conditioned test, where the two t lie within twice
+        its FP64 bound (common.mt_fp64's b_t) and the keys' truncations;
+      * ids differ, or t departs on an ill-conditioned test, on at most
+        ill_share of the rays together; ids differ each where FP64 puts
         the outcome within rounding of turning: a winner whose test rounding
         decides (common.mt_fp64's margin <= 1), or two winners whose t,
         t_n / |a| in FP64, lie within a quantum and their rounding bounds
@@ -243,8 +246,9 @@ def mtfast_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays,
         (the key's truncation, bit 10), or, with no id, its start. A slot
         at KB = 16 names lane & 1,023 of its step: its winner is that lane
         or the lane 1,024 on, whichever FP64 puts nearer its t.
-    Returns the rays, the ids that differ, the rays so held (held, each
-    with its winners' margins and FP64 t), t_bits_differ and max_quanta
+    Returns the rays, the ids that differ, the ill-conditioned rays with
+    equal ids, the rays so held (held, each with its winners' FP64 t and
+    margins or bound), t_bits_differ and max_quanta
     (the largest |bits difference| / QUANTUM) over equal ids, the signs
     that differ, t_negative (the kernel's, the plain version's), the rays
     that break every rule (rays_off) and ok."""
@@ -266,31 +270,54 @@ def mtfast_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays,
     t_ok = (d <= QUANTUM) | ((d == 2 * QUANTUM) & bit10)
     off = sign_off | (same & ~t_ok)
     t_start = torch.where(r8[:, 7] > BIG, BIG, r8[:, 7])  # NaN kept
+
+    def winner(sel, ids, t):
+        """FP64's test of the triangle each id names (the nearer of the
+        two a KB = 16 slot can name) for the rays sel, keyed as mtfast
+        keys t."""
+        ids = ids.clamp(min=0).long()
+        step, lane = ids // bk, ids % bk
+        best = None
+        for extra in ((0, 1024) if bk > 1024 else (0,)):
+            ln = (lane + extra).clamp(max=bk - 1)
+            m = m2[sel // tile, step * kb + ln // CLUSTER]
+            f = _fp64_key_t(rows[m.clamp(0, C - 1).long(), :, ln % CLUSTER],
+                            r8[sel, 0:3], r8[sel, 3:6], r8[sel, 6])
+            if best is None:
+                best = f
+                continue
+            nearer = (f["t"] - t.double()).abs() < \
+                (best["t"] - t.double()).abs()
+            best = {k: torch.where(nearer, f[k], best[k]) for k in f}
+        return best
+
+    def quantum(x):
+        """One quantum of the key at |x| (f64): 1,024 of its ulps."""
+        return torch.ldexp(torch.ones_like(x),
+                           torch.frexp(x.abs()).exponent - 14)
     held = []
+    # ids equal, t further apart than the quantum rule: held only where
+    # FP64 bounds the two bodies' t that far apart (an ill-conditioned
+    # test: 2 b_t and the keys' truncations, bit 10 included)
+    ill = torch.nonzero(same & ~t_ok & ~sign_off & (id_k >= 0)).squeeze(1)
+    if ill.numel():
+        f = winner(ill, id_k[ill], t_k[ill])
+        tk, tp = t_k[ill].double(), t_p[ill].double()
+        q = quantum(torch.maximum(tk.abs(), tp.abs()))
+        within = (tk - tp).abs() <= 2 * f["b_t"] + q * (1 + bit10[ill])
+        off[ill] = ~within
+        for i in range(ill.numel()):
+            held.append(dict(ray=int(ill[i]), id_k=int(id_k[ill[i]]),
+                             id_p=int(id_p[ill[i]]), t_k=float(tk[i]),
+                             t_p=float(tp[i]), t64_k=float(f["t"][i]),
+                             b_t=float(f["b_t"][i]),
+                             quanta=float(d[ill[i]]) / QUANTUM,
+                             ok=bool(within[i])))
     sel = torch.nonzero(~same).squeeze(1)
     if sel.numel():
-        def winner(ids, t):
-            """FP64's test of the triangle each id names (the nearer of
-            the two a KB = 16 slot can name), keyed as mtfast keys t."""
-            ids = ids.clamp(min=0).long()
-            step, lane = ids // bk, ids % bk
-            best = None
-            for extra in ((0, 1024) if bk > 1024 else (0,)):
-                ln = (lane + extra).clamp(max=bk - 1)
-                m = m2[sel // tile, step * kb + ln // CLUSTER]
-                f = _fp64_key_t(rows[m.clamp(0, C - 1).long(), :,
-                                     ln % CLUSTER], r8[sel, 0:3],
-                                r8[sel, 3:6], r8[sel, 6])
-                if best is None:
-                    best = f
-                    continue
-                nearer = (f["t"] - t.double()).abs() < \
-                    (best["t"] - t.double()).abs()
-                best = {k: torch.where(nearer, f[k], best[k]) for k in f}
-            return best
         ik, ip = id_k[sel], id_p[sel]
         tk, tp = t_k[sel], t_p[sel]
-        fk, fp = winner(ik, tk), winner(ip, tp)
+        fk, fp = winner(sel, ik, tk), winner(sel, ip, tp)
 
         def bits(x):    # of |x|: the key truncates t's magnitude
             return x.abs().float().view(torch.int32).long()
@@ -308,11 +335,9 @@ def mtfast_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays,
         lp = legit(fp, ip, tp, t_start[sel])
         turn = ((ik >= 0) & (fk["margin"] <= 1)) | \
             ((ip >= 0) & (fp["margin"] <= 1))
-        scale = torch.maximum(fk["t"].abs(), fp["t"].abs())
-        quantum = torch.ldexp(torch.ones_like(scale),
-                              torch.frexp(scale).exponent - 14)
+        q = quantum(torch.maximum(fk["t"].abs(), fp["t"].abs()))
         key_tie = (ik >= 0) & (ip >= 0) & ((fk["t"] - fp["t"]).abs() <=
-                                           quantum + fk["b_t"] + fp["b_t"])
+                                           q + fk["b_t"] + fp["b_t"])
         ok = lk & lp & (turn | key_tie)
         off[sel] |= ~ok
         for i in range(sel.numel()):
@@ -323,15 +348,16 @@ def mtfast_agreement(out: torch.Tensor, ref: torch.Tensor, meta, rays,
                              margin_k=float(fk["margin"][i]),
                              margin_p=float(fp["margin"][i]),
                              key_tie=bool(key_tie[i]), ok=bool(ok[i])))
-    n_diff = int(sel.numel())
-    return dict(rays=n, ids_differ=n_diff, held=held,
+    n_ill = int(sel.numel() + ill.numel())
+    return dict(rays=n, ids_differ=int(sel.numel()),
+                ill_conditioned=int(ill.numel()), held=held,
                 t_bits_differ=int((same & (d != 0)).sum()),
                 max_quanta=float((torch.where(same, d, 0).max() / QUANTUM)
                                  if n else 0.0),
                 signs_differ=int(sign_off.sum()),
                 t_negative=[int((t_k < 0).sum()), int((t_p < 0).sum())],
                 rays_off=int(off.sum()),
-                ok=not bool(off.any()) and n_diff <= ill_share * n)
+                ok=not bool(off.any()) and n_ill <= ill_share * n)
 
 
 def agreement(lab: str, mode, out, ref, meta, rays, tris, kb: int,

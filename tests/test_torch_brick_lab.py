@@ -788,8 +788,7 @@ def test_lab4_staged_split_matches_reference(mode, tile, kb):
         assert lost > 0
 
 
-def _fma(a, b, c):
-    return common._fma(a, b, c)
+_fma = common._fma
 
 
 def _mtfast_keys_fma(rows, ox, oy, oz, dx, dy, dz, tmin, bt, lane):

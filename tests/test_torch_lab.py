@@ -865,8 +865,9 @@ def test_lab11_vpu_agreement_rules():
 def test_lab_test_loops_names_lab11(monkeypatch):
     """app/sass.lab_test_loops names L11's kernels, this tree's
     (lab11_vpu_kernel<4>: 4 rays a lane, 12 row loads a pass, 16 tests;
-    lab11_mxu_kernel<4>: its loop's 36 tensor-core products, 8 tests a
-    lane) and an older checkout's (one ray a lane)."""
+    lab11_mxu_kernel: its loop's 36 tensor-core products, 8 tests a lane)
+    and an older checkout's (vpu one ray a lane), and a templated mxu
+    kernel's."""
     from tauray_torch.app import sass
     vpu = ".L_x_1:\n" + "".join(
         f"        /*{16 * i:04x}*/   LDS.128 R{4 * i}, [R2+0x{i:x}] ;\n"
@@ -879,8 +880,9 @@ def test_lab_test_loops_names_lab11(monkeypatch):
         "        /*0300*/   FFMA R3, R3, R3, R3 ;\n" \
         "        /*0310*/   @P0 BRA `(.L_x_2) ;\n"
     for vname, mname, rays in (("lab11_vpu_kernelILi4EE",
-                                "lab11_mxu_kernelILi4EE", 4),
-                               ("lab11_vpu_kernel", "lab11_mxu_kernel", 1)):
+                                "lab11_mxu_kernel", 4),
+                               ("lab11_vpu_kernel", "lab11_mxu_kernelILi4EE",
+                                1)):
         monkeypatch.setattr(sass, "functions", lambda path: {
             f"_ZN12_GLOBAL__N_116{vname}EvPKiPKfS4_iiPf": vpu,
             f"_ZN12_GLOBAL__N_116{mname}EvPKiPKfS4_iiPf": mxu})
