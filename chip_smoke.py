@@ -2522,6 +2522,7 @@ def tile_phase(dev):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -2877,17 +2878,20 @@ def main() -> int:
         elif r["name"] == "lab1":
             r["sass_instructions_per_test"] = \
                 lab_sass["lab1 k3"]["instructions_per_test"]
-        elif r["name"] in ("lab7", "lab9", "lab10"):
+        elif r["name"] in ("lab7", "lab9", "lab10", "lab11"):
             r["sass_instructions_per_test"] = {
                 k.split()[1]: v["instructions_per_test"]
                 for k, v in lab_sass.items()
                 if k.split()[0] == r["name"]}
-        elif r["name"] in ("lab5", "lab6"):     # L5 runs L6 fixed's
-            lead = "lab6 fixed " if r["name"] == "lab5" else "lab6 "
+        elif r["name"] in ("lab4", "lab5", "lab6"):  # L5 runs L6 fixed's
+            lead = "lab6 fixed " if r["name"] == "lab5" else \
+                r["name"] + " "
             r["sass_instructions_per_test"] = {
                 k[len(lead):]: v["instructions_per_test"]
                 for k, v in lab_sass.items() if k.startswith(lead)}
     kernels["kernels"] += lab_rows
+    print(f"chip_smoke seconds {time.perf_counter() - t_main:.1f}",
+          flush=True)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
