@@ -13,12 +13,13 @@ non-zero:
      what ptxas reports, and the SASS of each K1-K5 instance's inner
      test loop (cuobjdump) and of the redesigned labs' L9, L4-L7 (each
      instance of the walk, L4's per body and TILE, L6's per variant and
-     TILE), L10, L11 vpu and mxu and L1 k3, L2 and L3
-     (app/sass.lab_test_loops: instructions per test) and the registers
-     of the walk and of L11's kernels; any spill or shared load narrower
-     than 16 bytes in a test loop of trace_tiles fails, as does a spill in
-     an instance of L9's, L4-L7's, L10's, L11's or L1-L3's kernel, or more
-     than 128 registers in L4-L7's;
+     TILE), L10, L11 vpu and mxu, L12 mt (the walk's kLab 12 instance) and
+     plucker and L1 k3, L2 and L3 (app/sass.lab_test_loops: instructions
+     per test) and the registers of the walk and of L8's, L11's and L12's
+     kernels; any spill or shared load narrower than 16 bytes in a test
+     loop of trace_tiles fails, as does a spill in an instance of L8's,
+     L9's, L4-L7's, L10's, L11's, L12's or L1-L3's kernel, or more than 128
+     registers in L4-L7's;
   3. each kernel against its plain torch version, ids identical and t
      bit-identical (the kernels are built with -fmad=false), on 2^18-ray
      waves: a camera wave in pixel-block order and a signature-sorted
@@ -178,7 +179,8 @@ non-zero:
      scripts/kernel_lab8-11.py) through their entry points' run() at the
      scripts' sizes, every mode timed (CUDA events) with its bound, each
      lab's launches counted over that run alone: L8 (2^20 rays, modes
-     0-3), L9 (2^20 rays on phase 3's Sponza table, 5 modes at 1, 2 and 4
+     0-3; also back to back and by CUDA-graph replay, lab/common.time_graph,
+     which leaves the wrapper's host path out; bit for bit), L9 (2^20 rays on phase 3's Sponza table, 5 modes at 1, 2 and 4
      steps a tile), L10 (phase 3's sorted 2^18- and 2^20-ray bounce
      waves, 4 modes), L11 (4,096 tiles x 8 steps, vpu and mxu); then each
      mode held to its plain version on the same inputs, bit for bit (L9
@@ -229,9 +231,12 @@ non-zero:
      alone: L1 k0 and k1 at 0 and 1 steps, k2 and k3 at 0, 1, 2, 4 and 8,
      L2 (k4) and L3 (k5 at G 8 and 32) at the same steps, L12 mt and
      plucker; each timed (median and min of 5 CUDA-event runs of one call;
-     L1-L3 also back to back, 5 windows of 20 calls) with its bound and
-     held to its plain version: L1 k0-k2 and L12 mt bit for bit; k3, k4
-     and k5 (one template, the FMA body) by kernel_lab.lab3_agreement;
+     also back to back, 5 windows of 20 calls; L1 k0-k2 also by CUDA-graph
+     replay) with its bound and held to its plain version: L1 k0-k2 bit
+     for bit; L12 mt (the brick walk's FMA body) by mxu_lab.mt_agreement
+     (phase 21's rule) on all 65,536 rays, and again on odd denominators
+     (subnormal, 0, NaN); k3, k4 and k5 (one template, the FMA body) by
+     kernel_lab.lab3_agreement;
      plucker by mxu_lab.plucker_agreement (t within 1e-5 of max(1, |t|),
      ids equal or at a tie, as L11; or, on at most 1e-4 of the rays, where
      the two sides' verdicts on one winner's test differ and FP64 puts
@@ -1969,7 +1974,10 @@ def lab_phase(dev, tracer, bounce):
             r["counts"], in8["heads"], in8["o3"], in8["d3"], in8["mm2"],
             r["mode"]))
         emit("lab8", key, r, ms, err, us_per_tile=r["us_per_tile"],
-             plain_rays=r["out"].shape[0] * 32)
+             plain_rays=r["out"].shape[0] * 32,
+             **{k: r[k] for k in ("ms_back_to_back", "min_ms_back_to_back",
+                                  "ms_graph", "min_ms_graph",
+                                  "max_ms_graph")})
     sl = slice(0, LAB_SLICE_TILES)
     for r in res9:
         key = f"{r['mode']}/s{r['count'] // 8}"
@@ -2121,9 +2129,12 @@ def lab_phase(dev, tracer, bounce):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             # no single PyTorch call computes any lab's function
             "library_ms": None, "mode": LAB_HEADLINE[lab],
-            "modes": {k: {f: m[f] for f in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by")}
-                      for k, m in ms.items()}})
+            "modes": {k: {f: m[f] for f in (
+                "ms", "ms_back_to_back", "ms_graph", "plain_ms", "bound_ms",
+                "bound_by") if f in m} for k, m in ms.items()}})
+        if lab == "lab8":    # the kernel's own time, the host path left out
+            rows[-1].update(ms_back_to_back=head["ms_back_to_back"],
+                            ms_graph=head["ms_graph"])
     return rows
 
 
@@ -2401,6 +2412,8 @@ def tile_phase(dev):
                  ms_back_to_back=r["ms_back_to_back"],
                  min_ms_back_to_back=r["min_ms_back_to_back"],
                  max_ms_back_to_back=r["max_ms_back_to_back"],
+                 ms_graph=r["ms_graph"], min_ms_graph=r["min_ms_graph"],
+                 max_ms_graph=r["max_ms_graph"],
                  us_per_tile=r["us_per_tile"],
                  gtests_s=r["gtests_s"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], plain_ms=ms, max_abs_err=err,
@@ -2481,22 +2494,39 @@ def tile_phase(dev):
             return ml.lab12_reference(linp["order"], linp["o3"], linp["d3"],
                                       linp["mm2"], tris, r["mode"])
         e = dict(ms=r["ms"], min_ms=r["min_ms"],
+                 ms_back_to_back=r["ms_back_to_back"],
+                 min_ms_back_to_back=r["min_ms_back_to_back"],
                  us_per_tile=r["ms"] * 1e3 / linp["order"].shape[0],
                  gtests_s=r["gtests_s"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], blocks=linp["order"].shape[0])
-        if r["mode"] == "mt":
-            # an (n_tiles, 32, 2) block reads as k5's (n_tiles, 128, 2)
-            e["plain_ms"], e["max_abs_err"] = hold("lab12 mt", "k5", r["out"],
-                                                   plain)
-        else:
-            ref, e["plain_ms"] = timed(plain)
-            agree = ml.plucker_agreement(r["out"], ref, linp)
-            e["max_abs_err"] = agree["max_abs_t"]
-            e.update(agree)
-            if not agree["ok"]:
-                failures.append(f"lab12 plucker: {agree}")
+        ref, e["plain_ms"] = timed(plain)
+        # mt: the walk's FMA body, tie-aware on every ray
+        agree = (ml.mt_agreement if r["mode"] == "mt" else
+                 ml.plucker_agreement)(r["out"], ref, linp)
+        e["max_abs_err"] = agree["max_abs_t"]
+        e.update(agree)
+        if not agree["ok"]:
+            failures.append(f"lab12 {r['mode']}: {agree}")
         configs.setdefault("lab12", {})[r["mode"]] = e
         print(f"phase 22 lab12 {r['mode']} " + json.dumps(e), flush=True)
+    # mt's redo of a step with __frcp_rn: every 13th direction scaled by
+    # 1e-39 (a subnormal a), every 17th NaN, and every 7th along x against
+    # every 5th triangle laid in the xy plane (a exactly 0)
+    d_odd = linp["d3"].clone()
+    d_odd.view(-1, 3)[::7] = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    d_odd.view(-1, 3)[::13] *= 1e-39
+    d_odd.view(-1, 3)[::17] = float("nan")
+    t_odd = linp["tris9"].clone()
+    t_odd[:, 5, 0, ::5] = 0.0
+    t_odd[:, 8, 0, ::5] = 0.0
+    odd_inp = dict(linp, d3=d_odd, tris9=t_odd)
+    args = (linp["order"], linp["o3"], d_odd, linp["mm2"], t_odd, "mt")
+    odd = ml.mt_agreement(ml.lab12(*args), ml.lab12_reference(*args),
+                          odd_inp)
+    print("phase 22 lab12 mt odd denominators " + json.dumps(odd),
+          flush=True)
+    if not odd["ok"]:
+        failures.append(f"lab12 mt odd denominators: {odd}")
     print("phase 22 " + json.dumps(dict(
         run_s=run_s, seconds=time.perf_counter() - t0)), flush=True)
     if failures:
@@ -2513,10 +2543,9 @@ def tile_phase(dev):
             # no single PyTorch call computes any lab's function
             "library_ms": None, "configuration": TILE_HEADLINE[lab],
             "configurations": {k: {f: e[f] for f in (
-                "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by")
-                if f in e} for k, e in cs.items()}}
-        if lab != "lab12":
-            row["ms_back_to_back"] = head["ms_back_to_back"]
+                "ms", "ms_back_to_back", "ms_graph", "plain_ms", "bound_ms",
+                "bound_by") if f in e} for k, e in cs.items()},
+            "ms_back_to_back": head["ms_back_to_back"]}
         rows.append(row)
     return rows
 
@@ -2555,35 +2584,45 @@ def main() -> int:
     # three with a test)
     from tauray_torch.app import sass as sass_mod
     lab_sass, spilled = {}, {}
-    for lib in ("k1_lab", "brick_lab", "tile_lab"):
+    for lib in ("k1_lab", "brick_lab", "tile_lab", "mxu_lab"):
         info = trace_kernel.BUILD_INFO[lib]
         lab_sass.update(sass_mod.lab_test_loops(str(info["path"])))
         spilled.update(sass_mod.spills(
-            str(info["log"]), r"lab9_kernel|brick_walk_kernel|lab10_kernel|"
-                              r"lab11_|tile_walk_kernel"))
+            str(info["log"]), r"lab8_kernel|lab9_kernel|brick_walk_kernel|"
+                              r"lab10_kernel|lab11_|lab12_|tile_walk_kernel"))
     walk_regs = sass_mod.registers(
         str(trace_kernel.BUILD_INFO["brick_lab"]["log"]), r"brick_walk_kernel")
     l11_regs = sass_mod.registers(
         str(trace_kernel.BUILD_INFO["k1_lab"]["log"]), r"lab11_")
+    l8_regs = sass_mod.registers(
+        str(trace_kernel.BUILD_INFO["k1_lab"]["log"]), r"lab8_kernel")
+    l12_regs = sass_mod.registers(
+        str(trace_kernel.BUILD_INFO["mxu_lab"]["log"]),
+        r"brick_walk_kernel|lab12_")
     for inst, st in sorted(lab_sass.items()):
         print(f"phase 2 sass {inst}: " + json.dumps(st), flush=True)
     print("phase 2 spills " + json.dumps(spilled), flush=True)
     print("phase 2 registers brick_walk_kernel " + json.dumps(walk_regs),
           flush=True)
     print("phase 2 registers lab11 " + json.dumps(l11_regs), flush=True)
-    # L9 5 modes, L10 4, L11 2, L1-L3 3 with a test; the walk: L4 2 x 3
-    # tiles, L7 2, L6 4 x 3 tiles; spills: L9 5, L10 4, L11 2, the tile walk
-    # 6, the brick walk 20
+    print("phase 2 registers lab8 " + json.dumps(l8_regs), flush=True)
+    print("phase 2 registers lab12 " + json.dumps(l12_regs), flush=True)
+    # L9 5 modes, L10 4, L11 2, L12 2, L1-L3 3 with a test; the walk: L4 2
+    # x 3 tiles, L7 2, L6 4 x 3 tiles; spills: L8 4, L9 5, L10 4, L11 2,
+    # L12 2, the tile walk 6, the brick walk 20
     walk_insts = {f"lab6 {v} TILE={t}" for v in sass_mod.VARIANTS
                   for t in (8, 16, 32)} | {"lab7 mt", "lab7 bw"} | {
         f"lab4 {b} TILE={t}" for b in ("mt", "mtfast") for t in (8, 16, 32)}
-    if len(lab_sass) != 34 or len(spilled) != 37 or any(spilled.values()) \
-            or not {"lab1 k3", "lab2", "lab3", "lab11 vpu", "lab11 mxu"} | \
+    if len(lab_sass) != 36 or len(spilled) != 43 or any(spilled.values()) \
+            or not {"lab1 k3", "lab2", "lab3", "lab11 vpu", "lab11 mxu",
+                    "lab12 mt", "lab12 plucker"} | \
             walk_insts <= set(lab_sass) or len(walk_regs) != 20 or \
-            max(walk_regs.values()) > 128 or len(l11_regs) != 2:
+            max(walk_regs.values()) > 128 or len(l11_regs) != 2 or \
+            len(l8_regs) != 4 or len(l12_regs) != 2:
         raise RuntimeError(f"the redesigned labs' instances: "
                            f"{sorted(lab_sass)}, spills {spilled}, "
-                           f"registers {walk_regs}, {l11_regs}")
+                           f"registers {walk_regs}, {l11_regs}, {l8_regs}, "
+                           f"{l12_regs}")
     if len(sass) != 2 * 4 or any(st["lds_narrow"] for st in sass.values()):
         raise RuntimeError("not every instance of trace_tiles has a test "
                            "loop of 16-byte shared loads only")
@@ -2878,6 +2917,14 @@ def main() -> int:
         elif r["name"] == "lab1":
             r["sass_instructions_per_test"] = \
                 lab_sass["lab1 k3"]["instructions_per_test"]
+        elif r["name"] == "lab12":
+            r["sass_instructions_per_test"] = {
+                m: lab_sass[f"lab12 {m}"]["instructions_per_test"]
+                for m in ("mt", "plucker")}
+            r["registers"] = {"mt" if "brick_walk" in f else "plucker": n
+                              for f, n in l12_regs.items()}
+        elif r["name"] == "lab8":
+            r["registers"] = l8_regs
         elif r["name"] in ("lab7", "lab9", "lab10", "lab11"):
             r["sass_instructions_per_test"] = {
                 k.split()[1]: v["instructions_per_test"]

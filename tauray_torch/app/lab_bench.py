@@ -1,16 +1,17 @@
-"""Times the labs redesigned for this card, L9, L10 and L11 (csrc/k1_lab.cu
-lab9_kernel, lab10_kernel, lab11_vpu_kernel, lab11_mxu_kernel), L4-L7
-(csrc/brick_lab.cu brick_walk_kernel) and L1-L3 (csrc/tile_lab.cu
-tile_walk_kernel), against an older checkout's kernels on the same inputs,
-in turns, on one CUDA card.
+"""Times the labs redesigned for this card, L8-L11 (csrc/k1_lab.cu
+lab8_kernel, lab9_kernel, lab10_kernel, lab11_vpu_kernel,
+lab11_mxu_kernel), L4-L7 (csrc/brick_lab.cu brick_walk_kernel), L1-L3
+(csrc/tile_lab.cu tile_walk_kernel) and L12 (csrc/mxu_lab.cu: mt on the
+brick walk, lab12_plucker_kernel), against an older checkout's kernels on
+the same inputs, in turns, on one CUDA card.
 
     python -m tauray_torch.app.lab_bench --parent DIR [--reps N]
         [--labs lab4,lab5,...]
 
 DIR is a checkout of the repo (an unpacked `git archive` of an older
 commit in a git-ignored directory, or a copy of this tree built another
-way). Its csrc/k1_lab.cu, brick_lab.cu and tile_lab.cu (those that --labs
-needs; default every lab) are built with this tree's nvcc flags
+way). Its csrc/k1_lab.cu, brick_lab.cu, tile_lab.cu and mxu_lab.cu (those
+that --labs needs; default every lab) are built with this tree's nvcc flags
 (ops/trace_kernel.NVCC_FLAGS) into DIR/tauray_torch/_build/; their C
 interfaces are this tree's, so this tree's wrappers launch either library
 (L10 is launched with K1's W, trace_kernel.bw_warps, which an older L10
@@ -24,16 +25,19 @@ tile; L4: k6, k7, k6f, k7f at KB 4, 8, 16; L5: TILE 8, 16, 32 x KB 1, 2,
 4), (4, 8); L1: k0 and k1 at 0 and 1 steps, k2 and k3 at 0, 1, 2, 4 and
 8, L2: k4 and L3: k5 at G 8 and 32 at 0, 1, 2, 4 and 8 steps, over the
 script's 512 tiles; L10: its 4 modes on the sorted bounce waves of 2^18
-and 2^20 rays; L11: vpu and mxu over 4,096 tiles x 8 steps) is timed with
-CUDA events (median of --reps single calls after a warm-up; L1-L7 and L11
-also back to back, common.time_back_to_back) in the order parent, this
-tree, this tree, parent. Both sides are held to the plain versions first
+and 2^20 rays; L11: vpu and mxu over 4,096 tiles x 8 steps; L12: mt and
+plucker over 2,048 tiles x 6 steps; L8: modes 0-3 over 2^20 rays, mode 3
+at counts 0, 8 and 16) is timed with CUDA events (median of --reps single
+calls after a warm-up; L1-L8, L11 and L12 also back to back,
+common.time_back_to_back; L8 and L1 k0-k2 also by CUDA-graph replay,
+common.time_graph) in the order parent, this tree, this tree, parent. Both sides are held to the plain versions first
 (kernel_lab9.lab9_agreement; L4 by brick.agreement on every ray, mtfast
 by mtfast_agreement, which an unfused parent meets bit for bit; L5 and L6
 by brick.brick_agreement on every ray, or bit for bit for a parent whose
 brick_lab has no brick_walk_kernel (an unfused kernel); L7 by
-brick.brick_agreement on the first 1,024 tiles; L9 loads bit for bit; L1
-k0-k2 bit for bit and k3-k5 by kernel_lab.lab3_agreement on every tile;
+brick.brick_agreement on the first 1,024 tiles; L9 loads, L8 bit for
+bit; L12 mt by mxu_lab.mt_agreement and plucker by
+mxu_lab.plucker_agreement on every ray; L1 k0-k2 bit for bit and k3-k5 by kernel_lab.lab3_agreement on every tile;
 kernel_lab10.lab10_agreement on 1,024 tiles from the wave's middle,
 nowrite against the same side's full; L11 vpu by
 kernel_lab11.vpu_agreement, mxu by kernel_lab11.mxu_agreement, on every
@@ -56,18 +60,23 @@ import torch
 from tauray_torch.app import sass
 from tauray_torch.lab import brick, common, lab_kernel
 from tauray_torch.lab import kernel_lab as l3
+from tauray_torch.lab import kernel_lab8 as l8
 from tauray_torch.lab import kernel_lab9 as l9
 from tauray_torch.lab import kernel_lab10 as l10
 from tauray_torch.lab import kernel_lab11 as l11
-from tauray_torch.lab.bounds import brick_bound, tile_bound
+from tauray_torch.lab import mxu_lab as l12
+from tauray_torch.lab.bounds import brick_bound, lab12_bound, tile_bound
 from tauray_torch.ops import trace_kernel as tk
 
-LIBS = ("k1_lab", "brick_lab", "tile_lab")
+LIBS = ("k1_lab", "brick_lab", "tile_lab", "mxu_lab")
 # each lab's library, in the order configs times them
 LAB_LIB = {"lab9": "k1_lab", "lab4": "brick_lab", "lab5": "brick_lab",
            "lab6": "brick_lab", "lab7": "brick_lab", "lab1": "tile_lab",
            "lab2": "tile_lab", "lab3": "tile_lab", "lab10": "k1_lab",
-           "lab11": "k1_lab"}
+           "lab11": "k1_lab", "lab12": "mxu_lab", "lab8": "k1_lab"}
+# L1's configurations also timed by CUDA-graph replay (as every L8 one):
+# those whose kernel runs shorter than its wrapper's host path
+GRAPH_L1 = ("k0 ", "k1 ", "k2 ")
 SLICE = 1024  # tiles of each hold
 TILE_LAB = {"k0": "lab1", "k1": "lab1", "k2": "lab1", "k3": "lab1",
             "k4": "lab2", "k5": "lab3"}
@@ -233,6 +242,43 @@ def _lab11(dev):
                l11.lab11_bound(n_tiles, n_steps, tris.shape[0], mode)[0])
 
 
+def _lab12(dev):
+    inp = {k: torch.from_numpy(v).to(dev)
+           for k, v in common.lab12_inputs().items()}
+    n_tiles = inp["order"].shape[0]
+    for mode in lab_kernel.MODES["lab12"]:
+        tris = inp["tris9" if mode == "mt" else "tris24"]
+        args = (inp["order"], inp["o3"], inp["d3"], inp["mm2"], tris, mode)
+        ref = l12.lab12_reference(*args)
+
+        def hold(out, exact, mode=mode, ref=ref):
+            if mode == "mt":
+                return l12.mt_agreement(out, ref, inp)
+            return l12.plucker_agreement(out, ref, inp)
+        yield ("lab12", mode, lambda args=args: l12.lab12(*args), hold,
+               n_tiles * common.TILE * common.STEPS_L12 * l12.BK,
+               lab12_bound(mode, n_tiles)[0])
+
+
+def _lab8(dev):
+    o3, d3, mm2, heads = (torch.from_numpy(x).to(dev)
+                          for x in common.lab8_inputs())
+    n_tiles = o3.shape[0]
+    for mode in l8.NAMES:
+        for count in ((0,) if mode < 3 else (0, 8, 16)):
+            counts = torch.full((n_tiles,), count, dtype=torch.int32,
+                                device=dev)
+            args = (counts, heads, o3, d3, mm2, mode)
+            ref = l8.lab8_reference(*args)
+
+            def hold(out, exact, ref=ref):
+                return dict(ok=torch.equal(out.view(torch.int32),
+                                           ref.view(torch.int32)))
+            yield ("lab8", f"mode{mode}/count{count}",
+                   lambda args=args: l8.lab8(*args), hold, 0,
+                   l8.lab8_bound(n_tiles, mode, count)[0])
+
+
 def configs(dev, labs=tuple(LAB_LIB)):
     """(lab, key, launch(), hold(out, exact) -> dict, tests, bound ms) of
     every configuration the mains of labs run, in LAB_LIB's order; exact
@@ -248,6 +294,10 @@ def configs(dev, labs=tuple(LAB_LIB)):
         yield from _lab10(dev)
     if "lab11" in labs:
         yield from _lab11(dev)
+    if "lab12" in labs:
+        yield from _lab12(dev)
+    if "lab8" in labs:
+        yield from _lab8(dev)
 
 
 def main(argv=None) -> int:
@@ -300,7 +350,10 @@ def main(argv=None) -> int:
                     raise RuntimeError(f"{lab} {key}: the {side}'s kernel "
                                        f"breaks the hold: {agree}")
             runs = {"parent_ms": [], "ms": []}
-            b2b = {"parent_ms_back_to_back": [], "ms_back_to_back": []}
+            b2b = {"parent_ms_back_to_back": [], "ms_back_to_back": [],
+                   "parent_ms_graph": [], "ms_graph": []}
+            graph = lab == "lab8" or (lab == "lab1" and
+                                      key.startswith(GRAPH_L1))
             for side in ("parent_ms", "ms", "ms", "parent_ms"):
                 use(theirs if side == "parent_ms" else mine)
                 runs[side].append(common.time_cuda(launch, args.reps)["ms"])
@@ -308,6 +361,9 @@ def main(argv=None) -> int:
                     b2b[f"{side}_back_to_back"].append(
                         common.time_back_to_back(
                             launch, args.reps)["ms_back_to_back"])
+                if graph:
+                    b2b[f"{side}_graph"].append(common.time_graph(
+                        launch, args.reps)["ms_graph"])
             for side, ms in runs.items():
                 row[side] = ms
                 best = min(ms)

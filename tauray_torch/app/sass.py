@@ -29,7 +29,7 @@ _ROW_LOAD = re.compile(r"(@!?P\d+\s+)?(LDS|LDG)\S*\.128\b")
 # every TILE), lab10_kernel<W, kMode> (W = 4 or 8 warps a tile, R = 1), L3
 # as lab3_kernel<R> and L1-L3 as tile_lab_kernel<kMode, kLayout> (R = 1)
 _LAB9 = re.compile(r"lab9_kernelILi(\d)E(?:Li(\d+)E)?E")
-_WALK = re.compile(r"brick_walk_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d+)"
+_WALK = re.compile(r"brick_walk_kernelILi(\d+)ELi(\d)ELi(\d)ELi(\d+)"
                    r"ELi(\d+)EE")
 _LAB7 = re.compile(r"lab7_kernelILi(\d)ELi(\d+)EE")
 _LAB7_OLD = re.compile(r"brick_kernelILb0ELb1ELi(\d)ELi0EE")
@@ -37,8 +37,15 @@ _LAB6_OLD = re.compile(r"brick_kernelILb0ELi0ELi(\d)EE")
 _LAB4_OLD = re.compile(r"brick_kernelILb1ELi(\d)ELi0EE")
 _LAB11 = re.compile(r"lab11_(vpu|mxu)_kernel(?:ILi(\d+)EE)?")
 # a tensor-core product (L11 mxu: 36 a block of 8 triangles, 8 tests a
-# lane)
-_HMMA = re.compile(r"(@!?P\d+\s+)?HMMA\b")
+# lane), with its shape where SASS names it (1684: m16n8k4, 1688: m16n8k8)
+_HMMA = re.compile(r"(@!?P\d+\s+)?HMMA\b(?:\.(\d+))?")
+# L12: plucker's kernel, and an older checkout's mt (one ray a lane)
+_LAB12 = re.compile(r"lab12_plucker_kernel")
+_LAB12_MT_OLD = re.compile(r"lab12_mt_kernel")
+# the tensor-core work of one plucker column block (8 tests a lane), in
+# m16n8k4 products: 2 row blocks x (3 sides x K 8 + tnum's K 4) / 4 x 3
+# for the split
+PLUCKER_K4_BLOCK = 42
 _LAB10 = re.compile(r"lab10_kernelILi(\d)ELi(\d)EE")
 _TILE = re.compile(r"tile_walk_kernelILi(\d)ELi(\d)ELi(\d+)EE")
 _LAB3 = re.compile(r"lab3_kernelILi(\d)EE")
@@ -128,13 +135,32 @@ def lab_test_loops(lib_path: str) -> Dict[str, dict]:
     pass makes (4 triangles a load of each of the rows, 12 or 9, times R;
     none for L9 loads, which has no test; L11 mxu's loop holds no row load:
     8 tests a lane for each 36 tensor-core products, hmma) and instructions
-    per test."""
+    per test; also L12's mt (the walk's instance, or an older checkout's
+    lab12_mt_kernel) and plucker (8 tests a lane for each
+    PLUCKER_K4_BLOCK products' worth, an m16n8k8, hmma_k8, counting
+    two)."""
     out = {}
     for name, chunk in functions(lib_path).items():
         m9, mw, m7, m7o, m6o, m4o, m11, m10, mt, m3, mto = (
             p.search(name) for p in (_LAB9, _WALK, _LAB7, _LAB7_OLD,
                                      _LAB6_OLD, _LAB4_OLD, _LAB11, _LAB10,
                                      _TILE, _LAB3, _TILE_OLD))
+        if _LAB12.search(name):
+            # of the loops with the most products, the one with the fewest
+            # branches: the step's first pass (rcp_in_range), not its redo
+            # (__frcp_rn branches to its slow path)
+            loops = inner_loops(chunk) or [[]]
+            body = max(loops, key=lambda b: (
+                sum(bool(_HMMA.match(o)) for o in b),
+                -sum(bool(re.search(r"\bBRA\b", o)) for o in b), -len(b)))
+            shapes = [m.group(2) for m in map(_HMMA.match, body) if m]
+            k8 = shapes.count("1688")
+            tests = 8 * (len(shapes) + k8) / PLUCKER_K4_BLOCK
+            out["lab12 plucker"] = dict(
+                loop_instructions=len(body), hmma=len(shapes), hmma_k8=k8,
+                tests=tests,
+                instructions_per_test=len(body) / tests if tests else None)
+            continue
         if m11 and m11.group(1) == "mxu":
             loops = inner_loops(chunk) or [[]]
             body = max(loops, key=lambda b: (
@@ -150,10 +176,13 @@ def lab_test_loops(lib_path: str) -> Dict[str, dict]:
             rays, nf, test = int(m9.group(2) or 1), 12, m9.group(1) != "2"
         elif mw:
             lab, body, variant, tile, rays = map(int, mw.groups())
-            inst = f"lab7 {BODIES[body]}" if lab == 7 else \
+            inst = "lab12 mt" if lab == 12 else \
+                f"lab7 {BODIES[body]}" if lab == 7 else \
                 f"lab4 {BODIES[body]} TILE={tile}" if lab == 4 else \
                 f"lab6 {VARIANTS[variant]} TILE={tile}"
             nf, test = (12 if body == 2 else 9), True
+        elif _LAB12_MT_OLD.search(name):
+            inst, rays, nf, test = "lab12 mt", 1, 9, True
         elif m4o:
             inst, rays = f"lab4 {BODIES[int(m4o.group(1))]}", 1
             nf, test = 9, True

@@ -16,10 +16,15 @@
 //     over a synthetic stream, as K1's FP32 step (vpu) or as six matrix
 //     products on the tensor cores (mxu).
 // It computes the scripts' functions, not their TPU schedules:
-//   * L8: one block per group of 32 tiles (a TPU grid step), a warp per
-//     tile, a lane per ray; mode 2 copies the block's own group of heads
-//     (32 x 128 i32, 16 KB) into shared memory with cp.async and waits
-//     (no prefetch of the next group: a block has no next group);
+//   * L8 (redesigned for this card as a streaming kernel): a warp a tile,
+//     8 tiles a block (no group of 32 tiles); each lane issues 16-byte
+//     cp.async copies of the tile's rows into the warp's shared memory,
+//     neighbouring lanes on neighbouring addresses, the heads' first (mode
+//     2-3), then o3, d3 and mm2, waits once, and reads its ray from there
+//     (t_max once). PR 11's first design took the TPU's group of 32 tiles
+//     as one block of 1,024 threads, copied the group's heads and waited
+//     before any ray load, and read each ray as 7 scalar loads at a
+//     12-byte stride and t_max again;
 //   * L11 vpu (redesigned for this card, on L9's plan): a warp per tile (4
 //     a block), R = 4 rays a lane, 4 workers of 8 lanes, worker w taking the
 //     quads w, w + 4, ... of each cluster (test_quads, the FMA body); the
@@ -112,6 +117,7 @@ constexpr int kBuf = kRows * kQuads;  // float4 of one staged cluster
 constexpr int kStep = 8;       // clusters per step
 constexpr int kGroup = 32;     // tiles per group
 constexpr int kHeads = 128;    // key-head lanes per tile
+constexpr int kTiles8 = 8;     // L8: tiles (warps) a block
 constexpr int kWarpsPerBlock = 4;  // L9 and L11: tiles per block
 constexpr int kRays9 = 4;      // L9, L10: rays a lane (R), workers a warp
 constexpr int kTiles10 = 4;    // L10: tiles (warps) a block
@@ -120,11 +126,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // L11 mxu: a staged row of 128 floats takes 136, so that the four rows a
 // B fragment reads (k = 0..3) fall on different banks
 constexpr int kPadRow = 34;    // float4 per padded row
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // The smaller of a and b with a NaN kept (jnp.minimum / torch.minimum).
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -153,42 +154,60 @@ __device__ __forceinline__ float row_sum_min(const float4* buf, float m) {
 // L8: a tile's fixed cost
 // ---------------------------------------------------------------------------
 
+// A warp a tile, kTiles8 tiles a block (no group of 32): lane l copies the
+// tile's rows into the warp's own shared memory as 16-byte cp.async copies,
+// neighbouring lanes on neighbouring addresses, the heads' row first (modes
+// 2-3: 512 bytes, one copy a lane), then o3's and d3's 384 bytes (24 copies
+// each) and mm2's 256 (16), and waits once; then ray l's o, d and [t_min |
+// t_max] are read from there (t_max once), summed in the script's order
+// and written as one float2.
 template <int kMode>
-__global__ void __launch_bounds__(kGroup * kTile)
+__global__ void __launch_bounds__(kTiles8 * kTile)
 lab8_kernel(const int* __restrict__ counts, const int* __restrict__ heads,
             const float* __restrict__ o3, const float* __restrict__ d3,
-            const float* __restrict__ mm2, float* __restrict__ out) {
-  __shared__ __align__(16) int hs[kGroup * kHeads];
+            const float* __restrict__ mm2, int n_tiles,
+            float* __restrict__ out) {
+  // a tile's rows: o3 float4 0-23, d3 24-47, mm2 48-63, heads 64-95
+  __shared__ float4 rows[kTiles8][96];
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
-  const int tile = blockIdx.x * kGroup + warp;
-  const size_t ray = static_cast<size_t>(tile) * kTile + lane;
-  if (kMode >= 2) {
-    // 16 KB: one 16-byte copy a thread
-    cp_async16(hs + 4 * threadIdx.x,
-               heads + static_cast<size_t>(blockIdx.x) * kGroup * kHeads +
-                   4 * threadIdx.x);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-  float2 res;
+  const int tile = blockIdx.x * kTiles8 + warp;
+  if (tile >= n_tiles) return;
+  float2* o2 = reinterpret_cast<float2*>(out) +
+               static_cast<size_t>(tile) * kTile + lane;
   if (kMode == 0) {
-    res = make_float2(1.0f, 2.0f);
-  } else {
-    const float* o = o3 + ray * 3;
-    const float* d = d3 + ray * 3;
-    float acc = o[0] + o[1] + o[2] + d[0] + d[1] + d[2] + mm2[ray * 2];
-    if (kMode == 3) {
-      const int steps = (counts[tile] + kStep - 1) / kStep;
-      float acc2 = 0.0f;
-      for (int s = 0; s < steps; ++s)
-        acc2 = acc2 + static_cast<float>(
-                          hs[warp * kHeads + min(s, kHeads - 1)]);
-      acc = acc + acc2;
-    }
-    res = make_float2(acc, mm2[ray * 2 + 1]);
+    *o2 = make_float2(1.0f, 2.0f);
+    return;
   }
-  reinterpret_cast<float2*>(out)[ray] = res;
+  float4* r = rows[warp];
+  const size_t t = static_cast<size_t>(tile);
+  if (kMode >= 2)
+    cp_async16(r + 64 + lane,
+               reinterpret_cast<const float4*>(heads) + t * 32 + lane);
+  if (lane < 24) {
+    cp_async16(r + lane, reinterpret_cast<const float4*>(o3) + t * 24 + lane);
+    cp_async16(r + 24 + lane,
+               reinterpret_cast<const float4*>(d3) + t * 24 + lane);
+  }
+  if (lane < 16)
+    cp_async16(r + 48 + lane,
+               reinterpret_cast<const float4*>(mm2) + t * 16 + lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();  // the tile's rows are in for every lane
+  const float* o = reinterpret_cast<const float*>(r) + 3 * lane;
+  const float* d = reinterpret_cast<const float*>(r + 24) + 3 * lane;
+  const float2 mm = reinterpret_cast<const float2*>(r + 48)[lane];
+  float acc = o[0] + o[1] + o[2] + d[0] + d[1] + d[2] + mm.x;
+  if (kMode == 3) {
+    const int* hs = reinterpret_cast<const int*>(r + 64);
+    const int steps = (counts[tile] + kStep - 1) / kStep;
+    float acc2 = 0.0f;
+    for (int s = 0; s < steps; ++s)
+      acc2 = acc2 + static_cast<float>(hs[min(s, kHeads - 1)]);
+    acc = acc + acc2;
+  }
+  *o2 = make_float2(acc, mm.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -770,8 +789,8 @@ extern "C" int k1_lab_launch(int lab, int mode, const int* counts,
   switch (lab * 10 + mode) {
 #define K1_LAB8(M)                                                          \
   case 80 + M:                                                              \
-    lab8_kernel<M><<<n_tiles / kGroup, kGroup * kTile, 0, st>>>(            \
-        counts, keys, rays, d3, mm2, out);                                  \
+    lab8_kernel<M><<<(n_tiles + kTiles8 - 1) / kTiles8, kTiles8 * kTile,   \
+                     0, st>>>(counts, keys, rays, d3, mm2, n_tiles, out);   \
     break;
     K1_LAB8(0)
     K1_LAB8(1)

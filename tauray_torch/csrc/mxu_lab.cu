@@ -13,153 +13,178 @@
 //     their sum den is not 0 and t = tnum / den lies in [t_min, best).
 // Both keep the script's ids, the order slot step * 1,024 + the
 // triangle's lane in the step, and its start, t = min(t_max, 3e38) and id
-// -1. It computes the script's functions, not its TPU schedule: one block
-// of 8 warps a tile (no group of 32 tiles), and the rows read in place
-// from L2 through the read-only path (tris9 2.9 MB, tris24 7.8 MB; the
-// card's L2 is 50 MB) rather than staged: staging tris24 as the script
-// does is 96 KB a step, 192 KB double buffered, one block an SM, and
-// in-place reads ran as fast as staged ones on this card (L5 against L4,
-// PERF.md).
-// Rows 22-23 of tris24 are never read. An order outside [0, C) is clamped
-// (the script's DMA would read out of bounds).
-//   * mt: lane = ray; warp w tests the step's quads w, w + 8, ..., 4
-//     triangles a 16-byte row load (a broadcast), running best (t, slot)
-//     with strict <, the warps' bests combined by (t, slot) after the walk
-//     (see tile_lab.cu: the script's per-step argmin gives the same).
-//   * plucker: per 8-triangle column block (warp w takes blocks w, w + 8,
-//     ...) and 16-ray row block, s0, s1 and s2 as two mma.sync m16n8k4
-//     each (K = 6 padded to 8 with zeros) and tnum as one, every product
-//     in TF32 split in two (x = hi + lo: lo.hi + hi.lo + hi.hi, as L11 in
-//     k1_lab.cu), which brings it near FP32 (a single TF32 pass is not
-//     near enough: the smallest t wins, and its numerator is tiny). Lane l
-//     holds rays g, g + 8, g + 16, g + 24 (g = l / 4) and, of each column
-//     block, triangles 2k and 2k + 1 (k = l % 4); the epilogue (the sign
-//     tests, den, the IEEE division, the hit test) runs on the CUDA cores
-//     in FP32 with a running best per ray and lane; the 4 lanes of a row
-//     group, then the warps, combine by (t, slot).
+// -1. It computes the script's functions, not its TPU schedule: no group
+// of 32 tiles, and the rows read in place from L2 (tris9 2.9 MB, tris24
+// 7.8 MB; the card's L2 is 50 MB). Rows 22-23 of tris24 are never read.
+// An order outside [0, C) is clamped (the script's DMA would read out of
+// bounds).
+//   * mt: the brick walk of L4-L7 (brick_walk.cuh brick_walk_kernel, kLab
+//     12, which reads L12's o3, d3, mm2 and 64-entry order rows in the
+//     kernel): a warp a tile, 4 tiles a block, 4 rays a lane, 4 workers of
+//     8 lanes, worker w taking the quads w, w + 4, ... of the step's 8
+//     clusters; mt_hit_fma with rcp_in_range and a step redone with
+//     __frcp_rn where the warp met an odd denominator; running bests from
+//     min(t_max, 3e38) (a NaN kept) and id -1, one compare a test, and the
+//     workers met by (t, slot) after the walk.
+//   * plucker (lab12_plucker_kernel): a warp a tile, 4 tiles a block. Lane
+//     l is row group g = l / 4 and column k = l % 4 of the mma fragments:
+//     it holds rays g, g + 8, g + 16, g + 24 and, of each 8-triangle
+//     column block, triangles 2k and 2k + 1. The warp walks the tile's
+//     768 column blocks (6 steps x 8 clusters x 16) in order; each lane
+//     reads its 7 B values of block i + 1 before the products of block i
+//     (the rows read in place through the read-only path), splits them in
+//     two (x = hi + lo) and takes, per 16-ray row block, s0, s1 and s2 as
+//     one mma.sync m16n8k8 each (K = 6 padded to 8 with zeros) and tnum as
+//     one m16n8k4, each in TF32 split in two (lo.hi + hi.lo + hi.hi, as L11
+//     in k1_lab.cu: a single TF32 pass is not near enough, since the
+//     smallest t wins and its numerator is tiny). The epilogue runs on the
+//     CUDA cores in FP32: den = (s0 + s1) + s2; the sides share a sign
+//     unless min(s0, s1, s2) < 0 < max(s0, s1, s2); t = tnum x
+//     rcp_in_range(den), a step redone with __frcp_rn where the warp met
+//     an odd denominator, so t is tnum times the correctly rounded 1 / den
+//     either way; one test of den != 0 (with t_min = -inf a t of -inf
+//     would pass otherwise) and one compare against the running best per
+//     ray and lane; after the walk the 4 lanes of a row group meet by (t,
+//     slot).
 // The result is the script's (n_tiles, 32, 2) f32 block: t, then the
 // slot's int32 bits.
 //
 // What bounds it on the card: mt the FP32 instruction rate (46 operations
-// a test, none fused under -fmad=false); plucker its TF32 products, 44
-// operations a test at the script's K, three times over for the split, at
-// 495 TFLOP/s, beside an FP32 epilogue of 14 operations a test.
+// a test); plucker its TF32 products, 44 operations a test at the script's
+// K, three times over for the split, at 495 TFLOP/s, beside an FP32
+// epilogue of 14 operations a test. PR 13's first design took a block of 8
+// warps a tile, one ray a lane and the unfused Möller-Trumbore with an
+// IEEE 1 / a in every test (mt), and, for plucker, two m16n8k4 a side,
+// loads that each block waited out, and an IEEE division and six sign
+// compares in the epilogue.
 //
-// Built with -fmad=false (trace_kernel.NVCC_FLAGS): mt rounds like its
-// plain torch version, bit for bit; plucker's products differ from FP32 by
-// the split's error, so it is held to the plain FP32 version tie-aware
+// Built with -fmad=false (trace_kernel.NVCC_FLAGS): mt's FMAs are written
+// out, so it is held to its unfused plain version tie-aware
+// (lab/mxu_lab.mt_agreement); plucker's products differ from FP32 by the
+// split's error, so it is held to the plain FP32 version tie-aware
 // (lab/mxu_lab.plucker_agreement).
 
 #include <cuda_runtime.h>
 
+#include "brick_walk.cuh"
 #include "lab_common.cuh"
 
 namespace {
 
-constexpr int kCluster = 128;         // triangles per cluster
-constexpr int kQuads = kCluster / 4;  // float4 of a cluster row
 constexpr int kTile = 32;             // rays per tile = lanes per warp
 constexpr int kKB = 8;                // clusters per step
-constexpr int kBK = kKB * kCluster;   // triangles per step
 constexpr int kSteps = 6;             // steps a tile (the script's STEPS)
-constexpr int kOrder = 64;            // order entries a tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * kTile;
-constexpr int kRows9 = 9;
 constexpr int kRows24 = 24;
-constexpr float kBig = 3.0e38f;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kColBlocks = kCluster / 8;          // 8-triangle blocks
+constexpr int kStepBlocks = kKB * kColBlocks;     // of a step: 128
+constexpr int kWalkBlocks = kSteps * kStepBlocks;  // of a tile: 768
 
-__device__ __forceinline__ int order_at(const int* order, int tile, int k,
+// plucker's design, chosen by measurement against builds of the others:
+// warps a tile (1: 4 tiles a block; 8: a block a tile), the sides as one
+// m16n8k8 (else two m16n8k4), and the B rows read in place (0), one block
+// ahead (1) or staged a cluster at a time through a two-stage ring (2)
+constexpr int kPlkWarps = 1;
+constexpr bool kPlkK8 = true;
+constexpr int kPlkLoad = 1;
+constexpr int kPlkTiles = kPlkWarps == 1 ? kTilesBlock : 1;
+constexpr int kPlkThreads = kPlkTiles * kPlkWarps * kTile;
+constexpr int kPlkRows = 22;          // rows of tris24 that the test reads
+constexpr int kPadRow = 34;           // float4 of a staged row (136 floats)
+constexpr int kStage = kPlkRows * kPadRow;  // float4 of a staged cluster
+constexpr size_t kPlkSmem =
+    kPlkLoad == 2 ? kPlkTiles * 2 * kStage * sizeof(float4) : 0;
+static_assert(kPlkLoad != 2 || kPlkWarps == 1, "the ring: a warp a tile");
+
+// The order entry of tile row orow at k, clamped to [0, C)
+__device__ __forceinline__ int order_at(const int* orow, int k,
                                         int n_clusters) {
-  return max(0, min(order[static_cast<size_t>(tile) * kOrder + k],
-                    n_clusters - 1));
+  return max(0, min(orow[k], n_clusters - 1));
 }
 
-// The warps' (t, slot) of each ray (warp w's in tcomb[w][r], scomb[w][r])
-// combined by smallest t, then smallest slot, and written by warp 0.
-__device__ __forceinline__ void combine_write(float (*tcomb)[kTile],
-                                              int (*scomb)[kTile], int tile,
-                                              float* out) {
-  __syncthreads();
-  if (threadIdx.x >= kTile) return;
-  const int r = threadIdx.x;
-  float bt = tcomb[0][r];
-  int bs = scomb[0][r];
-  for (int w = 1; w < kWarps; ++w) {
-    const float ut = tcomb[w][r];
-    const int us = scomb[w][r];
-    if (ut < bt || (ut == bt && us < bs)) {
-      bt = ut;
-      bs = us;
-    }
+// Lane (g, k)'s B values of one column block, its rows read from base (the
+// block's column g of its cluster's row 0, rows kStride floats apart; a
+// staged cluster from shared memory): v[e] row 6e + k and v[3 + e] row 6e
+// + 4 + k (0 for k >= 2: K's padding) of side e, v[6] row 18 + k (tnum).
+template <int kStride, bool kShared>
+__device__ __forceinline__ void load_b(float (&v)[7], const float* base,
+                                       int k) {
+  auto ld = [&](int row) {
+    if constexpr (kShared) return base[row * kStride];
+    else return __ldg(base + row * kStride);
+  };
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    v[e] = ld(6 * e + k);
+    v[3 + e] = k < 2 ? ld(6 * e + 4 + k) : 0.0f;
   }
-  reinterpret_cast<float2*>(out)[static_cast<size_t>(tile) * kTile + r] =
-      make_float2(bt, __int_as_float(bs));
+  v[6] = ld(18 + k);
 }
 
-__global__ void __launch_bounds__(kThreads)
-lab12_mt_kernel(const int* __restrict__ order, const float* __restrict__ o3,
-                const float* __restrict__ d3, const float* __restrict__ mm2,
-                const float* __restrict__ tris, int n_clusters,
-                float* __restrict__ out) {
-  __shared__ float tcomb[kWarps][kTile];
-  __shared__ int scomb[kWarps][kTile];
-  const int warp = threadIdx.x / kTile;
-  const int lane = threadIdx.x % kTile;
-  const int tile = blockIdx.x;
-  const size_t ray = static_cast<size_t>(tile) * kTile + lane;
-  const Ray R{o3[ray * 3], o3[ray * 3 + 1], o3[ray * 3 + 2], d3[ray * 3],
-              d3[ray * 3 + 1], d3[ray * 3 + 2], mm2[ray * 2]};
-  const float tmax = mm2[ray * 2 + 1];
-  float bt = tmax > kBig ? kBig : tmax;  // jnp.minimum: NaN kept
-  int bs = -1;
-  const float4* t4 = reinterpret_cast<const float4*>(tris);
-  for (int s = 0; s < kSteps; ++s) {
-    // lane j < 8: the cluster of the step's slot j
-    const int orders =
-        lane < kKB ? order_at(order, tile, s * kKB + lane, n_clusters) : 0;
-    for (int quad = warp; quad < kBK / 4; quad += kWarps) {
-      const int c = __shfl_sync(kFull, orders, quad / kQuads);
-      const float4* b =
-          t4 + static_cast<size_t>(c) * kRows9 * kQuads + quad % kQuads;
-      float4 v[kRows9];
+// One column block against the lane's 4 rays: the four products of each
+// 16-ray row block h in TF32 split in two, then the epilogue; slot0 = the
+// block's first slot (i * 8, i its place in the walk) + 2k. Element e of a
+// product is ray 16h + g + 8 (e / 2) (m = 2h + e / 2), triangle 2k + e % 2
+// of the block. odd: see rcp_in_range.
+template <bool kExact>
+__device__ __forceinline__ void plucker_block(
+    const float (&v)[7], int slot0, const Split (&a6)[4][2],
+    const Split (&a4)[4], const float (&tmin)[4], float (&bt)[4],
+    int (&bs)[4], bool& odd) {
+  Split b0[3], b1[3];
 #pragma unroll
-      for (int j = 0; j < kRows9; ++j) v[j] = __ldg(b + j * kQuads);
+  for (int e = 0; e < 3; ++e) {
+    b0[e] = split(v[e]);
+    b1[e] = split(v[3 + e]);
+  }
+  const Split bn = split(v[6]);
 #pragma unroll
-      for (int c4 = 0; c4 < 4; ++c4) {
-        float w[kRows9];
+  for (int h = 0; h < 2; ++h) {
+    float s[3][4], tn[4];
 #pragma unroll
-        for (int j = 0; j < kRows9; ++j) w[j] = comp(v[j], c4);
-        float tt;
-        if (mt_hit(R, w, bt, tt)) {
-          bt = tt;
-          bs = s * kBK + 4 * quad + c4;
-        }
+    for (int e = 0; e < 3; ++e) {
+      if constexpr (kPlkK8) {
+        mma_3xtf32_k8(s[e], a6[2 * h][0], a6[2 * h + 1][0], a6[2 * h][1],
+                      a6[2 * h + 1][1], b0[e], b1[e]);
+      } else {
+        mma_3xtf32(s[e], a6[2 * h][0], a6[2 * h + 1][0], b0[e]);
+        mma_3xtf32_acc(s[e], a6[2 * h][1], a6[2 * h + 1][1], b1[e]);
+      }
+    }
+    mma_3xtf32(tn, a4[2 * h], a4[2 * h + 1], bn);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 2 * h + e / 2;
+      const float den = s[0][e] + s[1][e] + s[2][e];
+      // the sides share a sign unless one is below 0 and another above
+      const bool mixed =
+          fminf(fminf(s[0][e], s[1][e]), s[2][e]) < 0.0f &&
+          fmaxf(fmaxf(s[0][e], s[1][e]), s[2][e]) > 0.0f;
+      const float tt = tn[e] * rcp_rn<kExact>(den, odd);
+      if (!mixed && den != 0.0f && tt >= tmin[m] && tt < bt[m]) {
+        bt[m] = tt;
+        bs[m] = slot0 + (e & 1);
       }
     }
   }
-  tcomb[warp][lane] = bt;
-  scomb[warp][lane] = bs;
-  combine_write(tcomb, scomb, tile, out);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPlkThreads)
 lab12_plucker_kernel(const int* __restrict__ order,
                      const float* __restrict__ o3,
                      const float* __restrict__ d3,
                      const float* __restrict__ mm2,
-                     const float* __restrict__ tris, int n_clusters,
-                     float* __restrict__ out) {
-  __shared__ float tcomb[kWarps][kTile];
-  __shared__ int scomb[kWarps][kTile];
+                     const float* __restrict__ tris, int n_tiles,
+                     int n_clusters, float* __restrict__ out) {
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
+  const int tile = kPlkWarps == 1 ? blockIdx.x * kTilesBlock + warp
+                                  : static_cast<int>(blockIdx.x);
+  const int wk = kPlkWarps == 1 ? 0 : warp;  // the warp's share of a step
+  if (tile >= n_tiles) return;
   const int g = lane / 4;
   const int k = lane % 4;
-  const int tile = blockIdx.x;
   // A fragments of ray m (rays g, g + 8, g + 16, g + 24): the Plücker row
-  // [d | d x o | 0 0] in two K = 4 chunks (column k of each), and [-o | 1]
+  // [d | d x o | 0 0], columns k and 4 + k, and [-o | 1], column k
   Split a6[4][2], a4[4];
   float tmin[4], bt[4];
   int bs[4];
@@ -174,51 +199,100 @@ lab12_plucker_kernel(const int* __restrict__ order,
     a6[m][0] = split(u6[k]);
     a6[m][1] = split(u6[4 + k]);
     a4[m] = split(u4[k]);
-    tmin[m] = mm2[ray * 2];
-    const float tmax = mm2[ray * 2 + 1];
-    bt[m] = tmax > kBig ? kBig : tmax;
+    const float2 mm = reinterpret_cast<const float2*>(mm2)[ray];
+    tmin[m] = mm.x;
+    bt[m] = mm.y > kBig ? kBig : mm.y;  // jnp.minimum: a NaN kept
     bs[m] = -1;
   }
+  // lane l: the clamped order entries l and 32 + l (the walk's 48)
+  const int* orow = order + static_cast<size_t>(tile) * kRowL12;
+  const int o_lo = order_at(orow, lane, n_clusters);
+  const int o_hi = lane < kSteps * kKB - 32
+                       ? order_at(orow, 32 + lane, n_clusters) : 0;
+  auto cluster = [&](int p) {  // the cluster at walk position p
+    return __shfl_sync(kFull, p < 32 ? o_lo : o_hi, p & 31);
+  };
+  // column block i's rows: cluster position i / 16, column (i % 16) 8 + g
+  auto base = [&](int i) {
+    return tris +
+           static_cast<size_t>(cluster(i / kColBlocks)) * kRows24 *
+               kCluster +
+           (i % kColBlocks) * 8 + g;
+  };
+  float4* ring = nullptr;
+  if constexpr (kPlkLoad == 2) {
+    extern __shared__ float4 smem[];
+    ring = smem + warp * 2 * kStage;
+  }
+  // the rows of walk position p into ring stage p & 1 (one cp.async group)
+  auto stage = [&](int p) {
+    cp_async_rows<kPlkRows, kPadRow>(
+        ring + (p & 1) * kStage,
+        reinterpret_cast<const float4*>(tris) +
+            static_cast<size_t>(cluster(p)) * kRows24 * (kCluster / 4),
+        lane);
+  };
+  float nxt[7];  // the B values of the warp's next block, read ahead
+  if constexpr (kPlkLoad == 1) load_b<kCluster, false>(nxt, base(wk), k);
+  if constexpr (kPlkLoad == 2) stage(0);
   for (int s = 0; s < kSteps; ++s) {
-    const int orders =
-        lane < kKB ? order_at(order, tile, s * kKB + lane, n_clusters) : 0;
-    for (int nb = warp; nb < kBK / 8; nb += kWarps) {
-      // B fragments: row k (and 4 + k) of triangle nb * 8 + g
-      const int c = __shfl_sync(kFull, orders, nb / (kCluster / 8));
-      const float* base = tris + static_cast<size_t>(c) * kRows24 * kCluster +
-                          (nb % (kCluster / 8)) * 8 + g;
-      Split b0[3], b1[3];
+    float st[4];
+    int ss[4];
 #pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        b0[e] = split(__ldg(base + (6 * e + k) * kCluster));
-        b1[e] = split(k < 2 ? __ldg(base + (6 * e + 4 + k) * kCluster) : 0.0f);
-      }
-      const Split bn = split(__ldg(base + (18 + k) * kCluster));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rays 16h + (g, g + 8)
-        float s0[4], s1[4], s2[4], tn[4];
-        mma_3xtf32(s0, a6[2 * h][0], a6[2 * h + 1][0], b0[0]);
-        mma_3xtf32_acc(s0, a6[2 * h][1], a6[2 * h + 1][1], b1[0]);
-        mma_3xtf32(s1, a6[2 * h][0], a6[2 * h + 1][0], b0[1]);
-        mma_3xtf32_acc(s1, a6[2 * h][1], a6[2 * h + 1][1], b1[1]);
-        mma_3xtf32(s2, a6[2 * h][0], a6[2 * h + 1][0], b0[2]);
-        mma_3xtf32_acc(s2, a6[2 * h][1], a6[2 * h + 1][1], b1[2]);
-        mma_3xtf32(tn, a4[2 * h], a4[2 * h + 1], bn);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // element e: ray 16h + g + 8 (e / 2), triangle nb * 8 + 2k + e % 2
-          const int m = 2 * h + e / 2;
-          const float den = s0[e] + s1[e] + s2[e];
-          const bool inside =
-              (s0[e] >= 0.0f && s1[e] >= 0.0f && s2[e] >= 0.0f) ||
-              (s0[e] <= 0.0f && s1[e] <= 0.0f && s2[e] <= 0.0f);
-          const float f = den != 0.0f ? 1.0f / den : 0.0f;
-          const float tt = tn[e] * f;
-          if (inside && den != 0.0f && tt >= tmin[m] && tt < bt[m]) {
-            bt[m] = tt;
-            bs[m] = s * kBK + nb * 8 + 2 * k + e % 2;
-          }
+    for (int m = 0; m < 4; ++m) {
+      st[m] = bt[m];
+      ss[m] = bs[m];
+    }
+    bool odd = false;  // a den outside rcp_in_range's range
+    if constexpr (kPlkLoad == 2) {
+      for (int j = 0; j < kKB; ++j) {
+        const int p = s * kKB + j;
+        if (p + 1 < kSteps * kKB) {
+          stage(p + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
         }
+        __syncwarp();  // position p's rows are in for every lane
+        const float* fb =
+            reinterpret_cast<const float*>(ring + (p & 1) * kStage) + g;
+#pragma unroll 1
+        for (int cb = 0; cb < kColBlocks; ++cb) {
+          float v[7];
+          load_b<kPadRow * 4, true>(v, fb + cb * 8, k);
+          plucker_block<false>(v, (p * kColBlocks + cb) * 8 + 2 * k, a6,
+                               a4, tmin, bt, bs, odd);
+        }
+        __syncwarp();  // every lane is done with the stage
+      }
+    } else {
+#pragma unroll 1
+      for (int i = s * kStepBlocks + wk; i < (s + 1) * kStepBlocks;
+           i += kPlkWarps) {
+        float v[7];
+        if constexpr (kPlkLoad == 1) {
+#pragma unroll
+          for (int j = 0; j < 7; ++j) v[j] = nxt[j];
+          if (i + kPlkWarps < kWalkBlocks)
+            load_b<kCluster, false>(nxt, base(i + kPlkWarps), k);
+        } else {
+          load_b<kCluster, false>(v, base(i), k);
+        }
+        plucker_block<false>(v, i * 8 + 2 * k, a6, a4, tmin, bt, bs, odd);
+      }
+    }
+    if (__any_sync(kFull, odd)) {  // the step again with __frcp_rn
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        bt[m] = st[m];
+        bs[m] = ss[m];
+      }
+#pragma unroll 1
+      for (int i = s * kStepBlocks + wk; i < (s + 1) * kStepBlocks;
+           i += kPlkWarps) {
+        float v[7];
+        load_b<kCluster, false>(v, base(i), k);
+        plucker_block<true>(v, i * 8 + 2 * k, a6, a4, tmin, bt, bs, odd);
       }
     }
   }
@@ -235,12 +309,41 @@ lab12_plucker_kernel(const int* __restrict__ order,
         bs[m] = os;
       }
     }
-    if (k == 0) {
-      tcomb[warp][m * 8 + g] = bt[m];
-      scomb[warp][m * 8 + g] = bs[m];
-    }
   }
-  combine_write(tcomb, scomb, tile, out);
+  float2* o2 = reinterpret_cast<float2*>(out);
+  if constexpr (kPlkWarps == 1) {
+    if (k == 0) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        o2[static_cast<size_t>(tile) * kTile + m * 8 + g] =
+            make_float2(bt[m], __int_as_float(bs[m]));
+    }
+  } else {
+    // the warps' bests of each ray, combined by (t, slot) by warp 0
+    __shared__ float tcomb[kPlkWarps][kTile];
+    __shared__ int scomb[kPlkWarps][kTile];
+    if (k == 0) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        tcomb[warp][m * 8 + g] = bt[m];
+        scomb[warp][m * 8 + g] = bs[m];
+      }
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    float t = tcomb[0][lane];
+    int sl = scomb[0][lane];
+    for (int w = 1; w < kPlkWarps; ++w) {
+      const float ut = tcomb[w][lane];
+      const int us = scomb[w][lane];
+      if (ut < t || (ut == t && us < sl)) {
+        t = ut;
+        sl = us;
+      }
+    }
+    o2[static_cast<size_t>(tile) * kTile + lane] =
+        make_float2(t, __int_as_float(sl));
+  }
 }
 
 }  // namespace
@@ -257,12 +360,23 @@ extern "C" int mxu_lab_launch(int mode, const int* order, const float* o3,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = (n_tiles + kTilesBlock - 1) / kTilesBlock;
   if (mode == 0)
-    lab12_mt_kernel<<<n_tiles, kThreads, 0, st>>>(
-        order, o3, d3, mm2, tris, n_clusters, out);
-  else if (mode == 1)
-    lab12_plucker_kernel<<<n_tiles, kThreads, 0, st>>>(
-        order, o3, d3, mm2, tris, n_clusters, out);
+    brick_walk_kernel<12, kMT, kFixed, kTile, 4>
+        <<<blocks, kTilesBlock * kTile, 0, st>>>(order, o3, d3, mm2, tris,
+                                                 n_tiles, n_clusters, kKB,
+                                                 kSteps, out);
+  else if (mode == 1) {
+    if (kPlkSmem > 0) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          lab12_plucker_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(kPlkSmem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    lab12_plucker_kernel<<<(n_tiles + kPlkTiles - 1) / kPlkTiles,
+                           kPlkThreads, kPlkSmem, st>>>(
+        order, o3, d3, mm2, tris, n_tiles, n_clusters, out);
+  }
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

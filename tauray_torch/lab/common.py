@@ -1,7 +1,8 @@
 """What the TPU labs share: the constants of scripts/kernel_lab.py,
 kernel_lab2-5.py, kernel_lab8-11.py and mxu_lab.py, their seeded inputs
-(made with numpy.random.default_rng exactly as each script makes them), a
-CUDA-event timer, the card's name and power limit, and each lab's
+(made with numpy.random.default_rng exactly as each script makes them),
+CUDA-event timers (one call, back to back, CUDA-graph replay), the card's
+name and power limit, and each lab's
 entry-point plumbing (--device, the bound of a mode)."""
 
 from __future__ import annotations
@@ -321,6 +322,38 @@ def time_back_to_back(fn: Callable[[], object], reps: int = 5,
         ms.append(a.elapsed_time(b) / n)
     return {"ms_back_to_back": statistics.median(ms),
             "min_ms_back_to_back": min(ms), "max_ms_back_to_back": max(ms)}
+
+
+def time_graph(fn: Callable[[], object], reps: int = 5,
+               n: int = 20) -> Dict[str, float]:
+    """fn's ms a call with the host path left out: n calls captured in one
+    torch.cuda.CUDAGraph (after two warm-up calls on a side stream), the
+    graph replayed between two CUDA events and the time divided by n; the
+    median, min and max over reps replays, after one replay as a warm-up.
+    A lab timer only: nothing on the frame's path runs in a graph. The
+    wrappers count the captured calls as launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    ms = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b) / n)
+    return {"ms_graph": statistics.median(ms), "min_ms_graph": min(ms),
+            "max_ms_graph": max(ms)}
 
 
 def card() -> str:

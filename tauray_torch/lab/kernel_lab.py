@@ -39,14 +39,17 @@ versions and are held to them by lab3_agreement (common.tie_aware_hold;
 the exit's steps per tile by walked_steps); k0-k2 bit for bit. On the
 card run also times each configuration back to back
 (common.time_back_to_back), which leaves the wrapper's host path out of
-the reading where the kernel runs longer than it.
+the reading where the kernel runs longer than it, and k0-k2, whose
+kernels run shorter than it, by CUDA-graph replay (common.time_graph),
+which leaves it out whatever the kernel's length.
 
     python -m tauray_torch.lab.kernel_lab [k0 k1 k2 k3 k4 k5 k5<G>]
                                           [--device=cpu]
 
 prints, after the card's name and power limit, the script's line per
 configuration (label, steps, ms, us a tile) with G tests/s, the bound and
-the bytes staged (on the card also the ms back to back), then the
+the bytes staged (on the card also the ms back to back, and for k0-k2
+by graph replay), then the
 intercept and slope of ms over steps of k2-k5 (and of the ms back to
 back). The default runs
 are the script's, k0 k1 k2 k3 k4: k0 and k1 at 0 and 1 steps, the others
@@ -64,7 +67,8 @@ from ..ops.trace_kernel import _mt_test
 from .bounds import staged_bytes, tile_bound
 from .common import (BIG, CLUSTER, CPAD, KB_L1, ROW_L1, TILE_L1, card,
                      lab1_inputs, mt_fp64, parse_args, steps_hold,
-                     tie_aware_hold, time_back_to_back, timed_run)
+                     tie_aware_hold, time_back_to_back, time_graph,
+                     timed_run)
 from .lab_kernel import launch_tile, on_card
 
 BK = KB_L1 * CLUSTER     # triangles a step
@@ -353,7 +357,8 @@ def run(device, names: Sequence[str] = NAMES, reps: int = 5, tiles=None):
     `tiles` tiles), each timed (common.timed_run) and, on the card, back
     to back (common.time_back_to_back): (inputs, [one dict per run: cfg,
     ms, min_ms, max_ms, ms_back_to_back (None on the CPU) with its min and
-    max, us_per_tile, gtests_s (k3-k5's tests a second), bound_ms,
+    max, ms_graph (k0-k2 on the card, else None) with its min and max,
+    us_per_tile, gtests_s (k3-k5's tests a second), bound_ms,
     bound_by, staged_bytes, counts, out])."""
     inp = tile_inputs(device, tiles)
     n_tiles = inp["n_tiles"]
@@ -365,6 +370,10 @@ def run(device, names: Sequence[str] = NAMES, reps: int = 5, tiles=None):
                  if device.type == "cuda" else dict.fromkeys((
                      "ms_back_to_back", "min_ms_back_to_back",
                      "max_ms_back_to_back")))
+        t.update(time_graph(lambda: call(cfg, inp, counts), reps)
+                 if device.type == "cuda" and cfg.name in ("k0", "k1", "k2")
+                 else dict.fromkeys(("ms_graph", "min_ms_graph",
+                                     "max_ms_graph")))
         tests = n_tiles * TILE_L1 * cfg.steps * BK \
             if cfg.name not in ("k0", "k1", "k2") else 0
         b_ms, b_by = tile_bound(cfg.name, cfg.steps, n_tiles)
@@ -409,6 +418,8 @@ def main(argv=None) -> int:
             if r["staged_bytes"] else ""
         b2b = f", {r['ms_back_to_back']:.4f} ms back to back" \
             if r["ms_back_to_back"] is not None else ""
+        if r["ms_graph"] is not None:
+            b2b += f", {r['ms_graph']:.4f} ms by graph replay"
         print(f"{c.head}steps={c.steps}: {r['ms']:7.2f} {unit} "
               f"({r['us_per_tile']:5.2f} us/tile, {r['gtests_s']:6.1f} G "
               f"tests/s; bound {r['bound_ms']:.4f} ms, {r['bound_by']}"

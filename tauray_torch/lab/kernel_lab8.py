@@ -13,9 +13,17 @@ component at a time:
     python -m tauray_torch.lab.kernel_lab8 [--device=cpu]
 
 prints one line per mode and count (0, and for mode 3 also 8 and 16): ms
-(CUDA events, the median of 5 after a warm-up) and us per tile, as
-the script does, with the bound. On the CPU the plain version runs and its
-host ms are printed as such."""
+(CUDA events around one call, the median of 5 after a warm-up) and us per
+tile, as the script does, with the bound; on the card also the ms a call
+back to back (20 calls a window) and by CUDA-graph replay (20 calls
+captured in one graph: the host path left out). On the CPU the plain
+version runs and its host ms are printed as such.
+
+On the card (csrc/k1_lab.cu lab8_kernel) a warp takes a tile, 8 tiles a
+block: its lanes copy the tile's rows (the heads first, then o3, d3 and
+mm2) into shared memory as 16-byte cp.async copies and wait once; the sums
+keep the script's order, so the card's output equals the plain version's
+bit for bit."""
 
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import torch
 
 from ..ops.trace_kernel import _check
 from .common import (KC, TILE, bound, card, lab8_inputs, parse_args,
-                     timed_run)
+                     time_back_to_back, time_graph, timed_run)
 from .lab_kernel import check_tiles, launch, on_card
 
 NAMES = {0: "write-only", 1: "+ray loads", 2: "+head DMA",
@@ -89,8 +97,9 @@ def lab8_bound(n_tiles: int, mode: int, count: int):
 
 def run(device, n_rays: int = 1 << 20, reps: int = 5, seed: int = 0):
     """Every mode at the script's sizes: (inputs, [one dict per mode and
-    count: mode, count, ms, min_ms, us_per_tile, bound_ms, bound_by,
-    out])."""
+    count: mode, count, ms, min_ms, max_ms, ms_back_to_back and ms_graph
+    (None on the CPU) with their min and max, us_per_tile, bound_ms,
+    bound_by, out, counts])."""
     o3, d3, mm2, heads = (torch.from_numpy(x).to(device)
                           for x in lab8_inputs(n_rays, seed))
     n_tiles = o3.shape[0]
@@ -99,9 +108,17 @@ def run(device, n_rays: int = 1 << 20, reps: int = 5, seed: int = 0):
         for count in ((0,) if mode < 3 else (0, 8, 16)):
             counts = torch.full((n_tiles,), count, dtype=torch.int32,
                                 device=device)
-            out, t = timed_run(
-                lambda: lab8(counts, heads, o3, d3, mm2, mode), device,
-                reps)
+            def call():
+                return lab8(counts, heads, o3, d3, mm2, mode)
+            out, t = timed_run(call, device, reps)
+            if device.type == "cuda":
+                t.update(time_back_to_back(call, reps))
+                t.update(time_graph(call, reps))
+            else:
+                t.update(dict.fromkeys((
+                    "ms_back_to_back", "min_ms_back_to_back",
+                    "max_ms_back_to_back", "ms_graph", "min_ms_graph",
+                    "max_ms_graph")))
             b_ms, b_by = lab8_bound(n_tiles, mode, count)
             res.append(dict(mode=mode, count=count, **t,
                             us_per_tile=t["ms"] * 1e3 / n_tiles,
@@ -116,10 +133,13 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         print(card(), flush=True)
     for r in run(dev)[1]:
+        card_ms = "" if r["ms_graph"] is None else (
+            f"; {r['ms_back_to_back']:.4f} ms back to back, "
+            f"{r['ms_graph']:.4f} ms by graph replay")
         print(f"mode{r['mode']} ({NAMES[r['mode']]}) counts={r['count']:3d}"
               f": {r['ms']:7.3f} {unit}  {r['us_per_tile']:5.3f} us/tile  "
               f"(min {r['min_ms']:.3f}; bound {r['bound_ms']:.4f} ms, "
-              f"{r['bound_by']})", flush=True)
+              f"{r['bound_by']}{card_ms})", flush=True)
     return 0
 
 

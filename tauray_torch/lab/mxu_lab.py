@@ -17,8 +17,14 @@ min(t_max, 3e38)). An order outside [0, C) is clamped. Modes:
 
 The plain versions run in FP32 (plucker's products as FP32 matrix
 products, no TF32 on the card either). On the card (csrc/mxu_lab.cu) mt
-rounds as its plain version does, bit for bit; plucker's products are
-mma.sync m16n8k4 in TF32 split in two (as L11), so it is held to its
+runs the brick walk of L4-L7 (csrc/brick_walk.cuh, its FMA body), so it is
+held to its unfused plain version by mt_agreement (common.tie_aware_hold,
+each winner analysed in FP64 by common.mt_fp64, as brick.brick_agreement
+holds L6). plucker's products are mma.sync in TF32 split in two (as L11;
+m16n8k8 for the sides, m16n8k4 for tnum), and its epilogue
+(plucker_epilogue) tests the sides' signs by their minimum and maximum and
+takes one test of den != 0, which gives the script's verdict
+(plucker_verdict); it is held to its
 plain version by plucker_agreement, L11's rule: t within TOL x max(1,
 |t|), or where the ids agree within its rounding bound of t in FP64; the
 ids equal, or where they differ, the plain t of the kernel's triangle
@@ -35,8 +41,9 @@ one side's test and fail the other's.
     python -m tauray_torch.lab.mxu_lab [--device=cpu]
 
 prints, after the card's name and power limit, the script's two lines (ms
-and G ray-tri/s) with each mode's bound, then how plucker agrees with its
-plain version (on the CPU: is its plain version)."""
+and G ray-tri/s) with each mode's bound (on the card also the ms back to
+back, 20 calls a window), then how mt and plucker agree with their plain
+versions (on the CPU: are their plain versions)."""
 
 from __future__ import annotations
 
@@ -49,7 +56,8 @@ import torch
 from ..ops.trace_kernel import _mt_test
 from .bounds import lab12_bound
 from .common import (BIG, CLUSTER, KBV, STEPS_L12, TILE, card, lab12_inputs,
-                     parse_args, timed_run)
+                     mt_fp64, parse_args, tie_aware_hold, time_back_to_back,
+                     timed_run)
 from .kernel_lab11 import GAMMA_3XTF32, ILL_SHARE, TOL
 from .lab_kernel import MODES, launch_lab12, on_card
 
@@ -91,12 +99,33 @@ def _plucker_test(blk, o3, d3, tmin, bt):
         s0, s1, s2 = (torch.matmul(rays6, blk[:, 6 * e:6 * e + 6])
                       for e in range(3))
         tnum = torch.matmul(rays4, blk[:, 18:22])
+    return plucker_verdict(s0, s1, s2, tnum, tmin, bt)
+
+
+def plucker_verdict(s0, s1, s2, tnum, tmin, bt):
+    """plucker_body's verdict (mxu_lab.py:183-189) on the sides s0, s1, s2
+    and the numerator tnum: (hit closer than bt, t)."""
     den = s0 + s1 + s2
     inside = ((s0 >= 0) & (s1 >= 0) & (s2 >= 0)) | \
         ((s0 <= 0) & (s1 <= 0) & (s2 <= 0))
     f = torch.where(den != 0, 1.0 / torch.where(den == 0, 1.0, den), 0.0)
     tt = tnum * f
     return inside & (den != 0) & (tt >= tmin) & (tt < bt), tt
+
+
+def plucker_epilogue(s0, s1, s2, tnum, tmin, bt):
+    """The card's epilogue (csrc/mxu_lab.cu plucker_block) on the CPU, in
+    FP32: den = (s0 + s1) + s2; the sides mixed where min(s0, s1, s2) < 0 <
+    max(s0, s1, s2) (fminf and fmaxf pass a NaN by, as torch.fmin and fmax
+    do); t = tnum times the correctly rounded 1 / den (+-inf at den = 0);
+    one test of den != 0: (hit closer than bt, t). Where plucker_verdict's
+    six compares and this sign test differ (a NaN side), den is NaN and
+    both miss."""
+    den = s0 + s1 + s2
+    mixed = (torch.fmin(torch.fmin(s0, s1), s2) < 0) & \
+        (torch.fmax(torch.fmax(s0, s1), s2) > 0)
+    tt = tnum * (1.0 / den)
+    return ~mixed & (den != 0) & (tt >= tmin) & (tt < bt), tt
 
 
 @contextlib.contextmanager
@@ -210,6 +239,30 @@ def plucker_t64(inputs, tiles, lanes, slots) -> dict:
                 margin=torch.stack(ratios).min(0).values)
 
 
+def mt_agreement(out: torch.Tensor, ref: torch.Tensor, inputs) -> dict:
+    """The tie-aware hold of mt's kernel output (the brick walk's FMA body)
+    against its unfused plain version (both (n_tiles, 32, 2)) on inputs
+    (order, o3, d3, mm2, tris9), ray by ray: common.tie_aware_hold, each
+    ray's winner (the tris9 triangle its slot names, order clamped) analysed
+    in FP64 by common.mt_fp64; a ray keeps t = min(t_max, 3e38) (a NaN
+    kept) on a miss."""
+    o = inputs["o3"].reshape(-1, 3)
+    d = inputs["d3"].reshape(-1, 3)
+    mm = inputs["mm2"].reshape(-1, 2)
+
+    def analyse(ray, ids):
+        rows = triangle_rows(inputs["order"], inputs["tris9"], ray // TILE,
+                             ids)
+        return mt_fp64(rows, o[ray], d[ray], mm[ray, 0])
+
+    def flat(x):
+        return (x[..., 0].reshape(-1),
+                x[..., 1].contiguous().view(torch.int32).reshape(-1))
+    (t_k, id_k), (t_p, id_p) = flat(out), flat(ref)
+    t_start = torch.where(mm[:, 1] > BIG, BIG, mm[:, 1])
+    return tie_aware_hold(t_k, id_k, t_p, id_p, t_start, analyse)
+
+
 def plucker_agreement(out: torch.Tensor, ref: torch.Tensor, inputs) -> dict:
     """The tie-aware hold of plucker's kernel output against its plain
     FP32 version (both (n_tiles, 32, 2)) on inputs (o3, d3, mm2, order,
@@ -297,9 +350,10 @@ def plucker_agreement(out: torch.Tensor, ref: torch.Tensor, inputs) -> dict:
 
 def run(device, reps: int = 5, tiles=None):
     """Both modes at the script's size (or its first `tiles` tiles), timed
-    (common.timed_run): (inputs, [one dict per mode: mode, label, ms,
-    min_ms, gtests_s (the script's G ray-tri/s), bound_ms, bound_by,
-    out])."""
+    (common.timed_run; on the card also common.time_back_to_back):
+    (inputs, [one dict per mode: mode, label, ms, min_ms, max_ms,
+    ms_back_to_back (None on the CPU) with its min and max, gtests_s (the
+    script's G ray-tri/s), bound_ms, bound_by, out])."""
     inp = lab12_inputs()
     if tiles is not None:
         inp = {k: v if k.startswith("tris") else v[:tiles]
@@ -310,9 +364,13 @@ def run(device, reps: int = 5, tiles=None):
     res = []
     for mode in MODES["lab12"]:
         tris = inp["tris9" if mode == "mt" else "tris24"]
-        out, t = timed_run(lambda: lab12(inp["order"], inp["o3"], inp["d3"],
-                                         inp["mm2"], tris, mode),
-                           device, reps)
+        def call():
+            return lab12(inp["order"], inp["o3"], inp["d3"], inp["mm2"],
+                         tris, mode)
+        out, t = timed_run(call, device, reps)
+        t.update(time_back_to_back(call, reps) if device.type == "cuda"
+                 else dict.fromkeys(("ms_back_to_back", "min_ms_back_to_back",
+                                     "max_ms_back_to_back")))
         tests = n_tiles * TILE * STEPS_L12 * BK
         b_ms, b_by = lab12_bound(mode, n_tiles)
         res.append(dict(mode=mode, label=LABELS[mode], **t,
@@ -328,16 +386,18 @@ def main(argv=None) -> int:
         print(card(), flush=True)
     inp, res = run(dev)
     for r in res:
+        b2b = "" if r["ms_back_to_back"] is None else \
+            f", {r['ms_back_to_back']:.4f} ms back to back"
         print(f"{r['label']:28s}: {r['ms']:7.2f} {unit}  "
               f"({r['gtests_s']:6.1f} G ray-tri/s; bound {r['bound_ms']:.4f} "
-              f"ms, {r['bound_by']})", flush=True)
-    plucker = res[1]["out"]
-    ref = plucker if dev.type == "cpu" else lab12_reference(
-        inp["order"], inp["o3"], inp["d3"], inp["mm2"], inp["tris24"],
-        "plucker")
-    agree = plucker_agreement(plucker, ref, inp)
-    print("plucker against its plain version: " + ", ".join(
-        f"{k} {v}" for k, v in agree.items()), flush=True)
+              f"ms, {r['bound_by']}{b2b})", flush=True)
+    for r, hold in zip(res, (mt_agreement, plucker_agreement)):
+        tris = inp["tris9" if r["mode"] == "mt" else "tris24"]
+        ref = r["out"] if dev.type == "cpu" else lab12_reference(
+            inp["order"], inp["o3"], inp["d3"], inp["mm2"], tris, r["mode"])
+        agree = hold(r["out"], ref, inp)
+        print(f"{r['mode']} against its plain version: " + ", ".join(
+            f"{k} {v}" for k, v in agree.items()), flush=True)
     return 0
 
 

@@ -925,12 +925,15 @@ def test_tile_lab_matches_plain_version(cuda, lab):
 
 
 def test_mxu_lab_matches_plain_version(cuda):
-    """L12 (csrc/mxu_lab.cu) on the first 256 tiles of scripts/mxu_lab.py's
-    inputs: mt's t and id bits equal to its plain version; plucker held by
-    mxu_lab.plucker_agreement; each launch counted."""
+    """L12 (csrc/mxu_lab.cu) on scripts/mxu_lab.py's inputs, all 2,048
+    tiles: mt (the brick walk's FMA body) held to its plain version by
+    mxu_lab.mt_agreement, also on odd denominators (every 13th direction
+    scaled by 1e-39, a subnormal a whose step is redone with __frcp_rn;
+    every 17th NaN; every 7th along x against every 5th triangle in the xy
+    plane, a = 0); plucker by mxu_lab.plucker_agreement; each launch
+    counted."""
     from tauray_torch.lab import common, lab_kernel, mxu_lab
-    inp = {k: torch.from_numpy(v if k.startswith("tris") else
-                               np.ascontiguousarray(v[:256])).to(cuda)
+    inp = {k: torch.from_numpy(v).to(cuda)
            for k, v in common.lab12_inputs().items()}
     before = lab_kernel.LAUNCHES["lab12"]
     args = [inp[k] for k in ("order", "o3", "d3", "mm2")]
@@ -938,10 +941,69 @@ def test_mxu_lab_matches_plain_version(cuda):
         tris = inp["tris9" if mode == "mt" else "tris24"]
         got = mxu_lab.lab12(*args, tris, mode)
         want = mxu_lab.lab12_reference(*args, tris, mode)
-        if mode == "mt":
-            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-        else:
-            agree = mxu_lab.plucker_agreement(got, want, inp)
-            assert agree["ok"], agree
+        hold = mxu_lab.mt_agreement if mode == "mt" else \
+            mxu_lab.plucker_agreement
+        agree = hold(got, want, inp)
+        assert agree["ok"], (mode, agree)
+    d_odd = inp["d3"].clone()
+    d_odd.view(-1, 3)[::7] = torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    d_odd.view(-1, 3)[::13] *= 1e-39
+    d_odd.view(-1, 3)[::17] = float("nan")
+    t_odd = inp["tris9"].clone()
+    t_odd[:, 5, 0, ::5] = 0.0
+    t_odd[:, 8, 0, ::5] = 0.0
+    odd = (inp["order"], inp["o3"], d_odd, inp["mm2"], t_odd, "mt")
+    agree = mxu_lab.mt_agreement(mxu_lab.lab12(*odd),
+                                 mxu_lab.lab12_reference(*odd),
+                                 dict(inp, d3=d_odd, tris9=t_odd))
+    assert agree["ok"], agree
     torch.cuda.synchronize()
-    assert lab_kernel.LAUNCHES["lab12"] - before == 2
+    assert lab_kernel.LAUNCHES["lab12"] - before == 3
+
+
+def test_lab8_every_mode_and_count_bit_for_bit(cuda):
+    """L8 (csrc/k1_lab.cu lab8_kernel: a warp a tile, 8 tiles a block, the
+    rows through shared memory by cp.async) on 2^20 seeded rays, every mode
+    at the script's counts (0; mode 3 also 8 and 16) and on uneven counts
+    up to 1,031 (ceil(count / 8) past the 128 heads), equal to its plain
+    version bit for bit; each launch counted."""
+    from tauray_torch.lab import common, kernel_lab8, lab_kernel
+    o3, d3, mm2, _ = (torch.from_numpy(x).to(cuda)
+                      for x in common.lab8_inputs())
+    n_tiles = o3.shape[0]
+    heads = torch.from_numpy(np.random.default_rng(5).integers(
+        -999, 999, (n_tiles, common.KC)).astype(np.int32)).to(cuda)
+    before = lab_kernel.LAUNCHES["lab8"]
+    n = 0
+    for mode in kernel_lab8.NAMES:
+        counts = [torch.full((n_tiles,), c, dtype=torch.int32, device=cuda)
+                  for c in ((0,) if mode < 3 else (0, 8, 16))]
+        counts.append(torch.arange(n_tiles, dtype=torch.int32,
+                                   device=cuda) % 1032)
+        for c in counts:
+            args = (c, heads, o3, d3, mm2, mode)
+            got = kernel_lab8.lab8(*args)
+            want = kernel_lab8.lab8_reference(*args)
+            n += 1
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), mode
+    torch.cuda.synchronize()
+    assert lab_kernel.LAUNCHES["lab8"] - before == n
+
+
+def test_time_graph_leaves_the_host_path_out(cuda):
+    """common.time_graph gives L8 mode 3 at count 16 (2^20 rays) a positive
+    time a call, no larger than one call's between CUDA events (which holds
+    the wrapper's host path too)."""
+    from tauray_torch.lab import common, kernel_lab8
+    o3, d3, mm2, heads = (torch.from_numpy(x).to(cuda)
+                          for x in common.lab8_inputs())
+    counts = torch.full((o3.shape[0],), 16, dtype=torch.int32, device=cuda)
+
+    def call():
+        return kernel_lab8.lab8(counts, heads, o3, d3, mm2, 3)
+    graph = common.time_graph(call)
+    one = common.time_cuda(call)
+    assert 0 < graph["min_ms_graph"] <= graph["ms_graph"] <= \
+        graph["max_ms_graph"]
+    assert graph["ms_graph"] <= one["ms"], (graph, one)

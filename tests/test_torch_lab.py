@@ -911,6 +911,62 @@ def test_lab8_entry_point_on_the_cpu(capsys):
                for ln in lines)
 
 
+@pytest.mark.parametrize("reps,n", [(3, 5), (1, 20)])
+def test_time_graph_replays_n_captured_calls(monkeypatch, reps, n):
+    """common.time_graph calls fn twice on a side stream, captures n calls
+    in one CUDA graph, replays it once as a warm-up, then reps times
+    between two CUDA events, and gives each replay's ms over n: the median,
+    min and max (a card's clock stood in for by the replays' lengths)."""
+    clock = {"ms": 0.0, "captured": 0, "capturing": False}
+    lengths = iter([99.0, 10.0, 30.0, 20.0][:reps + 1])
+    calls = []
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def replay(self):
+            assert clock["captured"] == n
+            clock["ms"] += next(lengths)
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            self.at = clock["ms"]
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return end.at - self.at
+
+    @contextlib.contextmanager
+    def graph(g):
+        clock["capturing"] = True
+        yield
+        clock["capturing"] = False
+
+    def fn():
+        calls.append(clock["capturing"])
+        clock["captured"] += clock["capturing"]
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    t = common.time_graph(fn, reps, n)
+    assert calls == [False, False] + [True] * n
+    want = [10.0, 30.0, 20.0][:reps]
+    assert t["ms_graph"] == pytest.approx(sorted(want)[len(want) // 2] / n)
+    assert t["min_ms_graph"] == pytest.approx(min(want) / n)
+    assert t["max_ms_graph"] == pytest.approx(max(want) / n)
+
+
 @pytest.mark.parametrize("lab", [kernel_lab8, kernel_lab9, kernel_lab10,
                                  kernel_lab11],
                          ids=["L8", "L9", "L10", "L11"])

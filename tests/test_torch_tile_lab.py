@@ -1023,6 +1023,161 @@ def test_plucker_agreement_holds_a_rounding_turn():
     assert not agree["ok"] and agree["rays_off"] == 1 and not agree["held"]
 
 
+def _l12_crafted(n_tiles=8):
+    """The script's first tiles with what the walk must get right: every
+    cluster's quad 1 a copy of its quad 0 (ties across workers 0 and 1), a
+    step naming one cluster twice (ties across steps' slots within a
+    worker), order entries below 0 and at or past C (clamped), a NaN t_max
+    and a t_max below t_min."""
+    inp = {k: np.array(v) for k, v in _l12_inputs(n_tiles).items()}
+    inp["tris9"][..., 4:8] = inp["tris9"][..., 0:4]
+    order = inp["order"]
+    order[:, 1] = order[:, 0]
+    order[0, 3], order[1, 10], order[2, 47] = -5, common.CC, common.CC + 7
+    order[3, 60] = -1                      # past the walk's 48: unread
+    inp["mm2"][0, 0, 1] = np.nan
+    inp["mm2"][0, 1] = (2.0, 1.0)
+    return {k: _t(v) for k, v in inp.items()}
+
+
+def _l12_workers(inp, W=4):
+    """A plain torch model of L12 mt's split on the card (the brick walk,
+    csrc/brick_walk.cuh brick_walk_kernel<12, ...>, unfused body): a warp a
+    tile, 4 rays a lane and W = 4 workers of 8 lanes; worker w takes the
+    quads q = w (mod W) of each step's 8 clusters (the order entries
+    clamped to [0, C)) and keeps the first smallest hit (strict <) of all
+    its slots, step * 1,024 + the triangle's lane in the step, from
+    min(t_max, 3e38) (a NaN kept) and id -1; the workers meet by smallest
+    t, then smallest slot, after the walk. Returns lab12's block and the
+    per-worker bests."""
+    order, o3, d3, mm2, tris = (inp[k] for k in ("order", "o3", "d3", "mm2",
+                                                 "tris9"))
+    n_tiles, C = order.shape[0], tris.shape[0]
+    rows = tris.reshape(C, 9, common.CLUSTER)
+    bk = mxu_lab.BK
+    worker = torch.arange(bk) // 4 % W
+    inf = torch.tensor(float("inf"))
+    start = torch.where(mm2[..., 1] > common.BIG, common.BIG, mm2[..., 1])
+    ct = start[..., None].repeat(1, 1, W)
+    cs = torch.full((n_tiles, 32, W), -1)
+    o = [o3[..., k, None] for k in range(3)]
+    d = [d3[..., k, None] for k in range(3)]
+    tmin = mm2[..., 0, None]
+    for s in range(common.STEPS_L12):
+        orders = order[:, s * common.KBV:(s + 1) * common.KBV].clamp(
+            0, C - 1).long()
+        tri = rows[orders].permute(0, 2, 1, 3).reshape(n_tiles, 9, 1, bk)
+        a, tt, uu, vv = mxu_lab._mt_test([tri[:, i] for i in range(9)], *o,
+                                         *d)
+        hit = (a != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & \
+            (tt >= tmin)
+        for w in range(W):
+            t_w, arg = torch.where(hit & (worker == w), tt, inf).min(dim=2)
+            closer = t_w < ct[..., w]
+            ct[..., w] = torch.where(closer, t_w, ct[..., w])
+            cs[..., w] = torch.where(closer, s * bk + arg, cs[..., w])
+    bt, bs = ct[..., 0].clone(), cs[..., 0].clone()
+    for w in range(1, W):       # the (t, slot) meeting, in any order
+        ut, us = ct[..., w], cs[..., w]
+        better = (ut < bt) | ((ut == bt) & (us < bs))
+        bt, bs = torch.where(better, ut, bt), torch.where(better, us, bs)
+    return torch.stack([bt, bs.int().view(torch.float32)], -1), (ct, cs)
+
+
+def test_lab12_mt_worker_split_matches_reference():
+    """The model of the card's L12 mt split (4 workers of 8 lanes, running
+    bests from min(t_max, 3e38), the (t, slot) meeting after the walk)
+    equals lab12_reference bit for bit at the script's KB 8 and 6 steps,
+    on ties across workers and across a step's slots, clamped orders, a NaN
+    t_max and t_max < t_min; the winners' slots span the walk's 6,144, and
+    every worker's best holds hits."""
+    inp = _l12_crafted()
+    args = [inp[k] for k in ("order", "o3", "d3", "mm2", "tris9")]
+    want = mxu_lab.lab12_reference(*args, "mt")
+    got, (ct, cs) = _l12_workers(inp)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    slots = want[..., 1].contiguous().view(torch.int32)
+    hit = slots[slots >= 0]
+    assert int(hit.numel()) >= 8 * 32 // 2
+    assert int(hit.max()) < common.STEPS_L12 * mxu_lab.BK
+    assert int(hit.max()) >= (common.STEPS_L12 - 1) * mxu_lab.BK
+    assert bool((cs >= 0).reshape(-1, 4).any(0).all())
+    assert bool(torch.isnan(want[0, 0, 0])) and int(slots[0, 0]) == -1
+    assert int(slots[0, 1]) == -1
+    # a winner in a copied quad 0 beats its copy one worker over
+    q = (hit % mxu_lab.BK) % common.CLUSTER
+    assert int(((q >= 0) & (q < 4)).sum()) > 0 and \
+        int(((q >= 4) & (q < 8)).sum()) == 0
+
+
+@pytest.mark.parametrize("tmin", [0.0, float("-inf")])
+def test_plucker_epilogue_gives_the_scripts_verdict(tmin):
+    """The card's epilogue (mxu_lab.plucker_epilogue: the sign test by
+    min(s0, s1, s2) < 0 < max(s0, s1, s2), t = tnum x the correctly rounded
+    1 / den, one test of den != 0) gives plucker_body's verdict
+    (plucker_verdict: six compares, den != 0 twice) and its t on every hit,
+    over every triple of sides from +-0, +-1, 2.5, -3, a subnormal, +-inf
+    and NaN (one side zero, all three equal among them), at t_min 0 and
+    -inf."""
+    vals = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.5, -3.0, 1e-40, -1e-40,
+                         float("inf"), float("-inf"), float("nan")])
+    s0, s1, s2 = (x.reshape(-1) for x in torch.meshgrid(vals, vals, vals,
+                                                        indexing="ij"))
+    hits = 0
+    for tn in (1.0, -2.0, 0.0, float("inf")):
+        tnum = torch.full_like(s0, tn)
+        args = (s0, s1, s2, tnum, torch.full_like(s0, tmin),
+                torch.full_like(s0, common.BIG))
+        hit_k, t_k = mxu_lab.plucker_epilogue(*args)
+        hit_s, t_s = mxu_lab.plucker_verdict(*args)
+        assert torch.equal(hit_k, hit_s), tn
+        assert torch.equal(t_k[hit_k].view(torch.int32),
+                           t_s[hit_s].view(torch.int32)), tn
+        hits += int(hit_k.sum())
+    assert hits > 0
+    eq = torch.nonzero((s0 == s1) & (s1 == s2) & (s0 == 1.0)).reshape(-1)
+    assert bool(mxu_lab.plucker_epilogue(
+        s0[eq], s1[eq], s2[eq], torch.ones(eq.numel()),
+        torch.zeros(eq.numel()), torch.full((eq.numel(),), 9.0))[0].all())
+
+
+def test_mt_agreement_holds_the_fma_body(monkeypatch):
+    """The card's L12 mt takes the walk's FMA body: its result (the plain
+    version with common.mt_test_fma, FMAs emulated in FP64) meets
+    mxu_lab.mt_agreement against the unfused plain version on the
+    script's first 64 tiles and on the crafted tiles; mt_agreement takes a
+    t one ulp off and refuses a wrong slot and a lost hit."""
+    for inp in ({k: _t(v) for k, v in _l12_inputs().items()},
+                _l12_crafted()):
+        args = [inp[k] for k in ("order", "o3", "d3", "mm2", "tris9")]
+        ref = mxu_lab.lab12_reference(*args, "mt")
+        with monkeypatch.context() as m:
+            m.setattr(mxu_lab, "_mt_test", common.mt_test_fma)
+            fma = mxu_lab.lab12_reference(*args, "mt")
+        agree = mxu_lab.mt_agreement(fma, ref, inp)
+        assert agree["ok"] and agree["rays_off"] == 0, agree
+        assert agree["max_t_over_bound"] <= 0.5
+    flat = ref.reshape(-1, 2)
+    ids = flat[:, 1].view(torch.int32)
+    i = int(torch.nonzero(ids >= 0).reshape(-1)[-1])
+
+    def moved(t_=None, id_=None):
+        out = flat.clone()
+        if t_ is not None:
+            out[i, 0] = t_
+        if id_ is not None:
+            out[i, 1] = torch.tensor([id_], dtype=torch.int32).view(
+                torch.float32)[0]
+        return out.reshape(ref.shape)
+    a = mxu_lab.mt_agreement(moved(t_=float(np.nextafter(
+        np.float32(flat[i, 0]), np.float32(np.inf)))), ref, inp)
+    assert a["ok"] and a["t_bits_differ"] == 1
+    a = mxu_lab.mt_agreement(moved(id_=int(ids[i]) ^ 64), ref, inp)
+    assert not a["ok"] and a["rays_off"] == 1
+    a = mxu_lab.mt_agreement(moved(t_=common.BIG, id_=-1), ref, inp)
+    assert not a["ok"] and a["rays_off"] == 1
+
+
 # ---------------------------------------------------------------------------
 # The scripts' mains: inputs and tests a ray
 # ---------------------------------------------------------------------------
@@ -1340,11 +1495,54 @@ def test_mxu_lab_entry_point_prints_the_scripts_lines(monkeypatch, capsys):
                                                         tiles=32))
     assert mxu_lab.main(["--device=cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 3
+    assert len(lines) == 4
     assert lines[0].startswith("VPU Moller-Trumbore" + " " * 9 + ": ")
     assert lines[1].startswith("MXU Plucker" + " " * 17 + ": ")
     assert all("G ray-tri/s; bound " in ln for ln in lines[:2])
-    assert "ok True" in lines[2]
+    assert lines[2].startswith("mt against its plain version: ")
+    assert lines[3].startswith("plucker against its plain version: ")
+    assert all("ok True" in ln for ln in lines[2:])
+
+
+_PLUCKER_LOOP = (
+    ".L_x_7:\n" + "".join(
+        f"        /*{16 * i:04x}*/   HMMA.{1688 if i < 18 else 1684}.F32.TF32"
+        f" R{i}, R1, R2, R3 ;\n" for i in range(24)) +
+    "        /*0180*/   FFMA R3, R3, R3, R3 ;\n"
+    "        /*0190*/   @P0 BRA `(.L_x_7) ;\n")
+
+
+@pytest.mark.parametrize("older", [False, True],
+                         ids=["this tree", "PR 13's kernels"])
+def test_lab_test_loops_names_l12(monkeypatch, older):
+    """app/sass.lab_test_loops names L12's mt, the walk's kLab 12 instance
+    (4 rays a lane; an older checkout's lab12_mt_kernel, one ray a lane),
+    and plucker: a loop of 18 m16n8k8 and 6 m16n8k4 products serves one
+    column block, 8 tests a lane, as 42 m16n8k4 did."""
+    from tauray_torch.app import sass
+    mt = "lab12_mt_kernel" if older else \
+        "brick_walk_kernelILi12ELi0ELi0ELi32ELi4EE"
+    plucker = _PLUCKER_LOOP.replace("HMMA.1688", "HMMA.1684") + "".join(
+        f"        /*{16 * i:04x}*/   HMMA.1684.F32.TF32 R1, R1, R2, R3 ;\n"
+        for i in range(18)) if older else _PLUCKER_LOOP
+    if older:       # the 18 extra products inside the loop, before its BRA
+        plucker = plucker.replace("        /*0190*/   @P0 BRA `(.L_x_7) ;\n",
+                                  "") + "        /*0400*/   @P0 BRA " \
+            "`(.L_x_7) ;\n"
+    monkeypatch.setattr(sass, "functions", lambda path: {
+        f"_ZN12_GLOBAL__N_1{len(mt)}{mt}EvPKiPKfS4_": _SASS_LOOP,
+        "_ZN12_GLOBAL__N_120lab12_plucker_kernelEPKiPKfS3_": plucker})
+    loops = sass.lab_test_loops("lib.so")
+    assert set(loops) == {"lab12 mt", "lab12 plucker"}
+    rays = 1 if older else 4
+    assert loops["lab12 mt"]["rays_a_lane"] == rays
+    assert loops["lab12 mt"]["tests"] == 4 * rays
+    st = loops["lab12 plucker"]
+    assert st["tests"] == 8
+    assert st["hmma"] == (42 if older else 24)
+    assert st["hmma_k8"] == (0 if older else 18)
+    assert st["instructions_per_test"] == pytest.approx(
+        st["loop_instructions"] / 8)
 
 
 def test_tile_wrappers_check_their_arguments():
