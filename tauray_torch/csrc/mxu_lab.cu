@@ -77,7 +77,6 @@ constexpr int kSteps = 6;             // steps a tile (the script's STEPS)
 constexpr int kRows24 = 24;
 constexpr int kColBlocks = kCluster / 8;          // 8-triangle blocks
 constexpr int kStepBlocks = kKB * kColBlocks;     // of a step: 128
-constexpr int kWalkBlocks = kSteps * kStepBlocks;  // of a tile: 768
 
 // plucker's design, chosen by measurement against builds of the others:
 // warps a tile (1: 4 tiles a block; 8: a block a tile), the sides as one
@@ -86,6 +85,9 @@ constexpr int kWalkBlocks = kSteps * kStepBlocks;  // of a tile: 768
 constexpr int kPlkWarps = 1;
 constexpr bool kPlkK8 = true;
 constexpr int kPlkLoad = 1;
+// the hit test's rest (signs, den != 0) only where a lane of the warp has
+// a t in [t_min, best) among a row block's elements
+constexpr bool kPlkFilter = false;
 constexpr int kPlkTiles = kPlkWarps == 1 ? kTilesBlock : 1;
 constexpr int kPlkThreads = kPlkTiles * kPlkWarps * kTile;
 constexpr int kPlkRows = 22;          // rows of tris24 that the test reads
@@ -151,17 +153,25 @@ __device__ __forceinline__ void plucker_block(
       }
     }
     mma_3xtf32(tn, a4[2 * h], a4[2 * h + 1], bn);
+    float den[4], tt[4];
+    bool cand = false;  // a t in [t_min, best) among the lane's elements
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int m = 2 * h + e / 2;
-      const float den = s[0][e] + s[1][e] + s[2][e];
+      den[e] = s[0][e] + s[1][e] + s[2][e];
+      tt[e] = tn[e] * rcp_rn<kExact>(den[e], odd);
+      cand |= tt[e] >= tmin[m] && tt[e] < bt[m];
+    }
+    if (kPlkFilter && !__any_sync(kFull, cand)) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 2 * h + e / 2;
       // the sides share a sign unless one is below 0 and another above
       const bool mixed =
           fminf(fminf(s[0][e], s[1][e]), s[2][e]) < 0.0f &&
           fmaxf(fmaxf(s[0][e], s[1][e]), s[2][e]) > 0.0f;
-      const float tt = tn[e] * rcp_rn<kExact>(den, odd);
-      if (!mixed && den != 0.0f && tt >= tmin[m] && tt < bt[m]) {
-        bt[m] = tt;
+      if (!mixed && den[e] != 0.0f && tt[e] >= tmin[m] && tt[e] < bt[m]) {
+        bt[m] = tt[e];
         bs[m] = slot0 + (e & 1);
       }
     }
@@ -233,9 +243,11 @@ lab12_plucker_kernel(const int* __restrict__ order,
         lane);
   };
   float nxt[7];  // the B values of the warp's next block, read ahead
-  if constexpr (kPlkLoad == 1) load_b<kCluster, false>(nxt, base(wk), k);
   if constexpr (kPlkLoad == 2) stage(0);
   for (int s = 0; s < kSteps; ++s) {
+    // (a step's blocks only: nothing read ahead stays live across a redo)
+    if constexpr (kPlkLoad == 1)
+      load_b<kCluster, false>(nxt, base(s * kStepBlocks + wk), k);
     float st[4];
     int ss[4];
 #pragma unroll
@@ -273,7 +285,7 @@ lab12_plucker_kernel(const int* __restrict__ order,
         if constexpr (kPlkLoad == 1) {
 #pragma unroll
           for (int j = 0; j < 7; ++j) v[j] = nxt[j];
-          if (i + kPlkWarps < kWalkBlocks)
+          if (i + kPlkWarps < (s + 1) * kStepBlocks)
             load_b<kCluster, false>(nxt, base(i + kPlkWarps), k);
         } else {
           load_b<kCluster, false>(v, base(i), k);
