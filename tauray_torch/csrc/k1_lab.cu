@@ -17,7 +17,7 @@
 //     products on the tensor cores (mxu).
 // It computes the scripts' functions, not their TPU schedules:
 //   * L8 (redesigned for this card as a streaming kernel): a warp a tile,
-//     8 tiles a block (no group of 32 tiles); each lane issues 16-byte
+//     8 tiles a block (mode 0, writes only, 32); each lane issues 16-byte
 //     cp.async copies of the tile's rows into the warp's shared memory,
 //     neighbouring lanes on neighbouring addresses, the heads' first (mode
 //     2-3), then o3, d3 and mm2, waits once, and reads its ray from there
@@ -117,7 +117,12 @@ constexpr int kBuf = kRows * kQuads;  // float4 of one staged cluster
 constexpr int kStep = 8;       // clusters per step
 constexpr int kGroup = 32;     // tiles per group
 constexpr int kHeads = 128;    // key-head lanes per tile
-constexpr int kTiles8 = 8;     // L8: tiles (warps) a block
+// L8: tiles (warps) a block, chosen by measurement in turns on the H100
+// (app/lab_bench.py, NVIDIA H100 80GB HBM3 at 700 W, by CUDA-graph
+// replay): modes 1-3 8 (4 and 16 within 1%), mode 0, which only writes, 32
+// (PR 11's group; 8 ran 5% behind it)
+constexpr int kTiles8 = 8;
+constexpr int kTiles8Write = 32;
 constexpr int kWarpsPerBlock = 4;  // L9 and L11: tiles per block
 constexpr int kRays9 = 4;      // L9, L10: rays a lane (R), workers a warp
 constexpr int kTiles10 = 4;    // L10: tiles (warps) a block
@@ -154,24 +159,24 @@ __device__ __forceinline__ float row_sum_min(const float4* buf, float m) {
 // L8: a tile's fixed cost
 // ---------------------------------------------------------------------------
 
-// A warp a tile, kTiles8 tiles a block (no group of 32): lane l copies the
-// tile's rows into the warp's own shared memory as 16-byte cp.async copies,
-// neighbouring lanes on neighbouring addresses, the heads' row first (modes
-// 2-3: 512 bytes, one copy a lane), then o3's and d3's 384 bytes (24 copies
-// each) and mm2's 256 (16), and waits once; then ray l's o, d and [t_min |
-// t_max] are read from there (t_max once), summed in the script's order
-// and written as one float2.
-template <int kMode>
-__global__ void __launch_bounds__(kTiles8 * kTile)
+// A warp a tile, kTiles tiles a block (no group of 32 but for mode 0): lane
+// l copies the tile's rows into the warp's own shared memory as 16-byte
+// cp.async copies, neighbouring lanes on neighbouring addresses, the heads'
+// row first (modes 2-3: 512 bytes, one copy a lane), then o3's and d3's 384
+// bytes (24 copies each) and mm2's 256 (16), and waits once; then ray l's
+// o, d and [t_min | t_max] are read from there (t_max once), summed in the
+// script's order and written as one float2. Mode 0 writes only.
+template <int kMode, int kTiles>
+__global__ void __launch_bounds__(kTiles * kTile)
 lab8_kernel(const int* __restrict__ counts, const int* __restrict__ heads,
             const float* __restrict__ o3, const float* __restrict__ d3,
             const float* __restrict__ mm2, int n_tiles,
             float* __restrict__ out) {
   // a tile's rows: o3 float4 0-23, d3 24-47, mm2 48-63, heads 64-95
-  __shared__ float4 rows[kTiles8][96];
+  __shared__ float4 rows[kMode == 0 ? 1 : kTiles][96];
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
-  const int tile = blockIdx.x * kTiles8 + warp;
+  const int tile = blockIdx.x * kTiles + warp;
   if (tile >= n_tiles) return;
   float2* o2 = reinterpret_cast<float2*>(out) +
                static_cast<size_t>(tile) * kTile + lane;
@@ -787,15 +792,15 @@ extern "C" int k1_lab_launch(int lab, int mode, const int* counts,
   const int blocks4 = (n_tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const size_t smem4 = kWarpsPerBlock * kBuf * sizeof(float4);
   switch (lab * 10 + mode) {
-#define K1_LAB8(M)                                                          \
+#define K1_LAB8(M, T)                                                       \
   case 80 + M:                                                              \
-    lab8_kernel<M><<<(n_tiles + kTiles8 - 1) / kTiles8, kTiles8 * kTile,   \
-                     0, st>>>(counts, keys, rays, d3, mm2, n_tiles, out);   \
+    lab8_kernel<M, T><<<(n_tiles + T - 1) / T, T * kTile, 0, st>>>(         \
+        counts, keys, rays, d3, mm2, n_tiles, out);                         \
     break;
-    K1_LAB8(0)
-    K1_LAB8(1)
-    K1_LAB8(2)
-    K1_LAB8(3)
+    K1_LAB8(0, kTiles8Write)
+    K1_LAB8(1, kTiles8)
+    K1_LAB8(2, kTiles8)
+    K1_LAB8(3, kTiles8)
 #undef K1_LAB8
 #define K1_LAB9(M)                                                          \
   case 90 + M:                                                              \

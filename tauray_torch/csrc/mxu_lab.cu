@@ -38,14 +38,23 @@
 //     one m16n8k4, each in TF32 split in two (lo.hi + hi.lo + hi.hi, as L11
 //     in k1_lab.cu: a single TF32 pass is not near enough, since the
 //     smallest t wins and its numerator is tiny). The epilogue runs on the
-//     CUDA cores in FP32: den = (s0 + s1) + s2; the sides share a sign
-//     unless min(s0, s1, s2) < 0 < max(s0, s1, s2); t = tnum x
+//     CUDA cores in FP32: den = (s0 + s1) + s2 and t = tnum x
 //     rcp_in_range(den), a step redone with __frcp_rn where the warp met
 //     an odd denominator, so t is tnum times the correctly rounded 1 / den
-//     either way; one test of den != 0 (with t_min = -inf a t of -inf
-//     would pass otherwise) and one compare against the running best per
-//     ray and lane; after the walk the 4 lanes of a row group meet by (t,
-//     slot).
+//     either way; then t in [t_min, best), one compare against the running
+//     best; only where a lane of the warp found such a t does the rest of
+//     the test run: the sides share a sign unless min(s0, s1, s2) < 0 <
+//     max(s0, s1, s2), and den != 0, tested once (with t_min = -inf a t of
+//     -inf would pass otherwise). After the walk the 4 lanes of a row group
+//     meet by (t, slot).
+//   The design was chosen by measurement in turns on the H100
+//   (app/lab_bench.py, NVIDIA H100 80GB HBM3 at 700 W) against builds with
+//   one choice changed (the first four before t was tested first): reading
+//   ahead ran 5% ahead of reads in place and
+//   1.4x ahead of staging each cluster through a two-stage cp.async ring;
+//   m16n8k8 5% ahead of two m16n8k4 a side; a warp a tile 6% ahead of 8
+//   warps a tile; testing t first 1.36x ahead of the whole test on every
+//   element.
 // The result is the script's (n_tiles, 32, 2) f32 block: t, then the
 // slot's int32 bits.
 //
@@ -55,8 +64,8 @@
 // epilogue of 14 operations a test. PR 13's first design took a block of 8
 // warps a tile, one ray a lane and the unfused Möller-Trumbore with an
 // IEEE 1 / a in every test (mt), and, for plucker, two m16n8k4 a side,
-// loads that each block waited out, and an IEEE division and six sign
-// compares in the epilogue.
+// loads that each block waited out, and an IEEE division and the whole
+// hit test on every element.
 //
 // Built with -fmad=false (trace_kernel.NVCC_FLAGS): mt's FMAs are written
 // out, so it is held to its unfused plain version tie-aware
@@ -78,25 +87,6 @@ constexpr int kRows24 = 24;
 constexpr int kColBlocks = kCluster / 8;          // 8-triangle blocks
 constexpr int kStepBlocks = kKB * kColBlocks;     // of a step: 128
 
-// plucker's design, chosen by measurement against builds of the others:
-// warps a tile (1: 4 tiles a block; 8: a block a tile), the sides as one
-// m16n8k8 (else two m16n8k4), and the B rows read in place (0), one block
-// ahead (1) or staged a cluster at a time through a two-stage ring (2)
-constexpr int kPlkWarps = 1;
-constexpr bool kPlkK8 = true;
-constexpr int kPlkLoad = 1;
-// the hit test's rest (signs, den != 0) only where a lane of the warp has
-// a t in [t_min, best) among a row block's elements
-constexpr bool kPlkFilter = false;
-constexpr int kPlkTiles = kPlkWarps == 1 ? kTilesBlock : 1;
-constexpr int kPlkThreads = kPlkTiles * kPlkWarps * kTile;
-constexpr int kPlkRows = 22;          // rows of tris24 that the test reads
-constexpr int kPadRow = 34;           // float4 of a staged row (136 floats)
-constexpr int kStage = kPlkRows * kPadRow;  // float4 of a staged cluster
-constexpr size_t kPlkSmem =
-    kPlkLoad == 2 ? kPlkTiles * 2 * kStage * sizeof(float4) : 0;
-static_assert(kPlkLoad != 2 || kPlkWarps == 1, "the ring: a warp a tile");
-
 // The order entry of tile row orow at k, clamped to [0, C)
 __device__ __forceinline__ int order_at(const int* orow, int k,
                                         int n_clusters) {
@@ -104,29 +94,27 @@ __device__ __forceinline__ int order_at(const int* orow, int k,
 }
 
 // Lane (g, k)'s B values of one column block, its rows read from base (the
-// block's column g of its cluster's row 0, rows kStride floats apart; a
-// staged cluster from shared memory): v[e] row 6e + k and v[3 + e] row 6e
-// + 4 + k (0 for k >= 2: K's padding) of side e, v[6] row 18 + k (tnum).
-template <int kStride, bool kShared>
+// block's column g of its cluster's row 0) through the read-only path:
+// v[e] row 6e + k and v[3 + e] row 6e + 4 + k (0 for k >= 2: K's padding)
+// of side e, v[6] row 18 + k (tnum).
 __device__ __forceinline__ void load_b(float (&v)[7], const float* base,
                                        int k) {
-  auto ld = [&](int row) {
-    if constexpr (kShared) return base[row * kStride];
-    else return __ldg(base + row * kStride);
-  };
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
-    v[e] = ld(6 * e + k);
-    v[3 + e] = k < 2 ? ld(6 * e + 4 + k) : 0.0f;
+    v[e] = __ldg(base + (6 * e + k) * kCluster);
+    v[3 + e] = k < 2 ? __ldg(base + (6 * e + 4 + k) * kCluster) : 0.0f;
   }
-  v[6] = ld(18 + k);
+  v[6] = __ldg(base + (18 + k) * kCluster);
 }
 
 // One column block against the lane's 4 rays: the four products of each
 // 16-ray row block h in TF32 split in two, then the epilogue; slot0 = the
 // block's first slot (i * 8, i its place in the walk) + 2k. Element e of a
 // product is ray 16h + g + 8 (e / 2) (m = 2h + e / 2), triangle 2k + e % 2
-// of the block. odd: see rcp_in_range.
+// of the block. Each element's t is tested against [t_min, best) first;
+// the rest of the hit test (the signs, den != 0, and t against a best that
+// the row block's earlier elements may have lowered) runs only where a
+// lane of the warp found such a t. odd: see rcp_in_range.
 template <bool kExact>
 __device__ __forceinline__ void plucker_block(
     const float (&v)[7], int slot0, const Split (&a6)[4][2],
@@ -143,15 +131,9 @@ __device__ __forceinline__ void plucker_block(
   for (int h = 0; h < 2; ++h) {
     float s[3][4], tn[4];
 #pragma unroll
-    for (int e = 0; e < 3; ++e) {
-      if constexpr (kPlkK8) {
-        mma_3xtf32_k8(s[e], a6[2 * h][0], a6[2 * h + 1][0], a6[2 * h][1],
-                      a6[2 * h + 1][1], b0[e], b1[e]);
-      } else {
-        mma_3xtf32(s[e], a6[2 * h][0], a6[2 * h + 1][0], b0[e]);
-        mma_3xtf32_acc(s[e], a6[2 * h][1], a6[2 * h + 1][1], b1[e]);
-      }
-    }
+    for (int e = 0; e < 3; ++e)
+      mma_3xtf32_k8(s[e], a6[2 * h][0], a6[2 * h + 1][0], a6[2 * h][1],
+                    a6[2 * h + 1][1], b0[e], b1[e]);
     mma_3xtf32(tn, a4[2 * h], a4[2 * h + 1], bn);
     float den[4], tt[4];
     bool cand = false;  // a t in [t_min, best) among the lane's elements
@@ -162,7 +144,7 @@ __device__ __forceinline__ void plucker_block(
       tt[e] = tn[e] * rcp_rn<kExact>(den[e], odd);
       cand |= tt[e] >= tmin[m] && tt[e] < bt[m];
     }
-    if (kPlkFilter && !__any_sync(kFull, cand)) continue;
+    if (!__any_sync(kFull, cand)) continue;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int m = 2 * h + e / 2;
@@ -178,7 +160,7 @@ __device__ __forceinline__ void plucker_block(
   }
 }
 
-__global__ void __launch_bounds__(kPlkThreads)
+__global__ void __launch_bounds__(kTilesBlock * kTile)
 lab12_plucker_kernel(const int* __restrict__ order,
                      const float* __restrict__ o3,
                      const float* __restrict__ d3,
@@ -187,9 +169,7 @@ lab12_plucker_kernel(const int* __restrict__ order,
                      int n_clusters, float* __restrict__ out) {
   const int warp = threadIdx.x / kTile;
   const int lane = threadIdx.x % kTile;
-  const int tile = kPlkWarps == 1 ? blockIdx.x * kTilesBlock + warp
-                                  : static_cast<int>(blockIdx.x);
-  const int wk = kPlkWarps == 1 ? 0 : warp;  // the warp's share of a step
+  const int tile = blockIdx.x * kTilesBlock + warp;
   if (tile >= n_tiles) return;
   const int g = lane / 4;
   const int k = lane % 4;
@@ -229,25 +209,8 @@ lab12_plucker_kernel(const int* __restrict__ order,
                kCluster +
            (i % kColBlocks) * 8 + g;
   };
-  float4* ring = nullptr;
-  if constexpr (kPlkLoad == 2) {
-    extern __shared__ float4 smem[];
-    ring = smem + warp * 2 * kStage;
-  }
-  // the rows of walk position p into ring stage p & 1 (one cp.async group)
-  auto stage = [&](int p) {
-    cp_async_rows<kPlkRows, kPadRow>(
-        ring + (p & 1) * kStage,
-        reinterpret_cast<const float4*>(tris) +
-            static_cast<size_t>(cluster(p)) * kRows24 * (kCluster / 4),
-        lane);
-  };
-  float nxt[7];  // the B values of the warp's next block, read ahead
-  if constexpr (kPlkLoad == 2) stage(0);
+  float nxt[7];  // the B values of the next block, read ahead
   for (int s = 0; s < kSteps; ++s) {
-    // (a step's blocks only: nothing read ahead stays live across a redo)
-    if constexpr (kPlkLoad == 1)
-      load_b<kCluster, false>(nxt, base(s * kStepBlocks + wk), k);
     float st[4];
     int ss[4];
 #pragma unroll
@@ -256,42 +219,15 @@ lab12_plucker_kernel(const int* __restrict__ order,
       ss[m] = bs[m];
     }
     bool odd = false;  // a den outside rcp_in_range's range
-    if constexpr (kPlkLoad == 2) {
-      for (int j = 0; j < kKB; ++j) {
-        const int p = s * kKB + j;
-        if (p + 1 < kSteps * kKB) {
-          stage(p + 1);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncwarp();  // position p's rows are in for every lane
-        const float* fb =
-            reinterpret_cast<const float*>(ring + (p & 1) * kStage) + g;
+    // (a step's blocks only: nothing read ahead stays live across a redo)
+    load_b(nxt, base(s * kStepBlocks), k);
 #pragma unroll 1
-        for (int cb = 0; cb < kColBlocks; ++cb) {
-          float v[7];
-          load_b<kPadRow * 4, true>(v, fb + cb * 8, k);
-          plucker_block<false>(v, (p * kColBlocks + cb) * 8 + 2 * k, a6,
-                               a4, tmin, bt, bs, odd);
-        }
-        __syncwarp();  // every lane is done with the stage
-      }
-    } else {
-#pragma unroll 1
-      for (int i = s * kStepBlocks + wk; i < (s + 1) * kStepBlocks;
-           i += kPlkWarps) {
-        float v[7];
-        if constexpr (kPlkLoad == 1) {
+    for (int i = s * kStepBlocks; i < (s + 1) * kStepBlocks; ++i) {
+      float v[7];
 #pragma unroll
-          for (int j = 0; j < 7; ++j) v[j] = nxt[j];
-          if (i + kPlkWarps < (s + 1) * kStepBlocks)
-            load_b<kCluster, false>(nxt, base(i + kPlkWarps), k);
-        } else {
-          load_b<kCluster, false>(v, base(i), k);
-        }
-        plucker_block<false>(v, i * 8 + 2 * k, a6, a4, tmin, bt, bs, odd);
-      }
+      for (int j = 0; j < 7; ++j) v[j] = nxt[j];
+      if (i + 1 < (s + 1) * kStepBlocks) load_b(nxt, base(i + 1), k);
+      plucker_block<false>(v, i * 8 + 2 * k, a6, a4, tmin, bt, bs, odd);
     }
     if (__any_sync(kFull, odd)) {  // the step again with __frcp_rn
 #pragma unroll
@@ -300,10 +236,9 @@ lab12_plucker_kernel(const int* __restrict__ order,
         bs[m] = ss[m];
       }
 #pragma unroll 1
-      for (int i = s * kStepBlocks + wk; i < (s + 1) * kStepBlocks;
-           i += kPlkWarps) {
+      for (int i = s * kStepBlocks; i < (s + 1) * kStepBlocks; ++i) {
         float v[7];
-        load_b<kCluster, false>(v, base(i), k);
+        load_b(v, base(i), k);
         plucker_block<true>(v, i * 8 + 2 * k, a6, a4, tmin, bt, bs, odd);
       }
     }
@@ -322,39 +257,12 @@ lab12_plucker_kernel(const int* __restrict__ order,
       }
     }
   }
-  float2* o2 = reinterpret_cast<float2*>(out);
-  if constexpr (kPlkWarps == 1) {
-    if (k == 0) {
+  if (k == 0) {
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        o2[static_cast<size_t>(tile) * kTile + m * 8 + g] =
-            make_float2(bt[m], __int_as_float(bs[m]));
-    }
-  } else {
-    // the warps' bests of each ray, combined by (t, slot) by warp 0
-    __shared__ float tcomb[kPlkWarps][kTile];
-    __shared__ int scomb[kPlkWarps][kTile];
-    if (k == 0) {
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        tcomb[warp][m * 8 + g] = bt[m];
-        scomb[warp][m * 8 + g] = bs[m];
-      }
-    }
-    __syncthreads();
-    if (warp != 0) return;
-    float t = tcomb[0][lane];
-    int sl = scomb[0][lane];
-    for (int w = 1; w < kPlkWarps; ++w) {
-      const float ut = tcomb[w][lane];
-      const int us = scomb[w][lane];
-      if (ut < t || (ut == t && us < sl)) {
-        t = ut;
-        sl = us;
-      }
-    }
-    o2[static_cast<size_t>(tile) * kTile + lane] =
-        make_float2(t, __int_as_float(sl));
+    for (int m = 0; m < 4; ++m)
+      reinterpret_cast<float2*>(out)[static_cast<size_t>(tile) * kTile +
+                                     m * 8 + g] =
+          make_float2(bt[m], __int_as_float(bs[m]));
   }
 }
 
@@ -378,17 +286,9 @@ extern "C" int mxu_lab_launch(int mode, const int* order, const float* o3,
         <<<blocks, kTilesBlock * kTile, 0, st>>>(order, o3, d3, mm2, tris,
                                                  n_tiles, n_clusters, kKB,
                                                  kSteps, out);
-  else if (mode == 1) {
-    if (kPlkSmem > 0) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          lab12_plucker_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(kPlkSmem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    lab12_plucker_kernel<<<(n_tiles + kPlkTiles - 1) / kPlkTiles,
-                           kPlkThreads, kPlkSmem, st>>>(
+  else if (mode == 1)
+    lab12_plucker_kernel<<<blocks, kTilesBlock * kTile, 0, st>>>(
         order, o3, d3, mm2, tris, n_tiles, n_clusters, out);
-  }
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
