@@ -180,7 +180,8 @@ non-zero:
      scripts' sizes, every mode timed (CUDA events) with its bound, each
      lab's launches counted over that run alone: L8 (2^20 rays, modes
      0-3; also back to back and by CUDA-graph replay, lab/common.time_graph,
-     which leaves the wrapper's host path out; bit for bit), L9 (2^20 rays on phase 3's Sponza table, 5 modes at 1, 2 and 4
+     which leaves the wrapper's host path out; bit for bit), L9 (2^20
+     rays on phase 3's Sponza table, 5 modes at 1, 2 and 4
      steps a tile), L10 (phase 3's sorted 2^18- and 2^20-ray bounce
      waves, 4 modes), L11 (4,096 tiles x 8 steps, vpu and mxu); then each
      mode held to its plain version on the same inputs, bit for bit (L9
@@ -1921,8 +1922,9 @@ def _mid_tiles(n_tiles: int, n: int = LAB_SLICE_TILES) -> slice:
 def lab_phase(dev, tracer, bounce):
     """Phase 20: the four K1 labs through their entry points' run() at the
     scripts' sizes (L9 on tracer's table; L10 on bounce, phase 3's sorted
-    2^18- and 2^20-ray waves of tracer's scene), every mode timed; the
-    launches counted over that run alone. Then each mode held to its plain
+    2^18- and 2^20-ray waves of tracer's scene), every mode timed (L8 also
+    back to back and by CUDA-graph replay); the launches counted over that
+    run alone. Then each mode held to its plain
     version on the same inputs, bit for bit (L9 and L10 on LAB_SLICE_TILES
     tiles of each input), L11 mxu by kernel_lab11.mxu_agreement, L9's and
     L10's FMA bodies by lab9_agreement and lab10_agreement, and L10 full to
@@ -2338,17 +2340,20 @@ def tile_phase(dev):
     (k0 and k1 at 0 and 1 steps; k2, k3, k4, k5 at G 8 and 32 at 0, 1, 2,
     4 and 8) and L12 through mxu_lab.run(dev), each timed (median and min
     of 5 CUDA-event runs of one call, and of 5 windows of 20 calls back to
-    back); the launches counted over that run alone. Then L1 k0-k2 and L12
-    mt held to their plain versions bit for bit; k3, k4 and k5 (one
-    template, the FMA body) by kernel_lab.lab3_agreement, plucker by
+    back; k0-k2 also by CUDA-graph replay); the launches counted over that
+    run alone. Then L1 k0-k2 held to their plain versions bit for bit; k3,
+    k4 and k5 (one template, the FMA body) by kernel_lab.lab3_agreement,
+    L12 mt (the brick walk's FMA body) by mxu_lab.mt_agreement on every
+    ray and again on odd denominators, plucker by
     mxu_lab.plucker_agreement; k4 and k5 equal to k3 bit for bit at each
     step count on the script's meta (the exit never fires there and the
     three share the body); on a meta whose tnear third is 0x7f000000 the
     exit of k4 and k5 fires (one step a tile, fewer hits than k3), held the
     same way with the steps walked per tile (kernel_lab.walked_steps) held
     to the plain version's, each timed both ways too; k3, k4 and k5 again
-    on odd denominators. Prints the intercept and slope of ms, and of the ms back to back, over
-    steps of k2-k5. Returns the kernels line's rows."""
+    on odd denominators. Prints the intercept and slope of ms, and of the
+    ms back to back, over steps of k2-k5. Returns the kernels line's
+    rows."""
     import torch
     from tauray_torch.lab import kernel_lab as kl
     from tauray_torch.lab import lab_kernel

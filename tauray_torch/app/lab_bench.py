@@ -30,14 +30,16 @@ plucker over 2,048 tiles x 6 steps; L8: modes 0-3 over 2^20 rays, mode 3
 at counts 0, 8 and 16) is timed with CUDA events (median of --reps single
 calls after a warm-up; L1-L8, L11 and L12 also back to back,
 common.time_back_to_back; L8 and L1 k0-k2 also by CUDA-graph replay,
-common.time_graph) in the order parent, this tree, this tree, parent. Both sides are held to the plain versions first
+common.time_graph) in the order parent, this tree, this tree, parent.
+Both sides are held to the plain versions first
 (kernel_lab9.lab9_agreement; L4 by brick.agreement on every ray, mtfast
 by mtfast_agreement, which an unfused parent meets bit for bit; L5 and L6
 by brick.brick_agreement on every ray, or bit for bit for a parent whose
 brick_lab has no brick_walk_kernel (an unfused kernel); L7 by
 brick.brick_agreement on the first 1,024 tiles; L9 loads, L8 bit for
 bit; L12 mt by mxu_lab.mt_agreement and plucker by
-mxu_lab.plucker_agreement on every ray; L1 k0-k2 bit for bit and k3-k5 by kernel_lab.lab3_agreement on every tile;
+mxu_lab.plucker_agreement on every ray; L1 k0-k2 bit for bit and k3-k5
+by kernel_lab.lab3_agreement on every tile;
 kernel_lab10.lab10_agreement on 1,024 tiles from the wave's middle,
 nowrite against the same side's full; L11 vpu by
 kernel_lab11.vpu_agreement, mxu by kernel_lab11.mxu_agreement, on every
