@@ -35,8 +35,11 @@ def readings(cell, seeds, seconds: float, device):
         run, frames, plain = measure(cell, seed, seconds, False, device,
                                      time.perf_counter())
         tris = torch.from_numpy(reference.world_triangles(plain)).to(device)
-        out.append((seed, judge.numbers(frames, tris),
+        shown = []
+        out.append((seed, judge.numbers(frames, tris, shown=shown),
                     judge.numbers(frames, tris, answer="control")))
+        for ray in shown:
+            print("ray off:", json.dumps(ray), file=sys.stderr)
     return out
 
 

@@ -5,10 +5,11 @@ Numbers:
   * frames_untraced: frames of the window in which the tracer was handed
     no wave (a frame that returned without rendering). Exact: limit 0.
   * hits_off_ppm: of the sampled rays that could hit (t_max > t_min), the
-    share, in parts per million, whose answer departs from the
-    reference's: a closest-hit ray whose hit or miss differs, or whose t
-    lies more than TOL_REL x max(1, t_ref) from the reference's t; an
-    any-hit ray whose verdict (occluded or not) differs.
+    share, in parts per million (all of them, 1e6, where none was
+    captured), whose answer the reference rules out (off_rays): a
+    closest hit too far from every hit or beyond the closest, an any-hit
+    verdict or a miss that no hit allows, where a float32 test's
+    rounding (MARGIN, carried through the test) is taken both ways.
 This module imports nothing of the program."""
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import torch
 
 from . import reference
 
-TOL_REL = 1e-4
+# the rounding error a float32 test may make, relative: 16 ulps, carried
+# through the test by reference.closest_hits; an answer inside it is
+# taken either way
+MARGIN = 2.0 ** -20
 
 
 def _cat(frames: List[List[dict]], key: str):
@@ -38,37 +42,53 @@ def sampled_rays(frames: List[List[dict]]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def off_rays(rays: Dict[str, torch.Tensor], t_ref, hit_ref, t_ans, hit_ans):
+def off_rays(rays: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
+             t_ans, hit_ans):
     """(live, off) bool masks: the rays that could hit, and those whose
-    answer (t_ans, hit_ans) departs from the reference's."""
+    answer (t_ans, hit_ans) the reference (closest_hits with margin and
+    t_ans) rules out. A closest hit has to lie within rounding of a hit
+    and not beyond the closest hit that rounding keeps; an any-hit
+    verdict has to be one rounding allows; a miss, that no hit rounding
+    keeps exists."""
     live = rays["t_max"] > rays["t_min"]
-    t_ref = t_ref.double()
     t_ans = t_ans.double()
-    gap = (t_ans - t_ref).abs() > TOL_REL * torch.clamp(t_ref, min=1.0)
-    closest_off = (hit_ans != hit_ref) | (hit_ref & gap)
-    off = torch.where(rays["any_hit"], hit_ans != hit_ref, closest_off)
-    return live, off & live
+    robust, loose, near = ref["robust"], ref["loose"], ref["near"]
+    closest_ok = torch.where(hit_ans, (near <= 0) & (t_ans <= robust),
+                             torch.isinf(robust))
+    any_ok = torch.where(hit_ans, torch.isfinite(loose), torch.isinf(robust))
+    ok = torch.where(rays["any_hit"], any_ok, closest_ok)
+    return live, live & ~ok
 
 
-def numbers(frames: List[List[dict]], tris: torch.Tensor,
-            block: int = 64, answer: Optional[str] = None) -> Dict[str, float]:
+def numbers(frames: List[List[dict]], tris: torch.Tensor, block: int = 64,
+            answer: Optional[str] = None, shown: Optional[list] = None
+            ) -> Dict[str, float]:
     """The compared numbers of a run's captured frames against the
     reference over tris (T, 3, 3) (on the device the reference runs on).
-    answer="control": the control, TF32, answers in the program's place."""
+    answer="control": the control, TF32, answers in the program's place.
+    shown, a list, receives up to 8 of the rays found off."""
     untraced = sum(1 for f in frames if not f)
     rays = sampled_rays(frames)
     if not rays:
         return dict(frames_untraced=float(untraced), hits_off_ppm=1e6,
                     rays_compared=0.0)
     args = (rays["o"], rays["d"], rays["t_min"], rays["t_max"], tris)
-    t_ref, hit_ref = reference.closest_hits(*args, block=block)
-    t_ref, hit_ref = t_ref.cpu(), hit_ref.cpu()
     if answer == "control":
-        t_ans, hit_ans = reference.control_hits(*args, block=block)
-        t_ans, hit_ans = t_ans.cpu(), hit_ans.cpu()
+        t_ans = reference.control_hits(*args, block=block).cpu()
+        hit_ans = torch.isfinite(t_ans)
     else:
-        t_ans, hit_ans = rays["t"], rays["hit"]
-    live, off = off_rays(rays, t_ref, hit_ref, t_ans, hit_ans)
+        t_ans, hit_ans = rays["t"].double(), rays["hit"]
+    ref = {k: v.cpu() for k, v in reference.closest_hits(
+        *args, t_ans=torch.where(hit_ans, t_ans, 0.0), margin=MARGIN,
+        block=block).items()}
+    live, off = off_rays(rays, ref, t_ans, hit_ans)
+    if shown is not None:
+        for i in torch.nonzero(off).squeeze(1)[:8].tolist():
+            shown.append({k: float(v[i]) for k, v in (
+                ("any_hit", rays["any_hit"]), ("t_min", rays["t_min"]),
+                ("t_max", rays["t_max"]), ("t_ans", t_ans),
+                ("t_ref", ref["t"]), ("robust", ref["robust"]),
+                ("loose", ref["loose"]), ("near", ref["near"]))})
     n = int(live.sum())
     return dict(frames_untraced=float(untraced),
                 hits_off_ppm=1e6 * int(off.sum()) / n if n else 1e6,
@@ -76,14 +96,9 @@ def numbers(frames: List[List[dict]], tris: torch.Tensor,
 
 
 def verdict(nums: Dict[str, float], limits: Dict[str, float]):
-    """(correct, {name: {"value", "limit"}}): every limited number at or
-    under its limit; a number without a limit is reported, not judged."""
-    checks = {}
-    ok = True
-    for name, value in nums.items():
-        entry = {"value": value}
-        if name in limits:
-            entry["limit"] = limits[name]
-            ok = ok and value <= limits[name]
-        checks[name] = entry
-    return ok, checks
+    """(correct, {name: {"value", "limit"}}): every number at or under its
+    limit; a number without a limit is not correct."""
+    checks = {n: {"value": v, "limit": limits.get(n, float("nan"))}
+              for n, v in nums.items()}
+    return all(v <= limits.get(n, float("nan"))
+               for n, v in nums.items()), checks

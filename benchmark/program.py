@@ -19,8 +19,9 @@ from . import scene as bscene
 def port_scene(plain: bscene.Scene, opt):
     """The port's Scene built from the benchmark's plain records, then set
     up as tauray_torch.app.main.load_scenes sets up a loaded scene: the
-    ambient term, the first camera enabled, set_camera_params. Shared
-    meshes and models stay shared."""
+    ambient term and set_camera_params. The cameras the records enable
+    are enabled: the scene's own and a light field's. Shared meshes and
+    models stay shared."""
     from tauray_torch.app.main import set_camera_params
     from tauray_torch.scene.camera import Camera
     from tauray_torch.scene.light import DirectionalLight, PointLight
@@ -55,7 +56,6 @@ def port_scene(plain: bscene.Scene, opt):
             models[id(m)] = pm
         return models[id(m)]
 
-    first_cam = True
     for e in plain.entities:
         pe = s.add(e.name)
         if e.transform is not None:
@@ -73,8 +73,7 @@ def port_scene(plain: bscene.Scene, opt):
             pe.camera = Camera()
             c = e.camera
             pe.camera.perspective(c.fov, c.aspect, c.near, c.far)
-            pe.camera_enabled = first_cam
-            first_cam = False
+            pe.camera_enabled = e.camera_enabled
     s.ambient = np.asarray(opt.ambient, dtype=np.float32)
     set_camera_params(opt, s)
     return s
@@ -105,6 +104,13 @@ def plain_scene(config: dict, traffic: dict) -> bscene.Scene:
     if traffic.get("views", 1) > 1:
         bscene.quilt_cameras(s, int(traffic["views"]))
     return s
+
+
+def load_kernels():
+    """Builds (in a checkout's first run) and loads the port's kernel
+    libraries, as the first trace would."""
+    from tauray_torch.ops.trace_kernel import build_all
+    build_all()
 
 
 def make_renderer(config: dict, traffic: dict, seed: int,
@@ -154,7 +160,7 @@ class WaveCapture:
             return torch.as_tensor(x, dtype=torch.float32,
                                    device=o.device).expand(R)[idx]
         self.frames[-1].append(dict(
-            any_hit=bool(any_hit), rays=R, o=o[idx].float(),
+            any_hit=bool(any_hit), o=o[idx].float(),
             d=d[idx].float(), t_min=per_ray(t_min), t_max=per_ray(t_max),
             t=hit.t[idx].float(), hit=hit.tri_id[idx] >= 0))
 

@@ -52,15 +52,25 @@ def _identity(x):
     return x
 
 
-def closest_hits(o, d, t_min, t_max, tris, block: int = 64,
-                 rnd: Optional[Callable] = None,
+def closest_hits(o, d, t_min, t_max, tris, t_ans=None, margin=None,
+                 block: int = 64, rnd: Optional[Callable] = None,
                  dtype: torch.dtype = torch.float64):
-    """Closest hit with t in [t_min, t_max) of each ray (o, d: (N, 3);
-    t_min, t_max: (N,)) against every triangle of tris (T, 3, 3), both
-    faces, by Moller-Trumbore in `dtype`, rounding every operation's
-    result with `rnd` (default: none). Rays in blocks of `block` against
-    all triangles. Returns (t (N,) float64, +inf on a miss; hit (N,)
-    bool)."""
+    """Closest hits of each ray (o, d: (N, 3); t_min, t_max: (N,)) against
+    every triangle of tris (T, 3, 3), both faces, by Moller-Trumbore in
+    `dtype`, every operation's result rounded with `rnd` (default: none);
+    rays in blocks of `block` against all triangles. A hit has barycentrics
+    u, v >= 0, u + v <= 1 and t in [t_min, t_max).
+
+    Returns {"t": the closest hit's t (N,) float64, +inf on a miss}. With
+    `margin`, a relative rounding error (a few ulps of the tested
+    precision), each ray-triangle pair also gets the error a test in that
+    precision could make: in t, dt = margin x (1 + |o| + |v0| + |t|) / g,
+    g the cosine between the ray and the triangle's normal, and in the
+    barycentrics the same error over the triangle's width. Then "robust"
+    is the least t + dt of the hits that stay hits with t and the
+    barycentrics moved inward by their errors, "loose" the least t of those
+    that are hits with them moved outward, and, with t_ans (N,), "near"
+    the least |t - t_ans| - dt over the loose hits (+inf where none)."""
     r = rnd or _identity
     dev = tris.device
     tris = r(tris.to(dtype))
@@ -68,24 +78,39 @@ def closest_hits(o, d, t_min, t_max, tris, block: int = 64,
     e1 = [r(tris[:, 1, k] - tris[:, 0, k])[None] for k in range(3)]
     e2 = [r(tris[:, 2, k] - tris[:, 0, k])[None] for k in range(3)]
     N = o.shape[0]
-    t_out = torch.full((N,), math.inf, dtype=torch.float64, device=dev)
+    keys = ["t"] + (["robust", "loose"] if margin else []) + \
+        (["near"] if margin and t_ans is not None else [])
+    out = {k: torch.full((N,), math.inf, dtype=torch.float64, device=dev)
+           for k in keys}
+
+    def mul(x, y):
+        return r(x * y)
+
+    def cross(x, y):
+        return [r(mul(x[1], y[2]) - mul(x[2], y[1])),
+                r(mul(x[2], y[0]) - mul(x[0], y[2])),
+                r(mul(x[0], y[1]) - mul(x[1], y[0]))]
+
+    def dot(x, y):
+        return r(r(mul(x[0], y[0]) + mul(x[1], y[1])) + mul(x[2], y[2]))
+
+    def closest(ok, t):
+        return torch.where(ok, t, math.inf).amin(dim=1).to(torch.float64)
+    if margin:
+        # per triangle: |e1 x e2|, the longest edge, the largest coordinate
+        n = cross(e1, e2)
+        area2 = torch.sqrt(dot(n, n))
+        e3 = [e2[k] - e1[k] for k in range(3)]
+        longest = torch.stack([torch.sqrt(dot(e, e)) for e in (e1, e2, e3)]
+                              ).amax(dim=0)
+        vmag = torch.stack([x.abs() for x in v0]).amax(dim=0)
+        width = longest / torch.where(area2 > 0, area2, 1.0)
     for a in range(0, N, block):
         b = min(N, a + block)
         oo = [r(o[a:b, k].to(dev, dtype))[:, None] for k in range(3)]
         dd = [r(d[a:b, k].to(dev, dtype))[:, None] for k in range(3)]
         lo = r(t_min[a:b].to(dev, dtype))[:, None]
         hi = t_max[a:b].to(dev, dtype)[:, None]
-
-        def mul(x, y):
-            return r(x * y)
-
-        def cross(x, y):
-            return [r(mul(x[1], y[2]) - mul(x[2], y[1])),
-                    r(mul(x[2], y[0]) - mul(x[0], y[2])),
-                    r(mul(x[0], y[1]) - mul(x[1], y[0]))]
-
-        def dot(x, y):
-            return r(r(mul(x[0], y[0]) + mul(x[1], y[1])) + mul(x[2], y[2]))
         p = cross(dd, e2)
         det = dot(e1, p)
         inv = r(1.0 / torch.where(det == 0, 1.0, det))
@@ -94,15 +119,33 @@ def closest_hits(o, d, t_min, t_max, tris, block: int = 64,
         q = cross(s, e1)
         v = mul(dot(dd, q), inv)
         t = mul(dot(e2, q), inv)
-        ok = (det != 0) & (u >= 0) & (v >= 0) & (r(u + v) <= 1) & \
-            (t >= lo) & (t < hi)
-        best = torch.where(ok, t, math.inf).amin(dim=1)
-        t_out[a:b] = best.to(torch.float64)
-    return t_out, torch.isfinite(t_out)
+        w = r(u + v)
+        front = det != 0
+        out["t"][a:b] = closest(front & (u >= 0) & (v >= 0) & (w <= 1) &
+                                (t >= lo) & (t < hi), t)
+        if not margin:
+            continue
+        dlen = torch.sqrt(dot(dd, dd))
+        olen = torch.stack([x.abs() for x in oo]).amax(dim=0)
+        g = det.abs() / (torch.where(area2 > 0, area2, 1.0) * dlen)
+        scale = margin * (1.0 + olen + vmag + t.abs())
+        dt = scale / torch.clamp(g, min=1e-12)
+        db = (dt * dlen + scale) * width
+        front = front & (area2 > 0)
+        robust = front & (u >= db) & (v >= db) & (w <= 1 - db) & \
+            (t - dt >= lo) & (t + dt < hi)
+        out["robust"][a:b] = closest(robust, t + dt)
+        loose = front & (u >= -db) & (v >= -db) & (w <= 1 + db) & \
+            (t + dt >= lo) & (t - dt < hi)
+        out["loose"][a:b] = closest(loose, t)
+        if t_ans is not None:
+            ta = t_ans[a:b].to(dev, dtype)[:, None]
+            out["near"][a:b] = closest(loose, (t - ta).abs() - dt)
+    return out
 
 
 def control_hits(o, d, t_min, t_max, tris, block: int = 64):
-    """closest_hits in TF32: float32 with every input and every result
-    rounded to 10 mantissa bits."""
-    return closest_hits(o, d, t_min, t_max, tris, block, rnd=tf32,
-                        dtype=torch.float32)
+    """Closest hits (closest_hits' "t") in TF32: float32 with every input
+    and every result rounded to 10 mantissa bits."""
+    return closest_hits(o, d, t_min, t_max, tris, block=block, rnd=tf32,
+                        dtype=torch.float32)["t"]

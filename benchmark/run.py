@@ -73,6 +73,7 @@ class Run:
     counts: Dict[str, int] = field(default_factory=dict)
     k1_launches: List[tuple] = field(default_factory=list)
     trace: Optional[object] = None
+    setup_parts: Dict[str, float] = field(default_factory=dict)
 
 
 def _json(path: str) -> dict:
@@ -115,6 +116,20 @@ def power_limit() -> Optional[str]:
         return None
 
 
+def window(frame, seconds: float, clock=time.perf_counter):
+    """Calls frame() back to back until `seconds` have passed since the
+    first call began; the frame in flight then finishes. Returns (whole
+    frames, elapsed seconds to the end of the last)."""
+    t0 = clock()
+    frames = 0
+    while True:
+        frame()
+        frames += 1
+        elapsed = clock() - t0
+        if elapsed >= seconds:
+            return frames, elapsed
+
+
 def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
             t_start: float = T_START, fault=None):
     """Set-up, warm-up and the window of one run of `cell` on `device`.
@@ -126,21 +141,39 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     from benchmark import profiling, program
     traffic = cell.traffic
+    run = Run()
+    mark = time.perf_counter()
+    run.setup_parts["imports"] = mark - t_start
+
+    def lap(part):
+        nonlocal mark
+        now = time.perf_counter()
+        run.setup_parts[part] = now - mark
+        mark = now
+    if device.type == "cuda":
+        torch.zeros(1, device=device)
+        torch.cuda.synchronize(device)
+        lap("cuda_init")
     plain = program.plain_scene(cell.config, traffic)
+    lap("scene")
+    if device.type == "cuda":
+        program.load_kernels()
+        lap("kernel_libraries")
     capture = program.WaveCapture(int(traffic["sample_rays_per_wave"]),
                                   seed, device)
     k1 = program.K1Counter() if trace else None
-    run = Run()
     capture.install()
     try:
         rr = program.make_renderer(cell.config, traffic, seed, plain,
                                    device)
+        lap("renderer")
         capture.on = True
         for _ in range(int(traffic.get("warmup_frames", 1))):
             capture.begin_frame()
             program.reset_frame(rr, traffic)
             program.frame_done(rr.render_device(), device)
         capture.frames = []
+        lap("warmup_frames")
         if fault is not None:
             fault(rr)
         if k1 is not None:
@@ -152,15 +185,11 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
         run.setup_s = time.perf_counter() - t_start
         with prof if prof is not None else contextlib.nullcontext():
             with record_function(WINDOW_RANGE):
-                t0 = time.perf_counter()
-                while True:
+                def frame():
                     capture.begin_frame()
                     program.reset_frame(rr, traffic)
                     program.frame_done(rr.render_device(), device)
-                    run.frames += 1
-                    if time.perf_counter() - t0 >= seconds:
-                        break
-                run.elapsed_s = time.perf_counter() - t0
+                run.frames, run.elapsed_s = window(frame, seconds)
         capture.on = False
         run.counts = program.traced_counts()
         if device.type == "cuda":
@@ -193,8 +222,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     traffic = cell.traffic
     run, frames, plain = measure(cell, seed, seconds, trace, device,
                                  t_start, fault)
+    t_ref = time.perf_counter()
     tris = torch.from_numpy(reference.world_triangles(plain)).to(device)
-    nums = judge.numbers(frames, tris)
+    shown = []
+    nums = judge.numbers(frames, tris, shown=shown)
+    compared = nums.pop("rays_compared")
+    reference_s = time.perf_counter() - t_ref
     correct, checks = judge.verdict(nums, traffic["limits"])
 
     metrics = {}
@@ -215,6 +248,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         out["breakdown"] = {"device_ops": profiling.top_ops(tr),
                             "idle_gaps": profiling.idle_gaps(tr)}
     out["counts"] = run.counts
+    out["setup_parts"] = run.setup_parts
+    out["rays_compared"] = compared
+    out["reference_s"] = reference_s
+    out["rays_off"] = shown
     out["checks"] = checks
     return out
 
@@ -245,6 +282,8 @@ def main(argv=None) -> int:
         return 3
     checks = out.pop("checks")
     out["checks"] = checks
+    for ray in out.pop("rays_off"):
+        print("ray off:", json.dumps(ray), file=sys.stderr)
     for name, c in checks.items():
         lim = f" (limit {c['limit']})" if "limit" in c else ""
         print(f"check {name} = {c['value']}{lim}", file=sys.stderr)
