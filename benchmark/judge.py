@@ -1,9 +1,17 @@
-"""What decides `correct`: the timed path's captured answers held to the
-plain reference (benchmark/reference.py), each number beside its limit.
+"""What decides `correct`: the timed path's captured waves held to what
+the cell asks of every frame and to the plain reference
+(benchmark/reference.py), each number beside its limit.
 
 Numbers:
-  * frames_untraced: frames of the window in which the tracer was handed
-    no wave (a frame that returned without rendering). Exact: limit 0.
+  * waves_short, rays_short: over the window's frames and the two kinds
+    of wave (closest-hit, any-hit), the waves and the rays a frame traced
+    short of what the cell's schedule asks. The schedule
+    (`rays_per_sample` in the cell's file) is the rays of each kind one
+    pixel sample casts in a frame, each in a wave of its own; a frame
+    asks that many waves of each kind, and that many times width x height
+    x views x samples per pixel rays. Surplus (padding) counts for
+    nothing. A frame that skips a bounce, a shadow wave or pixels reads
+    above 0. Exact: limit 0.
   * hits_off_ppm: of the sampled rays that could hit (t_max > t_min), the
     share, in parts per million (all of them, 1e6, where none was
     captured), whose answer the reference rules out (off_rays): a
@@ -60,18 +68,53 @@ def off_rays(rays: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
     return live, live & ~ok
 
 
-def numbers(frames: List[List[dict]], tris: torch.Tensor, block: int = 64,
+def views(traffic: dict) -> int:
+    """The views a frame renders: w x h of the traffic's --camera-grid,
+    else one."""
+    for o in traffic.get("options", ()):
+        if o.startswith("--camera-grid="):
+            w, h = o.split("=", 1)[1].split(",")[:2]
+            return int(w) * int(h)
+    return 1
+
+
+def schedule(traffic: dict) -> Dict[str, int]:
+    """What a cell asks of every frame: the pixel samples (width x height
+    x views x samples per pixel) and the rays of each kind a sample casts
+    (the cell's `rays_per_sample`)."""
+    per = traffic["rays_per_sample"]
+    return dict(samples=int(traffic["width"]) * int(traffic["height"]) *
+                views(traffic) * int(traffic["samples_per_pixel"]),
+                closest=int(per["closest"]), any_hit=int(per["any_hit"]))
+
+
+def shortfall(frames: List[List[dict]], sched: Dict[str, int]):
+    """(waves, rays) the frames traced short of the schedule, summed over
+    frames and the two kinds of wave."""
+    waves = rays = 0
+    for f in frames:
+        for kind, any_hit in (("closest", False), ("any_hit", True)):
+            ns = [w["n"] for w in f if w["any_hit"] == any_hit]
+            waves += max(0, sched[kind] - len(ns))
+            rays += max(0, sched[kind] * sched["samples"] - sum(ns))
+    return waves, rays
+
+
+def numbers(frames: List[List[dict]], tris: torch.Tensor,
+            sched: Dict[str, int], block: int = 64,
             answer: Optional[str] = None, shown: Optional[list] = None
             ) -> Dict[str, float]:
     """The compared numbers of a run's captured frames against the
-    reference over tris (T, 3, 3) (on the device the reference runs on).
-    answer="control": the control, TF32, answers in the program's place.
-    shown, a list, receives up to 8 of the rays found off."""
-    untraced = sum(1 for f in frames if not f)
+    schedule `sched` and the reference over tris (T, 3, 3) (on the device
+    the reference runs on). answer="control": the control, TF32, answers
+    in the program's place. shown, a list, receives up to 8 of the rays
+    found off."""
+    waves_short, rays_short = shortfall(frames, sched)
+    counts = dict(waves_short=float(waves_short),
+                  rays_short=float(rays_short))
     rays = sampled_rays(frames)
     if not rays:
-        return dict(frames_untraced=float(untraced), hits_off_ppm=1e6,
-                    rays_compared=0.0)
+        return dict(counts, hits_off_ppm=1e6, rays_compared=0.0)
     args = (rays["o"], rays["d"], rays["t_min"], rays["t_max"], tris)
     if answer == "control":
         t_ans = reference.control_hits(*args, block=block).cpu()
@@ -90,8 +133,7 @@ def numbers(frames: List[List[dict]], tris: torch.Tensor, block: int = 64,
                 ("t_ref", ref["t"]), ("robust", ref["robust"]),
                 ("loose", ref["loose"]), ("near", ref["near"]))})
     n = int(live.sum())
-    return dict(frames_untraced=float(untraced),
-                hits_off_ppm=1e6 * int(off.sum()) / n if n else 1e6,
+    return dict(counts, hits_off_ppm=1e6 * int(off.sum()) / n if n else 1e6,
                 rays_compared=float(n))
 
 

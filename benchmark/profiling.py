@@ -25,8 +25,6 @@ Interval = Tuple[float, float]
 RANGES = ("sig_sort", "phase1", "traverse", "alpha", "shade", "gbuffer",
           "restir_di", "restir_gi", "sh_bake", "shadow_maps", "raster_draw",
           "pcf", "stitch", "bench_window")
-# the traversal layer's ranges, nested in the stages that trace
-TRACER_RANGES = ("sig_sort", "phase1", "traverse", "alpha")
 
 
 @dataclass

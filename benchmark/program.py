@@ -1,89 +1,27 @@
 """The benchmark's side of the program under test (tauray_torch): the scene
-handed to it, the renderer built from a cell, and the recorders the harness
-puts around the tracer's entry (every run) and K1's launch (traced runs).
+handed to it as a glTF file, the renderer built from a cell as the command
+line builds it, and the recorders the harness puts around the tracer's
+entry (every run) and K1's launch (traced runs).
 
 This is the only module of the harness that imports tauray_torch; the
 reference (benchmark/reference.py) never does."""
 
 from __future__ import annotations
 
-import dataclasses
+import tempfile
 from typing import Dict, List
 
-import numpy as np
 import torch
 
 from . import scene as bscene
+from .gltf_writer import write_gltf
 
 
-def port_scene(plain: bscene.Scene, opt):
-    """The port's Scene built from the benchmark's plain records, then set
-    up as tauray_torch.app.main.load_scenes sets up a loaded scene: the
-    ambient term and set_camera_params. The cameras the records enable
-    are enabled: the scene's own and a light field's. Shared meshes and
-    models stay shared."""
-    from tauray_torch.app.main import set_camera_params
-    from tauray_torch.scene.camera import Camera
-    from tauray_torch.scene.light import DirectionalLight, PointLight
-    from tauray_torch.scene.material import Material
-    from tauray_torch.scene.mesh import Mesh, Model
-    from tauray_torch.scene.scene import Scene
-    from tauray_torch.scene.transformable import Transformable
-
-    s = Scene()
-    s.textures = list(plain.textures)
-    s.texture_meta = [dict(m) for m in plain.texture_meta]
-    meshes: Dict[int, Mesh] = {}
-    mats: Dict[int, Material] = {}
-    models: Dict[int, Model] = {}
-
-    def mesh_of(m: bscene.Mesh) -> Mesh:
-        if id(m) not in meshes:
-            meshes[id(m)] = Mesh(positions=m.positions, indices=m.indices,
-                                 uvs=m.uvs)
-        return meshes[id(m)]
-
-    def mat_of(m: bscene.Material) -> Material:
-        if id(m) not in mats:
-            mats[id(m)] = Material(**dataclasses.asdict(m))
-        return mats[id(m)]
-
-    def model_of(m: bscene.Model) -> Model:
-        if id(m) not in models:
-            pm = Model()
-            for mat, mesh in m.groups:
-                pm.add_vertex_group(mat_of(mat), mesh_of(mesh))
-            models[id(m)] = pm
-        return models[id(m)]
-
-    for e in plain.entities:
-        pe = s.add(e.name)
-        if e.transform is not None:
-            pe.transform = Transformable(position=e.transform.position,
-                                         orientation=e.transform.orientation,
-                                         scaling=e.transform.scaling)
-        if e.model is not None:
-            pe.model = model_of(e.model)
-        if isinstance(e.light, bscene.DirectionalLight):
-            pe.light = DirectionalLight(e.light.color, e.light.angle)
-            pe.light.direction = np.asarray(e.light.direction, np.float32)
-        elif isinstance(e.light, bscene.PointLight):
-            pe.light = PointLight(e.light.color, radius=e.light.radius)
-        if e.camera is not None:
-            pe.camera = Camera()
-            c = e.camera
-            pe.camera.perspective(c.fov, c.aspect, c.near, c.far)
-            pe.camera_enabled = e.camera_enabled
-    s.ambient = np.asarray(opt.ambient, dtype=np.float32)
-    set_camera_params(opt, s)
-    return s
-
-
-def options(config: dict, traffic: dict, seed: int):
-    """The port's options for a cell: the configuration's renderer and
-    options, the traffic's size, samples and depth, the seed as
-    --rng-seed (reduced to 32 bits, the width of the port's seed), and
-    no file output."""
+def options(config: dict, traffic: dict, seed: int, scene_path: str):
+    """The port's options for a cell, as a user's command line: the
+    configuration's renderer and options, the traffic's size, samples,
+    depth and camera grid, the seed as --rng-seed (reduced to 32 bits, the
+    width of the port's seed), no file output, and the scene file."""
     from tauray_torch.options import parse_command_line_options
     argv = [f"--renderer={config['renderer']}",
             f"--width={traffic['width']}", f"--height={traffic['height']}",
@@ -91,19 +29,15 @@ def options(config: dict, traffic: dict, seed: int):
             f"--samples-per-pixel={traffic['samples_per_pixel']}",
             f"--samples-per-pass={traffic['samples_per_pass']}",
             f"--rng-seed={seed % 2**32}"]
-    argv += list(config.get("options", ()))
-    argv += ["--headless=unused", "--filetype=none"]
+    argv += list(config.get("options", ())) + list(traffic.get("options", ()))
+    argv += ["--headless=unused", "--filetype=none", scene_path]
     return parse_command_line_options(argv)
 
 
-def plain_scene(config: dict, traffic: dict) -> bscene.Scene:
-    """The cell's scene as plain records: the configuration's scene, with
-    the traffic's extra light-field cameras."""
+def plain_scene(config: dict) -> bscene.Scene:
+    """The configuration's scene as plain records."""
     sc = config["scene"]
-    s = bscene.sponza(int(sc["tris"]), foliage=bool(sc.get("foliage")))
-    if traffic.get("views", 1) > 1:
-        bscene.quilt_cameras(s, int(traffic["views"]))
-    return s
+    return bscene.sponza(int(sc["tris"]), foliage=bool(sc.get("foliage")))
 
 
 def load_kernels():
@@ -115,28 +49,34 @@ def load_kernels():
 
 def make_renderer(config: dict, traffic: dict, seed: int,
                   plain: bscene.Scene, device: torch.device):
-    """The cell's renderer on `device`, built as the CLI builds it
-    (tauray_torch.app.main.create_renderer, then set_scene). The seed
-    also offsets the frame index of renderers whose sample streams follow
-    it (ReSTIR's pixel seeds), so that every seed does the same work on
-    other samples."""
-    from tauray_torch.app.main import create_renderer
-    opt = options(config, traffic, seed)
-    s = port_scene(plain, opt)
+    """The cell's renderer on `device`, built as the command line builds
+    it: the scene written as glTF into a directory under TMPDIR, loaded
+    by tauray_torch.app.main.load_scenes, the camera grid made by
+    generate_cameras, then create_renderer and set_scene. The seed also
+    offsets the frame index of renderers whose sample streams follow it
+    (ReSTIR's pixel seeds), so that every seed does the same work on other
+    samples."""
+    from tauray_torch.app.main import (create_renderer, generate_cameras,
+                                       load_scenes)
+    with tempfile.TemporaryDirectory(prefix="bench_scene_") as tmp:
+        opt = options(config, traffic, seed, write_gltf(plain, tmp))
+        s = load_scenes(opt)
+    generate_cameras(s, opt)
     rr = create_renderer(opt, s, device)
     rr.set_scene(s)
-    if config.get("seed_offsets_frame_index") and hasattr(rr, "frame_idx"):
+    if hasattr(rr, "frame_idx"):
         rr.frame_idx = seed % 2**20
     return rr
 
 
 class WaveCapture:
     """Keeps, from every wave handed to the flat tracer's entry
-    (ClusterTracer.trace_flagged) while on, `k` rays drawn from the seed
-    with their answers: origin, direction, t_min, t_max, whether the wave
-    was any-hit, the hit's t and whether it hit. The draw runs on the
-    device from a generator of its own: nothing is read back inside the
-    window. `frames` holds one list of waves per frame begun."""
+    (ClusterTracer.trace_flagged) while on, the wave's size and whether it
+    was any-hit, and `k` rays drawn from the seed with their answers:
+    origin, direction, t_min, t_max, the hit's t and whether it hit. The
+    draw runs on the device from a generator of its own: nothing is read
+    back inside the window. `frames` holds one list of waves per frame
+    begun."""
 
     def __init__(self, k: int, seed: int, device: torch.device):
         self.k = k
@@ -160,7 +100,7 @@ class WaveCapture:
             return torch.as_tensor(x, dtype=torch.float32,
                                    device=o.device).expand(R)[idx]
         self.frames[-1].append(dict(
-            any_hit=bool(any_hit), o=o[idx].float(),
+            any_hit=bool(any_hit), n=R, o=o[idx].float(),
             d=d[idx].float(), t_min=per_ray(t_min), t_max=per_ray(t_max),
             t=hit.t[idx].float(), hit=hit.tri_id[idx] >= 0))
 

@@ -5,19 +5,22 @@
 
 Runs one cell of BENCHMARK.json from the root of a checkout. The cell's
 file (benchmark/workloads/<cell>.json) names its configuration
-(benchmark/configs/<config>.json) and holds its traffic, its sample size
-and its limits; each metric's reader is benchmark/metrics/<metric>.py. A
-run builds the cell's scene (benchmark/scene.py) and renderer on the card,
-renders its warm-up frames, then renders whole frames back to back through
-the renderer's render_device() until --seconds have passed (the frame in
-flight then finishes and counts). The seed sets the sample streams; the
-scene, camera and work per frame are the same for every seed.
+(benchmark/configs/<config>.json) and holds its traffic, its wave
+schedule, its sample size and its limits; each metric's reader is
+benchmark/metrics/<metric>.py. A run builds the cell's scene
+(benchmark/scene.py), hands it to the port as a glTF file, builds the
+renderer on the card as the command line does, renders its warm-up
+frames, then renders whole frames back to back through the renderer's
+render_device() until --seconds have passed (the frame in flight then
+finishes and counts). The seed sets the sample streams; the scene, camera
+and work per frame are the same for every seed.
 
-Every run keeps a sample of every wave's rays and answers, drawn from the
-seed at the tracer's entry, and after the window holds them to the plain
-reference (benchmark/judge.py): `correct` and each number beside its
-limit. --trace 1 profiles the window (torch.profiler) and reports the
-per-layer metrics instead of the end-to-end ones.
+Every run keeps the size and kind of every wave handed to the tracer and
+a sample of its rays and answers, drawn from the seed, and after the
+window holds them to the cell's schedule and to the plain reference
+(benchmark/judge.py): `correct` and each number beside its limit.
+--trace 1 profiles the window (torch.profiler) and reports the per-layer
+metrics instead of the end-to-end ones.
 
 Prints, as its last line on standard output, one JSON object: correct,
 attempted and failed frames, metrics, device and, traced, breakdown, with
@@ -135,7 +138,9 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
     """Set-up, warm-up and the window of one run of `cell` on `device`.
     Returns (Run, the captured frames on the host, the plain scene), with
     the program's state freed. fault(renderer), when given, runs after the
-    warm-up, before the window: the tests break the timed path with it."""
+    warm-up, before the window, and returns what mends it once the window
+    has closed: the tests and the control break the timed path with it
+    (benchmark/faults.py)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -154,7 +159,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
         torch.zeros(1, device=device)
         torch.cuda.synchronize(device)
         lap("cuda_init")
-    plain = program.plain_scene(cell.config, traffic)
+    plain = program.plain_scene(cell.config)
     lap("scene")
     if device.type == "cuda":
         program.load_kernels()
@@ -162,6 +167,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
     capture = program.WaveCapture(int(traffic["sample_rays_per_wave"]),
                                   seed, device)
     k1 = program.K1Counter() if trace else None
+    mend = None
     capture.install()
     try:
         rr = program.make_renderer(cell.config, traffic, seed, plain,
@@ -175,7 +181,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
         capture.frames = []
         lap("warmup_frames")
         if fault is not None:
-            fault(rr)
+            mend = fault(rr)
         if k1 is not None:
             k1.install()
         program.reset_counts()
@@ -197,6 +203,8 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
         if k1 is not None:
             run.k1_launches = k1.read()
     finally:
+        if mend is not None:
+            mend()
         capture.uninstall()
         if k1 is not None:
             k1.uninstall()
@@ -225,7 +233,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     t_ref = time.perf_counter()
     tris = torch.from_numpy(reference.world_triangles(plain)).to(device)
     shown = []
-    nums = judge.numbers(frames, tris, shown=shown)
+    nums = judge.numbers(frames, tris, judge.schedule(traffic),
+                         shown=shown)
     compared = nums.pop("rays_compared")
     reference_s = time.perf_counter() - t_ref
     correct, checks = judge.verdict(nums, traffic["limits"])

@@ -2,11 +2,9 @@
 from tauray_torch/io/procedural.py (commit ccf5a6c), a ~262k-triangle
 colonnaded atrium standing in for Crytek Sponza, with the program's scene
 classes replaced by the plain records below. The port gets these records
-through `benchmark.program.port_scene`; the reference flattens them itself
-(`benchmark.reference.world_triangles`). Nothing here imports the program.
-
-`quilt_cameras` is a frozen copy of tauray_torch/app/bench.py's camera
-placement for a 5x9 light-field quilt (same commit)."""
+as a glTF file (`benchmark.gltf_writer`) through its own loader; the
+reference flattens them itself (`benchmark.reference.world_triangles`).
+Nothing here imports the program."""
 
 from __future__ import annotations
 
@@ -94,17 +92,6 @@ class Scene:
 def sponza(tris: int, foliage: bool = False) -> Scene:
     """The scene of `proc://sponza?tris=<tris>[&foliage=1]`."""
     return build_sponza(Scene(), tris, foliage=foliage)
-
-
-def quilt_cameras(scene: Scene, n: int):
-    """n - 1 perspective cameras in a row beside the scene's camera, 0.05
-    apart at z = 6, looking down -z (a 5x9 quilt for n = 45)."""
-    for k in range(n - 1):
-        ce = scene.add(f"quiltcam{k}")
-        ce.transform = Transformable(position=(0.05 * (k - 22), 0, 6))
-        ce.camera = Camera()
-        ce.camera.perspective(45, 1.0, 0.1, 100.0)
-        ce.camera_enabled = True
 
 
 def _grid_mesh(nx: int, nz: int, fn) -> Tuple[np.ndarray, np.ndarray,

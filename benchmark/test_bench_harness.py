@@ -15,10 +15,11 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
-from benchmark import judge, profiling, reference, roofline
+from benchmark import faults, judge, profiling, reference, roofline
 from benchmark import run as brun
 from benchmark import scene as bscene
 
@@ -30,14 +31,17 @@ CPU = torch.device("cpu")
 
 def tiny(name: str) -> brun.Cell:
     """The cell at a size the CPU holds: the scene at its smallest
-    tessellation (tris=8192, ~41k triangles), 32x16 pixels, at most 3
-    views, 64 sampled rays a wave, its limits as they stand."""
+    tessellation (tris=8192, ~41k triangles), 32x16 pixels, a camera grid
+    of 3 views where the cell has one, 64 sampled rays a wave, its
+    schedule and limits as they stand."""
     cell = brun.load_cell(name)
     cell.config = dict(cell.config,
                        scene=dict(cell.config["scene"], tris=8192))
+    opts = [o if not o.startswith("--camera-grid=") else
+            "--camera-grid=3,1,0.05,0"
+            for o in cell.traffic.get("options", [])]
     cell.traffic = dict(cell.traffic, width=32, height=16,
-                        sample_rays_per_wave=64,
-                        views=min(cell.traffic["views"], 3))
+                        sample_rays_per_wave=64, options=opts)
     return cell
 
 
@@ -57,7 +61,10 @@ def test_cell_found_by_name(name):
     assert cell.traffic["traffic"] == entry["traffic"]
     assert cell.traffic["why"] == entry["why"]
     assert cell.chips == entry["chips"] == 1
-    assert {"frames_untraced", "hits_off_ppm"} <= set(cell.traffic["limits"])
+    assert set(cell.traffic["limits"]) == {"waves_short", "rays_short",
+                                           "hits_off_ppm"}
+    assert cell.traffic["limits"]["waves_short"] == 0
+    assert cell.traffic["limits"]["rays_short"] == 0
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s", "frame_ms"}
     assert cell.per_layer
 
@@ -111,7 +118,7 @@ def test_self_time_on_a_hand_built_nest():
                 "traverse": [(5, 6)]},
         window=(0, 10), frames=2)
     assert profiling.self_s(tr, ["shade"]) == 4.5
-    assert profiling.self_s(tr, ["shade"], profiling.TRACER_RANGES) == 2.0
+    assert profiling.self_s(tr, ["shade"], ["phase1", "traverse"]) == 2.0
     assert profiling.self_s(tr, ["phase1"]) == 2.0
     assert profiling.self_ms_a_frame(tr, ["phase1"]) == 1000.0
     assert profiling.self_ms_a_frame(tr, ["sig_sort"]) is None
@@ -231,51 +238,76 @@ def test_control_fails_the_limit(name):
     run, frames, plain = brun.measure(cell, 77, 0.0, False, CPU,
                                       time.perf_counter())
     tris = torch.from_numpy(reference.world_triangles(plain))
-    ctrl = judge.numbers(frames, tris, answer="control")
+    ctrl = judge.numbers(frames, tris, judge.schedule(cell.traffic),
+                         answer="control")
     ok, _ = judge.verdict(ctrl, cell.traffic["limits"])
     assert not ok and ctrl["hits_off_ppm"] > \
         cell.traffic["limits"]["hits_off_ppm"]
 
 
-def _state_unchanged(rr):
-    """render_device returns the last image without rendering."""
-    img = rr.render_device()
-    rr.render_device = lambda: img
+FAULT_CASES = [(name, f) for name in CELLS for f in faults.for_renderer(
+    brun.load_cell(name).config["renderer"])]
 
 
-def _half_left_out(rr):
-    """Every wave traces its first half only; the rest come back as
-    misses."""
-    from tauray_torch.ops import cluster
-    from tauray_torch.ops.intersect import Hit
-    orig = cluster._trace_padded
-
-    def half(tracer, rays8, any_hit, need_uv):
-        hit = orig(tracer, rays8, any_hit, need_uv)
-        n = rays8.shape[0] // 2
-        t = hit.t.clone()
-        tid = hit.tri_id.clone()
-        t[n:] = float("inf")
-        tid[n:] = -1
-        return Hit(t, tid, hit.u, hit.v)
-    cluster._trace_padded = half
-
-
-def _answer_altered(rr):
-    """K1's t comes back 1% long."""
-    from tauray_torch.ops import cluster
-    orig = cluster.trace_tiles_vm3
-    cluster.trace_tiles_vm3 = lambda *a: (lambda t, i: (t * 1.01, i))(
-        *orig(*a))
-
-
-@pytest.mark.parametrize("fault", [_state_unchanged, _half_left_out,
-                                   _answer_altered],
-                         ids=lambda f: f.__name__.strip("_"))
-@pytest.mark.parametrize("name", CELLS)
-def test_broken_timed_path_is_not_correct(name, fault, monkeypatch):
-    from tauray_torch.ops import cluster
-    monkeypatch.setattr(cluster, "_trace_padded", cluster._trace_padded)
-    monkeypatch.setattr(cluster, "trace_tiles_vm3", cluster.trace_tiles_vm3)
-    out = tiny_run(name, fault=fault)
+@pytest.mark.parametrize("name,fault", FAULT_CASES,
+                         ids=[f"{n}-{f}" for n, f in FAULT_CASES])
+def test_broken_timed_path_is_not_correct(name, fault):
+    out = tiny_run(name, fault=faults.FAULTS[fault][0])
     assert not out["correct"], out["checks"]
+
+
+def test_faults_are_mended_after_the_window():
+    from tauray_torch.ops import cluster
+    from tauray_torch.renderer import rt_renderer
+    before = (cluster._trace_padded, cluster.trace_tiles_vm3,
+              rt_renderer.pt_trace_pass)
+    for f in ("half_left_out", "answer_altered", "pixels_halved"):
+        tiny_run("sponza-pt.1080p-1spp", fault=faults.FAULTS[f][0])
+    assert (cluster._trace_padded, cluster.trace_tiles_vm3,
+            rt_renderer.pt_trace_pass) == before
+
+
+def test_schedule_shortfall_counts_waves_and_rays():
+    sched = judge.schedule(dict(width=4, height=2, samples_per_pixel=2,
+                                options=["--camera-grid=3,1,0.05,0"],
+                                rays_per_sample=dict(closest=2, any_hit=1)))
+    assert sched == dict(samples=48, closest=2, any_hit=1)
+
+    def wave(n, any_hit=False):
+        return dict(n=n, any_hit=any_hit)
+    whole = [wave(64), wave(64), wave(64, True)]
+    assert judge.shortfall([whole, whole], sched) == (0, 0)
+    # a shadow wave dropped; half the pixels; a frame that traced nothing
+    assert judge.shortfall([whole[:2]], sched) == (1, 48)
+    assert judge.shortfall([[wave(24), wave(24), wave(24, True)]],
+                           sched) == (0, 72)
+    assert judge.shortfall([whole, []], sched) == (3, 144)
+    # padding above the schedule counts for nothing
+    assert judge.shortfall([[wave(100)] * 2 + [wave(100, True)]],
+                           sched) == (0, 0)
+
+
+def test_the_port_gets_the_reference_triangles_through_gltf(tmp_path):
+    from tauray_torch.app.main import load_scenes
+    from benchmark.gltf_writer import write_gltf
+    from benchmark.program import options
+    cell = tiny("sponza-pt.1080p-1spp")
+    plain = bscene.sponza(8192)
+    s = load_scenes(options(cell.config, cell.traffic, 5,
+                            write_gltf(plain, str(tmp_path))))
+    ref = reference.world_triangles(plain)
+    tris = []
+    for e in s.entities:
+        if e.model is None:
+            continue
+        m = e.transform.get_global_transform().astype(np.float64)
+        for g in e.model.groups:
+            p = g.mesh.positions.astype(np.float64) @ m[:3, :3].T + m[:3, 3]
+            tris.append(p[g.mesh.indices])
+    port = np.concatenate(tris)
+    assert port.shape == ref.shape
+    assert np.abs(port - ref).max() < 1e-5 * np.abs(ref).max()
+    cams = [e for e in s.entities if e.camera is not None]
+    assert [e.camera_enabled for e in cams] == [True]
+    assert len(s.textures) == 4 and (s.textures[0] ==
+                                     plain.textures[0]).all()
