@@ -77,6 +77,7 @@ class Run:
     k1_launches: List[tuple] = field(default_factory=list)
     trace: Optional[object] = None
     setup_parts: Dict[str, float] = field(default_factory=dict)
+    frame_s: List[float] = field(default_factory=list)
 
 
 def _json(path: str) -> dict:
@@ -192,9 +193,11 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device,
         with prof if prof is not None else contextlib.nullcontext():
             with record_function(WINDOW_RANGE):
                 def frame():
+                    t = time.perf_counter()
                     capture.begin_frame()
                     program.reset_frame(rr, traffic)
                     program.frame_done(rr.render_device(), device)
+                    run.frame_s.append(time.perf_counter() - t)
                 run.frames, run.elapsed_s = window(frame, seconds)
         capture.on = False
         run.counts = program.traced_counts()
@@ -258,6 +261,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                             "idle_gaps": profiling.idle_gaps(tr)}
     out["counts"] = run.counts
     out["setup_parts"] = run.setup_parts
+    out["frame_s"] = run.frame_s
     out["rays_compared"] = compared
     out["reference_s"] = reference_s
     out["rays_off"] = shown
