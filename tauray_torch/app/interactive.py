@@ -52,7 +52,7 @@ def interactive_viewer(opt, s, device, read_line=_nonblock_getline):
 
     rr = create_renderer(opt, s, device)
     rr.set_scene(s)
-    tracing = TracingRecord(opt)
+    tracing = TracingRecord.for_options(opt, device)
 
     cam_e = next(e for e in s.entities
                  if e.camera is not None and e.camera_enabled)
@@ -120,10 +120,9 @@ def interactive_viewer(opt, s, device, read_line=_nonblock_getline):
             rr.update_frame()
             tracing.begin_frame()
             img = rr.render()
-            tracing.end_frame(rr.get_timing())
-            if opt.timing:
-                tracing.print_last_trace()
+            tracing.end_frame()
             server.send_frame(img[0])
     finally:
+        tracing.stop()
         server.close()
     tracing.finish()

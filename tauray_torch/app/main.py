@@ -220,7 +220,6 @@ def replay_viewer(opt: Options, s: Scene, device):
             if e.camera is not None:
                 e.camera.set_jitter_sequence(seq)
 
-    tracing = TracingRecord(opt)
     frame_count = opt.frames if opt.frames else None
     is_animated = anim.is_playing(s)
     if not opt.frames and not is_animated:
@@ -255,29 +254,31 @@ def replay_viewer(opt: Options, s: Scene, device):
 
     update_dt = round(1000000.0 / opt.framerate)
     i = 0
-    while frame_count is None or i < frame_count:
-        if not opt.frames and is_animated and not anim.is_playing(s):
-            break
-        dt = 0 if i == 0 else update_dt
-        anim.update(s, dt, True)
-        for clog in camera_logs:
-            clog.frame(dt)
-        if not opt.skip_render and i >= opt.skip_frames:
-            tracing.begin_frame()
-            if i > 0:
-                rr.update_frame()
-            rr.reset_accumulation()
-            pull = out is not None and out.filetype != "none"
-            img = rr.render_device()
-            check_nan(opt.validation, "frame", img)
-            img = _finish_frame(img, pull)
-            tracing.end_frame(rr.get_timing())
-            if opt.timing:
-                tracing.print_last_trace()
-            if out is not None:
-                out.save_frame(img)
-        progress.step()
-        i += 1
+    tracing = TracingRecord.for_options(opt, device)
+    try:
+        while frame_count is None or i < frame_count:
+            if not opt.frames and is_animated and not anim.is_playing(s):
+                break
+            dt = 0 if i == 0 else update_dt
+            anim.update(s, dt, True)
+            for clog in camera_logs:
+                clog.frame(dt)
+            if not opt.skip_render and i >= opt.skip_frames:
+                tracing.begin_frame()
+                if i > 0:
+                    rr.update_frame()
+                rr.reset_accumulation()
+                pull = out is not None and out.filetype != "none"
+                img = rr.render_device()
+                check_nan(opt.validation, "frame", img)
+                img = _finish_frame(img, pull)
+                tracing.end_frame()
+                if out is not None:
+                    out.save_frame(img)
+            progress.step()
+            i += 1
+    finally:
+        tracing.stop()
     if out is not None:
         out.finish()
     if opt.checkpoint:

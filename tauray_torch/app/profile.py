@@ -6,12 +6,16 @@
 
 Renders one warm-up frame, then profiles the next with torch.profiler and
 prints one JSON line: frame wall ms, device busy ms and idle share, the
-span on the device timeline of each range (sig_sort, phase1, traverse,
-alpha (the re-trace rounds' compaction and alpha tests), shade; for
+span on the device timeline of each range of tracing.SPANS (frame, the
+renderer's render_device; trace_wave, each wave handed to a tracer;
+sig_sort, phase1, traverse, slab (the slab test, inside phase1 and
+sig_sort), alpha (the re-trace rounds' compaction and alpha tests), shade;
+for
 --renderer=restir / restir-hybrid gbuffer, restir_di, restir_gi and
 sh_bake, which contain their waves' phase1 and traverse; for
 --renderer=raster / dshgi shadow_maps, raster_draw and pcf; for
---fake-devices / --mesh-shape stitch (the gather of the partial frames
+--fake-devices / --mesh-shape path tracing (each device's slice) and
+stitch (the gather of the partial frames
 onto the first device and the scatter into the accumulation); the profiled
 frame then starting with update_frame, which rebuilds the maps, as the
 CLI's frames after the first do; a span includes gaps between its
@@ -29,11 +33,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..options import parse_command_line_options
+from ..tracing import SPANS
 from .main import create_renderer, load_scenes
-
-RANGES = ("sig_sort", "phase1", "traverse", "alpha", "shade", "gbuffer",
-          "restir_di", "restir_gi", "sh_bake", "shadow_maps", "raster_draw",
-          "pcf", "stitch")
 
 
 def _self_device_ms(evt) -> float:
@@ -61,7 +62,7 @@ def profile_frame(rr, update: bool = False) -> dict:
     # device timeline
     device = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
-    ranges = {name: 0.0 for name in RANGES}
+    ranges = {name: 0.0 for name in SPANS}
     kernels = []
     for e in device:
         if e.key in ranges:

@@ -33,8 +33,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from .bvh import morton_3d
 from .intersect import Hit
 from .sampling import cross
@@ -158,25 +158,27 @@ class ClusterTracer:
         sort_rays: reorder the wave by its active-set signature before
         tiling (bounce and shadow waves); camera waves keep pixel-block
         order."""
-        R = origins.shape[0]
-        _count_wave(R)
-        rays8 = _pack_rays(origins, dirs, t_min, t_max)
-        if sort_rays:
-            with record_function("sig_sort"):
-                perm = _sig_sort_perm(self, rays8)
-                rays8 = rays8[perm]
-            hit = _trace_padded(self, rays8, any_hit, need_uv)
-            # un-permute by an inverse-permutation GATHER; ids stay int32
-            inv = torch.empty_like(perm)
-            inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-            hit = Hit(*(x[inv] for x in hit))
-        else:
-            hit = _trace_padded(self, rays8, any_hit, need_uv)
-        t, tid, u, v = (x[:R] for x in hit)
-        alpha_flag = tid >= self.alpha_base
-        if not self.slot_ids:
-            tid = torch.where(tid >= 0, self.to_orig[tid.clamp(min=0).long()],
-                              -1)
+        with tracing.span("trace_wave"):
+            R = origins.shape[0]
+            _count_wave(R)
+            rays8 = _pack_rays(origins, dirs, t_min, t_max)
+            if sort_rays:
+                with tracing.span("sig_sort"):
+                    perm = _sig_sort_perm(self, rays8)
+                    rays8 = rays8[perm]
+                hit = _trace_padded(self, rays8, any_hit, need_uv)
+                # un-permute by an inverse-permutation GATHER; ids stay
+                # int32
+                inv = torch.empty_like(perm)
+                inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+                hit = Hit(*(x[inv] for x in hit))
+            else:
+                hit = _trace_padded(self, rays8, any_hit, need_uv)
+            t, tid, u, v = (x[:R] for x in hit)
+            alpha_flag = tid >= self.alpha_base
+            if not self.slot_ids:
+                tid = torch.where(
+                    tid >= 0, self.to_orig[tid.clamp(min=0).long()], -1)
         return Hit(t, tid, u, v), alpha_flag
 
 
@@ -460,16 +462,18 @@ def _slab_blocks(rays8, b0, b1, bmin, bmax):
     """Entry t (clamped up to t_min) and activity of ray blocks b0..b1
     against every box, each (b1-b0, boxes, TILE): the ray hits the box
     AABB within [t_min, t_max]."""
-    blk = rays8[b0 * TILE:b1 * TILE].reshape(b1 - b0, TILE, 8)
-    ro = blk[..., 0:3]
-    rd = blk[..., 3:6]
-    inv_d = torch.where(rd == 0, BIG, 1.0 / torch.where(rd == 0, 1.0, rd))
-    tn, tf = _slab_t_soa(
-        ro[:, None, :, 0], ro[:, None, :, 1], ro[:, None, :, 2],
-        inv_d[:, None, :, 0], inv_d[:, None, :, 1], inv_d[:, None, :, 2],
-        bmin, bmax)
-    torch.maximum(tn, blk[:, None, :, 6], out=tn)
-    return tn, (tf >= tn) & (tn <= blk[:, None, :, 7])
+    with tracing.span("slab"):
+        blk = rays8[b0 * TILE:b1 * TILE].reshape(b1 - b0, TILE, 8)
+        ro = blk[..., 0:3]
+        rd = blk[..., 3:6]
+        inv_d = torch.where(rd == 0, BIG,
+                            1.0 / torch.where(rd == 0, 1.0, rd))
+        tn, tf = _slab_t_soa(
+            ro[:, None, :, 0], ro[:, None, :, 1], ro[:, None, :, 2],
+            inv_d[:, None, :, 0], inv_d[:, None, :, 1], inv_d[:, None, :, 2],
+            bmin, bmax)
+        torch.maximum(tn, blk[:, None, :, 6], out=tn)
+        return tn, (tf >= tn) & (tn <= blk[:, None, :, 7])
 
 
 def _phase1(tracer: ClusterTracer, rays8):
@@ -583,15 +587,15 @@ def _trace_padded(tracer: ClusterTracer, rays8, any_hit: bool,
     tiles = rays8.reshape(R // PT, PT, 8)
     fits = tracer.n_clusters <= VM_FITS_CLUSTERS
     if fits and (os.environ.get("TAURAY_VM_KERNEL") or "v3") == "v3":
-        with record_function("phase1"):
+        with tracing.span("phase1"):
             counts, keys = _phase1(tracer, rays8)
-        with record_function("traverse"):
+        with tracing.span("traverse"):
             t, tid = trace_tiles_vm3(counts, keys, tiles, tracer.tris12)
     else:
-        with record_function("phase1"):
+        with tracing.span("phase1"):
             counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax,
                                                  rays8)
-        with record_function("traverse"):
+        with tracing.span("traverse"):
             if fits:
                 t, tid = trace_tiles_vm2(counts, keys, tiles, tracer.tris12,
                                          tracer.opaque, idmask, any_hit)
@@ -668,14 +672,15 @@ class InstancedClusterTracer:
         all-opaque cluster-instance) with world-triangle ids, plus the
         alpha flag. sort_rays is ignored: waves trace as given, as in
         tauray_tpu."""
-        R = origins.shape[0]
-        _count_wave(R)
-        rays8 = _pack_rays(origins, dirs, t_min, t_max)
-        t, tid, u, v = (x[:R] for x in
-                        _trace_padded_inst(self, rays8, any_hit, need_uv))
-        alpha_flag = tid >= self.alpha_base
-        tid = torch.where(tid >= 0, self.to_orig[tid.clamp(min=0).long()],
-                          -1)
+        with tracing.span("trace_wave"):
+            R = origins.shape[0]
+            _count_wave(R)
+            rays8 = _pack_rays(origins, dirs, t_min, t_max)
+            t, tid, u, v = (x[:R] for x in
+                            _trace_padded_inst(self, rays8, any_hit, need_uv))
+            alpha_flag = tid >= self.alpha_base
+            tid = torch.where(tid >= 0,
+                              self.to_orig[tid.clamp(min=0).long()], -1)
         return Hit(t, tid, u, v), alpha_flag
 
 
@@ -686,9 +691,9 @@ def _trace_padded_inst(tracer: InstancedClusterTracer, rays8,
     space (barycentrics are affine-invariant)."""
     R = rays8.shape[0]
     rays8 = rays8.contiguous()
-    with record_function("phase1"):
+    with tracing.span("phase1"):
         counts, keys, idmask = _phase1_entry(tracer.cmin, tracer.cmax, rays8)
-    with record_function("traverse"):
+    with tracing.span("traverse"):
         t, tid = trace_tiles_inst(
             counts, keys, rays8.reshape(R // PT, PT, 8), tracer.tris9,
             tracer.opaque, tracer.k_cluster, tracer.k_inst,

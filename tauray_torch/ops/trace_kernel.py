@@ -46,6 +46,8 @@ from typing import Dict
 
 import torch
 
+from .. import tracing
+
 TILE = 32            # rays per tile (one warp)
 CLUSTER = 128        # triangles per cluster
 KB = 8               # clusters per step of the front-to-back kernels
@@ -67,6 +69,12 @@ _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {"trace_vm3": 0, "trace_mt": 0,
                             "trace_mt_inst": 0, "trace_vm2": 0,
                             "trace_vm": 0}
+# K1's work since the last reset, counted at its wrapper on both paths: the
+# tiles handed in, always, and while tracing.counting() their cluster
+# visits (the sum of the counts), added on the device into one int64
+# scalar a device and read by k1_work()
+K1_WORK: Dict[str, int] = {"tiles": 0}
+_K1_VISITS: Dict[torch.device, torch.Tensor] = {}
 # what the build did, per library: seconds, library path, compiler output
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
 
@@ -88,6 +96,27 @@ _KIND = {"trace_vm3": 0, "trace_vm2": 1, "trace_vm": 1, "trace_mt": 2,
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    K1_WORK["tiles"] = 0
+    _K1_VISITS.clear()
+
+
+def _count_k1(counts: torch.Tensor) -> None:
+    K1_WORK["tiles"] += counts.shape[0]
+    if tracing.counting():
+        visits = _K1_VISITS.get(counts.device)
+        if visits is None:
+            visits = _K1_VISITS[counts.device] = torch.zeros(
+                (), dtype=torch.int64, device=counts.device)
+        visits.add_(counts.sum(dtype=torch.int64))
+
+
+def k1_work() -> Dict[str, int]:
+    """K1's tiles since the last reset_launch_counts() and, where they were
+    counted, its cluster visits (one read of each device's counter)."""
+    out = {"k1_tiles": K1_WORK["tiles"]}
+    if _K1_VISITS:
+        out["k1_visits"] = sum(int(v) for v in _K1_VISITS.values())
+    return out
 
 
 def _nvcc() -> str:
@@ -195,6 +224,7 @@ def trace_tiles_vm3(counts: torch.Tensor, keys: torch.Tensor,
     ids; rays8 (n_tiles, 32, 8) f32 [o|d|tmin|tmax]; tris12 (C, 12, 1, 128)
     f32 Baldwin-Weber rows. Returns t (R,) f32 (+inf on miss) and the slot
     id (R,) i32 (-1 on miss)."""
+    _count_k1(counts)
     if not _on_card(rays8):
         return trace_tiles_vm3_reference(counts, keys, rays8, tris12)
     return _launch_bw(counts, keys, rays8, tris12, None, 0, False,

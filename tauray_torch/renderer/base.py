@@ -9,6 +9,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..scene.arrays import SceneArrays
 from ..scene.camera import Camera
 from ..scene.scene import Scene
@@ -90,7 +91,11 @@ class Renderer:
 
     def render_device(self) -> torch.Tensor:
         """Renders the current frame as a (V, H, W, 4) float32 tensor on
-        the renderer's device (no host readback)."""
+        the renderer's device (no host readback), as one `frame` span."""
+        with tracing.span("frame", self.device):
+            return self._render_device()
+
+    def _render_device(self) -> torch.Tensor:
         raise NotImplementedError
 
     def render(self) -> np.ndarray:
@@ -105,4 +110,10 @@ class Renderer:
         (parallel/load_balancer.py); one-device renderers ignore them."""
 
     def get_timing(self):
-        return {}
+        """{(device, stage): seconds} of the newest frame the process's
+        tracing record has read ({} while it is off). The record is the
+        process's, not this renderer's: the frame is the newest outermost
+        `frame` span of any renderer, with the stages of every renderer
+        nested in it, and where several renderers take turns in one
+        process it may be another's."""
+        return tracing.timing()

@@ -31,8 +31,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..parallel import distribution as dist_mod
 from ..parallel.mesh import make_devices, to_device
 from ..scene.device import to_camera_uniforms
@@ -185,7 +185,7 @@ class DistributedPathTracerRenderer(PathTracerRenderer):
         return torch.cat(out) if out else \
             torch.zeros((0, 4), device=pix.device)
 
-    def render_device(self) -> torch.Tensor:
+    def _render_device(self) -> torch.Tensor:
         cfg = self.cfg
         opt = self.opt
         cam = to_camera_uniforms(
@@ -204,9 +204,12 @@ class DistributedPathTracerRenderer(PathTracerRenderer):
                 color_full = self._view_pass(reps, color_full, prev_n)
                 continue
             # enqueue every workload's waves before the first gather
-            parts = [(self._trace(reps[dev], pix, vp, prev_n), N)
-                     for dev, pix, vp, N in self._work]
-            with record_function("stitch"):
+            parts = []
+            for i, (dev, pix, vp, N) in enumerate(self._work):
+                with tracing.span("path tracing", dev, i):
+                    parts.append((self._trace(reps[dev], pix, vp, prev_n),
+                                  N))
+            with tracing.span("stitch"):
                 chunks = torch.cat([c.to(self.device).reshape(V, N, 4)
                                     for c, N in parts], dim=1)
                 if p == 0 and self._stitch_blend < 1.0:
@@ -234,9 +237,12 @@ class DistributedPathTracerRenderer(PathTracerRenderer):
         the gather onto the first device and the running mean."""
         cfg = self.cfg
         H, W = cfg.height, cfg.width
-        parts = [(views, self._trace(reps[dev], pix, vp, prev_n))
-                 for dev, views, pix, vp in self._view_work]
-        with record_function("stitch"):
+        parts = []
+        for k, (dev, views, pix, vp) in enumerate(self._view_work):
+            with tracing.span("path tracing", dev, k):
+                parts.append((views, self._trace(reps[dev], pix, vp,
+                                                 prev_n)))
+        with tracing.span("stitch"):
             frame = torch.empty_like(color_full)
             for views, c in parts:
                 frame[torch.from_numpy(views).long().to(self.device)] = \

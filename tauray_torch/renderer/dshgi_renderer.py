@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .base import Renderer
 from .raster_renderer import FlatTracerHost, RasterRenderer
 from .sh_renderer import SHRenderer
 
@@ -34,14 +35,13 @@ class DSHGIRenderer(RasterRenderer):
         self.sh_source.step(self)
 
 
-class DSHGIServer:
+class DSHGIServer(Renderer):
     """Renderer-shaped service: each render_device() bakes the probes and
     publishes them, and returns a (1, 1, 1, 4) placeholder frame (the
     server draws nothing)."""
 
     def __init__(self, opt, device):
-        self.opt = opt
-        self.device = torch.device(device)
+        super().__init__(opt, device)
         self.sh = SHRenderer(opt, device)
         from ..net.dshgi import DSHGIServerTransport
         self.transport = DSHGIServerTransport(opt.port)
@@ -59,16 +59,7 @@ class DSHGIServer:
     def update_frame(self):
         self._host.update_frame()
 
-    def reset_accumulation(self, keep_samples=False):
-        pass
-
-    def set_device_workloads(self, ratios):
-        pass
-
-    def get_timing(self):
-        return {}
-
-    def render_device(self) -> torch.Tensor:
+    def _render_device(self) -> torch.Tensor:
         self.sh.step(self._host)
         grids = self.sh.grid_payloads()
         if grids:

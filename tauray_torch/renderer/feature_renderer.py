@@ -35,7 +35,7 @@ class FeatureRenderer(Renderer):
         """Per-frame scene refresh (animation / camera movement)."""
         self.bvh = self.device_update_frame(self.bvh, self._perm)
 
-    def render_device(self):
+    def _render_device(self):
         vps = self.viewports()
         cam = to_camera_uniforms(self.arrays.camera_uniforms(vps),
                                  self.device)

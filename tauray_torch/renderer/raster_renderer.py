@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..ops.brdf_lut import load_brdf_lut
 from ..ops.cluster import build_cluster_tracer, tri_opacity
 from ..scene.device import to_camera_uniforms, to_device_scene
@@ -66,7 +66,7 @@ class RasterRenderer(FlatTracerHost):
         # shadow_map.cc track_cameras)
         cam_pos = np.mean([np.asarray(t.get_global_position(), np.float32)
                            for _, t in self.viewports()], axis=0)
-        with record_function("shadow_maps"):
+        with tracing.span("shadow_maps"):
             self.shadow_maps = build_shadow_maps(
                 self.arrays, self.bvh, self.opt, center,
                 device_scene=self.device_scene, cam_pos=cam_pos)
@@ -82,11 +82,11 @@ class RasterRenderer(FlatTracerHost):
             return None
         return self.sh_source.current_grid_data()
 
-    def render_device(self) -> torch.Tensor:
+    def _render_device(self) -> torch.Tensor:
         opt = self.opt
         dev = self.device
         if self.sh_source is not None:
-            with record_function("sh_bake"):
+            with tracing.span("sh_bake"):
                 self.sh_source.step(self)
         vps = self.viewports()
         V = len(vps)
@@ -97,7 +97,7 @@ class RasterRenderer(FlatTracerHost):
         has_env = self.arrays.environment_map is not None
 
         def run_pass(sample_offset=None):
-            with record_function("raster_draw"):
+            with tracing.span("raster_draw"):
                 return render_raster(
                     self.device_scene, self.bvh, cam, prev_cam,
                     self.shadow_maps, self.map_table, sh, load_brdf_lut(dev),
@@ -145,7 +145,7 @@ class RasterRenderer(FlatTracerHost):
         elif S > 1:
             gbuf = run_pass()
             cov = torch.zeros(gbuf["color"].shape[:3], device=dev)
-            with record_function("raster_draw"):
+            with tracing.span("raster_draw"):
                 for lx, ly in MSAA_LOCATIONS[S]:
                     cov = cov + raster_coverage(
                         self.device_scene, self.bvh, cam, offset(lx, ly),

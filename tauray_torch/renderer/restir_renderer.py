@@ -15,8 +15,8 @@ import math
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..ops.cluster import build_cluster_tracer, tri_opacity
 from ..ops.lights import NEEWeights
 from ..ops.sampling import xla_int32
@@ -149,7 +149,7 @@ class ReSTIRRenderer(Renderer):
     def update_frame(self):
         self.bvh = self.device_update_frame(self.bvh, self._perm)
 
-    def render_device(self) -> torch.Tensor:
+    def _render_device(self) -> torch.Tensor:
         opt = self.opt
         H, W = opt.height, opt.width
         dev = self.device
@@ -157,10 +157,10 @@ class ReSTIRRenderer(Renderer):
             self.viewports()), dev)
         prev_cam = self._prev_cam if self._prev_cam is not None else cam
         if self.sh_source is not None:
-            with record_function("sh_bake"):
+            with tracing.span("sh_bake"):
                 self.sh_source.step(self)
 
-        with record_function("gbuffer"):
+        with tracing.span("gbuffer"):
             gbuf = _gbuffer_pass(self.device_scene, self.bvh, cam, prev_cam,
                                  W, H, opt.min_ray_dist,
                                  self.arrays.any_alpha_materials)
@@ -170,7 +170,7 @@ class ReSTIRRenderer(Renderer):
             self.prev_inst = gbuf["inst"]
         gb = (gbuf["pos"], gbuf["normal"], gbuf["view"], gbuf["albedo"],
               gbuf["mr"], gbuf["transmittance"], gbuf["motion"])
-        with record_function("restir_di"):
+        with tracing.span("restir_di"):
             di, res = restir_di_pass(
                 self.device_scene, self.bvh, *gb, self.prev_res,
                 self.prev_pos, self.frame_idx, self.cfg_key,
@@ -179,7 +179,7 @@ class ReSTIRRenderer(Renderer):
         if self.gi_cfg is not None:
             if self.prev_gi is None:
                 self.prev_gi = PathReservoir.empty(H, W, dev)
-            with record_function("restir_gi"):
+            with tracing.span("restir_gi"):
                 gi, self.prev_gi = restir_gi_pass(
                     self.device_scene, self.bvh, *gb, self.prev_gi,
                     self.prev_pos, self.frame_idx, self.gi_cfg,

@@ -208,7 +208,7 @@ class PathTracerRenderer(Renderer):
             pt._WAVE_DUMP = None
         return waves
 
-    def render_device(self) -> torch.Tensor:
+    def _render_device(self) -> torch.Tensor:
         cfg = self.cfg
         cam = to_camera_uniforms(
             self.arrays.camera_uniforms(self.viewports()), self.device)

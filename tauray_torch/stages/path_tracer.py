@@ -18,8 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..ops import rng as rng_ops
 from ..ops import sobol
 from ..ops.ggx import (BSDFLobes, add_demodulated_color, material_bsdf_pdf,
@@ -569,7 +569,7 @@ def _trace_alpha_program(scene: DeviceScene, tracer, o, d, t_min, t_max,
     for _ in range(rounds):
         if counts is not None:
             counts.append(pending.sum())
-        with record_function("alpha"):
+        with tracing.span("alpha"):
             idx = torch.argsort((~pending).to(torch.int32),
                                 stable=True)[:cap]
             s = torch.cat([cur, ray_pack], dim=1)[idx]          # (cap, 14)
@@ -586,7 +586,7 @@ def _trace_alpha_program(scene: DeviceScene, tracer, o, d, t_min, t_max,
         rehit, reflag = tracer.trace_flagged(
             o_s, d_s, ntmin_s, torch.where(skip_s, tmax_s, 0.0),
             any_hit=any_hit, need_uv=need_uv)
-        with record_function("alpha"):
+        with tracing.span("alpha"):
             out = torch.stack([
                 _as_i32(torch.where(skip_s, rehit.t, t_s)),
                 _as_i32(torch.where(skip_s, rehit.u, u_s)),
@@ -646,7 +646,7 @@ def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
     useful = (t_max > 0.0).sum() if cfg.count_rays else None
     if cfg.nee.any and b_idx < max_bounces - 1:
         slot = -1 if sobol_bounce < 0 else sobol_bounce * 2
-        with record_function("shade"):
+        with tracing.span("shade"):
             sh_o, sh_d, sh_len, nee_alpha_u = _nee_prep(
                 cfg, scene, seed, alpha_seed, hit, pos, view, coord, slot)
         sh_len = torch.where(alive & (hit.tri_id >= 0), sh_len, 0.0)
@@ -662,7 +662,7 @@ def _run_bounce(cfg: PTConfig, scene: DeviceScene, tracer, state,
             useful = useful + (sh_len > 0.0).sum()
     else:
         vis = torch.ones_like(t_max)
-    with record_function("shade"):
+    with tracing.span("shade"):
         state, first = _shade_bounce(cfg, scene, state, hit, vis, b_idx,
                                      is_first, max_bounces, coord,
                                      sobol_bounce)

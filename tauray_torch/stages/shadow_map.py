@@ -30,8 +30,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from .. import reference_data
 from ..ops.sampling import xla_int32
 from ..ops.shading import _mv
@@ -352,7 +352,7 @@ def pcf_visibility(maps: ShadowMaps, map_id, world_pos,
     first layer whose bounds (with a 2*pcf-radius margin) contain the
     point wins (shadow_mapping.glsl find_cascade). Per-layer bias and
     radius scaling is baked in at build time."""
-    with record_function("pcf"):
+    with tracing.span("pcf"):
         return _pcf_visibility(maps, map_id, world_pos, pcf_samples, ndotl,
                                screen_xy, pcss_samples, pcss_minimum_radius,
                                cascades)
