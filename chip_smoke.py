@@ -16,8 +16,10 @@ non-zero:
      TILE), L10, L11 vpu and mxu, L12 mt (the walk's kLab 12 instance) and
      plucker and L1 k3, L2 and L3 (app/sass.lab_test_loops: instructions
      per test) and the registers of the walk and of L8's, L11's and L12's
-     kernels; any spill or shared load narrower than 16 bytes in a test
-     loop of trace_tiles fails, as does a spill in an instance of L8's,
+     kernels, and P1's (csrc/phase1.cu, phase 1 of K1's keys) SASS
+     instructions a ray-box test (app/sass.phase1_loop) and registers; any
+     spill or shared load narrower than 16 bytes in a test loop of
+     trace_tiles fails, as does a spill in P1 or in an instance of L8's,
      L9's, L4-L7's, L10's, L11's, L12's or L1-L3's kernel, or more than 128
      registers in L4-L7's;
   3. each kernel against its plain torch version, ids identical and t
@@ -45,6 +47,10 @@ non-zero:
        3d and 3e also take the foliage scene's 2^20-ray sorted bounce
        wave, its 32,768-ray slice and the duplicate-triangle wave;
      K2-K5 run each wave as closest hit and as any hit (finite t_max);
+     every K1 wave's keys come from P1 (ops/cluster._phase1 on the card),
+     whose counts and keys are held bit for bit to the torch passes
+     (cluster.phase1_ids_reference) on the same CUDA tensors, then P1 is
+     timed alone beside them (phase1_hold; here and in 15f and 16b);
   4. `python -m tauray_torch` main path: 1920x1080, 1 spp, depth 4,
      2 frames, headless EXR; checks the image and K1's launch count;
   5. the same scene at 256x256, 16 spp in one pass, depth 4;
@@ -252,7 +258,10 @@ non-zero:
 The last lines are the card, the kernel table (each K row also with W, the
 SASS instructions per test, the bound under the -fmad=false contract and
 the number of waves held; K1 and K2 with the ReSTIR and the raster waves'
-times; K1 with its launches on 17a's and 17c's paths; each lab row with
+times; K1 with its launches on 17a's and 17c's paths; a phase1_ids row,
+P1, with its launches in phase 4, which must equal K1's, its ms, the
+torch passes' and its bound, OPS_SLAB a test at the issue rate, on the
+2^20-ray bounce wave, and its times on every wave held; each lab row with
 its modes or configurations), and {"ok": true, "device": {...}}.
 """
 
@@ -285,6 +294,13 @@ PEAK_BYTES = 3.35e12
 FLOPS_BW = 32
 FLOPS_MT = 46
 FLOPS_XFORM = 33
+# FP32 operations per (ray, box) test of phase 1, counted in
+# ops/cluster._slab_blocks / _slab_t_soa: 6 differences and 6 products, a
+# min and a max per axis, 2 + 2 to fold them over the axes, the max with
+# t_min, 2 compares and their and. None is a fused multiply-add, so each
+# takes one lane's issue slot: P1's bound is these over 4 x 32 lanes an
+# SM at the clock
+OPS_SLAB = 26
 LANES_1080P = 2097152 * 1 * (2 * 4 - 1)   # padded pixels x spp x waves
 # the share of pixels whose restir pass on the card may depart from the
 # CPU's in phases 15b and 15c; sound runs read at most 3.1e-5 (DI) and
@@ -407,11 +423,34 @@ def _compare(name, t_k, id_k, t_r, id_r):
     return same_id, same_t, err
 
 
+def phase1_hold(tracer, rays8, counts, keys, reps: int = 5):
+    """P1's counts and keys of one wave (ops/cluster._phase1 on the card:
+    trace_kernel.phase1_ids) against the torch passes on the same CUDA
+    tensors (cluster.phase1_ids_reference), bit for bit; then P1 timed
+    alone (CUDA events), with the torch passes' ms, its tests and the
+    bytes it must move (the rays, the boxes, the counts and key rows)."""
+    import torch
+    from tauray_torch.ops.cluster import phase1_ids_reference
+    from tauray_torch.ops.trace_kernel import phase1_ids
+    a = (rays8, tracer.cmin, tracer.cmax)
+    (c_r, k_r), plain_ms = timed(lambda: phase1_ids_reference(*a))
+    same = bool(torch.equal(counts, c_r) and torch.equal(keys, k_r))
+    del c_r, k_r
+    if not same:
+        raise RuntimeError("P1 disagrees with the torch passes")
+    R, C = rays8.shape[0], tracer.n_clusters
+    return dict(rays=R, clusters=C, tests=R * C,
+                bytes=32 * R + 24 * C + 4 * (R // 32) * (C + 1),
+                counts_keys_identical=same,
+                ms=cuda_ms(lambda: phase1_ids(*a), reps), plain_ms=plain_ms)
+
+
 def kernel_check(tracer, waves, reps: int = 5, tag: str = "3a K1",
                  plain_slice=None):
-    """K1 vs its plain version on each wave; returns per-wave results.
-    plain_slice: run the plain version over slices of that many tiles
-    (the same per-tile work, in less memory)."""
+    """K1 vs its plain version on each wave, and its keys' phase 1, P1,
+    held to the torch passes (phase1_hold); returns per-wave results, P1's
+    under "p1". plain_slice: run K1's plain version over slices of that
+    many tiles (the same per-tile work, in less memory)."""
     import torch
     from tauray_torch.ops.cluster import _phase1
     from tauray_torch.ops.trace_kernel import (trace_tiles_vm3,
@@ -427,6 +466,9 @@ def kernel_check(tracer, waves, reps: int = 5, tag: str = "3a K1",
         return tuple(torch.cat(x) for x in zip(*parts))
     for name, rays8 in waves.items():
         counts, keys = _phase1(tracer, rays8)
+        p1 = phase1_hold(tracer, rays8, counts, keys, reps)
+        print(f"phase {tag.split()[0]} P1 [{name}] " + json.dumps(p1),
+              flush=True)
         r3 = rays8.reshape(-1, 32, 8)
         args = (counts, keys, r3, tracer.tris12)
         t_k, id_k = trace_tiles_vm3(*args)
@@ -445,6 +487,7 @@ def kernel_check(tracer, waves, reps: int = 5, tag: str = "3a K1",
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
         print(f"phase {tag} [{name}] " + json.dumps(out[name]), flush=True)
+        out[name]["p1"] = p1
     return out
 
 
@@ -2635,6 +2678,17 @@ def main() -> int:
             r"(\d+) bytes spill", str(trace_kernel.BUILD_INFO[
                 "trace_tiles"]["log"]))):
         raise RuntimeError("an instance of trace_tiles spills")
+    # P1: its cluster loop's SASS a ray-box test, its registers, no spill
+    p1_info = trace_kernel.BUILD_INFO["phase1"]
+    p1_sass = sass_mod.phase1_loop(str(p1_info["path"]),
+                                   trace_kernel.SOURCES["phase1"])
+    p1_regs = sass_mod.registers(str(p1_info["log"]), "phase1_kernel")
+    p1_spills = sass_mod.spills(str(p1_info["log"]), "phase1_kernel")
+    print("phase 2 sass phase1_kernel " + json.dumps(
+        dict(p1_sass, registers=p1_regs, spills=p1_spills)), flush=True)
+    if len(p1_regs) != 1 or any(p1_spills.values()):
+        raise RuntimeError(f"phase1_kernel: registers {p1_regs}, spills "
+                           f"{p1_spills}")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = sm_clock_hz()
 
@@ -2701,6 +2755,11 @@ def main() -> int:
         if launches["trace_vm3"] <= 0:
             raise RuntimeError("1080p run never launched trace_vm3")
         l_k1 = launches["trace_vm3"]
+        # every wave of the flat path takes id keys: one P1 a K1
+        l_p1 = launches["phase1_ids"]
+        if l_p1 != l_k1:
+            raise RuntimeError(f"1080p run launched P1 {l_p1} times, K1 "
+                               f"{l_k1}")
         print("phase 4 " + json.dumps(dict(
             size="1920x1080", spp=1, depth=4, frame_ms=ms,
             frame2_ms=ms[-1], mrays_s=LANES_1080P / (ms[-1] * 1e3),
@@ -2911,6 +2970,36 @@ def main() -> int:
             k4["bounce/closest"], k4),
         row("trace_vm", "tauray_tpu/ops/pallas_trace.py:565", l_k5,
             k5["bounce/closest"], k5)]}
+    issue = 4 * 32 * n_sm * clock
+
+    def p1_bound(v):
+        """(P1's least ms on a wave v, what sets it): OPS_SLAB a test at
+        the issue rate, or its bytes at the HBM peak."""
+        o_ms = v["tests"] * OPS_SLAB / issue * 1e3
+        b_ms = v["bytes"] / PEAK_BYTES * 1e3
+        return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
+
+    def p1_waves(held):
+        return {k: dict(rays=v["p1"]["rays"], ms=v["p1"]["ms"],
+                        plain_ms=v["p1"]["plain_ms"],
+                        bound_ms=p1_bound(v["p1"])[0])
+                for k, v in held.items()}
+    p1 = k1["bounce_2^20"]["p1"]
+    kernels["kernels"].append({
+        "name": "phase1_ids", "route": "cuda",
+        "source": "tauray_torch/csrc/phase1.cu",
+        # XLA's fusion of phase 1 there: no Pallas kernel
+        "replaces": "tauray_tpu/ops/cluster.py:950", "launches": l_p1,
+        "waves_held": len(k1) + len(k1_restir) + len(k1_raster),
+        "ms": p1["ms"], "plain_ms": p1["plain_ms"],
+        "bound_ms": p1_bound(p1)[0], "bound_by": p1_bound(p1)[1],
+        # no single PyTorch call computes the per-tile rows
+        "library_ms": None, "registers": p1_regs,
+        "sass_instructions_per_test": p1_sass["instructions_per_test"],
+        "bound_contract_ms": p1["tests"] *
+        p1_sass["instructions_per_test"] / issue * 1e3,
+        "waves": p1_waves(k1), "restir_waves": p1_waves(k1_restir),
+        "raster_waves": p1_waves(k1_raster)})
     kernels["kernels"][0]["launches_raster_1080p_2_frames"] = l_k1_raster
     kernels["kernels"][0]["launches_distributed_1080p_2_frames"] = l_k1_dist
     kernels["kernels"][0]["launches_quilt_5x9"] = l_k1_quilt

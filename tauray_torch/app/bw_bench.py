@@ -1,8 +1,18 @@
 """Times the traversal kernels (K1, K4/K5, K2 and K3, csrc/trace_tiles.cu)
-at each W, the warps that share one tile, on one CUDA card.
+at each W, the warps that share one tile, and phase 1's kernel (P1,
+csrc/phase1.cu), on one CUDA card.
 
     python -m tauray_torch.app.bw_bench [--reps N] [--out FILE]
         [--parent DIR]
+
+P1 runs on the signature-sorted 2^20-ray bounce wave and the 1920x1080
+camera wave (2,073,600 rays) of proc://sponza?tris=262144: each result
+held bit for bit to the torch passes (ops/cluster.phase1_ids_reference),
+then timed with CUDA events beside its issue bound, the SASS instructions
+of its cluster loop a ray-box test (app/sass.phase1_loop) times the
+wave's tests over the card's issue rate (4 schedulers of 32 lanes an SM
+at the maximum SM clock), and beside the torch passes' time; the line
+also gives P1's registers and spills (ptxas).
 
 The waves (app/kernel_waves.py), closest hit:
   * K1 and K4: the signature-sorted wave of random directions leaving the
@@ -84,6 +94,50 @@ def bench_waves(device):
         yield f"{SCENE} per-model", tracer, rays, ("K3",)
     yield "tie_stack_instanced", tie_stack_instanced(device), tie_wave, \
         ("K3",)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), Hz."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def phase1_lines(device, reps, emit):
+    """P1's line on each of its two waves (see the module docstring)."""
+    from tauray_torch.app import sass
+    from tauray_torch.ops.cluster import phase1_ids_reference
+    info = tk.BUILD_INFO["phase1"]
+    loop = sass.phase1_loop(str(info["path"]), tk.SOURCES["phase1"])
+    ptxas = dict(registers=sass.registers(str(info["log"]), "phase1_kernel"),
+                 spills=sass.spills(str(info["log"]), "phase1_kernel"))
+    issue = torch.cuda.get_device_properties(
+        device).multi_processor_count * 4 * 32 * sm_clock_hz()
+    tracer, waves = kernel_waves(device, SCENE, 1024)
+    rays = {"bounce1048576": waves["bounce"]}
+    rays["camera2073600"] = kernel_waves(device, SCENE, 1920, height=1080
+                                         )[1]["camera"][:1920 * 1080]
+    for wave, r8 in rays.items():
+        a = (r8, tracer.cmin, tracer.cmax)
+        want = phase1_ids_reference(*a)
+        tests = r8.shape[0] * tracer.n_clusters
+        res = dict(kernel="P1", scene=SCENE, wave=wave, rays=r8.shape[0],
+                   clusters=tracer.n_clusters, tests=tests,
+                   clusters_per_tile=float(want[0].double().mean()),
+                   torch_ms=cuda_ms(lambda: phase1_ids_reference(*a), 2))
+        got = tk.phase1_ids(*a)
+        if not (torch.equal(got[0], want[0]) and
+                torch.equal(got[1], want[1])):
+            raise RuntimeError(f"P1 disagrees on {wave}")
+        ms = cuda_ms(lambda: tk.phase1_ids(*a), reps)
+        bound = loop["instructions_per_test"] * tests / issue * 1e3
+        res.update(ms=ms, bound_ms=bound, pct_of_bound=100 * bound / ms,
+                   gtests_per_s=tests / ms * 1e-6)
+        emit(**res, sass=loop, **ptxas)
+        del want
+    del tracer, waves, rays
+    torch.cuda.empty_cache()
 
 
 def wave_args(tracer, rays8, kname):
@@ -170,6 +224,7 @@ def main(argv=None) -> int:
         parent = load_parent(args.parent)
         parent.build_all()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    phase1_lines(dev, args.reps, emit)
     for scene, tracer, rays, kernels in bench_waves(dev):
         for wave, r8 in rays.items():
             for kname in kernels:

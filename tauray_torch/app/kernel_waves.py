@@ -1,7 +1,8 @@
 """The waves and scenes the traversal kernels are checked and timed on:
 the camera and signature-sorted bounce waves of a scene, a re-trace-sized
-slice of a sorted wave, and a stack of exact duplicate triangles (flat, and
-under two instances) with rays aimed at it. chip_smoke.py, app/bw_bench.py
+slice of a sorted wave, a stack of exact duplicate triangles (flat, and
+under two instances) with rays aimed at it, and rays that plant the slab
+test's edge cases on a table of cluster boxes. chip_smoke.py, app/bw_bench.py
 and the tests share them."""
 
 from __future__ import annotations
@@ -20,12 +21,12 @@ RETRACE_RAYS = 32768   # the sub-wave of one alpha re-trace round
 
 
 def kernel_waves(device, scene=SCENE, size=512, seed=0,
-                 strategy="all-merged-static", shadow=False):
-    """(tracer, {name: rays8 (R, 8)}): a size x size camera wave in
-    pixel-block order and a signature-sorted wave of random directions
-    leaving the camera wave's hits (for the instanced tracer also that wave
-    unsorted; with shadow, a signature-sorted wave from those hits to the
-    first point light, t_max short of it)."""
+                 strategy="all-merged-static", shadow=False, height=None):
+    """(tracer, {name: rays8 (R, 8)}): a size x size (or size x height)
+    camera wave in pixel-block order and a signature-sorted wave of random
+    directions leaving the camera wave's hits (for the instanced tracer also
+    that wave unsorted; with shadow, a signature-sorted wave from those hits
+    to the first point light, t_max short of it)."""
     from tauray_torch.options import Options
     from tauray_torch.io.gltf import load_scene
     from tauray_torch.ops.cluster import _sig_sort_perm
@@ -34,7 +35,8 @@ def kernel_waves(device, scene=SCENE, size=512, seed=0,
     from tauray_torch.scene.scene import Scene
     from tauray_torch.stages.path_tracer import _begin_sample
     opt = Options()
-    opt.width = opt.height = size
+    opt.width = size
+    opt.height = height or size
     opt.as_strategy = strategy
     s = Scene()
     load_scene(scene, s)
@@ -68,6 +70,7 @@ def kernel_waves(device, scene=SCENE, size=512, seed=0,
                        1)
         waves["shadow"] = sh[_sig_sort_perm(rr.bvh, sh)].contiguous()
     print(json.dumps(dict(waves=scene, strategy=strategy, size=size,
+                          height=opt.height,
                           tracer=type(rr.bvh).__name__,
                           clusters=rr.bvh.n_clusters)), flush=True)
     return rr.bvh, waves
@@ -183,3 +186,145 @@ def tie_rays(n_tiles, seed=0):
     tmax[(kind == 3) & (lane % 8 == 5)] = 0.25
     return np.concatenate([o, d, tmin[:, None], tmax[:, None]],
                           1).astype(np.float32)
+
+
+# denormal float32 direction components: 1 / d overflows to +-inf
+DENORMALS = np.array([1e-40, 1e-39, 1.4e-45], np.float32)
+
+
+def planted_rays(cmin, cmax, n=64, seed=0):
+    """(R, 8) f32 rays at the boxes cmin / cmax (C, 3) that plant the edge
+    cases of phase 1's slab test, n of each of 9 kinds in turn (n a
+    multiple of 32), the last padded up to a multiple of 128 rays (the
+    tracer's padded wave): rays from outside toward a random box; origins
+    inside a box; a direction component +0.0 or -0.0 (1 / d taken as 3e38),
+    with the origin on that axis on a face of the box, inside its slab, or
+    one ulp outside; a denormal component (an infinite inverse), the origin
+    on a face (0 * inf is NaN), inside the slab or one ulp outside; a NaN
+    t_min, direction component or origin component; all three direction
+    components signed zeros, the origin on faces, inside or one ulp
+    outside; rays that touch a box at one corner (entry t == exit t = s,
+    some with t_max = s or t_min = s); t_min > 0 and a finite t_max cutting
+    the segment; the tracer's dead filler rays (d = 1, t_min = 1,
+    t_max = 0)."""
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(cmin, np.float32)
+    hi = np.asarray(cmax, np.float32)
+    # the boxes aimed at: the non-empty ones (every box is tested)
+    boxes = np.flatnonzero((lo <= hi).all(1))
+    boxes = boxes if len(boxes) else np.arange(lo.shape[0])
+    ext = float(np.max(hi[boxes].max(0) - lo[boxes].min(0)))
+    rows = np.arange(n)
+
+    def box_ids():
+        return rng.choice(boxes, n)
+
+    def aimed():
+        c = box_ids()
+        target = lo[c] + (hi[c] - lo[c]) * rng.random((n, 3), np.float32)
+        d = rng.standard_normal((n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o = (target - d * np.float32(0.5 + ext * rng.random((n, 1)))
+             ).astype(np.float32)
+        return c, o, d
+
+    def on_axis(c, o, a):
+        """o[:, a] on a face, inside the slab, or one ulp outside."""
+        pick = rng.integers(0, 5, n)
+        inside = lo[c, a] + (hi[c, a] - lo[c, a]) * rng.random(n,
+                                                                np.float32)
+        o[:, a] = np.select(
+            [pick == 0, pick == 1, pick == 2, pick == 3],
+            [lo[c, a], hi[c, a], inside,
+             np.nextafter(lo[c, a], np.float32(-np.inf))],
+            np.nextafter(hi[c, a], np.float32(np.inf)))
+
+    def signed_zero(k):
+        return np.where(rng.random(k) < 0.5, np.float32(0.0),
+                        np.float32(-0.0))
+
+    kinds = []
+    c, o, d = aimed()
+    kinds.append((o, d, 0.0, np.inf))
+    c = box_ids()
+    o = lo[c] + (hi[c] - lo[c]) * rng.random((n, 3), np.float32)
+    kinds.append((o, aimed()[2], 0.0, np.inf))
+    for comp in ("zero", "denormal"):
+        c, o, d = aimed()
+        a = rng.integers(0, 3, n)
+        for ax in range(3):
+            sel = a == ax
+            if comp == "zero":
+                d[sel, ax] = signed_zero(int(sel.sum()))
+            else:
+                d[sel, ax] = rng.choice(DENORMALS, int(sel.sum())) * \
+                    np.where(rng.random(int(sel.sum())) < 0.5, 1, -1
+                             ).astype(np.float32)
+            o_ax = o.copy()
+            on_axis(c, o_ax, ax)
+            o[sel, ax] = o_ax[sel, ax]
+        kinds.append((o, d, 0.0, np.inf))
+    # a NaN t_min, direction component or origin component
+    c, o, d = aimed()
+    tmin = np.zeros(n, np.float32)
+    pick = rng.integers(0, 3, n)
+    a = rng.integers(0, 3, n)
+    tmin[pick == 0] = np.nan
+    d[rows[pick == 1], a[pick == 1]] = np.nan
+    o[rows[pick == 2], a[pick == 2]] = np.nan
+    kinds.append((o, d, tmin, np.inf))
+    c, o, _ = aimed()
+    for ax in range(3):
+        on_axis(c, o, ax)
+    d = np.stack([signed_zero(n) for _ in range(3)], 1)
+    kinds.append((o, d, 0.0, np.inf))
+    # corner touches: leave slab a through its hi face at t = s while
+    # entering slab b through its hi face at t = s; the third axis held
+    # at the box's middle with d = 0
+    c = box_ids()
+    a = rng.integers(0, 3, n)
+    b = (a + rng.integers(1, 3, n)) % 3
+    third = 3 - a - b
+    s = np.float32(2.0) ** rng.integers(-2, 2, n).astype(np.float32)
+    o = ((lo[c] + hi[c]) * np.float32(0.5)).astype(np.float32)
+    d = np.zeros((n, 3), np.float32)
+    o[rows, a] = hi[c, a] - s
+    o[rows, b] = hi[c, b] + s
+    d[rows, a] = 1.0
+    d[rows, b] = -1.0
+    d[rows, third] = signed_zero(n)
+    tmin = np.where(rows % 4 == 1, s, 0).astype(np.float32)
+    tmax = np.where(rows % 4 == 2, s, np.inf).astype(np.float32)
+    kinds.append((o, d, tmin, tmax))
+    c, o, d = aimed()
+    dist = np.linalg.norm(((lo[c] + hi[c]) * 0.5 - o), axis=1)
+    kinds.append((o, d, (dist * rng.random(n)).astype(np.float32),
+                  (dist * (0.5 + rng.random(n))).astype(np.float32)))
+    m = n + (-9 * n) % 128
+    kinds.append((np.zeros((m, 3), np.float32), np.ones((m, 3), np.float32),
+                  1.0, 0.0))
+    out = []
+    for o, d, tmin, tmax in kinds:
+        k = o.shape[0]
+        t = np.broadcast_to(np.asarray(tmin, np.float32), (k,))
+        T = np.broadcast_to(np.asarray(tmax, np.float32), (k,))
+        out.append(np.concatenate([o, d, t[:, None], T[:, None]], 1))
+    return np.concatenate(out).astype(np.float32)
+
+
+def flush_denormals(rays8: np.ndarray) -> np.ndarray:
+    """rays8 with each denormal number replaced by a zero of its sign, as
+    a processor that flushes denormals reads them (XLA on the CPU, the
+    TPU)."""
+    x = np.asarray(rays8, np.float32)
+    tiny = (x != 0) & (np.abs(x) < np.finfo(np.float32).tiny)
+    return np.where(tiny, np.copysign(np.float32(0), x), x)
+
+
+def one_per_tile(rays8: np.ndarray) -> np.ndarray:
+    """Each ray of rays8 (N, 8) alone in its 32-ray tile, the other 31 the
+    tracer's dead filler rays, so a tile's key row is that ray's."""
+    out = np.zeros((rays8.shape[0], 32, 8), np.float32)
+    out[:, 1:, 3:7] = 1.0
+    out[:, 0] = rays8
+    return out.reshape(-1, 8)

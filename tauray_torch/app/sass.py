@@ -1,7 +1,8 @@
 """Reads what nvcc compiled: each kernel's SASS (cuobjdump -sass, from the
 CUDA toolkit or Triton's copy), its innermost loops, and the test loops of
-the TPU labs' kernels, instructions per ray-triangle test. chip_smoke.py
-phase 2 and app/lab_bench.py read the libraries that
+the TPU labs' kernels, instructions per ray-triangle test, and phase 1's
+cluster loop (P1), instructions per ray-box test. chip_smoke.py phase 2,
+app/lab_bench.py and app/bw_bench.py read the libraries that
 ops/trace_kernel.build_all builds; nothing here runs a kernel."""
 
 from __future__ import annotations
@@ -223,6 +224,22 @@ def lab_test_loops(lib_path: str) -> Dict[str, dict]:
                          instructions_per_test=len(body) / tests
                          if tests else None)
     return out
+
+
+def phase1_loop(lib_path: str, src_path: str) -> dict:
+    """P1's cluster loop: the largest innermost loop of phase1_kernel
+    (csrc/phase1.cu, src_path), one step of 32 clusters against the kRays
+    rays a lane that the source sets (32 kRays tests), its emission of the
+    step's ids included."""
+    with open(src_path) as f:
+        rays = int(re.search(r"constexpr int kRays = (\d+);",
+                             f.read()).group(1))
+    chunk = next(c for name, c in functions(lib_path).items()
+                 if "phase1_kernel" in name)
+    body = max(inner_loops(chunk) or [[]], key=len)
+    return dict(loop_instructions=len(body), tests=32 * rays,
+                instructions_per_test=len(body) / (32 * rays),
+                fmnmx=sum("FMNMX" in o for o in body))
 
 
 def spills(log: str, pattern: str) -> Dict[str, int]:

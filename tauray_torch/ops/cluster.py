@@ -5,9 +5,13 @@ ClusterTracer (flat) and InstancedClusterTracer (the TLAS path of
   * the host builds (numpy SAH splits into CLUSTER-triangle clusters,
     cluster alignment, alpha segregation, per-mesh object clusters and
     the cluster-instance list) are the JAX package's, unchanged;
-  * every trace runs phase 1 in torch: a slab cull of every ray against
-    every cluster (or cluster-instance) AABB, reduced per 32-ray tile,
-    then a row sort of the tile's keys;
+  * every trace runs phase 1: a slab cull of every ray against every
+    cluster (or cluster-instance) AABB, reduced per 32-ray tile into a row
+    of keys. On the card the id-key path (flat scenes of at most
+    VM_FITS_CLUSTERS clusters, the default kernel) takes one hand-written
+    kernel, trace_kernel.phase1_ids, which writes each row ascending and
+    sorts nothing; the entry-t keys, and every phase 1 on the CPU, are
+    torch passes, each row then sorted;
   * phase 2 is a traversal kernel (ops/trace_kernel.py), chosen as the
     JAX package chooses its Pallas kernel: flat scenes of at most
     VM_FITS_CLUSTERS clusters take id-only keys and trace_tiles_vm3
@@ -20,9 +24,9 @@ ClusterTracer (flat) and InstancedClusterTracer (the TLAS path of
     signature (_sig_sort_perm) and un-permuted by an int32 inverse
     permutation gather; the instanced tracer traces waves as given.
 
-Phase 1 and the signature pass are dense (rays x clusters) slab tests.
-Eager torch materialises them, so both run over chunks of ray blocks
-sized to PHASE1_BUDGET_BYTES of temporaries.
+The torch phase 1 and the signature pass are dense (rays x clusters)
+slab tests. Eager torch materialises them, so both run over chunks of ray
+blocks sized to PHASE1_BUDGET_BYTES of temporaries.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ from .bvh import morton_3d
 from .intersect import Hit
 from .sampling import cross
 from ..scene.device import resolve_device
-from .trace_kernel import (KB, TILE as PT, trace_tiles, trace_tiles_inst,
-                           trace_tiles_vm2, trace_tiles_vm3)
+from .trace_kernel import (KB, TILE as PT, phase1_ids, trace_tiles,
+                           trace_tiles_inst, trace_tiles_vm2,
+                           trace_tiles_vm3)
 
 CLUSTER = 128       # triangles per cluster (tauray_tpu.ops.cluster.CLUSTER)
 TILE = 128          # rays per slab-test block; PT-ray kernel tiles divide it
@@ -54,12 +59,14 @@ BIG = 3e38
 # line so that both packages compute the same thing.
 VM_FITS_CLUSTERS = 2197
 
-# Budget for the (blocks, clusters, TILE) float temporaries of phase 1 and
-# the signature pass. About eight such tensors are alive at once, so each
-# chunk of ray blocks is sized to an eighth of this. Unchunked, one such
-# tensor of a 2^20-ray wave on a 2,116-cluster scene is 8.9 GB; with this
-# budget a whole 1080p Sponza-class frame peaked at 2.34 GiB of device
-# memory (NVIDIA H100 80GB HBM3, chip_smoke.py).
+# Budget for the (blocks, clusters, TILE) float temporaries of the torch
+# slab passes: the signature pass, the entry-t phase 1 (_phase1_entry) and
+# phase 1 on the CPU (the id-key phase 1 on the card is one kernel and
+# makes none). About eight such tensors are alive at once, so each chunk
+# of ray blocks is sized to an eighth of this. Unchunked, one such tensor
+# of a 2^20-ray wave on a 2,116-cluster scene is 8.9 GB; with this budget a
+# whole 1080p Sponza-class frame peaked at 2.34 GiB of device memory
+# (NVIDIA H100 80GB HBM3, chip_smoke.py, before phase 1 had its kernel).
 PHASE1_BUDGET_BYTES = 2 << 30
 _LIVE_TEMPS = 8
 
@@ -479,15 +486,25 @@ def _slab_blocks(rays8, b0, b1, bmin, bmax):
 def _phase1(tracer: ClusterTracer, rays8):
     """Per 32-ray kernel tile: count of active clusters (n_tiles,) i32 and
     the ascending active cluster ids, KEY_SENTINEL-padded (n_tiles, C)
-    i32 (tauray_tpu _trace_padded_pallas, v3 branch)."""
+    i32 (tauray_tpu _trace_padded_pallas, v3 branch): trace_kernel.
+    phase1_ids, one kernel launch on the card, straight inside the
+    caller's phase1 span, and on the CPU the torch passes of
+    phase1_ids_reference, whose slab tests open their own slab spans."""
+    return phase1_ids(rays8, tracer.cmin, tracer.cmax)
+
+
+def phase1_ids_reference(rays8, cmin, cmax):
+    """Plain torch version of trace_kernel.phase1_ids over the boxes
+    cmin/cmax (C, 3): the slab test of every ray block against every box
+    (_slab_blocks), reduced per tile, then each row of ids sorted."""
     R = rays8.shape[0]
-    C = tracer.n_clusters
+    C = cmin.shape[0]
     n_blocks = R // TILE
     sub = TILE // PT
     cid = torch.arange(C, dtype=torch.int32, device=rays8.device)
     counts, keys = [], []
     for b0, b1 in _block_chunks(n_blocks, C):
-        act = _slab_blocks(rays8, b0, b1, tracer.cmin, tracer.cmax)[1]
+        act = _slab_blocks(rays8, b0, b1, cmin, cmax)[1]
         tile_act = act.reshape(b1 - b0, C, sub, PT).any(dim=3)
         del act
         tile_act = tile_act.permute(0, 2, 1).reshape(-1, C)

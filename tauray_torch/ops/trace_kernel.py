@@ -1,4 +1,5 @@
-"""Phase 2 of the cluster tracers: the traversal kernels.
+"""The cluster tracers' kernels: phase 2, the traversal kernels, and the
+flat tracer's phase 1 on the id-key path.
 
   * trace_tiles_vm3 is the counterpart of tauray_tpu's
     pallas_trace_tiles_vm3 (_kernel_vm3): closest hit over Baldwin-Weber
@@ -19,13 +20,21 @@
 
 All five are instances of one kernel, csrc/trace_tiles.cu: one block per
 tile, its W warps sharing the tile's clusters; bw_warps picks W from the
-wave's size and the kernel's kind. build_all also builds csrc/k1_lab.cu,
-csrc/brick_lab.cu, csrc/tile_lab.cu and csrc/mxu_lab.cu, the TPU labs'
-kernels (tauray_torch/lab/).
+wave's size and the kernel's kind.
+
+phase1_ids is phase 1 of trace_tiles_vm3's key rows (P1, csrc/phase1.cu):
+the slab cull of every ray against every cluster box and each 32-ray
+tile's count and ascending active cluster ids, in one pass, equal bit for
+bit to the torch passes of ops/cluster.phase1_ids_reference. No TPU kernel
+of the JAX package computes it (XLA fuses it there).
+
+build_all also builds csrc/k1_lab.cu, csrc/brick_lab.cu, csrc/tile_lab.cu
+and csrc/mxu_lab.cu, the TPU labs' kernels (tauray_torch/lab/).
 
 For CUDA tensors each wrapper launches the hand-written kernel; for CPU
 tensors it runs the plain torch version beside it (the *_reference
-functions), which computes the same contract. A build or launch failure
+functions; phase1_ids' is in ops/cluster.py, beside the slab test it
+shares), which computes the same contract. A build or launch failure
 raises: there is no fallback from the card to the plain version.
 
 The source is compiled with nvcc for sm_90a into a shared library with a
@@ -57,8 +66,8 @@ KEY_SENTINEL = 0x7FFFFFFF
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> its CUDA source
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("trace_tiles", "k1_lab", "brick_lab", "tile_lab",
-                        "mxu_lab")}
+           for name in ("trace_tiles", "phase1", "k1_lab", "brick_lab",
+                        "tile_lab", "mxu_lab")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -68,7 +77,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # wrapper launches of each kernel, counted where the kernel is launched
 LAUNCHES: Dict[str, int] = {"trace_vm3": 0, "trace_mt": 0,
                             "trace_mt_inst": 0, "trace_vm2": 0,
-                            "trace_vm": 0}
+                            "trace_vm": 0, "phase1_ids": 0}
 # K1's work since the last reset, counted at its wrapper on both paths: the
 # tiles handed in, always, and while tracing.counting() their cluster
 # visits (the sum of the counts), added on the device into one int64
@@ -82,6 +91,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "trace_tiles_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _P, _P, _P, _P],
+    "phase1_launch": [_P, _P, _P, _I, _I, _P, _P, _P],
     "k1_lab_launch": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P, _P, _P],
     "brick_lab_launch": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -267,6 +277,50 @@ def trace_tiles_vm3_reference(counts, keys, rays8, tris12):
     tid = bi.reshape(-1)
     t = torch.where(tid < 0, float("inf"), bt.reshape(-1))
     return t, tid
+
+
+# ---------------------------------------------------------------------------
+# P1: phase 1 of K1's key rows, the slab cull and the ascending ids
+# ---------------------------------------------------------------------------
+
+def phase1_ids(rays8: torch.Tensor, cmin: torch.Tensor, cmax: torch.Tensor):
+    """Phase 1 of trace_tiles_vm3's keys. Per 32-ray tile: counts
+    (n_tiles,) i32, the cluster boxes that any of its rays hits within
+    [t_min, t_max], and keys (n_tiles, C) i32, those box ids ascending,
+    then KEY_SENTINEL to the end of the row.
+
+    rays8 (R, 8) f32 [o|d|t_min|t_max], R a positive multiple of 128 (the
+    tracer's padded wave); cmin, cmax (C, 3) f32 with 1 <= C <=
+    VM_FITS_CLUSTERS. CUDA tensors take one launch of csrc/phase1.cu, CPU
+    tensors the torch passes of ops/cluster.phase1_ids_reference; both give
+    the same bits."""
+    from .cluster import VM_FITS_CLUSTERS, phase1_ids_reference
+    dev = rays8.device
+    _check(rays8, "rays8", torch.float32, 2, dev)
+    _check(cmin, "cmin", torch.float32, 2, dev)
+    _check(cmax, "cmax", torch.float32, 2, dev)
+    R, C = rays8.shape[0], cmin.shape[0]
+    if rays8.shape[1] != 8 or R == 0 or R % 128:
+        raise ValueError(f"phase1_ids: rays8 {tuple(rays8.shape)} is not "
+                         f"(R, 8) with R a positive multiple of 128")
+    if tuple(cmin.shape) != (C, 3) or tuple(cmax.shape) != (C, 3) or \
+            not 1 <= C <= VM_FITS_CLUSTERS:
+        raise ValueError(f"phase1_ids: boxes {tuple(cmin.shape)} "
+                         f"{tuple(cmax.shape)} are not (C, 3) with 1 <= C "
+                         f"<= {VM_FITS_CLUSTERS}")
+    if not _on_card(rays8):
+        return phase1_ids_reference(rays8, cmin, cmax)
+    lib = build_all()["phase1"]
+    counts = torch.empty(R // TILE, dtype=torch.int32, device=dev)
+    keys = torch.empty((R // TILE, C), dtype=torch.int32, device=dev)
+    err = lib.phase1_launch(
+        rays8.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), R, C,
+        counts.data_ptr(), keys.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"phase1_ids launch failed: CUDA error {err}")
+    LAUNCHES["phase1_ids"] += 1
+    return counts, keys
 
 
 # ---------------------------------------------------------------------------

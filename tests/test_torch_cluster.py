@@ -5,7 +5,18 @@
     to a few ulps (XLA:CPU contracts the cross and dot products into FMAs,
     torch on the CPU does not);
   * phase 1 (slab cull + per-tile key rows) is EQUAL: the slab test is
-    subtractions, products, min and max only, exact in both;
+    subtractions, products, min and max only, exact in both; also on
+    planted rays (signed-zero, denormal and NaN inputs, origins on faces
+    and inside boxes, corner touches, t_min > 0, the dead filler), which
+    pin the NaN and signed-zero semantics that the card's kernel
+    (trace_kernel.phase1_ids) is held to bit for bit. One departure is
+    held exactly: XLA on the CPU reads a denormal input as a zero of its
+    sign (so 1 / d is 3e38 for a denormal direction component there, and
+    an origin one ulp off 0.0 lies on the face at 0.0), while the port
+    computes with the denormal (1 / d is infinite, and 0 * inf makes the
+    ray inactive for a box whose face holds its origin); the JAX
+    package's phase 1 equals the port's on the same rays with every
+    denormal flushed;
   * the plain traversal (trace_tiles_vm3_reference) matches the real Pallas
     kernel _kernel_vm3 run in interpret mode on identical inputs: ids
     equal, t within 1e-5 relative;
@@ -23,7 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+from tauray_torch.app.kernel_waves import (flush_denormals, one_per_tile,
+                                           planted_rays)
 from tauray_torch.ops import cluster as tcl
+from tauray_torch.ops import trace_kernel as tk
 from tauray_torch.ops.trace_kernel import trace_tiles_vm3_reference
 from tauray_tpu.ops import cluster as jcl
 from tauray_tpu.ops.pallas_trace import pallas_trace_tiles_vm3
@@ -179,6 +193,146 @@ def test_phase1_counts_and_keys_equal(sponza, jax_tracer):
         np.testing.assert_array_equal(counts.numpy(), jc)
         np.testing.assert_array_equal(keys.numpy(), jk)
         assert counts.max() > 1
+
+
+def _slab_act(rays8, cmin, cmax, nan_minmax=True, zero_guard=True):
+    """(activity, tn, tf) of every ray against every box, each (R, C): the
+    slab test written out once more. nan_minmax=False takes min and max
+    that drop a NaN (torch.fmin / fmax, as C's fminf does); zero_guard=False
+    takes 1 / d for d = +-0.0 (+-inf) in place of 3e38."""
+    o = rays8[:, None, 0:3]
+    d = rays8[:, None, 3:6]
+    inv = 1.0 / d
+    if zero_guard:
+        inv = torch.where(d == 0, tcl.BIG, inv)
+    mn, mx = ((torch.minimum, torch.maximum) if nan_minmax
+              else (torch.fmin, torch.fmax))
+    t0 = (cmin[None] - o) * inv
+    t1 = (cmax[None] - o) * inv
+    tn = mx(mx(mn(t0[..., 0], t1[..., 0]), mn(t0[..., 1], t1[..., 1])),
+            mn(t0[..., 2], t1[..., 2]))
+    tf = mn(mn(mx(t0[..., 0], t1[..., 0]), mx(t0[..., 1], t1[..., 1])),
+            mx(t0[..., 2], t1[..., 2]))
+    tn = mx(tn, rays8[:, None, 6])
+    return (tf >= tn) & (tn <= rays8[:, None, 7]), tn, tf
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_phase1_planted_rays_equal_jax(sponza, jax_tracer, seed):
+    """The torch phase 1 against tauray_tpu's on planted rays, packed
+    (several kinds a tile) and one a tile (a tile's row is its ray's), the
+    denormals flushed on the port's side (module docstring).
+    The planted set tells the semantics apart, denormals aside: min / max
+    that drop a NaN, or 1 / d at a signed zero, change some ray's
+    activity, and some active rays touch their box at one point
+    (tn == tf). The denormals do change some ray's activity in the port:
+    that is the departure."""
+    rr = sponza[0]
+    jt, _ = jax_tracer
+    cmin, cmax = rr.bvh.cmin, rr.bvh.cmax
+    planted = torch.from_numpy(planted_rays(cmin.numpy(), cmax.numpy(),
+                                            seed=seed))
+    act, tn, tf = _slab_act(planted, cmin, cmax)
+    blocks = tcl._slab_blocks(planted, 0, planted.shape[0] // tcl.TILE,
+                              cmin, cmax)[1]
+    assert torch.equal(blocks.permute(0, 2, 1).reshape(act.shape), act)
+    flushed = torch.from_numpy(flush_denormals(planted.numpy()))
+    f_act, f_tn, f_tf = _slab_act(flushed, cmin, cmax)
+    assert bool((f_act & (f_tn == f_tf)).any())
+    assert bool((f_act & (f_tn > 0)).any()) and bool((~f_act).any())
+    for variant in (dict(nan_minmax=False), dict(zero_guard=False)):
+        assert bool((_slab_act(flushed, cmin, cmax, **variant)[0]
+                     != f_act).any()), variant
+    assert bool((f_act != act).any())
+    spread = torch.from_numpy(one_per_tile(planted.numpy()))
+    for rays8 in (planted, spread):
+        counts, keys = tcl._phase1(
+            rr.bvh, torch.from_numpy(flush_denormals(rays8.numpy())))
+        jc, jk = _jax_phase1(jt, rays8.numpy())
+        np.testing.assert_array_equal(counts.numpy(), jc)
+        np.testing.assert_array_equal(keys.numpy(), jk)
+    counts, keys = tcl._phase1(rr.bvh, spread)
+    assert torch.equal(counts, act.sum(1, dtype=torch.int32))
+    ids = torch.arange(act.shape[1], dtype=torch.int32)
+    want = torch.where(act, ids, tcl.KEY_SENTINEL).sort(dim=1).values
+    assert torch.equal(keys, want)
+
+
+def test_phase1_on_cpu_tensors_launches_nothing(sponza):
+    """On the CPU phase 1 is the torch passes: phase1_ids gives
+    _phase1's bits, and neither launches the card's kernel."""
+    rr, o, d = sponza
+    tk.reset_launch_counts()
+    rays8 = tcl._pack_rays(o, d, 0.0, float("inf"))
+    counts, keys = tcl._phase1(rr.bvh, rays8)
+    c2, k2 = tk.phase1_ids(rays8, rr.bvh.cmin, rr.bvh.cmax)
+    assert torch.equal(counts, c2) and torch.equal(keys, k2)
+    rr.bvh.trace(o, d, 0.0, float("inf"))
+    assert tk.LAUNCHES["phase1_ids"] == 0
+
+
+def test_phase1_goes_through_the_wrapper(sponza, monkeypatch):
+    """_phase1 hands every wave to trace_kernel.phase1_ids, which alone
+    checks the arguments and picks the card or the torch passes."""
+    rr, o, d = sponza
+    seen = []
+
+    def spy(rays8, cmin, cmax):
+        seen.append(rays8.shape[0])
+        return tk.phase1_ids(rays8, cmin, cmax)
+    monkeypatch.setattr(tcl, "phase1_ids", spy)
+    rays8 = tcl._pack_rays(o, d, 0.0, float("inf"))
+    tcl._phase1(rr.bvh, rays8)
+    assert seen == [rays8.shape[0]]
+    with pytest.raises(ValueError):
+        tcl._phase1(rr.bvh, rays8[:96])
+    assert seen == [rays8.shape[0], 96]
+
+
+def _bad_phase1_args(case):
+    rays8 = torch.zeros((256, 8))
+    cmin = torch.zeros((5, 3))
+    cmax = torch.ones((5, 3))
+    return {
+        "rays_f64": (rays8.double(), cmin, cmax),
+        "rays_3d": (rays8.reshape(2, 128, 8), cmin, cmax),
+        "rays_7_wide": (rays8[:, :7].contiguous(), cmin, cmax),
+        "rays_not_128": (rays8[:96], cmin, cmax),
+        "no_rays": (rays8[:0], cmin, cmax),
+        "rays_strided": (torch.zeros((8, 256)).t(), cmin, cmax),
+        "boxes_int": (rays8, cmin.int(), cmax),
+        "boxes_4_wide": (rays8, torch.zeros((5, 4)), cmax),
+        "boxes_unequal": (rays8, cmin, cmax[:4]),
+        "no_boxes": (rays8, cmin[:0], cmax[:0]),
+        "too_many_boxes": (rays8, torch.zeros((tcl.VM_FITS_CLUSTERS + 1, 3)),
+                           torch.ones((tcl.VM_FITS_CLUSTERS + 1, 3))),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "rays_f64", "rays_3d", "rays_7_wide", "rays_not_128", "no_rays",
+    "rays_strided", "boxes_int", "boxes_4_wide", "boxes_unequal",
+    "no_boxes", "too_many_boxes"])
+def test_phase1_ids_rejects_what_the_kernel_does_not_take(case):
+    """phase1_ids checks its arguments before it picks the card or the
+    torch passes, so a CPU call raises where a card call would."""
+    with pytest.raises(ValueError):
+        tk.phase1_ids(*_bad_phase1_args(case))
+
+
+def test_phase1_ids_takes_the_largest_table():
+    """C = VM_FITS_CLUSTERS passes the checks; one ray a tile and one box
+    it hits give count 1 and that id first."""
+    C = tcl.VM_FITS_CLUSTERS
+    cmin = torch.full((C, 3), 10.0)
+    cmax = torch.full((C, 3), 11.0)
+    cmin[C - 1], cmax[C - 1] = -1.0, 1.0
+    rays8 = torch.from_numpy(one_per_tile(np.array(
+        [[0, 0, 0, 0, 0, 1, 0, np.inf]] * 4, np.float32)))
+    counts, keys = tk.phase1_ids(rays8, cmin, cmax)
+    assert counts.tolist() == [1] * 4
+    assert keys[:, 0].tolist() == [C - 1] * 4
+    assert bool((keys[:, 1:] == tcl.KEY_SENTINEL).all())
 
 
 def test_sig_sort_key_matches(sponza, jax_tracer):

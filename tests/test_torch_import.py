@@ -73,5 +73,5 @@ def test_every_cuda_source_is_built():
     assert srcs == sorted(trace_kernel.SOURCES.values())
     assert set(trace_kernel.LAUNCHES) == {"trace_vm3", "trace_mt",
                                           "trace_mt_inst", "trace_vm2",
-                                          "trace_vm"}
+                                          "trace_vm", "phase1_ids"}
     assert len(trace_kernel._digest()) == 16

@@ -57,6 +57,154 @@ def test_trace_vm3_matches_plain_version(cuda):
         assert (tid >= 0).any() and (tid < 0).any()
 
 
+def _p1_equal(rays8, cmin, cmax):
+    """phase1_ids on the card against the torch passes on the same CUDA
+    tensors: counts and keys bit for bit, one launch. Returns counts."""
+    from tauray_torch.ops.cluster import phase1_ids_reference
+    from tauray_torch.ops.trace_kernel import LAUNCHES, phase1_ids
+    before = LAUNCHES["phase1_ids"]
+    counts, keys = phase1_ids(rays8, cmin, cmax)
+    torch.cuda.synchronize()
+    assert LAUNCHES["phase1_ids"] == before + 1
+    want_c, want_k = phase1_ids_reference(rays8, cmin, cmax)
+    assert torch.equal(counts, want_c)
+    assert torch.equal(keys, want_k)
+    return counts
+
+
+def _p1_planted(cmin, cmax, device, seed):
+    """The planted rays at the boxes, packed and one a tile."""
+    from tauray_torch.app.kernel_waves import one_per_tile, planted_rays
+    p = planted_rays(cmin.cpu().numpy(), cmax.cpu().numpy(), seed=seed)
+    return [torch.from_numpy(x).to(device) for x in (p, one_per_tile(p))]
+
+
+def _p1_soup_waves(tracer, device, rng, R=1 << 15):
+    """Camera-like (one origin), bounce-like (origins in the scene,
+    signature-sorted) and shadow-like (finite t_max, sorted) waves."""
+    from tauray_torch.ops.cluster import _pack_rays, _sig_sort_perm
+    lo = tracer.cmin.amin(0).cpu().numpy()
+    hi = tracer.cmax.amax(0).cpu().numpy()
+    d = rng.standard_normal((R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = torch.from_numpy(d).to(device)
+    cam = torch.from_numpy(np.tile((lo + hi) / 2, (R, 1)).astype(
+        np.float32)).to(device)
+    o = torch.from_numpy(rng.uniform(lo, hi, (R, 3)).astype(
+        np.float32)).to(device)
+    light = torch.from_numpy(rng.uniform(lo, hi, 3).astype(
+        np.float32)).to(device)
+    to_l = light[None] - o
+    dist = to_l.norm(dim=1)
+    waves = [_pack_rays(cam, d, 0.0, float("inf")),
+             _pack_rays(o, d, 1e-3, float("inf")),
+             _pack_rays(o, to_l / dist[:, None], 1e-4, dist - 1e-4)]
+    waves[1:] = [w[_sig_sort_perm(tracer, w)].contiguous()
+                 for w in waves[1:]]
+    return waves
+
+
+@pytest.mark.parametrize("T", [4000, 5000])
+def test_phase1_ids_matches_torch_on_soup(cuda, T):
+    """The soup tracer (C = 32 and 40, not a multiple of 32): camera,
+    sorted bounce and sorted shadow waves, and the planted rays."""
+    tracer, rng = _soup_tracer(cuda, T=T)
+    assert tracer.n_clusters == -(-T // 128)
+    for r8 in _p1_soup_waves(tracer, cuda, rng) + \
+            _p1_planted(tracer.cmin, tracer.cmax, cuda, seed=T):
+        counts = _p1_equal(r8, tracer.cmin, tracer.cmax)
+    assert (counts > 1).any() and (counts == 0).any()
+
+
+def test_phase1_ids_matches_torch_on_sponza(cuda):
+    """The Sponza table of the benchmark's scene (2,116 clusters): its
+    camera, sorted bounce and sorted shadow waves at 256^2, and the
+    planted rays at its boxes."""
+    from tauray_torch.app.kernel_waves import SCENE, kernel_waves
+    tracer, waves = kernel_waves(cuda, SCENE, 256, shadow=True)
+    for name in ("camera", "bounce", "shadow"):
+        counts = _p1_equal(waves[name], tracer.cmin, tracer.cmax)
+        assert int(counts.max()) > 1, name
+    for r8 in _p1_planted(tracer.cmin, tracer.cmax, cuda, seed=7):
+        _p1_equal(r8, tracer.cmin, tracer.cmax)
+
+
+def _p1_boxes(C, device, seed=0):
+    """C random boxes in [-8, 8]^3; past the first, one with a face at
+    0.0 and one empty box as the tracer's refit makes it (3e38, -3e38)."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(-8, 6, (C, 3)).astype(np.float32)
+    hi = (lo + rng.uniform(0.01, 2, (C, 3))).astype(np.float32)
+    if C > 2:
+        lo[1, 1] = 0.0
+        lo[2], hi[2] = 3e38, -3e38
+    return (torch.from_numpy(lo).to(device),
+            torch.from_numpy(hi).to(device))
+
+
+@pytest.mark.parametrize("C", [1, 45, 2197])
+def test_phase1_ids_matches_torch_at_every_table_size(cuda, C):
+    """C = 1, C not a multiple of 32, and C = VM_FITS_CLUSTERS (53 KB of
+    staged boxes): one 128-ray wave, the planted rays, and a
+    2,073,600-ray wave (1920 x 1080) padded as the tracer pads it."""
+    from tauray_torch.ops.cluster import VM_FITS_CLUSTERS, _pack_rays
+    assert VM_FITS_CLUSTERS == 2197
+    cmin, cmax = _p1_boxes(C, cuda, seed=C)
+    rng = np.random.default_rng(C)
+
+    def wave(R):
+        o = rng.uniform(-10, 10, (R, 3)).astype(np.float32)
+        target = rng.uniform(-8, 8, (R, 3)).astype(np.float32)
+        d = target - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tmax = np.where(rng.random(R) < 0.2, 5.0, np.inf).astype(np.float32)
+        return _pack_rays(*(torch.from_numpy(x).to(cuda)
+                            for x in (o, d)), 0.0,
+                          torch.from_numpy(tmax).to(cuda))
+    for r8 in [wave(128), wave(1920 * 1080 - 77)] + \
+            _p1_planted(cmin, cmax, cuda, seed=C):
+        assert r8.shape[0] % 128 == 0
+        _p1_equal(r8, cmin, cmax)
+
+
+def test_phase1_ids_rejects_bad_inputs(cuda):
+    """Raises before any launch on what the kernel does not take."""
+    from tauray_torch.ops.trace_kernel import LAUNCHES, phase1_ids
+    cmin, cmax = _p1_boxes(40, cuda)
+    rays = torch.zeros((256, 8), device=cuda)
+    before = LAUNCHES["phase1_ids"]
+    for args in [(rays[:96], cmin, cmax), (rays.double(), cmin, cmax),
+                 (rays, cmin.cpu(), cmax), (rays, cmin, cmax.int()),
+                 (rays, cmin[:0], cmax[:0]), (rays, cmin[:, :2], cmax),
+                 (torch.zeros((8, 256), device=cuda).t(), cmin, cmax),
+                 (rays, *(torch.zeros((2198, 3), device=cuda),) * 2)]:
+        with pytest.raises(ValueError):
+            phase1_ids(*args)
+    assert LAUNCHES["phase1_ids"] == before
+
+
+def test_phase1_span_holds_p1_on_the_card(cuda):
+    """P1 launches straight inside the phase1 span of a traced wave, with
+    no span between them: the profiler gives a kernel to its innermost
+    range, so the device-side phase1 range then holds P1 itself."""
+    from torch.profiler import ProfilerActivity, profile
+    from tauray_torch.ops.cluster import _trace_padded
+    tracer, rng = _soup_tracer(cuda)
+    wave = _p1_soup_waves(tracer, cuda, rng)[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _trace_padded(tracer, wave, False, False)
+        torch.cuda.synchronize()
+    on_card = [(e.name(), e.start_ns(), e.end_ns())
+               for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")]
+    ranges = [(s, t) for n, s, t in on_card if n == "phase1"]
+    p1 = [(s, t) for n, s, t in on_card if "phase1_kernel" in n]
+    assert len(ranges) == 1 and len(p1) == 1
+    assert ranges[0][0] <= p1[0][0] and p1[0][1] <= ranges[0][1]
+    assert not any(n == "slab" for n, _, _ in on_card)
+
+
 def test_trace_vm3_rejects_bad_inputs(cuda):
     from tauray_torch.ops.trace_kernel import trace_tiles_vm3
     tracer, _ = _soup_tracer(cuda, T=300)
@@ -95,6 +243,8 @@ def test_render_goes_through_kernel(cuda):
         imgs.append(rr.render()[0])
         if dev.type == "cuda":
             assert LAUNCHES["trace_vm3"] > 0
+            # one phase 1 launch a flat id-key wave
+            assert LAUNCHES["phase1_ids"] == LAUNCHES["trace_vm3"]
     a, b = imgs
     rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
     assert (rel.max(-1) <= 1e-3).mean() >= 0.99

@@ -979,8 +979,9 @@ def test_lab_entry_point_needs_a_card(monkeypatch, lab):
 def test_k1_lab_builds_beside_trace_tiles(monkeypatch, tmp_path):
     """build_all compiles csrc/k1_lab.cu, brick_lab.cu, tile_lab.cu and
     mxu_lab.cu with trace_tiles.cu's nvcc flags (sm_90a, -fmad=false), one
-    process per source started together, into the build directory, and
-    binds each lab's launch function; nothing is built at import."""
+    process per source started together (phase1.cu's too), into the build
+    directory, and binds each lab's and phase 1's launch function; nothing
+    is built at import."""
     calls = []
 
     class Proc:
@@ -1006,14 +1007,15 @@ def test_k1_lab_builds_beside_trace_tiles(monkeypatch, tmp_path):
     monkeypatch.setattr(tk.ctypes, "CDLL", lambda path: Lib())
     libs = tk.build_all()
     labs = ["brick_lab", "k1_lab", "mxu_lab", "tile_lab"]
-    assert sorted(libs) == sorted(labs + ["trace_tiles"])
+    built = labs + ["phase1", "trace_tiles"]
+    assert sorted(libs) == sorted(built)
     srcs = {pathlib.Path(c[-1]).name: c for c in calls}
-    assert sorted(srcs) == sorted(f"{n}.cu" for n in labs + ["trace_tiles"])
+    assert sorted(srcs) == sorted(f"{n}.cu" for n in built)
     for cmd in srcs.values():
         assert cmd[1:1 + len(tk.NVCC_FLAGS)] == tk.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
     assert "-fmad=false" in tk.NVCC_FLAGS
-    for name in labs:
+    for name in labs + ["phase1"]:
         fn = getattr(libs[name], f"{name}_launch")
         assert fn.argtypes == tk._ARGTYPES[f"{name}_launch"]
     assert all(p.parent == tmp_path for p in map(
